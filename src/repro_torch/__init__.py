@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the Non-Neural pipelines (kNN, K-Means, GNB).
+"""PyTorch/CUDA port of the Non-Neural pipelines (kNN, K-Means, GNB, GMM,
+RF).
 
 Mirrors the layout of the JAX package (``core/ kernels/ serving/ launch/
 data/``) so each module has a counterpart there.  The hot ops run in

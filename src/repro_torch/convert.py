@@ -1,9 +1,10 @@
 """Carry fitted weights across from the JAX package.
 
 The JAX package's fitted params (``KNNModel``, ``KMeansState``,
-``GNBModel``) reach this module as plain numpy leaves — anything with
-``_asdict()`` or a mapping of field name to array, plus the static
-``n_class`` of kNN — so the port never imports that package.  The result
+``GNBModel``, ``GMMState``, ``Forest``) reach this module as plain numpy
+leaves — anything with ``_asdict()`` or a mapping of field name to array,
+plus the static ``n_class`` of kNN and RF — so the port never imports
+that package.  The result
 is the port's NamedTuple of tensors on ``device``; hand it to the
 estimator's ``from_params`` to serve it.
 """
@@ -14,12 +15,15 @@ from typing import Any, Mapping, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.gmm import GMMState
 from repro_torch.core.gnb import GNBModel
 from repro_torch.core.kmeans import KMeansState
 from repro_torch.core.knn import KNNModel
+from repro_torch.core.random_forest import Forest
 from repro_torch.device import DeviceLike, resolve_device
 
-PARAM_TYPES = {"knn": KNNModel, "kmeans": KMeansState, "gnb": GNBModel}
+PARAM_TYPES = {"knn": KNNModel, "kmeans": KMeansState, "gnb": GNBModel,
+               "gmm": GMMState, "rf": Forest}
 
 
 def _leaf(value: Any, device: torch.device) -> torch.Tensor:
@@ -32,7 +36,7 @@ def params_from_numpy(algorithm: str, leaves: Any, *,
     """``leaves``: the reference's fitted params as numpy-convertible
     leaves (a NamedTuple or a mapping).  Returns the port's params for
     ``algorithm`` on ``device``; dtypes are kept (float32 stays float32,
-    int32 labels stay int32)."""
+    int32 labels and tree arrays stay int32)."""
     if algorithm not in PARAM_TYPES:
         raise KeyError(f"no params conversion for {algorithm!r}; known: "
                        f"{sorted(PARAM_TYPES)}")

@@ -1,4 +1,4 @@
-"""Estimator API over the ported pipelines (kNN, K-Means, GNB).
+"""Estimator API over the ported pipelines (kNN, K-Means, GNB, GMM, RF).
 
 The same train-offline / infer-on-device shape as the JAX package's
 ``core/estimator.py``:
@@ -11,8 +11,8 @@ The same train-offline / infer-on-device shape as the JAX package's
 with the static configuration closed over; the serving engine calls it
 once per bucket.  Every hot path goes through the dispatch registry.  An
 estimator lives on one device: the card unless ``device="cpu"`` is named
-(``repro_torch.device.resolve_device``).  GMM, RF and ANN are not ported
-yet: ``make_estimator`` raises ``KeyError`` for them.
+(``repro_torch.device.resolve_device``).  ANN is not ported yet:
+``make_estimator`` raises ``KeyError`` for it.
 """
 from __future__ import annotations
 
@@ -21,15 +21,17 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import gmm as _gmm
 from repro_torch.core import gnb as _gnb
 from repro_torch.core import kmeans as _kmeans
 from repro_torch.core import knn as _knn
+from repro_torch.core import random_forest as _rf
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.dispatch import PrecisionPolicy
 
 # algorithms of the JAX package that the port does not carry yet, with the
 # ROADMAP item that brings each
-NOT_PORTED = {"gmm": "A4", "rf": "A5", "ann": "A10"}
+NOT_PORTED = {"ann": "A10"}
 
 
 class _EstimatorBase:
@@ -229,6 +231,17 @@ class GNBEstimator(_EstimatorBase):
             log_prior=est._tensor(model.log_prior, torch.float32))
         return est
 
+    def predict(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One query x (d,) -> (class, joint log-likelihood (C,)) through
+        the single-query form of the registry's arm: B9 where the batch
+        arm is the kernel."""
+        from repro_torch.kernels import dispatch
+        p = self.params
+        scores = dispatch.gnb_scores_one(self._cast(x), p.mu, p.var,
+                                         p.log_prior, policy=self.policy,
+                                         path=self.path)
+        return torch.argmax(scores).to(torch.int32), scores
+
     def predict_batch_fn(self) -> Callable:
         policy, path = self.policy, self.path
 
@@ -249,14 +262,143 @@ class GNBEstimator(_EstimatorBase):
                            device=self.device)
 
 
+class GMMEstimator(_EstimatorBase):
+    """EM mixture (the paper's §6 future-work kernel); hot path ("gmm",
+    "responsibilities").  aux = log-responsibilities (B, k)."""
+
+    algorithm = "gmm"
+
+    def __init__(self, n_components: int = 4, *, max_iters: int = 100,
+                 tol: float = 1e-4, n_cores: int = 8,
+                 policy: Optional[PrecisionPolicy] = None,
+                 path: Optional[str] = None, device: DeviceLike = None):
+        super().__init__(policy=policy, path=path, device=device)
+        self.n_components = int(n_components)
+        self.max_iters = max_iters
+        self.tol = tol
+        self.n_cores = n_cores
+
+    def fit(self, X, y=None) -> "GMMEstimator":
+        # EM runs in fp32 (offline training, as K-Means' fit); only the
+        # inference-time params take the policy dtype
+        state, _ = _gmm.gmm_fit(self._tensor(X, torch.float32),
+                                self.n_components, max_iters=self.max_iters,
+                                tol=self.tol, n_cores=self.n_cores)
+        self._params = state._replace(mu=self._cast(state.mu),
+                                      var=self._cast(state.var))
+        return self
+
+    @classmethod
+    def from_params(cls, state: _gmm.GMMState, **kw) -> "GMMEstimator":
+        est = cls(n_components=state.mu.shape[0], **kw)
+        est._params = _gmm.GMMState(
+            mu=est._cast(state.mu), var=est._cast(state.var),
+            log_pi=est._tensor(state.log_pi, torch.float32),
+            log_lik=est._tensor(state.log_lik, torch.float32),
+            n_iter=est._tensor(state.n_iter, torch.int32))
+        return est
+
+    def predict_batch_fn(self) -> Callable:
+        policy, path, n_cores = self.policy, self.path, self.n_cores
+
+        def fn(params: _gmm.GMMState, X):
+            X = policy.cast(X) if policy else X
+            return _gmm.gmm_classify_batch(params, X, policy=policy,
+                                           path=path, n_cores=n_cores)
+
+        return fn
+
+    def serve_cost_shape(self) -> Dict[str, int]:
+        m = self.params.mu
+        return {"K": int(m.shape[0]), "d": int(m.shape[1])}
+
+    def empty_aux(self) -> torch.Tensor:
+        return torch.zeros((0, self.n_components), dtype=torch.float32,
+                           device=self.device)
+
+
+class RandomForestEstimator(_EstimatorBase):
+    """Fig. 8; hot path ("rf", "forest_votes"), whose only arm is the
+    torch traversal.  aux = vote counts (B, C) int32."""
+
+    algorithm = "rf"
+
+    def __init__(self, n_class: Optional[int] = None, *, n_trees: int = 16,
+                 max_depth: int = 8, min_samples: int = 2, seed: int = 0,
+                 n_cores: int = 8, policy: Optional[PrecisionPolicy] = None,
+                 path: Optional[str] = None, device: DeviceLike = None):
+        super().__init__(policy=policy, path=path, device=device)
+        self.n_class = n_class
+        self.n_trees = n_trees
+        self.max_depth = max_depth
+        self.min_samples = min_samples
+        self.seed = seed
+        self.n_cores = n_cores
+        self._depth: Optional[int] = None
+
+    def _place(self, forest: _rf.Forest) -> _rf.Forest:
+        """The forest on this estimator's device, with its traversal depth
+        worked out once."""
+        forest = _rf.Forest(
+            feature=self._tensor(forest.feature, torch.int32),
+            threshold=self._tensor(forest.threshold, torch.float32),
+            left=self._tensor(forest.left, torch.int32),
+            right=self._tensor(forest.right, torch.int32),
+            n_class=int(forest.n_class))
+        self._depth = _rf.forest_depth(forest)
+        return forest
+
+    def fit(self, X, y=None) -> "RandomForestEstimator":
+        if y is None:
+            raise ValueError("RF is supervised: fit(X, y)")
+        # CART trains on the host in numpy (offline, as the paper's sklearn)
+        X, y = (t.cpu().numpy() if isinstance(t, torch.Tensor)
+                else np.asarray(t) for t in (X, y))
+        n_class = self.n_class or int(np.max(y)) + 1
+        self._params = self._place(_rf.train_forest(
+            X, y, n_class, n_trees=self.n_trees, max_depth=self.max_depth,
+            min_samples=self.min_samples, seed=self.seed))
+        return self
+
+    @classmethod
+    def from_params(cls, forest: _rf.Forest,
+                    **kw) -> "RandomForestEstimator":
+        est = cls(n_class=int(forest.n_class), **kw)
+        est._params = est._place(forest)
+        return est
+
+    def predict_batch_fn(self) -> Callable:
+        from repro_torch.kernels import dispatch
+        policy, path, n_cores = self.policy, self.path, self.n_cores
+        depth = self._depth
+
+        def fn(params: _rf.Forest, X):
+            X = policy.cast(X) if policy else X
+            return dispatch.forest_votes(params, X, policy=policy, path=path,
+                                         n_cores=n_cores, depth=depth)
+
+        return fn
+
+    def serve_cost_shape(self) -> Dict[str, int]:
+        return {"T": int(self.params.feature.shape[0]),
+                "depth": self.max_depth, "C": int(self.params.n_class)}
+
+    def empty_aux(self) -> torch.Tensor:
+        return torch.zeros((0, self.params.n_class), dtype=torch.int32,
+                           device=self.device)
+
+
 ESTIMATORS: Dict[str, type] = {
     "knn": KNNEstimator,
     "kmeans": KMeansEstimator,
     "gnb": GNBEstimator,
+    "gmm": GMMEstimator,
+    "rf": RandomForestEstimator,
 }
 
 # each algorithm's "how many groups" constructor kwarg
-_GROUP_KWARG = {"kmeans": "n_clusters", "knn": "n_class", "gnb": "n_class"}
+_GROUP_KWARG = {"kmeans": "n_clusters", "gmm": "n_components",
+                "knn": "n_class", "gnb": "n_class", "rf": "n_class"}
 
 
 def make_estimator(algorithm: str, **kwargs: Any) -> _EstimatorBase:

@@ -1,16 +1,21 @@
 """Kernel dispatch: one registry for the Non-Neural hot-path ops.
 
 The part of the JAX package's ``kernels/dispatch.py`` that the fp32/bf16
-single-device path of kNN, K-Means and GNB needs.  Each ``(algorithm,
-op)`` registers executable arms:
+single-device path of kNN, K-Means, GNB, GMM and RF needs.  Each
+``(algorithm, op)`` registers executable arms:
 
-  ``fused``   — a hand-written CUDA kernel that fuses the op (kNN, K-Means),
-  ``blocked`` — the feature-chunked GNB kernel (the reference's arm name),
-  ``ref``     — the plain PyTorch version (``kernels/ref.py``).
+  ``fused``   — a hand-written CUDA kernel that fuses the op (kNN B1,
+                K-Means B2),
+  ``blocked`` — kernels that round-trip device memory: the two-pass
+                distance matrix (B4) then top-k (B5) or min/argmin, and
+                the feature-chunked GNB kernel (B3) for GNB and GMM,
+  ``ref``     — the plain PyTorch version (``kernels/ref.py``), or the
+                torch-op pipeline of an op that has no kernel (the GMM
+                chunked E-step, the RF traversal).
 
 Precedence in ``resolve``: explicit ``path=`` > ``REPRO_BACKEND`` (when the
-op has that arm) > the op's shape selector.  A selector returns ``ref``
-for shapes its kernel cannot take, so ``resolve`` shows the choice.
+op has that arm) > the op's shape selector.  With a card, kNN resolves to
+``fused`` or ``blocked`` for every k, never to ``ref``.
 """
 from __future__ import annotations
 
@@ -30,7 +35,8 @@ PATH_NAMES = ("fused", "blocked", "ref")
 
 # algorithm -> its serve-time hot op in the registry
 HOT_OPS = {"knn": "distance_topk", "kmeans": "distance_argmin",
-           "gnb": "scores"}
+           "gnb": "scores", "gmm": "responsibilities",
+           "rf": "forest_votes"}
 
 
 def hot_shape_kw(algorithm: str, cost_shape: Dict[str, int],
@@ -45,6 +51,10 @@ def hot_shape_kw(algorithm: str, cost_shape: Dict[str, int],
         return {"N": bucket, "d": s.get("d", 0), "K": s.get("K", 1)}
     if algorithm == "gnb":
         return {"B": bucket, "d": s.get("d", 0), "C": s.get("C", 1)}
+    if algorithm == "gmm":
+        return {"B": bucket, "d": s.get("d", 0), "k": s.get("K", 1)}
+    if algorithm == "rf":
+        return {}    # the forest-vote op resolves shape-free
     raise KeyError(f"no hot op for {algorithm!r}; known: {sorted(HOT_OPS)}")
 
 
@@ -162,13 +172,22 @@ def resolve(algorithm: str, op: str, *, path: Optional[str] = None,
 
 
 # ---------------------------------------------------------------------------
-# kNN — fused distance -> top-k (Fig. 6 OP1+OP2), kernel B1
+# kNN — distance -> top-k (Fig. 6 OP1+OP2): fused B1, or blocked B4 + B5
 # ---------------------------------------------------------------------------
 
 
 @register("knn", "distance_topk", "fused")
 def _knn_fused(a, c, k):
     return ops.distance_topk(a, c, k)
+
+
+@register("knn", "distance_topk", "blocked")
+def _knn_blocked(a, c, k):
+    # the two-pass composition: the (N, Q) matrix through device memory,
+    # stored column-major so that its transpose, the rows B5 reads, is
+    # contiguous and never copied
+    e = ops.pairwise_sq_dist(a, c, col_major=True)
+    return ops.topk_smallest(e.T, k)
 
 
 @register("knn", "distance_topk", "ref")
@@ -179,8 +198,8 @@ def _knn_ref(a, c, k):
 @selector("knn", "distance_topk")
 def _knn_select(*, N, d, Q, k, policy=None):
     # B1 tiles Q and N itself, so any shape fits except a k longer than
-    # the per-thread lists it keeps
-    return "fused" if k <= ops.TOPK_K_MAX else "ref"
+    # the per-thread lists it keeps; B5 takes every k up to N
+    return "fused" if k <= ops.TOPK_K_MAX else "blocked"
 
 
 def distance_topk(a, c, k: int, *, policy: Optional[PrecisionPolicy] = None,
@@ -195,13 +214,22 @@ def distance_topk(a, c, k: int, *, policy: Optional[PrecisionPolicy] = None,
 
 
 # ---------------------------------------------------------------------------
-# K-Means — fused distance -> argmin (Fig. 7 OP1+OP2), kernel B2
+# K-Means — distance -> argmin (Fig. 7 OP1+OP2): fused B2, or blocked B4
 # ---------------------------------------------------------------------------
 
 
 @register("kmeans", "distance_argmin", "fused")
 def _km_fused(a, c):
     return ops.distance_argmin(a, c)
+
+
+@register("kmeans", "distance_argmin", "blocked")
+def _km_blocked(a, c):
+    # B4, then the row min and first-index argmin in torch, as the
+    # reference takes them in jnp
+    e = ops.pairwise_sq_dist(a, c)
+    vals, ids = torch.min(e, dim=1)
+    return vals, ids.to(torch.int32)
 
 
 @register("kmeans", "distance_argmin", "ref")
@@ -227,7 +255,7 @@ def distance_argmin(a, c, *, policy: Optional[PrecisionPolicy] = None,
 
 
 # ---------------------------------------------------------------------------
-# GNB — batched joint log-likelihood (Fig. 5 OP1+OP2), kernel B3
+# GNB — joint log-likelihood (Fig. 5 OP1+OP2): B3, and B9 for one query
 # ---------------------------------------------------------------------------
 
 
@@ -258,3 +286,87 @@ def gnb_scores(X, mu, var, log_prior, *,
     kp = resolve("gnb", "scores", path=path, policy=policy,
                  B=B, d=d, C=mu.shape[0])
     return kp.fn(X, mu, var, log_prior)
+
+
+def gnb_scores_one(x, mu, var, log_prior, *,
+                   policy: Optional[PrecisionPolicy] = None,
+                   path: Optional[str] = None):
+    """One query x (d,) -> (C,) joint log-likelihood: the single-query form
+    of the arm ``resolve`` picks for a batch of one, B9 (``ops.gnb_scores``,
+    B3 at B = 1) for ``blocked`` and ``ref.gnb_scores`` for ``ref``."""
+    if policy is not None:
+        x, mu, var = policy.cast(x), policy.cast(mu), policy.cast(var)
+    kp = resolve("gnb", "scores", path=path, policy=policy,
+                 B=1, d=x.shape[0], C=mu.shape[0])
+    one = ops.gnb_scores if kp.name == "blocked" else ref.gnb_scores
+    return one(x, mu, var, log_prior)
+
+
+# ---------------------------------------------------------------------------
+# GMM — E-step responsibilities (GNB OP1/OP2 + Fig. 6 row chunking)
+# ---------------------------------------------------------------------------
+
+
+@register("gmm", "responsibilities", "ref")
+def _gmm_ref(mu, var, log_pi, X, *, n_cores=8):
+    # the chunked E-step: its accumulation order is the reference schedule
+    # that EM convergence parity rests on
+    from repro_torch.core.gmm import gmm_e_step
+    return gmm_e_step(X, mu, var, log_pi, n_cores)
+
+
+@register("gmm", "responsibilities", "blocked")
+def _gmm_blocked(mu, var, log_pi, X, *, n_cores=8):
+    # GMM's joint log-density is GNB's per-class score with log_pi as the
+    # prior: B3, then the per-row logsumexp.  The same contract as the ref
+    # arm in another accumulation order.
+    joint = ops.gnb_scores_batch(X, mu, var, log_pi)
+    norm = torch.logsumexp(joint, dim=1, keepdim=True)
+    return joint - norm, torch.mean(norm[:, 0])
+
+
+@selector("gmm", "responsibilities")
+def _gmm_select(*, B=0, d=0, k=0, policy=None):
+    # the GNB threshold; small d stays on the ref schedule
+    return "blocked" if d >= 64 else "ref"
+
+
+def gmm_responsibilities(mu, var, log_pi, X, *,
+                         policy: Optional[PrecisionPolicy] = None,
+                         path: Optional[str] = None, n_cores: int = 8):
+    """X (B, d) -> (log-responsibilities (B, k), mean log-likelihood)."""
+    if policy is not None:
+        mu, var, X = policy.cast(mu), policy.cast(var), policy.cast(X)
+    kp = resolve("gmm", "responsibilities", path=path, policy=policy,
+                 B=X.shape[0], d=X.shape[1], k=mu.shape[0])
+    return kp.fn(mu, var, log_pi, X, n_cores=n_cores)
+
+
+# ---------------------------------------------------------------------------
+# RF — batched forest vote (Fig. 8 Independent-Tasks)
+# ---------------------------------------------------------------------------
+
+
+@register("rf", "forest_votes", "ref")
+def _rf_ref(forest, X, *, n_cores=8, depth=None):
+    # traversal is integer gather and branch work; the reference has no
+    # Pallas kernel for it, and the port runs it in torch ops
+    from repro_torch.core.random_forest import forest_classify_batch
+    return forest_classify_batch(forest, X, n_cores, depth=depth)
+
+
+@selector("rf", "forest_votes")
+def _rf_select(*, policy=None):
+    return "ref"
+
+
+def forest_votes(forest, X, *, policy: Optional[PrecisionPolicy] = None,
+                 path: Optional[str] = None, n_cores: int = 8,
+                 depth: Optional[int] = None):
+    """Forest params + X (B, d) -> (classes (B,) int32, votes (B, n_class)
+    int32).  ``depth``: the forest's longest root-to-leaf path, if the
+    caller has worked it out already."""
+    if policy is not None:
+        X = policy.cast(X)
+    kp = resolve("rf", "forest_votes", path=path, policy=policy)
+    return kp.fn(forest, X, n_cores=n_cores, depth=depth)

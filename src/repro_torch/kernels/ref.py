@@ -33,6 +33,14 @@ def pairwise_sq_dist(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return an - 2.0 * cross + cn
 
 
+def topk_smallest(x: torch.Tensor, k: int):
+    """(R, n) -> the k smallest of each row as (values (R, k) f32, indices
+    (R, k) int32): ascending, ties to the first index, NaN after every
+    number, indices always distinct (the ``lax.top_k`` rule of the JAX
+    package's oracle)."""
+    return topk_smallest_stable(x.to(torch.float32), k, dim=1)
+
+
 def distance_topk(a: torch.Tensor, c: torch.Tensor, k: int):
     """(N, d) data, (Q, d) queries -> the k nearest rows per query as
     (values (Q, k) f32, row indices (Q, k) int32), ascending, ties to the
@@ -47,6 +55,15 @@ def distance_argmin(a: torch.Tensor, c: torch.Tensor):
     e = pairwise_sq_dist(a, c)                    # (N, K)
     idx = torch.argmin(e, dim=1)
     return e.gather(1, idx[:, None])[:, 0], idx.to(torch.int32)
+
+
+def gnb_scores(x: torch.Tensor, mu: torch.Tensor, var: torch.Tensor,
+               log_prior: torch.Tensor) -> torch.Tensor:
+    """(d,), (C, d), (C, d), (C,) -> (C,) joint log-likelihood of one
+    query."""
+    x, mu, var = (t.to(torch.float32) for t in (x, mu, var))
+    t = -0.5 * ((x[None, :] - mu) ** 2 / var + torch.log(var) + _LOG2PI)
+    return torch.sum(t, dim=1) + log_prior.to(torch.float32)
 
 
 def gnb_scores_batch(X: torch.Tensor, mu: torch.Tensor, var: torch.Tensor,

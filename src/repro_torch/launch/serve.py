@@ -40,8 +40,10 @@ def serve_nonneural(args) -> ClassifyResult:
     result = engine.classify(Q)
     engine._sync()
     dt = time.perf_counter() - t0
+    # K-Means and GMM return cluster ids, not class labels
     acc = float((result.classes.cpu() == torch.from_numpy(yq)).float()
-                .mean()) if args.algo in ("knn", "gnb") else float("nan")
+                .mean()) if args.algo in ("knn", "gnb", "rf") \
+        else float("nan")
     print(f"[serve] algo={args.algo} policy={args.policy} "
           f"device={device_name(device)} "
           f"served {args.requests} queries in {dt:.3f}s "
@@ -52,7 +54,7 @@ def serve_nonneural(args) -> ClassifyResult:
 
 def main(argv=None) -> ClassifyResult:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--algo", default="knn", choices=["knn", "kmeans", "gnb"])
+    ap.add_argument("--algo", default="knn", choices=["knn", "kmeans", "gnb", "gmm", "rf"])
     ap.add_argument("--batch", type=int, default=64,
                     help="engine max_batch (largest bucket)")
     ap.add_argument("--requests", type=int, default=256)

@@ -1,5 +1,6 @@
 """Parity of the PyTorch port's pipelines with the JAX package: kNN (Fig. 6),
-K-Means (Fig. 7), GNB (Fig. 5), the seeded blobs, and the dispatch registry.
+K-Means (Fig. 7), GNB (Fig. 5), the seeded blobs, and the dispatch registry
+(GMM and RF are in ``test_torch_gmm_rf.py``).
 
 Inputs are numpy arrays made from a seed and handed to both packages; the
 port runs on ``device="cpu"`` (the kernels' plain versions), the JAX
@@ -179,10 +180,16 @@ def test_gnb_classify_batch_matches_jax(d):
 
 def test_registered_arms():
     assert tdispatch.registered() == {
+        ("gmm", "responsibilities"): ("blocked", "ref"),
         ("gnb", "scores"): ("blocked", "ref"),
-        ("kmeans", "distance_argmin"): ("fused", "ref"),
-        ("knn", "distance_topk"): ("fused", "ref"),
+        ("kmeans", "distance_argmin"): ("fused", "blocked", "ref"),
+        ("knn", "distance_topk"): ("fused", "blocked", "ref"),
+        ("rf", "forest_votes"): ("ref",),
     }
+    # every arm the port registers, the reference registers too
+    jreg = jdispatch.registered()
+    for key, arms in tdispatch.registered().items():
+        assert set(arms) <= set(jreg[key]), key
 
 
 @pytest.mark.parametrize("algo,op,kw", [
@@ -190,6 +197,9 @@ def test_registered_arms():
     ("kmeans", "distance_argmin", dict(N=8, d=21, K=4)),
     ("gnb", "scores", dict(B=8, d=784, C=10)),
     ("gnb", "scores", dict(B=8, d=21, C=3)),
+    ("gmm", "responsibilities", dict(B=8, d=784, k=10)),
+    ("gmm", "responsibilities", dict(B=8, d=21, k=3)),
+    ("rf", "forest_votes", dict()),
 ])
 def test_selectors_agree_with_jax(algo, op, kw):
     assert tdispatch.resolve(algo, op, **kw).name == \
@@ -209,35 +219,60 @@ def test_resolve_precedence(monkeypatch):
     # explicit path= beats the environment
     assert tdispatch.resolve("knn", "distance_topk", path="fused",
                              **kw).name == "fused"
+    # REPRO_BACKEND=blocked selects the two-pass arms of kNN and K-Means;
     # an arm the op lacks in the environment falls through to the selector
     monkeypatch.setenv(tdispatch.ENV_VAR, "blocked")
-    assert tdispatch.resolve("knn", "distance_topk", **kw).name == "fused"
+    assert tdispatch.resolve("knn", "distance_topk", **kw).name == "blocked"
+    assert tdispatch.resolve("kmeans", "distance_argmin", N=8, d=21,
+                             K=4).name == "blocked"
     assert tdispatch.resolve("gnb", "scores", B=8, d=784,
                              C=10).name == "blocked"
+    assert tdispatch.resolve("gmm", "responsibilities", B=8, d=4,
+                             k=2).name == "blocked"
+    assert tdispatch.resolve("rf", "forest_votes").name == "ref"
+    monkeypatch.setenv(tdispatch.ENV_VAR, "fused")
+    assert tdispatch.resolve("gmm", "responsibilities", B=8, d=4,
+                             k=2).name == "ref"
     # a typo, or the int8 tier this package has no arm for, raises
     for bad in ("fsued", "quant"):
         monkeypatch.setenv(tdispatch.ENV_VAR, bad)
         with pytest.raises(ValueError, match=bad):
             tdispatch.resolve("knn", "distance_topk", **kw)
     monkeypatch.delenv(tdispatch.ENV_VAR)
+    assert tdispatch.resolve("knn", "distance_topk", path="blocked",
+                             **kw).name == "blocked"
+    assert tdispatch.resolve("gmm", "responsibilities", B=8, d=4,
+                             k=2).name == "ref"
+    # an arm the op lacks, asked for by name, raises
     with pytest.raises(KeyError):
-        tdispatch.resolve("knn", "distance_topk", path="blocked", **kw)
+        tdispatch.resolve("rf", "forest_votes", path="blocked")
     with pytest.raises(KeyError):
-        tdispatch.resolve("gmm", "responsibilities", B=8, d=4, k=2)
+        tdispatch.resolve("gmm", "responsibilities", path="fused", B=8,
+                          d=4, k=2)
 
 
 def test_k_above_kernel_limit_resolves_to_ref(no_backend_env):
+    """A k past B1's lists resolves to the blocked two-pass arm (B4 + B5),
+    never to the plain version: kNN takes a kernel arm for every
+    1 <= k <= N."""
     lim = tops.TOPK_K_MAX
     kw = dict(N=300, d=21, Q=8)
     assert tdispatch.resolve("knn", "distance_topk", k=lim,
                              **kw).name == "fused"
-    assert tdispatch.resolve("knn", "distance_topk", k=lim + 1,
-                             **kw).name == "ref"
-    # and the estimator path serves such a k through the plain arm
+    for k in (lim + 1, 64, 300):
+        assert tdispatch.resolve("knn", "distance_topk", k=k,
+                                 **kw).name == "blocked"
+    assert {tdispatch.resolve("knn", "distance_topk", k=k, **kw).name
+            for k in range(1, 301)} == {"fused", "blocked"}
+    # and the estimator path serves such a k through the blocked arm,
+    # with the plain arm's neighbours
     X, y = _blobs(80, 4, 2, 0)
     est = port_est.make_fitted("knn", X, y, k=lim + 3, device="cpu")
     cls, nbr = est.predict_batch(X[:3])
     assert tuple(nbr.shape) == (3, lim + 3)
+    ref_est = port_est.make_fitted("knn", X, y, k=lim + 3, device="cpu",
+                                   path="ref")
+    assert torch.equal(ref_est.predict_batch(X[:3])[1], nbr)
     assert tdispatch.resolve("gnb", "scores", B=1, d=63, C=2).name == "ref"
     assert tdispatch.resolve("gnb", "scores", B=1, d=64,
                              C=2).name == "blocked"
@@ -256,18 +291,20 @@ def test_policies_and_hot_shapes():
     assert tdispatch.POLICIES["bf16"].cast(
         torch.ones(2)).dtype == torch.bfloat16
     assert tdispatch.HOT_OPS == {a: jdispatch.HOT_OPS[a]
-                                 for a in ("knn", "kmeans", "gnb")}
+                                 for a in ("knn", "kmeans", "gnb", "gmm",
+                                           "rf")}
     shapes = {"knn": {"N": 100, "d": 21, "k": 4},
-              "kmeans": {"K": 8, "d": 21}, "gnb": {"C": 3, "d": 70}}
+              "kmeans": {"K": 8, "d": 21}, "gnb": {"C": 3, "d": 70},
+              "gmm": {"K": 4, "d": 70}, "rf": {"T": 16, "depth": 8, "C": 3}}
     for algo, s in shapes.items():
         assert tdispatch.hot_shape_kw(algo, s, 16) == \
             jdispatch.hot_shape_kw(algo, s, 16)
 
 
 def test_unported_algorithms_raise():
-    for algo in ("gmm", "rf", "ann"):
-        with pytest.raises(KeyError, match="not yet ported"):
-            port_est.make_estimator(algo, device="cpu")
+    with pytest.raises(KeyError, match="not yet ported"):
+        port_est.make_estimator("ann", device="cpu")
     with pytest.raises(KeyError, match="unknown"):
         port_est.make_estimator("svm", device="cpu")
-    assert sorted(port_est.ESTIMATORS) == ["gnb", "kmeans", "knn"]
+    assert sorted(port_est.ESTIMATORS) == ["gmm", "gnb", "kmeans", "knn",
+                                           "rf"]

@@ -16,7 +16,10 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-assert "repro_torch.launch.serve" in names, names
+want = {"repro_torch.launch.serve", "repro_torch.core.gmm",
+        "repro_torch.core.random_forest", "repro_torch.kernels.topk_select",
+        "repro_torch.kernels.pairwise_sq_dist"}
+assert want <= set(names), sorted(want - set(names))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(names), "modules;", "foreign:", bad)

@@ -207,7 +207,7 @@ def test_chunk_helpers_match_jax(shape, axis, value):
 
 def test_wrappers_validate_inputs():
     a, c = _t(_points(0, 20, 4), _points(1, 3, 4))
-    with pytest.raises(ValueError, match="ref"):
+    with pytest.raises(ValueError, match="blocked"):
         tops.distance_topk(a, c, tops.TOPK_K_MAX + 1)
     with pytest.raises(ValueError):
         tops.distance_topk(a[:5], c, 6)                  # k > N
@@ -270,7 +270,8 @@ def test_device_tensors_launch_and_never_reach_plain(monkeypatch):
     assert tops.distance_argmin(a, c) == "launched"
     assert tops.gnb_scores_batch(*_t(*_gnb_inputs(0, 2, 4, 3))) == "launched"
     assert tops.LAUNCHES == {"distance_topk": 1, "distance_argmin": 1,
-                             "gnb_scores_batch": 1}
+                             "gnb_scores_batch": 1, "pairwise_sq_dist": 0,
+                             "topk_smallest": 0, "gnb_scores": 0}
     assert [n for n, _ in calls] == ["topk", "argmin", "gnb"]
     assert all(dt == torch.float32 for _, dts in calls for dt in dts)
 
