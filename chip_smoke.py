@@ -15,16 +15,18 @@ the CUDA toolkit.  In order it
    B9 gnb_scores) against its plain PyTorch version on the card at the
    main-path shapes, at ragged edge shapes, on data with exact ties, on
    rows holding NaN and +Inf and at k = 1, k = n and k > 32, and times
-   kernel, plain version and one library call;
+   kernel, plain version and one library call; the blocked kNN arm is
+   also checked at N = 2^22, where it splits a bucket's queries into
+   chunks to bound its distance matrix;
 3. drives each path through the entry points a user calls:
    ``make_fitted`` -> ``NonNeuralServeEngine.warmup_buckets`` ->
-   ``classify`` (and, for GNB, single-query ``predict``), with every
-   launch count set to 0 just before and read just after, and checks what
-   it serves against the same estimator run with ``path="ref"`` on the
-   card.  The paths: kNN at k = 4 (B1) and k = 64 (the blocked arm, B4 then
+   ``classify``, with every launch count set to 0 just before and read
+   just after, and checks what it serves against the same estimator run
+   with ``path="ref"`` on the card.  The paths: kNN at k = 4 (B1) and k = 64 (the blocked arm, B4 then
    B5), K-Means fused (B2) and blocked (B4, by ``REPRO_BACKEND=blocked``),
-   GNB (B3, B9), GMM at d = 784 (B3) and at d = 21 (no kernel), RF (no
-   kernel).
+   GNB (B3), GMM at d = 784 (B3) and at d = 21 (no kernel), RF (no
+   kernel).  B9's entry is ``ops.gnb_scores`` itself, driven one query at
+   a time against the fitted GNB moments under its own count.
 
 The comparison rule: values match to rtol = atol = 1e-5, where for a
 squared distance rtol applies to ‖a‖² + ‖c‖², the size of the terms of
@@ -580,6 +582,38 @@ def main() -> int:
           f"indices and {same_val} values bitwise equal")
     del E, X5, kv, ki, bv, bi, fv, fi
 
+    # the blocked kNN arm past its byte budget: at N = 2^22 one bucket's
+    # matrix would take 16 GiB, so the queries go through B4 and B5 in
+    # chunks; sampled queries, chunk edges among them, against the plain
+    # version
+    N_big = 4 * KNN["n"]
+    A_big = torch.randn((N_big, KNN["d"]), generator=gen).to(dev)
+    step = max(1, dispatch.BLOCKED_BYTES // (4 * N_big))
+    before = dict(ops.LAUNCHES)
+    kv, ki = dispatch.distance_topk(A_big, Cq, kb, path="blocked")
+    torch.cuda.synchronize()
+    n_chunks = -(-Q // step)
+    grew = {n: ops.LAUNCHES[n] - before[n] for n in before}
+    check(grew["pairwise_sq_dist"] == grew["topk_smallest"] == n_chunks > 1,
+          f"blocked kNN N={N_big}: launches {grew} for {n_chunks} chunks")
+    sel = torch.tensor(sorted({*range(0, Q, 16), *(
+        j for c0 in range(step, Q, step) for j in (c0 - 1, c0))}),
+        device=dev)
+    pv, pi = ref.distance_topk(A_big, Cq[sel], kb)
+    dk, scale = pair_dist(A_big[ki[sel].long()], Cq[sel])
+    dp, _ = pair_dist(A_big[pi.long()], Cq[sel])
+    n_near = compare_ranked("blocked kNN chunked", ki[sel], pi,
+                            near(dk, dp, scale), False)
+    check(bool(near(kv[sel], pv, scale).all()),
+          f"blocked kNN N={N_big}: values differ from the plain version")
+    big_ms = cuda_ms(torch, lambda: dispatch.distance_topk(
+        A_big, Cq, kb, path="blocked"), 3)
+    print(f"[kernel] blocked kNN N={N_big} Q={Q} k={kb}: {n_chunks} chunks "
+          f"of {step} queries (matrix budget {dispatch.BLOCKED_BYTES} "
+          f"bytes), {big_ms:.4f} ms per bucket; {len(sel)} sampled queries "
+          f"against the plain version, near_ties={n_near}")
+    del A_big, kv, ki, pv, pi, dk, dp, scale
+
     # B9: one query at the GNB width, B3 at B = 1
     xg = Xg[0].contiguous()
     ks, ps = ops.gnb_scores(xg, mu, var, lp), ref.gnb_scores(xg, mu, var, lp)
@@ -611,10 +645,9 @@ def main() -> int:
     del A2, C2, Aq2
 
     # ------------------------------------------------ 3. the paths
-    def drive(algo, data, groups, after=None, **kw):
+    def drive(algo, data, groups, **kw):
         """Fit, warm every bucket and serve the queries, with the launch
-        counts set to 0 just before and read just after; ``after(est,
-        res)`` runs inside that window (GNB's single queries)."""
+        counts set to 0 just before and read just after."""
         Xtr, ytr, Xq, yq = data
         ops.reset_launches()
         t0 = time.perf_counter()
@@ -624,7 +657,6 @@ def main() -> int:
         engine.warmup_buckets(Xtr.shape[1])
         warmed = set(engine.warmed)
         res = engine.classify(Xq)
-        extra = after(est, res) if after else None
         torch.cuda.synchronize()
         launches = dict(ops.LAUNCHES)
         wall = time.perf_counter() - t0
@@ -654,7 +686,7 @@ def main() -> int:
         torch.cuda.synchronize()
         acc = float((res.classes.cpu().numpy() == yq).mean())
         return dict(est=est, res=res, res_ref=res_ref, launches=launches,
-                    call_ms=call_ms, acc=acc, wall=wall, extra=extra,
+                    call_ms=call_ms, acc=acc, wall=wall,
                     n_buckets=len(warmed) + res.launches)
 
     def report(algo, keys, run, extra, bucket_ms=0.0):
@@ -808,11 +840,8 @@ def main() -> int:
            kernels["B4"]["serve_ms_kmeans"])
     del run
 
-    # GNB: scores against the ref arm, classes equal but at near-ties;
-    # then single queries through predict, which takes B9
-    singles = 16
-    run = drive("gnb", gnb_data, GNB["classes"], after=lambda est, res: [
-        est.predict(gnb_data[2][i]) for i in range(singles)])
+    # GNB: scores against the ref arm, classes equal but at near-ties
+    run = drive("gnb", gnb_data, GNB["classes"])
     res, res_ref = run["res"], run["res_ref"]
     check(run["acc"] >= 0.95, f"gnb accuracy {run['acc']}")
     check(torch.allclose(res.aux, res_ref.aux, **TOL),
@@ -821,17 +850,32 @@ def main() -> int:
     top2 = res_ref.aux.topk(2, dim=1).values
     check(bool(torch.isclose(top2[:, 0], top2[:, 1], **TOL)[odd].all()),
           "gnb: a class differs from the ref arm without a near-tie")
-    for i, (c1, s1) in enumerate(run["extra"]):
-        check(int(c1) == int(res.classes[i]) and
-              torch.allclose(s1, res.aux[i], **TOL),
-              f"gnb: predict of query {i} differs from its batch row")
-    check(run["launches"]["gnb_scores"] == singles,
-          f"gnb: {run['launches']['gnb_scores']} B9 launches for "
-          f"{singles} single queries")
-    report("gnb", ["B3", "B9"], run, f"classes differing at near-ties="
-           f"{int(odd.sum())}, {singles} single-query predicts through B9 "
-           "equal their batch rows", kernels["B3"]["serve_ms"])
-    del run, res, res_ref
+    report("gnb", ["B3"], run, f"classes differing at near-ties="
+           f"{int(odd.sum())}", kernels["B3"]["serve_ms"])
+
+    # B9's own entry, ops.gnb_scores: one query at a time against the
+    # fitted moments, each equal to its row of the served batch
+    singles = 16
+    p = run["est"].params
+    Xs = on_card(gnb_data[2][:singles])
+    ops.reset_launches()
+    one = [ops.gnb_scores(Xs[i], p.mu, p.var, p.log_prior)
+           for i in range(singles)]
+    torch.cuda.synchronize()
+    b9 = dict(launches=dict(ops.LAUNCHES))
+    check(b9["launches"]["gnb_scores"] == singles and
+          sum(b9["launches"].values()) == singles,
+          f"gnb one query: launches {b9['launches']} for {singles} calls")
+    for i, s1 in enumerate(one):
+        check(torch.allclose(s1, res.aux[i], **TOL),
+              f"gnb one query: scores of query {i} differ from its batch "
+              "row")
+    n_launch = kernels["B9"]["launches"] = b9["launches"]["gnb_scores"]
+    print(f"[path] gnb one query: ops.gnb_scores (B9) launches={n_launch} "
+          f"(kernel {kernels['B9']['ms']:.4f} ms, plain "
+          f"{kernels['B9']['plain_ms']:.4f} ms) for {singles} queries, "
+          "scores equal to their rows of the served batch")
+    del run, res, res_ref, one, Xs
 
     # GMM at the GNB width: EM on the chunked E-step, served through B3
     run = drive("gmm", gnb_data, GNB["classes"])

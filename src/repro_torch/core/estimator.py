@@ -231,17 +231,6 @@ class GNBEstimator(_EstimatorBase):
             log_prior=est._tensor(model.log_prior, torch.float32))
         return est
 
-    def predict(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One query x (d,) -> (class, joint log-likelihood (C,)) through
-        the single-query form of the registry's arm: B9 where the batch
-        arm is the kernel."""
-        from repro_torch.kernels import dispatch
-        p = self.params
-        scores = dispatch.gnb_scores_one(self._cast(x), p.mu, p.var,
-                                         p.log_prior, policy=self.policy,
-                                         path=self.path)
-        return torch.argmax(scores).to(torch.int32), scores
-
     def predict_batch_fn(self) -> Callable:
         policy, path = self.policy, self.path
 
@@ -325,7 +314,7 @@ class RandomForestEstimator(_EstimatorBase):
 
     def __init__(self, n_class: Optional[int] = None, *, n_trees: int = 16,
                  max_depth: int = 8, min_samples: int = 2, seed: int = 0,
-                 n_cores: int = 8, policy: Optional[PrecisionPolicy] = None,
+                 policy: Optional[PrecisionPolicy] = None,
                  path: Optional[str] = None, device: DeviceLike = None):
         super().__init__(policy=policy, path=path, device=device)
         self.n_class = n_class
@@ -333,7 +322,6 @@ class RandomForestEstimator(_EstimatorBase):
         self.max_depth = max_depth
         self.min_samples = min_samples
         self.seed = seed
-        self.n_cores = n_cores
         self._depth: Optional[int] = None
 
     def _place(self, forest: _rf.Forest) -> _rf.Forest:
@@ -369,13 +357,12 @@ class RandomForestEstimator(_EstimatorBase):
 
     def predict_batch_fn(self) -> Callable:
         from repro_torch.kernels import dispatch
-        policy, path, n_cores = self.policy, self.path, self.n_cores
-        depth = self._depth
+        policy, path, depth = self.policy, self.path, self._depth
 
         def fn(params: _rf.Forest, X):
             X = policy.cast(X) if policy else X
             return dispatch.forest_votes(params, X, policy=policy, path=path,
-                                         n_cores=n_cores, depth=depth)
+                                         depth=depth)
 
         return fn
 

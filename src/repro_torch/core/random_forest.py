@@ -50,18 +50,18 @@ def forest_depth(forest: Forest) -> int:
     return deepest
 
 
-def forest_classify_batch(forest: Forest, X: torch.Tensor, n_cores: int = 8,
-                          *, depth: Optional[int] = None):
+def forest_classify_batch(forest: Forest, X: torch.Tensor, *,
+                          depth: Optional[int] = None):
     """Fig. 8 over a batch: every tree on every query -> (classes (B,)
     int32, votes (B, n_class) int32), the class being the first index of
     the most votes.
 
-    The reference spreads the trees over ``n_cores`` and pads a ragged
+    The reference spreads the trees over its cores and pads a ragged
     forest with one-leaf trees that vote into a sentinel bin it then
     drops; integer votes do not depend on that grouping, so here every
-    tree votes at once and no tree is padded (``n_cores`` is kept for the
-    reference's signature).  ``depth``: ``forest_depth(forest)`` if the
-    caller has it, else it is worked out here."""
+    tree votes at once and no tree is padded.  ``depth``:
+    ``forest_depth(forest)`` if the caller has it, else it is worked out
+    here."""
     if depth is None:
         depth = forest_depth(forest)
     B = X.shape[0]

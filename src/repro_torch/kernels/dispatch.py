@@ -181,13 +181,24 @@ def _knn_fused(a, c, k):
     return ops.distance_topk(a, c, k)
 
 
+# the most bytes the blocked kNN arm's (N, Q) distance matrix may hold at
+# once: the queries go through B4 and B5 in chunks that keep it under this
+# (one chunk per 1024-query bucket up to N = 2^20)
+BLOCKED_BYTES = 1 << 32
+
+
 @register("knn", "distance_topk", "blocked")
 def _knn_blocked(a, c, k):
-    # the two-pass composition: the (N, Q) matrix through device memory,
-    # stored column-major so that its transpose, the rows B5 reads, is
-    # contiguous and never copied
-    e = ops.pairwise_sq_dist(a, c, col_major=True)
-    return ops.topk_smallest(e.T, k)
+    # the two-pass composition: the matrix through device memory, stored
+    # column-major so that its transpose, the rows B5 reads, is contiguous
+    # and never copied; each chunk's matrix is freed before the next
+    step = max(1, BLOCKED_BYTES // (4 * a.shape[0]))
+    parts = [ops.topk_smallest(ops.pairwise_sq_dist(a, cq, col_major=True).T,
+                               k) for cq in torch.split(c, step)]
+    if len(parts) == 1:
+        return parts[0]
+    return (torch.cat([v for v, _ in parts]),
+            torch.cat([i for _, i in parts]))
 
 
 @register("knn", "distance_topk", "ref")
@@ -255,7 +266,7 @@ def distance_argmin(a, c, *, policy: Optional[PrecisionPolicy] = None,
 
 
 # ---------------------------------------------------------------------------
-# GNB — joint log-likelihood (Fig. 5 OP1+OP2): B3, and B9 for one query
+# GNB — joint log-likelihood (Fig. 5 OP1+OP2): B3
 # ---------------------------------------------------------------------------
 
 
@@ -286,20 +297,6 @@ def gnb_scores(X, mu, var, log_prior, *,
     kp = resolve("gnb", "scores", path=path, policy=policy,
                  B=B, d=d, C=mu.shape[0])
     return kp.fn(X, mu, var, log_prior)
-
-
-def gnb_scores_one(x, mu, var, log_prior, *,
-                   policy: Optional[PrecisionPolicy] = None,
-                   path: Optional[str] = None):
-    """One query x (d,) -> (C,) joint log-likelihood: the single-query form
-    of the arm ``resolve`` picks for a batch of one, B9 (``ops.gnb_scores``,
-    B3 at B = 1) for ``blocked`` and ``ref.gnb_scores`` for ``ref``."""
-    if policy is not None:
-        x, mu, var = policy.cast(x), policy.cast(mu), policy.cast(var)
-    kp = resolve("gnb", "scores", path=path, policy=policy,
-                 B=1, d=x.shape[0], C=mu.shape[0])
-    one = ops.gnb_scores if kp.name == "blocked" else ref.gnb_scores
-    return one(x, mu, var, log_prior)
 
 
 # ---------------------------------------------------------------------------
@@ -348,11 +345,11 @@ def gmm_responsibilities(mu, var, log_pi, X, *,
 
 
 @register("rf", "forest_votes", "ref")
-def _rf_ref(forest, X, *, n_cores=8, depth=None):
+def _rf_ref(forest, X, *, depth=None):
     # traversal is integer gather and branch work; the reference has no
     # Pallas kernel for it, and the port runs it in torch ops
     from repro_torch.core.random_forest import forest_classify_batch
-    return forest_classify_batch(forest, X, n_cores, depth=depth)
+    return forest_classify_batch(forest, X, depth=depth)
 
 
 @selector("rf", "forest_votes")
@@ -361,12 +358,11 @@ def _rf_select(*, policy=None):
 
 
 def forest_votes(forest, X, *, policy: Optional[PrecisionPolicy] = None,
-                 path: Optional[str] = None, n_cores: int = 8,
-                 depth: Optional[int] = None):
+                 path: Optional[str] = None, depth: Optional[int] = None):
     """Forest params + X (B, d) -> (classes (B,) int32, votes (B, n_class)
     int32).  ``depth``: the forest's longest root-to-leaf path, if the
     caller has worked it out already."""
     if policy is not None:
         X = policy.cast(X)
     kp = resolve("rf", "forest_votes", path=path, policy=policy)
-    return kp.fn(forest, X, n_cores=n_cores, depth=depth)
+    return kp.fn(forest, X, depth=depth)

@@ -186,7 +186,7 @@ def test_gnb_scores_matches_jax(d, C):
     np.testing.assert_allclose(ts.numpy(), batch.numpy(), **TOL)
 
 
-@pytest.mark.parametrize("d", [21, 70])     # ref arm / B9
+@pytest.mark.parametrize("d", [21, 70])     # ref arm / B3 at B = 1
 def test_gnb_single_query_predict_matches_batch(d):
     from repro_torch.data.datasets import class_blobs
     X, y = class_blobs(n=120, d=d, n_class=3, seed=d)
@@ -217,6 +217,26 @@ def test_knn_blocked_arm_matches_jax(N, d, Q, k, dup):
             ja, jc, k, path=path))
         np.testing.assert_array_equal(ti.numpy(), ji)
         np.testing.assert_allclose(tv.numpy(), jv, **TOL)
+
+
+@pytest.mark.parametrize("Q,k", [(7, 40), (5, 300)])
+def test_knn_blocked_arm_chunks_queries(monkeypatch, Q, k):
+    """Under the byte budget the queries go through B4 and B5 in chunks
+    (here 2 queries each); the result equals the one-chunk result."""
+    a, c = _points(11, 300, 21, True), _points(12, Q, 21, True)
+    whole = tdispatch.distance_topk(*_t(a, c), k, path="blocked")
+    monkeypatch.setattr(tdispatch, "BLOCKED_BYTES", 2 * 4 * 300 + 5)
+    calls = []
+    real = tops.pairwise_sq_dist
+    monkeypatch.setattr(tops, "pairwise_sq_dist",
+                        lambda a, c, **kw: calls.append(c.shape[0]) or
+                        real(a, c, **kw))
+    v, i = tdispatch.distance_topk(*_t(a, c), k, path="blocked")
+    assert calls == [2] * (Q // 2) + [1] * (Q % 2)
+    assert torch.equal(i, whole[1]) and torch.equal(v, whole[0])
+    np.testing.assert_array_equal(i.numpy(), np.asarray(
+        jdispatch.distance_topk(jnp.asarray(a), jnp.asarray(c), k,
+                                path="blocked")[1]))
 
 
 @pytest.mark.parametrize("dup", [False, True])

@@ -162,7 +162,7 @@ def test_forest_training_bit_equal(kw):
     assert tf.n_class == jf.n_class
 
 
-@pytest.mark.parametrize("kw,n_cores", [
+@pytest.mark.parametrize("kw,n_cores", [    # n_cores: the reference's
     (dict(), 8),                          # 16 trees fill 8 cores
     (dict(n_trees=5, max_depth=3), 8),    # ragged: the reference pads
     (dict(n_trees=7, seed=3), 3),
@@ -171,7 +171,7 @@ def test_forest_votes_match_jax(kw, n_cores):
     jf, tf, X = _forest_pair(**kw)
     Q = _blobs(37, 21, 3, 9)[0]
     jc, jv = jrf.forest_classify_batch(jf, jnp.asarray(Q), n_cores)
-    tc, tv = trf.forest_classify_batch(tf, torch.from_numpy(Q), n_cores)
+    tc, tv = trf.forest_classify_batch(tf, torch.from_numpy(Q))
     assert tc.dtype == torch.int32 and tv.dtype == torch.int32
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
