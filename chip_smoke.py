@@ -11,13 +11,15 @@ the CUDA toolkit.  In order it
    ``src/repro_torch/kernels/csrc`` with nvcc (one process per source, in
    parallel), timing the build;
 2. holds each kernel (B1 distance_topk, B2 distance_argmin,
-   B3 gnb_scores_batch, B4 pairwise_sq_dist, B5 topk_smallest,
-   B9 gnb_scores) against its plain PyTorch version on the card at the
-   main-path shapes, at ragged edge shapes, on data with exact ties, on
-   rows holding NaN and +Inf and at k = 1, k = n and k > 32, and times
-   kernel, plain version and one library call; the blocked kNN arm is
-   also checked at N = 2^22, where it splits a bucket's queries into
-   chunks to bound its distance matrix;
+   B3 gnb_scores_batch, B4 pairwise_sq_dist, B5 topk_smallest and its
+   int32 key mode, B6 distance_topk_q8, B7 distance_argmin_q8, B8
+   adc_topk, B9 gnb_scores) against its plain PyTorch version on the card
+   at the main-path shapes, at ragged edge shapes, on data with exact
+   ties, on rows holding NaN and +Inf (int8: saturated ±127, INT_MIN and
+   INT_MAX) and at k = 1, k = n and k > 32, and times kernel, plain
+   version and one library call; the blocked kNN arm is also checked at
+   N = 2^22, where it splits a bucket's queries into chunks to bound its
+   distance matrix;
 3. drives each path through the entry points a user calls:
    ``make_fitted`` -> ``NonNeuralServeEngine.warmup_buckets`` ->
    ``classify``, with every launch count set to 0 just before and read
@@ -26,9 +28,16 @@ the CUDA toolkit.  In order it
    B5), K-Means fused (B2) and blocked (B4, by ``REPRO_BACKEND=blocked``),
    GNB (B3), GMM at d = 784 (B3) and at d = 21 (no kernel), RF (no
    kernel).  B9's entry is ``ops.gnb_scores`` itself, driven one query at
-   a time against the fitted GNB moments under its own count.
+   a time against the fitted GNB moments under its own count.  The int8
+   tier serves the fitted kNN (B6), K-Means (B7), GNB, GMM-wide and RF
+   estimators through ``NonNeuralServeEngine(..., policy="int8")``, held
+   against the plain versions on the same quantized params; IVF-PQ ANN
+   (``make_fitted("ann")``: B2 in the fit, B1 probe, B8 + B5 serve) is
+   held against ``path="ref"`` and its recall@10 against exact fused kNN.
 
-The comparison rule: values match to rtol = atol = 1e-5, where for a
+The comparison rule: integer outputs (B5's int32 mode, B6, B7, B8 and
+the int8 and ANN paths' neighbours, assignments and votes) match
+exactly.  Float values match to rtol = atol = 1e-5, where for a
 squared distance rtol applies to ‖a‖² + ‖c‖², the size of the terms of
 the expansion that both versions evaluate (see ``near``), and for a GMM
 log-responsibility to the size of the terms of the Gaussian log-density
@@ -71,10 +80,19 @@ KNN_BLOCKED_K = 64
 GMM_NARROW_ROWS = 1 << 18
 RF = dict(n=4_000, trees=16, depth=8)
 
-# NVIDIA data-sheet peaks by H100 variant: fp32 outside the tensor cores
-# (FLOP/s) and device-memory rate (bytes/s), at the full power limit
-PEAKS = {"PCIe": (51.2e12, 2.0e12), "NVL": (60.0e12, 3.9e12),
-         "SXM": (67.0e12, 3.35e12)}
+# slice 3: the int8 tier serves the fitted estimators above; IVF-PQ ANN at
+# the repo's own ANN configuration (DESIGN.md §10, benchmarks/ann_sweep.py
+# at its largest N): 256 blob classes, 256 cells, dsub = 1 codebooks
+ANN = dict(n=1 << 18, d=21, classes=256, cells=256, pq_m=21, n_codes=256,
+           k=10, refine=128, nprobe=16, train_iters=10)
+Q8_BLOCKED_K = 64
+
+# NVIDIA data-sheet peaks by H100 variant, at the full power limit: fp32
+# outside the tensor cores (FLOP/s), device-memory rate (bytes/s), and the
+# dense int8 tensor-core rate (OP/s)
+PEAKS = {"PCIe": (51.2e12, 2.0e12, 1513e12),
+         "NVL": (60.0e12, 3.9e12, 1671e12),
+         "SXM": (67.0e12, 3.35e12, 1979e12)}
 
 
 def check(cond, msg: str) -> None:
@@ -112,8 +130,10 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_ops: float, n_bytes: float, peaks):
-    t_ops = n_ops / peaks[0] * 1e3
+def bound_ms(n_ops: float, n_bytes: float, peaks, int8: bool = False):
+    """The larger of ops over the peak (fp32, or the int8 tensor cores'
+    with ``int8``) and bytes over the memory rate."""
+    t_ops = n_ops / peaks[2 if int8 else 0] * 1e3
     t_bytes = n_bytes / peaks[1] * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -148,7 +168,12 @@ def main() -> int:
           f"device {name} sms "
           f"{torch.cuda.get_device_properties(0).multi_processor_count} "
           f"(bounds from the H100 {variant} peaks: fp32 "
-          f"{peaks[0] / 1e12:g} TFLOP/s, {peaks[1] / 1e12:g} TB/s)")
+          f"{peaks[0] / 1e12:g} TFLOP/s, {peaks[1] / 1e12:g} TB/s, int8 "
+          f"tensor cores {peaks[2] / 1e12:g} TOP/s)")
+    check(not torch.backends.cuda.matmul.allow_tf32 and
+          not torch.backends.cudnn.allow_tf32,
+          "TF32 is on: the plain versions and the GMM/GNB scores must run "
+          "in full fp32")
 
     # ------------------------------------------------ 1. build the kernels
     t0 = time.perf_counter()
@@ -421,6 +446,99 @@ def main() -> int:
         print(f"[edge] B9 d={d} C={C}: max_abs_err="
               f"{float((ks - ps).abs().max()):.3g}")
         edges += 1
+    # ---- slice 3: integer kernels, bit-equal to their plain versions
+    def i8(shape, kind="normal"):
+        """int8 lattice rows: uniform on [-127, 127], rows drawn with
+        repetition from a few small ones (exact ties), or saturated."""
+        if kind == "dup":
+            base = torch.randint(-3, 4, (max(1, shape[0] // 3), shape[1]),
+                                 generator=gen)
+            x = base[torch.randint(0, base.shape[0], (shape[0],),
+                                   generator=gen)]
+        elif kind == "sat":
+            x = torch.where(torch.rand(shape, generator=gen) < 0.5, -127, 127)
+        else:
+            x = torch.randint(-127, 128, shape, generator=gen)
+        return x.to(torch.int8).to(dev).contiguous()
+
+    def equal_case(what, got, want):
+        torch.cuda.synchronize()
+        check(all(g.dtype == w.dtype and torch.equal(g, w)
+                  for g, w in zip(got, want)),
+              f"{what}: differs from the plain version at "
+              f"{sum(int((g != w).sum()) for g, w in zip(got, want))} "
+              "places")
+
+    for R, n, k in [(3, 4099, 1), (5, 4099, 4099), (7, 5000, 33),
+                    (4, 9000, 2049), (1, 1, 1)]:
+        x = torch.randint(-5, 5, (R, n), generator=gen, dtype=torch.int32)
+        x[:, ::7] = 2 ** 31 - 1
+        x[:, ::11] = -2 ** 31
+        x = x.to(dev)
+        equal_case(f"B5 int32 R={R} n={n} k={k}", ops.topk_smallest(x, k),
+                   ref.topk_smallest(x, k))
+        print(f"[edge] B5 int32 R={R} n={n} k={k} with INT_MIN, INT_MAX "
+              "and ties: values and indices equal")
+        edges += 1
+    for N, d, Q, k, kind in [(4099, 1, 3, 1, "dup"), (4099, 3, 37, 4, "dup"),
+                             (4099, 21, 37, TOPK_K_MAX, "normal"),
+                             (70_001, 21, 5, 4, "normal"),
+                             (3001, 64, 33, 17, "dup"),
+                             (500, 832, 3, TOPK_K_MAX, "normal"),
+                             (33, 5, 40, 33, "dup"),
+                             (4099, 21, 7, 4099, "dup"),
+                             (5000, 21, 9, Q8_BLOCKED_K, "normal"),
+                             (100, 21, 5, 7, "sat"), (1, 21, 3, 1, "sat")]:
+        A8, C8 = i8((N, d), kind), i8((Q, d), kind)
+        equal_case(f"B6 N={N} d={d} Q={Q} k={k}",
+                   ops.distance_topk_q8(A8, C8, k),
+                   ref.distance_topk_q8(A8, C8, k))
+        print(f"[edge] B6 N={N} d={d} Q={Q} k={k} {kind}: distances and "
+              "rows equal")
+        edges += 1
+    for N, d, K, kind in [(4099, 1, 1, "dup"), (4099, 5, 257, "dup"),
+                          (1001, 832, 257, "normal"), (129, 21, 33, "dup"),
+                          (1, 21, 257, "normal"), (70_001, 21, 256, "sat")]:
+        A8, C8 = i8((N, d), kind), i8((K, d), kind)
+        equal_case(f"B7 N={N} d={d} K={K}", ops.distance_argmin_q8(A8, C8),
+                   ref.distance_argmin_q8(A8, C8))
+        print(f"[edge] B7 N={N} d={d} K={K} {kind}: distances and "
+              "centroids equal")
+        edges += 1
+    for fn in (lambda: ops.distance_topk_q8(i8((10, 833)), i8((2, 833)), 1),
+               lambda: ops.distance_argmin_q8(i8((10, 833)), i8((2, 833)))):
+        try:
+            fn()
+            check(False, "d = 833 did not raise")
+        except ValueError:
+            edges += 1
+    print("[edge] B6 and B7 at d = 833 raise ValueError")
+
+    def adc_inputs(Q, L, m, n_codes, invalid=0.2, lut_hi=256):
+        lut = torch.randint(0, lut_hi, (Q, m * n_codes), generator=gen,
+                            dtype=torch.int32)
+        codes = (torch.randint(0, n_codes, (Q, L, m), generator=gen)
+                 - 128).to(torch.int8)
+        ids = torch.randint(0, 1 << 20, (Q, L), generator=gen,
+                            dtype=torch.int32)
+        ids[torch.rand((Q, L), generator=gen) < invalid] = -1
+        return lut.to(dev), codes.to(dev).contiguous(), ids.to(dev)
+
+    from repro_torch.kernels import ann as kann
+    for Q, L, m, n_codes, k, invalid, lut_hi in [
+            (5, 1000, 21, 256, 1, 0.2, 256), (5, 1000, 21, 256, 10, 0.2, 256),
+            (5, 1000, 21, 256, 1000, 0.2, 256), (3, 777, 4, 16, 33, 0.2, 3),
+            (3, 100, 7, 256, 50, 1.0, 256), (2, 300, 256, 256, 20, 0.2, 256),
+            (4, 1001, 3, 256, 128, 0.9, 256), (1, 1, 1, 1, 1, 0.0, 256)]:
+        lut, codes, ids = adc_inputs(Q, L, m, n_codes, invalid, lut_hi)
+        equal_case(f"B8 Q={Q} L={L} m={m} k={k}",
+                   ops.adc_topk(lut, codes, ids, k),
+                   ref.adc_topk(lut, codes, ids, k))
+        where = "shared" if kann.lut_in_smem(m, n_codes) else "device"
+        print(f"[edge] B8 Q={Q} L={L} m={m} n_codes={n_codes} k={k} "
+              f"invalid={invalid} LUT in {where} memory: distances and "
+              "positions equal")
+        edges += 1
     print(f"[edge] {edges} ragged and tied cases agree with the plain "
           "versions")
 
@@ -634,6 +752,116 @@ def main() -> int:
         bound_ms=b, bound_by=by, library_ms=None)
     print(f"[kernel] B9 gnb_scores C={C} d={d_g}: "
           f"max_abs_err={kernels['B9']['max_abs_err']:.3g}")
+
+    # ---- slice 3: B6 and B7 on the int8 lattice of the main-path data
+    from repro_torch.kernels import quantized as qk
+
+    def chunked(fn, Q, step=128):
+        parts = [fn(i, min(Q, i + step)) for i in range(0, Q, step)]
+        return tuple(torch.cat([p[j] for p in parts]) for j in range(2))
+
+    def int_mm_dist(X8, Y8):
+        """(n, d), (m, d) int8 -> (n, m) int32 lattice distances through
+        one library call, ``torch._int_mm``, on operands zero-padded to a
+        multiple of 32 features (at least 32)."""
+        pad = max(32, -(-X8.shape[1] // 32) * 32) - X8.shape[1]
+        Xp = torch.nn.functional.pad(X8, (0, pad))
+        Yp = torch.nn.functional.pad(Y8, (0, pad))
+        cross = torch._int_mm(Xp, Yp.T)
+        xn = (X8.int() * X8.int()).sum(1, dtype=torch.int32)
+        yn = (Y8.int() * Y8.int()).sum(1, dtype=torch.int32)
+        return xn[:, None] - 2 * cross + yn[None, :]
+
+    def library(what, fn, reps):
+        """The library call's device time, or None (with the reason
+        printed) where this build's ``torch._int_mm`` refuses the
+        operands."""
+        try:
+            return cuda_ms(torch, fn, reps)
+        except RuntimeError as err:
+            print(f"[library] {what}: torch._int_mm refused: "
+                  f"{str(err).splitlines()[0]}")
+            return None
+
+    scale_knn = qk.feature_scales(A.abs().amax(0))
+    A8, C8 = qk.quantize_rows(A, scale_knn), qk.quantize_rows(Cq, scale_knn)
+    N, d, Q = A8.shape[0], A8.shape[1], C8.shape[0]
+    kq = KNN["k"]
+    got = ops.distance_topk_q8(A8, C8, kq)
+    equal_case("B6 main", got, chunked(
+        lambda i, j: ref.distance_topk_q8(A8, C8[i:j], kq), Q))
+    lib_ms = library("B6", lambda: torch.topk(int_mm_dist(C8, A8), kq,
+                                              dim=1, largest=False), 3)
+    if lib_ms is not None:
+        lv = torch.topk(int_mm_dist(C8, A8), kq, dim=1, largest=False,
+                        sorted=True).values
+        check(torch.equal(lv, got[0]), "B6: the library call's distances "
+              "differ from the kernel's")
+    b, by = bound_ms(2 * N * Q * d, N * d + Q * d + 8 * Q * kq, peaks,
+                     int8=True)
+    kernels["B6"] = dict(
+        name="distance_topk_q8", route="cuda",
+        source="src/repro_torch/kernels/csrc/quantized.cu",
+        replaces="src/repro/kernels/quantized.py:157", max_abs_err=0.0,
+        ms=cuda_ms(torch, lambda: ops.distance_topk_q8(A8, C8, kq), 10),
+        plain_ms=cuda_ms(torch, lambda: chunked(
+            lambda i, j: ref.distance_topk_q8(A8, C8[i:j], kq), Q), 2),
+        bound_ms=b, bound_by=by, library_ms=lib_ms)
+    kernels["B6"]["serve_ms"] = kernels["B6"]["ms"]
+    # past the lists: the (Q, N) lattice matrix, then B5's int32 mode
+    kb = Q8_BLOCKED_K
+    equal_case("B6 main k=64", ops.distance_topk_q8(A8, C8, kb), chunked(
+        lambda i, j: ref.distance_topk_q8(A8, C8[i:j], kb), Q))
+    big = dict(ms=cuda_ms(torch, lambda: ops.distance_topk_q8(A8, C8, kb), 5),
+               matrix=cuda_ms(torch, lambda: qk.launch_dist(A8, C8), 5),
+               plain=cuda_ms(torch, lambda: chunked(
+                   lambda i, j: ref.distance_topk_q8(A8, C8[i:j], kb), Q), 1),
+               lib=library("B6 k=64", lambda: torch.topk(
+                   int_mm_dist(C8, A8), kb, dim=1, largest=False), 3))
+    kernels["B6"]["k64"] = big
+    print(f"[kernel] B6 distance_topk_q8 N={N} Q={Q} d={d} k={kq}: equal "
+          f"to the plain version; at k={kb} (lattice matrix "
+          f"{big['matrix']:.4f} ms, then B5 int32): {big['ms']:.4f} ms, "
+          f"equal to the plain version (plain {big['plain']:.4f} ms, "
+          f"library "
+          f"{'none' if big['lib'] is None else format(big['lib'], '.4f')}"
+          " ms)")
+    del A8, C8, got
+
+    # B7 at the K-Means fit shape, scales from the centroids as the quant
+    # arm takes them; and at one serving bucket
+    scale_km = qk.feature_scales(C2.abs().amax(0))
+    A28, C28 = qk.quantize_rows(A2, scale_km), qk.quantize_rows(C2, scale_km)
+    Aq28 = qk.quantize_rows(Aq2, scale_km)
+    equal_case("B7 main", ops.distance_argmin_q8(A28, C28),
+               ref.distance_argmin_q8(A28, C28))
+    N, d, K = A28.shape[0], A28.shape[1], C28.shape[0]
+    b, by = bound_ms(2 * N * K * d, N * d + K * d + 8 * N, peaks, int8=True)
+    kernels["B7"] = dict(
+        name="distance_argmin_q8", route="cuda",
+        source="src/repro_torch/kernels/csrc/quantized.cu",
+        replaces="src/repro/kernels/quantized.py:288", max_abs_err=0.0,
+        ms=cuda_ms(torch, lambda: ops.distance_argmin_q8(A28, C28), 20),
+        plain_ms=cuda_ms(torch, lambda: ref.distance_argmin_q8(A28, C28),
+                         10),
+        bound_ms=b, bound_by=by,
+        library_ms=library("B7", lambda: torch.min(int_mm_dist(A28, C28),
+                                                   dim=1), 10))
+    kernels["B7"]["serve_ms"] = cuda_ms(
+        torch, lambda: ops.distance_argmin_q8(Aq28, C28), 200)
+    print(f"[kernel] B7 distance_argmin_q8 N={N} K={K} d={d}: equal to the "
+          f"plain version; at the serving shape N={MAX_BATCH}: "
+          f"{kernels['B7']['serve_ms']:.4f} ms")
+    # B2 at d = 1, K = 256: each PQ codebook fit of the ANN path
+    A1 = A2[:, :1].contiguous()
+    C1 = A1[:KMEANS["K"]].clone()
+    err, n_near = argmin_case(A1, C1, False, "B2 d=1")
+    print(f"[kernel] B2 distance_argmin at d=1 N={A1.shape[0]} "
+          f"K={C1.shape[0]} (the ANN path's codebook fits): "
+          f"{cuda_ms(torch, lambda: ops.distance_argmin(A1, C1), 20):.4f} ms,"
+          f" plain {cuda_ms(torch, lambda: ref.distance_argmin(A1, C1), 10):.4f}"
+          f" ms, max_abs_err={err:.3g} near_ties={n_near}")
+    del A28, C28, Aq28, A1, C1
     for kr in kernels.values():
         kr["launches"] = 0
     for key, kr in kernels.items():
@@ -645,15 +873,23 @@ def main() -> int:
     del A2, C2, Aq2
 
     # ------------------------------------------------ 3. the paths
-    def drive(algo, data, groups, **kw):
-        """Fit, warm every bucket and serve the queries, with the launch
-        counts set to 0 just before and read just after."""
+    def drive(algo, data, groups, *, est=None, policy=None,
+              ref_batch=MAX_BATCH, **kw):
+        """Fit (or take ``est``, fitted by an earlier path), warm every
+        bucket and serve the queries through an engine of ``policy``, with
+        the launch counts set to 0 just before and read just after."""
         Xtr, ytr, Xq, yq = data
         ops.reset_launches()
         t0 = time.perf_counter()
-        est = est_mod.make_fitted(algo, Xtr, ytr, n_groups=groups,
-                                  device=dev, **kw)
-        engine = NonNeuralServeEngine(est, max_batch=MAX_BATCH, device=dev)
+        setup = "fit+warmup+serve" if est is None else \
+            "quantize+warmup+serve"
+        if est is None:
+            est = est_mod.make_fitted(algo, Xtr, ytr, n_groups=groups,
+                                      device=dev, **kw)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        engine = NonNeuralServeEngine(est, max_batch=MAX_BATCH, device=dev,
+                                      policy=policy)
         engine.warmup_buckets(Xtr.shape[1])
         warmed = set(engine.warmed)
         res = engine.classify(Xq)
@@ -678,15 +914,21 @@ def main() -> int:
             return (time.perf_counter() - t0) / reps * 1e3
 
         call_ms = (timed(Xq), timed(on_card(Xq)))
-        kw_ref = {"k": est.k} if algo == "knn" else {}
-        est_ref = type(est).from_params(est.params, path="ref", device=dev,
-                                        **kw_ref)
-        res_ref = NonNeuralServeEngine(est_ref, max_batch=MAX_BATCH,
+        # the plain versions on the params the engine served (for the
+        # int8 tier, its quantized copy)
+        served = engine.estimator
+        kw_ref = {"k": served.k} if algo in ("knn", "ann") else {}
+        if algo == "ann":
+            kw_ref.update(nprobe=served.nprobe, refine=served.refine)
+        est_ref = type(served).from_params(served.params, path="ref",
+                                           device=dev, **kw_ref)
+        res_ref = NonNeuralServeEngine(est_ref, max_batch=ref_batch,
                                        device=dev).classify(Xq)
         torch.cuda.synchronize()
         acc = float((res.classes.cpu().numpy() == yq).mean())
-        return dict(est=est, res=res, res_ref=res_ref, launches=launches,
-                    call_ms=call_ms, acc=acc, wall=wall,
+        return dict(est=served, res=res, res_ref=res_ref, launches=launches,
+                    call_ms=call_ms, acc=acc, wall=wall, setup=setup,
+                    fit_s=fit_s, engine=engine,
                     n_buckets=len(warmed) + res.launches)
 
     def report(algo, keys, run, extra, bucket_ms=0.0):
@@ -715,7 +957,7 @@ def main() -> int:
               f"(classify of {N_QUERIES} in 4 buckets of {MAX_BATCH}: "
               f"{host_ms:.4f} ms from host memory, {card_ms:.4f} ms from "
               f"the card{share}), {', '.join(counts)}, "
-              f"acc={run['acc']:.4f}, fit+warmup+serve {run['wall']:.2f}s; "
+              f"acc={run['acc']:.4f}, {run['setup']} {run['wall']:.2f}s; "
               f"{extra}")
 
     def knn_checks(what, run):
@@ -796,6 +1038,7 @@ def main() -> int:
     n_near, n_odd = knn_checks("knn", run)
     report("knn", ["B1"], run, f"near_ties={n_near}, classes differing at "
            f"near-ties={n_odd}", kernels["B1"]["serve_ms"])
+    fitted = {"knn": run["est"]}     # served again by the int8 tier
     del run
 
     # kNN, k = 64: past B1's lists, the selector takes the blocked arm;
@@ -823,6 +1066,7 @@ def main() -> int:
     n_iter, n_near = kmeans_checks("kmeans", run)
     report("kmeans", ["B2"], run, f"n_iter={n_iter} (ref arm the same), "
            f"near_ties={n_near}", kernels["B2"]["serve_ms"])
+    fitted["kmeans"] = run["est"]
     del run
 
     # K-Means, blocked: REPRO_BACKEND selects B4 + min/argmin everywhere
@@ -852,6 +1096,7 @@ def main() -> int:
           "gnb: a class differs from the ref arm without a near-tie")
     report("gnb", ["B3"], run, f"classes differing at near-ties="
            f"{int(odd.sum())}", kernels["B3"]["serve_ms"])
+    fitted["gnb"] = run["est"]
 
     # B9's own entry, ops.gnb_scores: one query at a time against the
     # fitted moments, each equal to its row of the served batch
@@ -885,6 +1130,7 @@ def main() -> int:
     report("gmm wide", ["B3"], run, f"n_iter={n_iter}, log-resp max diff "
            f"from the ref arm {err:.3g}, classes differing at near-ties="
            f"{n_odd}", kernels["B3"]["serve_ms"])
+    fitted["gmm"] = run["est"]
     del run
 
     # GMM at the kNN width: d < 64, the ref arm (no kernel)
@@ -912,9 +1158,144 @@ def main() -> int:
     report("rf", [], run, f"{RF['trees']} trees of depth <= {RF['depth']} "
            f"on {RF['n']} rows, traversal depth "
            f"{run['est']._depth}, votes equal to the ref arm")
+    fitted["rf"] = run["est"]
     del run
 
+    # ------------------------------------------------ 4. the int8 tier
+    # the estimators fitted above, served through the engine's int8 tier
+    # (an engine-local quantized copy); the plain versions serve the same
+    # quantized params with path="ref", integer for integer
+    def int8_checks(what, run, exact_aux=True):
+        res, res_ref = run["res"], run["res_ref"]
+        check(run["est"].quantized and not fitted[what].quantized,
+              f"{what} int8: the engine did not serve a local quantized "
+              "copy")
+        check(run["acc"] >= 0.95, f"{what} int8: accuracy {run['acc']}")
+        check(torch.equal(res.classes, res_ref.classes) and
+              (not exact_aux or torch.equal(res.aux, res_ref.aux)),
+              f"{what} int8: differs from the plain versions on the same "
+              "quantized params")
+        r = run["engine"].quant_report
+        return f"params {r['bytes_fp32']} B fp32 -> {r['bytes_int8']} B int8"
+
+    run = drive("knn", knn_data, KNN["classes"], est=fitted["knn"],
+                policy="int8", ref_batch=256)
+    msg = int8_checks("knn", run)
+    check(run["launches"]["distance_topk_q8"] == run["n_buckets"],
+          f"knn int8: launches {run['launches']}")
+    report("knn int8", ["B6"], run, f"{msg}; neighbours and classes equal "
+           "to the plain version's", kernels["B6"]["serve_ms"])
+    del run
+    run = drive("kmeans", km_data, KMEANS["K"], est=fitted["kmeans"],
+                policy="int8")
+    msg = int8_checks("kmeans", run)
+    report("kmeans int8", ["B7"], run, f"{msg}; assignments and distances "
+           "equal to the plain version's", kernels["B7"]["serve_ms"])
+    del run
+    for algo, data, groups in (("gnb", gnb_data, GNB["classes"]),
+                               ("gmm", gnb_data, GNB["classes"]),
+                               ("rf", rf_data, KNN["classes"])):
+        run = drive(algo, data, groups, est=fitted[algo], policy="int8")
+        msg = int8_checks(algo, run)
+        label = "gmm wide" if algo == "gmm" else algo
+        report(f"{label} int8", [], run, f"{msg}; affine scores over int8 "
+               "features" if algo != "rf" else f"{msg}; int8 thresholds")
+        del run
+    del fitted
+
+    # ------------------------------------------------ 5. IVF-PQ ANN
+    from repro_torch.core.ann import build_query_luts
+    from repro_torch.kernels.ann import adc_dmax
+    ann_data = blobs(ANN["n"], ANN["d"], ANN["classes"], SEED + 3)
+    run = drive("ann", ann_data, ANN["classes"], k=ANN["k"],
+                n_cells=ANN["cells"], nprobe=ANN["nprobe"], pq_m=ANN["pq_m"],
+                n_codes=ANN["n_codes"], refine=ANN["refine"],
+                train_iters=ANN["train_iters"])
+    est, res, res_ref = run["est"], run["res"], run["res_ref"]
+    p = est.params
+    L = est.serve_cost_shape()["L"]
+    check(run["acc"] >= 0.95, f"ann: accuracy {run['acc']}")
+    # recall@10 against exact fused kNN (B1) over the same rows
+    Qa = on_card(ann_data[2])
+    exact = torch.cat([ops.distance_topk(p.refs, Qa[i:i + MAX_BATCH],
+                                         ANN["k"])[1]
+                       for i in range(0, len(Qa), MAX_BATCH)])
+    hits = (res.aux[:, :, None] == exact[:, None, :]).any(2).sum(1)
+    recall = float(hits.float().mean()) / ANN["k"]
+    check(recall >= 0.95, f"ann: recall@{ANN['k']} {recall} < 0.95")
+    # neighbours against the plain versions: the LUT and the integer
+    # distances are one computation, so a query may differ only where
+    # B1's fp32 probe and the plain probe rank two cells at a near-tie
+    differ = (res.aux != res_ref.aux).any(1)
+    n_odd = int(differ.sum())
+    if n_odd:
+        pk = ops.distance_topk(p.centroids, Qa[differ], ANN["nprobe"])[1]
+        pr = ref.distance_topk(p.centroids, Qa[differ], ANN["nprobe"])[1]
+        dk, scale = pair_dist(p.centroids[pk.long()], Qa[differ])
+        dp, _ = pair_dist(p.centroids[pr.long()], Qa[differ])
+        check(bool((pk != pr).any(1).all()) and
+              bool(((pk == pr) | near(dk, dp, scale)).all()),
+              f"ann: {n_odd} queries differ from the plain versions without "
+              "a near-tie in the probe")
+    check(torch.equal(res.classes[~differ], res_ref.classes[~differ]),
+          "ann: a class differs from the plain versions' with the same "
+          "neighbours")
+
+    # B8 at the path's bucket shape: the first bucket's LUTs and candidates
+    Xb = Qa[:MAX_BATCH]
+    _, cells = ops.distance_topk(p.centroids, Xb, ANN["nprobe"])
+    cand = p.cell_ids[cells.long()].reshape(MAX_BATCH, -1).contiguous()
+    qlut = build_query_luts(Xb, p.codebooks)
+    codes = p.codes[cand.clamp(min=0).long()].contiguous()
+    want = max(ANN["k"], ANN["refine"])
+    Q, L, m = codes.shape
+    n_codes = qlut.shape[1] // m
+    equal_case("B8 main", ops.adc_topk(qlut, codes, cand, want), chunked(
+        lambda i, j: ref.adc_topk(qlut[i:j], codes[i:j], cand[i:j], want),
+        Q))
+    flat = (codes.long() + 128 + torch.arange(m, device=dev) * n_codes
+            ).reshape(Q, L * m)
+
+    def adc_library():
+        e = torch.gather(qlut, 1, flat).view(Q, L, m).sum(2)
+        return torch.topk(torch.where(cand < 0, adc_dmax(m), e), want,
+                          dim=1, largest=False)
+
+    # bytes: codes and ids of every candidate, the LUTs, the output; ops:
+    # one add per looked-up entry, at the fp32 rate of the CUDA cores
+    b, by = bound_ms(Q * L * m, Q * L * m + 4 * Q * L + 4 * qlut.numel()
+                     + 8 * Q * want, peaks)
+    kernels["B8"] = dict(
+        name="adc_topk", route="cuda",
+        source="src/repro_torch/kernels/csrc/adc_topk.cu",
+        replaces="src/repro/kernels/ann.py:105", max_abs_err=0.0,
+        ms=cuda_ms(torch, lambda: ops.adc_topk(qlut, codes, cand, want), 10),
+        plain_ms=cuda_ms(torch, lambda: chunked(lambda i, j: ref.adc_topk(
+            qlut[i:j], codes[i:j], cand[i:j], want), Q), 2),
+        bound_ms=b, bound_by=by,
+        library_ms=cuda_ms(torch, adc_library, 3), launches=0)
+    dist_ms = cuda_ms(torch, lambda: kann.launch_dist(qlut, codes, cand), 10)
+    invalid = float((cand < 0).float().mean())
+    print(f"[kernel] B8 adc_topk Q={Q} L={L} m={m} n_codes={n_codes} "
+          f"k={want}: equal to the plain version; ADC distances alone "
+          f"{dist_ms:.4f} ms, then B5 int32; {invalid:.3f} of the "
+          "candidates are list padding")
+    del flat, codes, cand, qlut
+    report("ann", ["B2", "B1", "B8", "B5"], run,
+           f"fit {run['fit_s']:.2f}s, L={L} candidates per query "
+           f"(nprobe={ANN['nprobe']}, {p.cell_ids.shape[0]} cells of "
+           f"capacity {p.cell_ids.shape[1]}), recall@{ANN['k']}="
+           f"{recall:.4f} against exact fused kNN, refine={ANN['refine']}; "
+           f"neighbours equal to path='ref' but {n_odd} queries at probe "
+           "near-ties", kernels["B8"]["ms"])
+    del run, est, res, res_ref, p, Qa, exact
+
     # ------------------------------------------------ summary lines
+    kernels = dict(sorted(kernels.items(), key=lambda kv: int(kv[0][1:])))
+    kr = kernels["B8"]
+    print(f"[time] B8 {kr['name']}: kernel {kr['ms']:.4f} ms, plain "
+          f"{kr['plain_ms']:.4f} ms, library {kr['library_ms']:.4f} ms, "
+          f"bound {kr['bound_ms']:.4f} ms ({kr['bound_by']})")
     print("kernels: " + " ".join(f"{key}={kr['name']}:{kr['launches']}"
                                  for key, kr in kernels.items()))
     order = ("name", "route", "source", "replaces", "launches",

@@ -1,5 +1,5 @@
 """PyTorch/CUDA port of the Non-Neural pipelines (kNN, K-Means, GNB, GMM,
-RF).
+RF, IVF-PQ approximate kNN), in fp32/bf16 and in the int8 tier.
 
 Mirrors the layout of the JAX package (``core/ kernels/ serving/ launch/
 data/``) so each module has a counterpart there.  The hot ops run in

@@ -1,12 +1,14 @@
 """Carry fitted weights across from the JAX package.
 
 The JAX package's fitted params (``KNNModel``, ``KMeansState``,
-``GNBModel``, ``GMMState``, ``Forest``) reach this module as plain numpy
+``GNBModel``, ``GMMState``, ``Forest``, ``ANNParams``, and the int8 forms
+``QuantKNNModel``, ``QuantKMeansParams``, ``QuantGNBParams``,
+``QuantGMMParams``, ``QuantForest``) reach this module as plain numpy
 leaves — anything with ``_asdict()`` or a mapping of field name to array,
-plus the static ``n_class`` of kNN and RF — so the port never imports
-that package.  The result
-is the port's NamedTuple of tensors on ``device``; hand it to the
-estimator's ``from_params`` to serve it.
+plus the static ``n_class`` — so the port never imports that package.
+The field names say which form they are.  The result is the port's
+NamedTuple of tensors on ``device``; hand it to the estimator's
+``from_params`` to serve it.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ from typing import Any, Mapping, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import quantization as _q
+from repro_torch.core.ann import ANNParams
 from repro_torch.core.gmm import GMMState
 from repro_torch.core.gnb import GNBModel
 from repro_torch.core.kmeans import KMeansState
@@ -23,7 +27,11 @@ from repro_torch.core.random_forest import Forest
 from repro_torch.device import DeviceLike, resolve_device
 
 PARAM_TYPES = {"knn": KNNModel, "kmeans": KMeansState, "gnb": GNBModel,
-               "gmm": GMMState, "rf": Forest}
+               "gmm": GMMState, "rf": Forest, "ann": ANNParams}
+# each algorithm's int8 lattice form
+QUANT_TYPES = {"knn": _q.QuantKNNModel, "kmeans": _q.QuantKMeansParams,
+               "gnb": _q.QuantGNBParams, "gmm": _q.QuantGMMParams,
+               "rf": _q.QuantForest}
 
 
 def _leaf(value: Any, device: torch.device) -> torch.Tensor:
@@ -34,15 +42,19 @@ def _leaf(value: Any, device: torch.device) -> torch.Tensor:
 def params_from_numpy(algorithm: str, leaves: Any, *,
                       device: DeviceLike = None) -> NamedTuple:
     """``leaves``: the reference's fitted params as numpy-convertible
-    leaves (a NamedTuple or a mapping).  Returns the port's params for
-    ``algorithm`` on ``device``; dtypes are kept (float32 stays float32,
-    int32 labels and tree arrays stay int32)."""
+    leaves (a NamedTuple or a mapping), in the fp form or the int8 form.
+    Returns the port's params of the same form for ``algorithm`` on
+    ``device``; dtypes are kept (float32 stays float32, int8 codes and
+    lattices stay int8, int32 labels, ids and tree arrays stay int32)."""
     if algorithm not in PARAM_TYPES:
         raise KeyError(f"no params conversion for {algorithm!r}; known: "
                        f"{sorted(PARAM_TYPES)}")
     fields: Mapping[str, Any] = leaves._asdict() \
         if hasattr(leaves, "_asdict") else dict(leaves)
     cls = PARAM_TYPES[algorithm]
+    quant = QUANT_TYPES.get(algorithm)
+    if quant is not None and set(quant._fields) <= set(fields):
+        cls = quant
     missing = set(cls._fields) - set(fields)
     if missing:
         raise KeyError(f"{algorithm} params lack {sorted(missing)}")

@@ -1,4 +1,5 @@
-"""Estimator API over the ported pipelines (kNN, K-Means, GNB, GMM, RF).
+"""Estimator API over the ported pipelines (kNN, K-Means, GNB, GMM, RF, and
+IVF-PQ approximate kNN).
 
 The same train-offline / infer-on-device shape as the JAX package's
 ``core/estimator.py``:
@@ -9,10 +10,13 @@ The same train-offline / infer-on-device shape as the JAX package's
 
 ``predict_batch_fn()`` returns a function ``(params, X) -> (preds, aux)``
 with the static configuration closed over; the serving engine calls it
-once per bucket.  Every hot path goes through the dispatch registry.  An
-estimator lives on one device: the card unless ``device="cpu"`` is named
-(``repro_torch.device.resolve_device``).  ANN is not ported yet:
-``make_estimator`` raises ``KeyError`` for it.
+once per bucket.  Every fp hot path goes through the dispatch registry.
+Under the ``int8`` policy (or after ``quantize()``) the params are the
+int8 lattice form of ``core/quantization.py`` and the hot path calls the
+int8 kernels directly, as the reference's does; ``path="ref"`` (or
+``REPRO_BACKEND=ref``) runs their plain versions instead.  An estimator
+lives on one device: the card unless ``device="cpu"`` is named
+(``repro_torch.device.resolve_device``).
 """
 from __future__ import annotations
 
@@ -21,17 +25,25 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import ann as _ann
 from repro_torch.core import gmm as _gmm
 from repro_torch.core import gnb as _gnb
 from repro_torch.core import kmeans as _kmeans
 from repro_torch.core import knn as _knn
+from repro_torch.core import quantization as _quant
 from repro_torch.core import random_forest as _rf
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import dispatch
+from repro_torch.kernels import ops as _ops
+from repro_torch.kernels import quantized as _qk
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.dispatch import PrecisionPolicy
 
-# algorithms of the JAX package that the port does not carry yet, with the
-# ROADMAP item that brings each
-NOT_PORTED = {"ann": "A10"}
+
+def _q8(path: Optional[str]):
+    """The int8 kernels' wrappers, or their plain versions where ``path``
+    (or ``REPRO_BACKEND``) asks for ``ref``."""
+    return _ref if dispatch.plain_requested(path) else _ops
 
 
 class _EstimatorBase:
@@ -46,6 +58,7 @@ class _EstimatorBase:
         self.path = path
         self.device = resolve_device(device)
         self._params: Optional[NamedTuple] = None
+        self._cal_absmax: Optional[torch.Tensor] = None  # fit's |X| max
 
     @property
     def params(self) -> NamedTuple:
@@ -56,6 +69,65 @@ class _EstimatorBase:
     @property
     def fitted(self) -> bool:
         return self._params is not None
+
+    @property
+    def quantized(self) -> bool:
+        """True once the params are their int8 lattice form: the hot path
+        then runs the int8 kernels whatever ``path`` says (but ``ref``)."""
+        return self._params is not None and \
+            _quant.is_quantized_params(self._params)
+
+    def _finalize_fit(self, X):
+        """Record the per-feature abs-max every fit leaves behind, then
+        quantize in place when the policy is the int8 tier."""
+        self._cal_absmax = _quant.calibrate_absmax(
+            self._tensor(X, torch.float32))
+        if self.policy is not None and self.policy.quantized:
+            self.quantize()
+        return self
+
+    def quantize(self):
+        """Rewrite the fitted params into their int8 lattice form
+        (idempotent).  Scales come from the training data the fit
+        recorded; ``from_params`` estimators fall back to bounds derived
+        from the params."""
+        if not self.fitted:
+            raise ValueError(f"fit {type(self).__name__} before quantize()")
+        if not self.quantized:
+            self._params = self._quantize(self._params, self._cal_absmax)
+        return self
+
+    def quantized_copy(self):
+        """A shallow copy whose params are the int8 lattice form, leaving
+        this estimator untouched: what a serving engine under the int8
+        policy serves.  ``self`` when the params are already quantized."""
+        if self.quantized:
+            return self
+        import copy
+        est = copy.copy(self)
+        est._params = self._quantize(self._params, self._cal_absmax)
+        return est
+
+    def dequantize_params(self) -> NamedTuple:
+        """The fp32 params rebuilt from the int8 form (up to lattice
+        rounding)."""
+        if not self.quantized:
+            raise ValueError(f"{type(self).__name__} is not quantized")
+        return self._dequantize(self._params)
+
+    def _quantize(self, params, absmax) -> NamedTuple:
+        raise NotImplementedError
+
+    def _dequantize(self, qparams) -> NamedTuple:
+        raise NotImplementedError
+
+    def _place_params(self, params: NamedTuple) -> NamedTuple:
+        """Params (int8 lattice forms carried across, say) on this
+        estimator's device, dtypes kept; static ints pass through."""
+        return type(params)(*(
+            self._tensor(v).contiguous()
+            if isinstance(v, (torch.Tensor, np.ndarray)) else v
+            for v in params))
 
     def _tensor(self, x, dtype=None) -> torch.Tensor:
         if isinstance(x, np.ndarray):
@@ -105,21 +177,37 @@ class KNNEstimator(_EstimatorBase):
         n_class = self.n_class or int(y.max()) + 1
         self._params = _knn.KNNModel(A=self._cast(X).contiguous(), labels=y,
                                      n_class=n_class)
-        return self
+        return self._finalize_fit(X)
 
     @classmethod
-    def from_params(cls, model: _knn.KNNModel, k: int = 4,
-                    **kw) -> "KNNEstimator":
+    def from_params(cls, model, k: int = 4, **kw) -> "KNNEstimator":
+        """fp32 ``KNNModel`` or its int8 form ``QuantKNNModel``."""
         est = cls(k, n_class=model.n_class, **kw)
+        if _quant.is_quantized_params(model):
+            est._params = est._place_params(model)
+            return est
         est._params = _knn.KNNModel(
             A=est._cast(model.A).contiguous(),
             labels=est._tensor(model.labels, torch.int32),
             n_class=int(model.n_class))
         return est
 
+    def _quantize(self, params, absmax):
+        return _quant.quantize_knn(params, absmax)
+
+    def _dequantize(self, qparams):
+        return _quant.dequantize_knn(qparams)
+
     def predict_batch_fn(self) -> Callable:
         k, policy, path = self.k, self.policy, self.path
         n_class = self.params.n_class
+        if self.quantized:
+            def qfn(params: _quant.QuantKNNModel, X):
+                xq = _qk.quantize_rows(X, params.scale)
+                _, nbr = _q8(path).distance_topk_q8(params.qa, xq, k)
+                return _knn._vote(params.labels, nbr, n_class), nbr
+
+            return qfn
 
         def fn(params: _knn.KNNModel, X):
             X = policy.cast(X) if policy else X
@@ -131,7 +219,7 @@ class KNNEstimator(_EstimatorBase):
         return fn
 
     def serve_cost_shape(self) -> Dict[str, int]:
-        A = self.params.A
+        A = self.params.qa if self.quantized else self.params.A
         return {"N": int(A.shape[0]), "d": int(A.shape[1]), "k": self.k}
 
     def empty_aux(self) -> torch.Tensor:
@@ -164,11 +252,15 @@ class KMeansEstimator(_EstimatorBase):
             n_cores=self.n_cores, path=self.path)
         self._params = state._replace(
             centroids=self._cast(state.centroids).contiguous())
-        return self
+        return self._finalize_fit(X)
 
     @classmethod
-    def from_params(cls, state: _kmeans.KMeansState,
-                    **kw) -> "KMeansEstimator":
+    def from_params(cls, state, **kw) -> "KMeansEstimator":
+        """fp32 ``KMeansState`` or its int8 form ``QuantKMeansParams``."""
+        if _quant.is_quantized_params(state):
+            est = cls(n_clusters=state.qc.shape[0], **kw)
+            est._params = est._place_params(state)
+            return est
         est = cls(n_clusters=state.centroids.shape[0], **kw)
         est._params = _kmeans.KMeansState(
             centroids=est._cast(state.centroids).contiguous(),
@@ -176,9 +268,21 @@ class KMeansEstimator(_EstimatorBase):
             n_iter=est._tensor(state.n_iter, torch.int32))
         return est
 
+    def _quantize(self, params, absmax):
+        return _quant.quantize_kmeans(params, absmax)
+
+    def _dequantize(self, qparams):
+        return _quant.dequantize_kmeans(qparams)
+
     def predict_batch_fn(self) -> Callable:
-        from repro_torch.kernels import dispatch
         policy, path = self.policy, self.path
+        if self.quantized:
+            def qfn(params: _quant.QuantKMeansParams, X):
+                xq = _qk.quantize_rows(X, params.scale)
+                lat, ids = _q8(path).distance_argmin_q8(xq, params.qc)
+                return ids, lat.to(torch.float32) * params.dequant
+
+            return qfn
 
         def fn(params: _kmeans.KMeansState, X):
             X = policy.cast(X) if policy else X
@@ -189,7 +293,7 @@ class KMeansEstimator(_EstimatorBase):
         return fn
 
     def serve_cost_shape(self) -> Dict[str, int]:
-        c = self.params.centroids
+        c = self.params.qc if self.quantized else self.params.centroids
         return {"K": int(c.shape[0]), "d": int(c.shape[1])}
 
     def empty_aux(self) -> torch.Tensor:
@@ -220,10 +324,15 @@ class GNBEstimator(_EstimatorBase):
         self._params = _gnb.GNBModel(mu=self._cast(model.mu).contiguous(),
                                      var=self._cast(model.var).contiguous(),
                                      log_prior=model.log_prior)
-        return self
+        return self._finalize_fit(X)
 
     @classmethod
-    def from_params(cls, model: _gnb.GNBModel, **kw) -> "GNBEstimator":
+    def from_params(cls, model, **kw) -> "GNBEstimator":
+        """fp32 ``GNBModel`` or its int8 form ``QuantGNBParams``."""
+        if _quant.is_quantized_params(model):
+            est = cls(n_class=model.quad.shape[0], **kw)
+            est._params = est._place_params(model)
+            return est
         est = cls(n_class=model.mu.shape[0], **kw)
         est._params = _gnb.GNBModel(
             mu=est._cast(model.mu).contiguous(),
@@ -231,8 +340,22 @@ class GNBEstimator(_EstimatorBase):
             log_prior=est._tensor(model.log_prior, torch.float32))
         return est
 
+    def _quantize(self, params, absmax):
+        return _quant.quantize_gnb(params, absmax)
+
+    def _dequantize(self, qparams):
+        return _quant.dequantize_gnb(qparams)
+
     def predict_batch_fn(self) -> Callable:
         policy, path = self.policy, self.path
+        if self.quantized:
+            def qfn(params: _quant.QuantGNBParams, X):
+                scores = _qk.affine_scores(
+                    _qk.quantize_rows(X, params.scale), params.quad,
+                    params.lin, params.const + params.log_prior)
+                return torch.argmax(scores, dim=1).to(torch.int32), scores
+
+            return qfn
 
         def fn(params: _gnb.GNBModel, X):
             X = policy.cast(X) if policy else X
@@ -242,10 +365,12 @@ class GNBEstimator(_EstimatorBase):
         return fn
 
     def serve_cost_shape(self) -> Dict[str, int]:
-        m = self.params.mu
+        m = self.params.quad if self.quantized else self.params.mu
         return {"C": int(m.shape[0]), "d": int(m.shape[1])}
 
     def empty_aux(self) -> torch.Tensor:
+        # the class count from the static config: the int8 form stores
+        # score tables, not moments
         n_class = self.n_class or self.params.mu.shape[0]
         return torch.zeros((0, n_class), dtype=torch.float32,
                            device=self.device)
@@ -275,10 +400,15 @@ class GMMEstimator(_EstimatorBase):
                                 tol=self.tol, n_cores=self.n_cores)
         self._params = state._replace(mu=self._cast(state.mu),
                                       var=self._cast(state.var))
-        return self
+        return self._finalize_fit(X)
 
     @classmethod
-    def from_params(cls, state: _gmm.GMMState, **kw) -> "GMMEstimator":
+    def from_params(cls, state, **kw) -> "GMMEstimator":
+        """fp32 ``GMMState`` or its int8 form ``QuantGMMParams``."""
+        if _quant.is_quantized_params(state):
+            est = cls(n_components=state.quad.shape[0], **kw)
+            est._params = est._place_params(state)
+            return est
         est = cls(n_components=state.mu.shape[0], **kw)
         est._params = _gmm.GMMState(
             mu=est._cast(state.mu), var=est._cast(state.var),
@@ -287,8 +417,23 @@ class GMMEstimator(_EstimatorBase):
             n_iter=est._tensor(state.n_iter, torch.int32))
         return est
 
+    def _quantize(self, params, absmax):
+        return _quant.quantize_gmm(params, absmax)
+
+    def _dequantize(self, qparams):
+        return _quant.dequantize_gmm(qparams)
+
     def predict_batch_fn(self) -> Callable:
         policy, path, n_cores = self.policy, self.path, self.n_cores
+        if self.quantized:
+            def qfn(params: _quant.QuantGMMParams, X):
+                joint = _qk.affine_scores(
+                    _qk.quantize_rows(X, params.scale), params.quad,
+                    params.lin, params.const + params.log_pi)
+                lr = joint - torch.logsumexp(joint, dim=1, keepdim=True)
+                return torch.argmax(lr, dim=1).to(torch.int32), lr
+
+            return qfn
 
         def fn(params: _gmm.GMMState, X):
             X = policy.cast(X) if policy else X
@@ -298,7 +443,7 @@ class GMMEstimator(_EstimatorBase):
         return fn
 
     def serve_cost_shape(self) -> Dict[str, int]:
-        m = self.params.mu
+        m = self.params.quad if self.quantized else self.params.mu
         return {"K": int(m.shape[0]), "d": int(m.shape[1])}
 
     def empty_aux(self) -> torch.Tensor:
@@ -346,18 +491,40 @@ class RandomForestEstimator(_EstimatorBase):
         self._params = self._place(_rf.train_forest(
             X, y, n_class, n_trees=self.n_trees, max_depth=self.max_depth,
             min_samples=self.min_samples, seed=self.seed))
-        return self
+        return self._finalize_fit(X)
 
     @classmethod
-    def from_params(cls, forest: _rf.Forest,
-                    **kw) -> "RandomForestEstimator":
+    def from_params(cls, forest, **kw) -> "RandomForestEstimator":
+        """fp32 ``Forest`` or its int8 form ``QuantForest``."""
         est = cls(n_class=int(forest.n_class), **kw)
+        if _quant.is_quantized_params(forest):
+            est._params = est._place_params(forest)
+            est._depth = _rf.forest_depth(est._params)
+            return est
         est._params = est._place(forest)
         return est
 
+    def _quantize(self, params, absmax):
+        return _quant.quantize_forest(params, absmax)
+
+    def _dequantize(self, qparams):
+        return _quant.dequantize_forest(qparams)
+
     def predict_batch_fn(self) -> Callable:
-        from repro_torch.kernels import dispatch
         policy, path, depth = self.policy, self.path, self._depth
+        if self.quantized:
+            n_class = self.params.n_class
+
+            def qfn(params: _quant.QuantForest, X):
+                # int8-vs-int8 node compares through the same traversal
+                forest = _rf.Forest(feature=params.feature,
+                                    threshold=params.qthreshold,
+                                    left=params.left, right=params.right,
+                                    n_class=n_class)
+                xq = _qk.quantize_rows(X, params.scale)
+                return _rf.forest_classify_batch(forest, xq, depth=depth)
+
+            return qfn
 
         def fn(params: _rf.Forest, X):
             X = policy.cast(X) if policy else X
@@ -375,25 +542,107 @@ class RandomForestEstimator(_EstimatorBase):
                            device=self.device)
 
 
+class ANNKNNEstimator(_EstimatorBase):
+    """IVF-PQ approximate kNN (``core/ann.py``); hot path ("ann",
+    "adc_topk"), B8, plus the shared ("knn", "distance_topk") coarse probe
+    over the cell centroids (B1).  ``nprobe`` is the recall-vs-latency
+    knob.  aux = global neighbour ids (B, k) int32, -1 where a query's
+    probed cells held fewer than k members."""
+
+    algorithm = "ann"
+
+    def __init__(self, k: int = 4, *, n_class: Optional[int] = None,
+                 n_cells: Optional[int] = None, nprobe: int = 4,
+                 pq_m: int = 4, n_codes: int = 256, refine: int = 0,
+                 train_iters: int = 25,
+                 policy: Optional[PrecisionPolicy] = None,
+                 path: Optional[str] = None, device: DeviceLike = None):
+        if policy is not None and policy.quantized:
+            raise NotImplementedError(
+                "ANN has no int8 policy tier: the PQ codes ARE the int8 "
+                "representation and the ADC LUT is already integer "
+                "(DESIGN.md §10) — serve with policy fp32/bf16")
+        super().__init__(policy=policy, path=path, device=device)
+        self.k = int(k)
+        self.n_class = n_class
+        self.n_cells = n_cells
+        self.nprobe = int(nprobe)
+        self.pq_m = int(pq_m)
+        self.n_codes = int(n_codes)
+        # refine > 0: exact re-rank of the ADC top-``refine`` survivors
+        self.refine = int(refine)
+        self.train_iters = int(train_iters)
+
+    def fit(self, X, y=None) -> "ANNKNNEstimator":
+        if y is None:
+            raise ValueError("ANN kNN is supervised: fit(X, y)")
+        y = self._tensor(y, torch.int32)
+        n_class = self.n_class or int(y.max()) + 1
+        N, d = X.shape
+        # sqrt(N) cells is the IVF rule of thumb, clamped so that tiny
+        # problems still index and every cell can be real
+        n_cells = min(self.n_cells or max(1, min(64, round(N ** 0.5))), N)
+        m = max(1, min(self.pq_m, d))
+        n_codes = max(1, min(self.n_codes, N, 256))
+        self._params = _ann.fit_ivf_pq(
+            self._tensor(X, torch.float32), y, n_cells=n_cells, m=m,
+            n_codes=n_codes, n_class=n_class, max_iters=self.train_iters,
+            cast=lambda t: self._cast(t).contiguous())
+        return self._finalize_fit(X)
+
+    @classmethod
+    def from_params(cls, params: _ann.ANNParams,
+                    **kw) -> "ANNKNNEstimator":
+        est = cls(n_class=int(params.n_class), **kw)
+        placed = est._place_params(params)
+        est._params = placed._replace(
+            centroids=est._cast(placed.centroids).contiguous(),
+            codebooks=est._cast(placed.codebooks),
+            refs=est._cast(placed.refs))
+        return est
+
+    def predict_batch_fn(self) -> Callable:
+        k, nprobe, refine = self.k, self.nprobe, self.refine
+        policy, path = self.policy, self.path
+
+        def fn(params: _ann.ANNParams, X):
+            X = policy.cast(X) if policy else X
+            return _ann.ann_classify_batch(params, X, k, nprobe,
+                                           refine=refine, policy=policy,
+                                           path=path)
+
+        return fn
+
+    def serve_cost_shape(self) -> Dict[str, int]:
+        C, cap = self.params.cell_ids.shape
+        m, n_codes, _ = self.params.codebooks.shape
+        L = min(self.nprobe, int(C)) * int(cap)
+        return {"C": int(C), "d": int(self.params.centroids.shape[1]),
+                "m": int(m), "n_codes": int(n_codes), "L": L, "k": self.k,
+                "R": min(self.refine, L) if self.refine > 0 else 0}
+
+    def empty_aux(self) -> torch.Tensor:
+        return torch.zeros((0, self.k), dtype=torch.int32,
+                           device=self.device)
+
+
 ESTIMATORS: Dict[str, type] = {
     "knn": KNNEstimator,
     "kmeans": KMeansEstimator,
     "gnb": GNBEstimator,
     "gmm": GMMEstimator,
     "rf": RandomForestEstimator,
+    "ann": ANNKNNEstimator,
 }
 
 # each algorithm's "how many groups" constructor kwarg
 _GROUP_KWARG = {"kmeans": "n_clusters", "gmm": "n_components",
-                "knn": "n_class", "gnb": "n_class", "rf": "n_class"}
+                "knn": "n_class", "gnb": "n_class", "rf": "n_class",
+                "ann": "n_class"}
 
 
 def make_estimator(algorithm: str, **kwargs: Any) -> _EstimatorBase:
     """Construct a registered estimator by algorithm name."""
-    if algorithm in NOT_PORTED:
-        raise KeyError(f"algorithm {algorithm!r} is not yet ported to the "
-                       f"PyTorch package (ROADMAP {NOT_PORTED[algorithm]}); "
-                       f"ported: {sorted(ESTIMATORS)}")
     if algorithm not in ESTIMATORS:
         raise KeyError(f"unknown algorithm {algorithm!r}; "
                        f"registered: {sorted(ESTIMATORS)}")

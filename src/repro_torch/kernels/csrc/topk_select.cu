@@ -6,6 +6,10 @@
 //   index.  It is the second pass of the blocked kNN arm, where it reads
 //   the (Q, N) distance matrix that B4 wrote, and it takes every k from 1
 //   to n: it serves each k that B1's per-thread lists cannot hold.
+//   Its int32 key mode (``topk_smallest_i32``) selects on exact integer
+//   rows: the int8 lattice distances of B6 past its lists and the ADC
+//   distances of B8.  A float key would not do there: lattice distances
+//   reach 4 * d * 127^2, past the 2^24 that fp32 holds exactly.
 //
 // The order: each element gets the 64-bit key (order(x), index), where
 // order() maps a float to an unsigned int that sorts like the float, with
@@ -59,22 +63,30 @@ __device__ __forceinline__ unsigned long long sort_key(float v, int e) {
     return ((unsigned long long)b << 32) | (unsigned int)e;
 }
 
+// int32 key mode: flipping the sign bit maps signed order onto unsigned
+// order (INT_MIN -> 0, INT_MAX -> 0xFFFFFFFF)
+__device__ __forceinline__ unsigned long long sort_key(int v, int e) {
+    const unsigned int b = (unsigned int)v ^ 0x80000000u;
+    return ((unsigned long long)b << 32) | (unsigned int)e;
+}
+
 // digit width below ``shift``: 64 -> 52 -> 40 -> 32 | -> 20 -> 8 -> 0
 __device__ __forceinline__ int digit_bits(int shift) {
     return (shift == 40 || shift == 8) ? 8 : 12;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(TK_THREADS)
-topk_kernel(const float* __restrict__ x, long long ld, int n, int k,
-            float* __restrict__ vals, int* __restrict__ idx) {
+topk_kernel(const T* __restrict__ x, long long ld, int n, int k,
+            T* __restrict__ vals, int* __restrict__ idx) {
     __shared__ unsigned int hist[BINS];
     __shared__ unsigned long long keys[SORT_CAP];
     __shared__ unsigned int warp_sum[TK_THREADS / 32];
     __shared__ unsigned int sel_bin, sel_below, sel_count, gathered;
 
     const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-    const float* row = x + (size_t)blockIdx.x * ld;
-    float* out_v = vals + (size_t)blockIdx.x * k;
+    const T* row = x + (size_t)blockIdx.x * ld;
+    T* out_v = vals + (size_t)blockIdx.x * k;
     int* out_i = idx + (size_t)blockIdx.x * k;
     unsigned long long last = 0;   // the previous round's last key
     bool after = false;            // false: no round before this one
@@ -93,11 +105,11 @@ topk_kernel(const float* __restrict__ x, long long ld, int n, int k,
             for (int b = tid; b < BINS; b += TK_THREADS) hist[b] = 0;
             __syncthreads();
             for (int base = 0; base < n; base += UNROLL * TK_THREADS) {
-                float v[UNROLL];
+                T v[UNROLL];
 #pragma unroll
                 for (int u = 0; u < UNROLL; ++u) {
                     const int e = base + u * TK_THREADS + tid;
-                    v[u] = e < n ? row[e] : 0.f;
+                    v[u] = e < n ? row[e] : T(0);
                 }
 #pragma unroll
                 for (int u = 0; u < UNROLL; ++u) {
@@ -152,11 +164,11 @@ topk_kernel(const float* __restrict__ x, long long ld, int n, int k,
         if (tid == 0) gathered = 0;
         __syncthreads();
         for (int base = 0; base < n; base += UNROLL * TK_THREADS) {
-            float v[UNROLL];
+            T v[UNROLL];
 #pragma unroll
             for (int u = 0; u < UNROLL; ++u) {
                 const int e = base + u * TK_THREADS + tid;
-                v[u] = e < n ? row[e] : 0.f;
+                v[u] = e < n ? row[e] : T(0);
             }
 #pragma unroll
             for (int u = 0; u < UNROLL; ++u) {
@@ -202,6 +214,17 @@ topk_kernel(const float* __restrict__ x, long long ld, int n, int k,
     }
 }
 
+template <typename T>
+int launch_topk(const T* x, long long ld, int R, int n, int k, T* vals,
+                int* idx, void* stream) {
+    if (R < 1 || n < 1 || k < 1 || k > n || ld < n ||
+        n > INT_MAX - UNROLL * TK_THREADS)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    topk_kernel<T><<<R, TK_THREADS, 0, s>>>(x, ld, n, k, vals, idx);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -210,12 +233,13 @@ extern "C" {
 // row-major.  1 <= k <= n.  Returns the first CUDA error.
 int topk_smallest_f32(const float* x, long long ld, int R, int n, int k,
                       float* vals, int* idx, void* stream) {
-    if (R < 1 || n < 1 || k < 1 || k > n || ld < n ||
-        n > INT_MAX - UNROLL * TK_THREADS)
-        return (int)cudaErrorInvalidValue;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    topk_kernel<<<R, TK_THREADS, 0, s>>>(x, ld, n, k, vals, idx);
-    return (int)cudaGetLastError();
+    return launch_topk<float>(x, ld, R, n, k, vals, idx, stream);
+}
+
+// The int32 key mode: the same contract on int32 rows.
+int topk_smallest_i32(const int* x, long long ld, int R, int n, int k,
+                      int* vals, int* idx, void* stream) {
+    return launch_topk<int>(x, ld, R, n, k, vals, idx, stream);
 }
 
 const char* cuda_error_string(int err) {

@@ -1,21 +1,28 @@
 """Kernel dispatch: one registry for the Non-Neural hot-path ops.
 
-The part of the JAX package's ``kernels/dispatch.py`` that the fp32/bf16
-single-device path of kNN, K-Means, GNB, GMM and RF needs.  Each
-``(algorithm, op)`` registers executable arms:
+The part of the JAX package's ``kernels/dispatch.py`` that the
+single-device path of kNN, K-Means, GNB, GMM, RF and IVF-PQ ANN needs.
+Each ``(algorithm, op)`` registers executable arms:
 
   ``fused``   — a hand-written CUDA kernel that fuses the op (kNN B1,
-                K-Means B2),
+                K-Means B2, ANN's ADC B8),
   ``blocked`` — kernels that round-trip device memory: the two-pass
                 distance matrix (B4) then top-k (B5) or min/argmin, and
                 the feature-chunked GNB kernel (B3) for GNB and GMM,
   ``ref``     — the plain PyTorch version (``kernels/ref.py``), or the
                 torch-op pipeline of an op that has no kernel (the GMM
-                chunked E-step, the RF traversal).
+                chunked E-step, the RF traversal),
+  ``quant``   — the int8 lattice arm: per-feature symmetric scales from
+                the op's model-side operand, exact integer distances (kNN
+                B6, K-Means B7) or affine scores over int8 features (GNB,
+                GMM) and int8 thresholds (RF).  Lossy by design, so no
+                selector picks it: only ``path="quant"`` or
+                ``REPRO_BACKEND=quant`` does.
 
 Precedence in ``resolve``: explicit ``path=`` > ``REPRO_BACKEND`` (when the
 op has that arm) > the op's shape selector.  With a card, kNN resolves to
-``fused`` or ``blocked`` for every k, never to ``ref``.
+``fused`` or ``blocked`` for every k and ANN to ``fused``, never to
+``ref``.
 """
 from __future__ import annotations
 
@@ -26,17 +33,16 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import quantized as qk
 
 ENV_VAR = "REPRO_BACKEND"
-# the reference's arm names that this package registers; the int8 tier's
-# "quant" comes with that tier (ROADMAP A9), and until then REPRO_BACKEND
-# rejects it rather than running the fp32 arms
-PATH_NAMES = ("fused", "blocked", "ref")
+# the reference's arm names, in its order
+PATH_NAMES = ("fused", "blocked", "ref", "quant")
 
 # algorithm -> its serve-time hot op in the registry
 HOT_OPS = {"knn": "distance_topk", "kmeans": "distance_argmin",
            "gnb": "scores", "gmm": "responsibilities",
-           "rf": "forest_votes"}
+           "rf": "forest_votes", "ann": "adc_topk"}
 
 
 def hot_shape_kw(algorithm: str, cost_shape: Dict[str, int],
@@ -53,6 +59,9 @@ def hot_shape_kw(algorithm: str, cost_shape: Dict[str, int],
         return {"B": bucket, "d": s.get("d", 0), "C": s.get("C", 1)}
     if algorithm == "gmm":
         return {"B": bucket, "d": s.get("d", 0), "k": s.get("K", 1)}
+    if algorithm == "ann":
+        return {"Q": bucket, "L": s.get("L", 0), "m": s.get("m", 1),
+                "n_codes": s.get("n_codes", 256), "k": s.get("k", 1)}
     if algorithm == "rf":
         return {}    # the forest-vote op resolves shape-free
     raise KeyError(f"no hot op for {algorithm!r}; known: {sorted(HOT_OPS)}")
@@ -66,11 +75,17 @@ def hot_shape_kw(algorithm: str, cost_shape: Dict[str, int],
 @dataclass(frozen=True)
 class PrecisionPolicy:
     """The dtype estimators cast float inputs and params to: fp32 (the
-    paper's FPU-native arm) or bf16 (reduced precision).  The kernels
-    compute in fp32 either way."""
+    paper's FPU-native arm) or bf16 (reduced precision); the fp kernels
+    compute in fp32 either way.  ``int8`` is the quantized tier: inputs
+    stay fp32 at the API and the estimators rewrite their fitted params
+    onto the int8 lattice (``core/quantization.py``)."""
 
     name: str
     dtype: torch.dtype
+
+    @property
+    def quantized(self) -> bool:
+        return self.name.split("@")[0] == "int8"
 
     def cast(self, x: torch.Tensor) -> torch.Tensor:
         """Cast float tensors to the policy dtype; integers pass through."""
@@ -82,14 +97,14 @@ class PrecisionPolicy:
 POLICIES: Dict[str, PrecisionPolicy] = {
     "fp32": PrecisionPolicy("fp32", torch.float32),
     "bf16": PrecisionPolicy("bf16", torch.bfloat16),
+    # float inputs pass through: the lattice step happens in the quant arms
+    # and the quantized estimators, not as a cast
+    "int8": PrecisionPolicy("int8", torch.float32),
 }
 DEFAULT_POLICY = POLICIES["fp32"]
 
 
 def get_policy(name: str) -> PrecisionPolicy:
-    if name.split("@")[0] == "int8":
-        raise NotImplementedError(
-            "the int8 tier is not ported yet (ROADMAP A9)")
     if name not in POLICIES:
         raise KeyError(f"unknown policy {name!r}; known: {sorted(POLICIES)}")
     return POLICIES[name]
@@ -144,6 +159,13 @@ def env_override() -> Optional[str]:
         # a typo must not silently run the default arms
         raise ValueError(f"{ENV_VAR}={v!r} is not one of {PATH_NAMES}")
     return v
+
+
+def plain_requested(path: Optional[str]) -> bool:
+    """Whether ``path=`` (or, without it, ``REPRO_BACKEND``) asks for the
+    plain versions: how the quantized estimators, whose hot path calls
+    the int8 kernels directly, take the ``ref`` arm."""
+    return (path if path is not None else env_override()) == "ref"
 
 
 def resolve(algorithm: str, op: str, *, path: Optional[str] = None,
@@ -206,6 +228,22 @@ def _knn_ref(a, c, k):
     return ref.distance_topk(a, c, k)
 
 
+def _lattice(operand):
+    """Per-feature scales from the model-side operand's abs-max."""
+    return qk.feature_scales(torch.amax(torch.abs(operand.float()), dim=0))
+
+
+@register("knn", "distance_topk", "quant")
+def _knn_quant(a, c, k):
+    # scales from the REFERENCE rows, never the query batch, so a single
+    # query and a batch share one lattice; exact lattice distances (B6),
+    # dequantized with the mean squared scale
+    scale = _lattice(a)
+    vals, idx = ops.distance_topk_q8(qk.quantize_rows(a, scale),
+                                     qk.quantize_rows(c, scale), k)
+    return vals.to(torch.float32) * torch.mean(scale * scale), idx
+
+
 @selector("knn", "distance_topk")
 def _knn_select(*, N, d, Q, k, policy=None):
     # B1 tiles Q and N itself, so any shape fits except a k longer than
@@ -248,6 +286,15 @@ def _km_ref(a, c):
     return ref.distance_argmin(a, c)
 
 
+@register("kmeans", "distance_argmin", "quant")
+def _km_quant(a, c):
+    # scales from the centroids (B7)
+    scale = _lattice(c)
+    vals, idx = ops.distance_argmin_q8(qk.quantize_rows(a, scale),
+                                       qk.quantize_rows(c, scale))
+    return vals.to(torch.float32) * torch.mean(scale * scale), idx
+
+
 @selector("kmeans", "distance_argmin")
 def _km_select(*, N, d, K, policy=None):
     # B2 stages centroids in tiles, so every (K, d) fits
@@ -278,6 +325,20 @@ def _gnb_blocked(X, mu, var, log_prior):
 @register("gnb", "scores", "ref")
 def _gnb_ref(X, mu, var, log_prior):
     return ref.gnb_scores_batch(X, mu, var, log_prior)
+
+
+def _gauss_lattice(X, mu, var):
+    """int8 features and affine score tables, scales from mu/var."""
+    from repro_torch.core import quantization as cq
+    scale = qk.feature_scales(cq.gauss_absmax(mu.float(), var.float()))
+    quad, lin, const = cq.gauss_score_tables(mu, var, scale)
+    return qk.quantize_rows(X, scale), quad, lin, const
+
+
+@register("gnb", "scores", "quant")
+def _gnb_quant(X, mu, var, log_prior):
+    xq, quad, lin, const = _gauss_lattice(X, mu, var)
+    return qk.affine_scores(xq, quad, lin, const + log_prior)
 
 
 @selector("gnb", "scores")
@@ -322,6 +383,15 @@ def _gmm_blocked(mu, var, log_pi, X, *, n_cores=8):
     return joint - norm, torch.mean(norm[:, 0])
 
 
+@register("gmm", "responsibilities", "quant")
+def _gmm_quant(mu, var, log_pi, X, *, n_cores=8):
+    # the GNB tables with log_pi as the prior, normalised per row
+    xq, quad, lin, const = _gauss_lattice(X, mu, var)
+    joint = qk.affine_scores(xq, quad, lin, const + log_pi)
+    norm = torch.logsumexp(joint, dim=1, keepdim=True)
+    return joint - norm, torch.mean(norm[:, 0])
+
+
 @selector("gmm", "responsibilities")
 def _gmm_select(*, B=0, d=0, k=0, policy=None):
     # the GNB threshold; small d stays on the ref schedule
@@ -352,6 +422,20 @@ def _rf_ref(forest, X, *, depth=None):
     return forest_classify_batch(forest, X, depth=depth)
 
 
+@register("rf", "forest_votes", "quant")
+def _rf_quant(forest, X, *, depth=None):
+    # thresholds and features on one lattice, scales from the thresholds
+    # (the only feature statistics the fitted forest carries); the same
+    # traversal compares int8 against int8
+    from repro_torch.core import quantization as cq
+    from repro_torch.core.random_forest import Forest, forest_classify_batch
+    qf = cq.quantize_forest(forest, d=X.shape[1])
+    int_forest = Forest(feature=qf.feature, threshold=qf.qthreshold,
+                        left=qf.left, right=qf.right, n_class=qf.n_class)
+    return forest_classify_batch(int_forest, qk.quantize_rows(X, qf.scale),
+                                 depth=depth)
+
+
 @selector("rf", "forest_votes")
 def _rf_select(*, policy=None):
     return "ref"
@@ -366,3 +450,37 @@ def forest_votes(forest, X, *, policy: Optional[PrecisionPolicy] = None,
         X = policy.cast(X)
     kp = resolve("rf", "forest_votes", path=path, policy=policy)
     return kp.fn(forest, X, depth=depth)
+
+
+# ---------------------------------------------------------------------------
+# ANN — IVF-PQ asymmetric-distance scoring (B8)
+# ---------------------------------------------------------------------------
+
+
+@register("ann", "adc_topk", "fused")
+def _ann_fused(qlut, codes, cand_ids, k):
+    return ops.adc_topk(qlut, codes, cand_ids, k)
+
+
+@register("ann", "adc_topk", "ref")
+def _ann_ref(qlut, codes, cand_ids, k):
+    return ref.adc_topk(qlut, codes, cand_ids, k)
+
+
+@selector("ann", "adc_topk")
+def _ann_select(*, Q, L, m, n_codes, k, policy=None):
+    # B8 stages the LUT in shared memory where it fits and reads it from
+    # device memory where it does not, so every shape takes the kernel
+    return "fused"
+
+
+def adc_topk(qlut, codes, cand_ids, k: int, *,
+             policy: Optional[PrecisionPolicy] = None,
+             path: Optional[str] = None):
+    """Per-query integer LUTs (Q, m*n_codes), candidate PQ codes (Q, L, m)
+    int8 + ids (Q, L) -> (ADC distances (Q, k) int32, candidate positions
+    (Q, k)).  Integer end to end: no policy cast."""
+    Q, L, m = codes.shape
+    kp = resolve("ann", "adc_topk", path=path, policy=policy, Q=Q, L=L, m=m,
+                 n_codes=qlut.shape[1] // max(m, 1), k=k)
+    return kp.fn(qlut, codes, cand_ids, k)

@@ -15,10 +15,17 @@ multiples (or the GNB padding correction) is needed.
 
 B9 (``gnb_scores``, one query) is B3 launched at B = 1, as ROADMAP B9
 plans; it keeps its own count.
+
+The int8 tier's B6 (``distance_topk_q8``) and B7 (``distance_argmin_q8``)
+and IVF-PQ's B8 (``adc_topk``) take integer tensors and return exact
+integers.  B6 past B1's list length and B8 at every k write an int32
+matrix in chunks of queries and hand it to B5 in its int32 key mode: a
+call then counts its matrix launches under its own name and its
+selections under ``topk_smallest``.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -29,9 +36,13 @@ from repro_torch.kernels.distance_topk import TOPK_K_MAX
 # show that its main path went through the kernels
 LAUNCHES: Dict[str, int] = {"distance_topk": 0, "distance_argmin": 0,
                             "gnb_scores_batch": 0, "pairwise_sq_dist": 0,
-                            "topk_smallest": 0, "gnb_scores": 0}
+                            "topk_smallest": 0, "gnb_scores": 0,
+                            "distance_topk_q8": 0, "distance_argmin_q8": 0,
+                            "adc_topk": 0}
 
 _FLOATS = (torch.float32, torch.bfloat16)
+_INT8 = (torch.int8,)
+_INT32 = (torch.int32,)
 
 
 def reset_launches() -> None:
@@ -40,20 +51,24 @@ def reset_launches() -> None:
 
 
 def _check(op: str, rows: Tuple[str, ...] = (),
+           types: Optional[Dict[str, Tuple[torch.dtype, ...]]] = None,
            **tensors: Tuple[torch.Tensor, int]) -> torch.device:
-    """Each argument is (tensor, ndim); all on one device, float32/bf16,
-    contiguous.  The arguments named in ``rows`` need only contiguous
-    rows (any row stride).  Returns the device."""
+    """Each argument is (tensor, ndim); all on one device, contiguous, of
+    the dtypes ``types`` names for it (float32/bf16 where it names none).
+    The arguments named in ``rows`` need only contiguous rows (any row
+    stride).  Returns the device."""
     device = None
+    types = types or {}
     for name, (t, ndim) in tensors.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{op}: {name} must be a torch.Tensor")
         if t.ndim != ndim:
             raise ValueError(f"{op}: {name} must be {ndim}-D, got "
                              f"{tuple(t.shape)}")
-        if t.dtype not in _FLOATS:
-            raise TypeError(f"{op}: {name} has dtype {t.dtype}; float32 or "
-                            "bfloat16 expected")
+        allowed = types.get(name, _FLOATS)
+        if t.dtype not in allowed:
+            raise TypeError(f"{op}: {name} has dtype {t.dtype}; one of "
+                            f"{[str(a) for a in allowed]} expected")
         if name in rows:
             if (t.shape[1] > 1 and t.stride(1) != 1) or \
                     (t.shape[0] > 1 and t.stride(0) < t.shape[1]):
@@ -151,11 +166,14 @@ def pairwise_sq_dist(a: torch.Tensor, c: torch.Tensor, *,
 
 def topk_smallest(x: torch.Tensor, k: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (R, n) -> the k smallest of each row as (values (R, k) f32,
-    indices (R, k) int32): ascending, ties to the first index, NaN after
-    every number, indices distinct.  Any 1 <= k <= n.  x needs contiguous
-    rows only, so a transposed column-major matrix goes in as it is."""
-    dev = _check("topk_smallest", rows=("x",), x=(x, 2))
+    """x (R, n) -> the k smallest of each row as (values (R, k), indices
+    (R, k) int32): ascending, ties to the first index, NaN after every
+    number, indices distinct.  Any 1 <= k <= n.  x needs contiguous rows
+    only, so a transposed column-major matrix goes in as it is.  Float
+    rows give f32 values; int32 rows take the int32 key mode and give
+    int32 values."""
+    dev = _check("topk_smallest", rows=("x",),
+                 types={"x": _FLOATS + _INT32}, x=(x, 2))
     R, n = x.shape
     if R < 1 or not 1 <= k <= n:
         raise ValueError(f"topk_smallest: k={k} outside [1, n={n}] or no "
@@ -163,7 +181,7 @@ def topk_smallest(x: torch.Tensor, k: int
     if dev.type == "cpu":
         return ref.topk_smallest(x, k)
     from repro_torch.kernels import topk_select as _ts
-    out = _ts.launch(x.float(), k)
+    out = _ts.launch(x if x.dtype == torch.int32 else x.float(), k)
     LAUNCHES["topk_smallest"] += 1
     return out
 
@@ -186,3 +204,92 @@ def gnb_scores(x: torch.Tensor, mu: torch.Tensor, var: torch.Tensor,
                                   log_prior.float())[0]
     LAUNCHES["gnb_scores"] += 1
     return out
+
+
+def _matrix_topk(matrix, Q: int, n: int, k: int, name: str):
+    """Rows of a per-chunk int32 (chunk, n) matrix -> B5's k smallest, the
+    queries taken in chunks whose matrix stays under the blocked arm's
+    byte budget (``dispatch.BLOCKED_BYTES``).  ``matrix(lo, hi)`` launches
+    one chunk's kernel, counted under ``name``."""
+    from repro_torch.kernels.dispatch import BLOCKED_BYTES
+    step = max(1, BLOCKED_BYTES // (4 * n))
+    parts = []
+    for lo in range(0, Q, step):
+        e = matrix(lo, min(Q, lo + step))
+        LAUNCHES[name] += 1
+        parts.append(topk_smallest(e, k))
+        del e
+    if len(parts) == 1:
+        return parts[0]
+    return (torch.cat([v for v, _ in parts]),
+            torch.cat([i for _, i in parts]))
+
+
+def distance_topk_q8(a: torch.Tensor, c: torch.Tensor, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 rows A (N, d), int8 queries C (Q, d) -> the k nearest rows per
+    query: (exact lattice distances (Q, k) int32, rows (Q, k) int32),
+    ascending, ties to the smallest row.  Any 1 <= k <= N; d <= 832."""
+    dev = _check("distance_topk_q8", types={"a": _INT8, "c": _INT8},
+                 a=(a, 2), c=(c, 2))
+    N, d = a.shape
+    if c.shape[1] != d or c.shape[0] < 1:
+        raise ValueError(f"distance_topk_q8: a is {tuple(a.shape)}, c is "
+                         f"{tuple(c.shape)}")
+    from repro_torch.kernels import quantized as _q
+    _q.check_width(d, "distance_topk_q8")
+    if not 1 <= k <= N:
+        raise ValueError(f"distance_topk_q8: k={k} outside [1, N={N}]")
+    if dev.type == "cpu":
+        return ref.distance_topk_q8(a, c, k)
+    if k <= TOPK_K_MAX:
+        out = _q.launch_topk(a, c, k)
+        LAUNCHES["distance_topk_q8"] += 1
+        return out
+    return _matrix_topk(lambda lo, hi: _q.launch_dist(a, c[lo:hi]),
+                        c.shape[0], N, k, "distance_topk_q8")
+
+
+def distance_argmin_q8(a: torch.Tensor, c: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 rows A (N, d), int8 centroids C (K, d) -> (exact lattice
+    distance (N,) int32, nearest centroid (N,) int32), first index on
+    ties; d <= 832."""
+    dev = _check("distance_argmin_q8", types={"a": _INT8, "c": _INT8},
+                 a=(a, 2), c=(c, 2))
+    if c.shape[1] != a.shape[1] or a.shape[0] < 1 or c.shape[0] < 1:
+        raise ValueError(f"distance_argmin_q8: a is {tuple(a.shape)}, c is "
+                         f"{tuple(c.shape)}")
+    from repro_torch.kernels import quantized as _q
+    _q.check_width(a.shape[1], "distance_argmin_q8")
+    if dev.type == "cpu":
+        return ref.distance_argmin_q8(a, c)
+    out = _q.launch_argmin(a, c)
+    LAUNCHES["distance_argmin_q8"] += 1
+    return out
+
+
+def adc_topk(qlut: torch.Tensor, codes: torch.Tensor,
+             cand_ids: torch.Tensor, k: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-query LUTs (Q, m*n_codes) int32, candidate PQ codes (Q, L, m)
+    int8 (stored code - 128), candidate ids (Q, L) int32 (< 0 = invalid)
+    -> (ADC distances (Q, k) int32, candidate positions (Q, k) int32 into
+    the L axis), ascending, ties to the smallest position.  Any
+    1 <= k <= L."""
+    dev = _check("adc_topk", types={"qlut": _INT32, "codes": _INT8,
+                                    "cand_ids": _INT32},
+                 qlut=(qlut, 2), codes=(codes, 3), cand_ids=(cand_ids, 2))
+    Q, L, m = codes.shape
+    if Q < 1 or L < 1 or m < 1 or cand_ids.shape != (Q, L) or \
+            qlut.shape[0] != Q or qlut.shape[1] % m or qlut.shape[1] < m:
+        raise ValueError(f"adc_topk: qlut {tuple(qlut.shape)}, codes "
+                         f"{tuple(codes.shape)}, cand_ids "
+                         f"{tuple(cand_ids.shape)}")
+    if not 1 <= k <= L:
+        raise ValueError(f"adc_topk: k={k} outside [1, L={L}]")
+    if dev.type == "cpu":
+        return ref.adc_topk(qlut, codes, cand_ids, k)
+    from repro_torch.kernels import ann as _ann
+    return _matrix_topk(lambda lo, hi: _ann.launch_dist(
+        qlut[lo:hi], codes[lo:hi], cand_ids[lo:hi]), Q, L, k, "adc_topk")

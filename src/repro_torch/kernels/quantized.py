@@ -1,0 +1,154 @@
+"""The int8 lattice: its helpers, the GNB/GMM affine scores, and the
+launchers of the CUDA kernels B6 (distance -> top-k) and B7 (distance ->
+argmin) in ``csrc/quantized.cu``.
+
+Counterpart of the JAX package's ``kernels/quantized.py``.  Features are
+stored as int8 on a per-feature symmetric lattice (``quantize_rows``) and
+distances are exact int32 lattice integers.  ``_MAX_D``, ``dist_span`` and
+``packed_rows_limit`` are the reference's API contract: d > 832 raises.
+The launchers take int8, contiguous CUDA tensors that ``kernels/ops.py``
+has already checked, allocate outputs and scratch with ``torch.empty``,
+and launch on the current stream without synchronising.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.distance_topk import TOPK_K_MAX, split_rows
+
+_QMAX = 127                     # symmetric int8 lattice: values in [-127, 127]
+# the reference's supported feature count: its packed selection key
+# dist * bn + lane must fit int32 at the minimum 32-row block
+_MAX_D = 832
+
+
+def feature_scales(absmax, eps: float = 1e-12) -> torch.Tensor:
+    """Per-feature symmetric scale from a (d,) abs-max calibration
+    vector."""
+    absmax = torch.as_tensor(absmax, dtype=torch.float32)
+    return torch.clamp(absmax, min=eps) / float(_QMAX)
+
+
+def quantize_rows(X: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """(..., d) float features -> int8 rows on the per-feature lattice;
+    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    q = torch.round(X.to(torch.float32) / scale)
+    return torch.clamp(q, -_QMAX, _QMAX).to(torch.int8)
+
+
+def dequantize_rows(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+def lattice_sq_norms(q: torch.Tensor) -> torch.Tensor:
+    """(N, d) int8 -> (N,) int32 exact squared lattice norms."""
+    qi = q.to(torch.int32)
+    return torch.sum(qi * qi, dim=1, dtype=torch.int32)
+
+
+def dist_span(d: int) -> int:
+    """The reference's exclusive bound of its offset partial lattice
+    distance ``an - 2*cross + 2*d*127^2``."""
+    return 5 * d * _QMAX * _QMAX + 2
+
+
+def packed_rows_limit(d: int) -> int:
+    """The reference's largest block ``bn`` whose packed key ``dist * bn +
+    lane`` fits int32."""
+    return (2 ** 31 - 1) // dist_span(d)
+
+
+def check_width(d: int, what: str) -> None:
+    if d > _MAX_D:
+        raise ValueError(f"{what} supports d <= {_MAX_D} (the int32 packed "
+                         f"selection key of the reference), got d={d}")
+
+
+def affine_scores(xq: torch.Tensor, quad: torch.Tensor, lin: torch.Tensor,
+                  const: torch.Tensor) -> torch.Tensor:
+    """int8 features (B, d) against fp32 per-class affine score tables:
+    ``score[b, c] = sum_f quad[c, f]*xq^2 + lin[c, f]*xq + const[c]``.
+    Two fp32 matmuls over exactly representable integer features, as in
+    the reference (not a kernel there either); TF32 stays off
+    (``kernels/ref.py``)."""
+    xf = xq.to(torch.float32)
+    return (xf * xf) @ quad.T + xf @ lin.T + const[None, :]
+
+
+# ---------------------------------------------------------------------------
+# Launchers
+# ---------------------------------------------------------------------------
+
+_STEM = "quantized"
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_fns = {}
+
+
+def _fn(name: str, argtypes):
+    if name not in _fns:
+        for const, want in (("q8_topk_k_max", TOPK_K_MAX),
+                            ("q8_lists_per_split", 8),
+                            ("q8_tile_rows", 64), ("q8_max_d", _MAX_D)):
+            got = _build.bind(_STEM, const, [])()
+            if got != want:
+                raise RuntimeError(f"{const}() = {got} in the built "
+                                   f"library, the wrapper expects {want}")
+        _fns[name] = _build.bind(_STEM, name, argtypes)
+    return _fns[name]
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def launch_topk(a: torch.Tensor, c: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B6, k <= TOPK_K_MAX: a (N, d), c (Q, d) int8 on the card -> (lattice
+    distances (Q, k) int32, rows (Q, k) int32), ascending by (distance,
+    row)."""
+    fn = _fn("distance_topk_q8", [_P] * 6 + [_I] * 6 + [_P])
+    N, d = a.shape
+    Q = c.shape[0]
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    n_splits, rows_per_split = split_rows(N, Q, sms)
+    n_cand = n_splits * 8 * k
+    part_v = torch.empty((Q, n_cand), dtype=torch.int32, device=a.device)
+    part_i = torch.empty((Q, n_cand), dtype=torch.int32, device=a.device)
+    vals = torch.empty((Q, k), dtype=torch.int32, device=a.device)
+    idx = torch.empty((Q, k), dtype=torch.int32, device=a.device)
+    err = fn(a.data_ptr(), c.data_ptr(), part_v.data_ptr(),
+             part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+             N, Q, d, k, n_splits, rows_per_split, _stream())
+    _build.check(_STEM, err, f"distance_topk_q8 N={N} Q={Q} d={d} k={k}")
+    return vals, idx
+
+
+def launch_dist(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """B6's matrix mode: a (N, d), c (Q, d) int8 on the card -> the (Q, N)
+    int32 lattice distances, one query per row."""
+    fn = _fn("dist_matrix_q8", [_P] * 3 + [_I] * 3 + [_P])
+    N, d = a.shape
+    Q = c.shape[0]
+    out = torch.empty((Q, N), dtype=torch.int32, device=a.device)
+    err = fn(a.data_ptr(), c.data_ptr(), out.data_ptr(), N, Q, d, _stream())
+    _build.check(_STEM, err, f"dist_matrix_q8 N={N} Q={Q} d={d}")
+    return out
+
+
+def launch_argmin(a: torch.Tensor, c: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B7: a (N, d), c (K, d) int8 on the card -> (lattice distance (N,)
+    int32, nearest centroid (N,) int32), first index on ties."""
+    fn = _fn("distance_argmin_q8", [_P] * 4 + [_I] * 3 + [_P])
+    N, d = a.shape
+    K = c.shape[0]
+    vals = torch.empty((N,), dtype=torch.int32, device=a.device)
+    idx = torch.empty((N,), dtype=torch.int32, device=a.device)
+    err = fn(a.data_ptr(), c.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+             N, K, d, _stream())
+    _build.check(_STEM, err, f"distance_argmin_q8 N={N} K={K} d={d}")
+    return vals, idx

@@ -3,7 +3,9 @@ for CPU tensors, and the yardstick a kernel is held against on the card.
 
 The arithmetic follows the JAX package's ``kernels/ref.py`` term for term
 (same expansion, same operand order, fp32 accumulation); bf16 inputs are
-upcast to fp32 first, as the Pallas kernels do inside.
+upcast to fp32 first, as the Pallas kernels do inside.  The int8 lattice
+and ADC versions (the oracles of ``kernels/quantized.py`` and
+``kernels/ann.py`` there) compute exact integers on both devices.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import math
 import torch
 
 from repro_torch.core.topk import topk_smallest_stable
+from repro_torch.kernels.ann import adc_dmax
 
 # A float32 matmul (or convolution) on the card may otherwise run in TF32,
 # which keeps about three decimal digits: the plain versions must stay full
@@ -34,11 +37,14 @@ def pairwise_sq_dist(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 def topk_smallest(x: torch.Tensor, k: int):
-    """(R, n) -> the k smallest of each row as (values (R, k) f32, indices
+    """(R, n) -> the k smallest of each row as (values (R, k), indices
     (R, k) int32): ascending, ties to the first index, NaN after every
     number, indices always distinct (the ``lax.top_k`` rule of the JAX
-    package's oracle)."""
-    return topk_smallest_stable(x.to(torch.float32), k, dim=1)
+    package's oracle).  Values are f32, or int32 for int32 rows (B5's
+    int32 key mode)."""
+    if x.dtype != torch.int32:
+        x = x.to(torch.float32)
+    return topk_smallest_stable(x, k, dim=1)
 
 
 def distance_topk(a: torch.Tensor, c: torch.Tensor, k: int):
@@ -73,3 +79,54 @@ def gnb_scores_batch(X: torch.Tensor, mu: torch.Tensor, var: torch.Tensor,
     t = -0.5 * ((X[:, None, :] - mu[None]) ** 2 / var[None]
                 + torch.log(var)[None] + _LOG2PI)
     return torch.sum(t, dim=2) + log_prior.to(torch.float32)[None, :]
+
+
+# ---------------------------------------------------------------------------
+# int8 lattice (B6, B7) and IVF-PQ ADC (B8)
+# ---------------------------------------------------------------------------
+
+
+def _lattice_dist(a8: torch.Tensor, c8: torch.Tensor) -> torch.Tensor:
+    """(N, d), (Q, d) int8 -> (Q, N) int32 exact lattice distances
+    ``‖a‖² − 2a·c + ‖c‖²``.  ``torch.matmul`` has no int32 kernel on the
+    card, so the terms are formed in float64, which holds every one of
+    them exactly (|a·c| <= d·127² < 2^53), and cast back."""
+    a = a8.to(torch.float64)
+    c = c8.to(torch.float64)
+    an = torch.sum(a * a, dim=1)[None, :]
+    cn = torch.sum(c * c, dim=1)[:, None]
+    return (an - 2.0 * (c @ a.T) + cn).to(torch.int32)
+
+
+def distance_topk_q8(a8: torch.Tensor, c8: torch.Tensor, k: int):
+    """int8 rows (N, d), int8 queries (Q, d) -> the k nearest rows per
+    query as (lattice distances (Q, k) int32, rows (Q, k) int32),
+    ascending, ties to the smallest row."""
+    return topk_smallest_stable(_lattice_dist(a8, c8), k, dim=1)
+
+
+def distance_argmin_q8(a8: torch.Tensor, c8: torch.Tensor):
+    """int8 rows (N, d), int8 centroids (K, d) -> (lattice distance (N,)
+    int32, nearest centroid (N,) int32), first index on ties."""
+    e = _lattice_dist(c8, a8)                     # (N, K)
+    idx = torch.argmin(e, dim=1)
+    return e.gather(1, idx[:, None])[:, 0], idx.to(torch.int32)
+
+
+def adc_topk(qlut: torch.Tensor, codes: torch.Tensor,
+             cand_ids: torch.Tensor, k: int):
+    """Per-query LUTs (Q, m*n_codes) int32, candidate codes (Q, L, m) int8
+    (stored code - 128), candidate ids (Q, L) int32 -> (ADC distances
+    (Q, k) int32, candidate positions (Q, k) int32): the sum of each
+    candidate's m LUT entries, ``adc_dmax(m)`` where the id is negative,
+    ascending, ties to the smallest position.  One gather per subspace
+    keeps the index tensors at (Q, L)."""
+    Q, L, m = codes.shape
+    n_codes = qlut.shape[1] // m
+    lut = qlut.to(torch.int32)
+    dist = torch.zeros((Q, L), dtype=torch.int32, device=codes.device)
+    for j in range(m):
+        col = codes[:, :, j].to(torch.int64) + (128 + j * n_codes)
+        dist += torch.gather(lut, 1, col)
+    dist = torch.where(cand_ids < 0, adc_dmax(m), dist)
+    return topk_smallest_stable(dist, k, dim=1)

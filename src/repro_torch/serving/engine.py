@@ -5,11 +5,13 @@
 estimator's registry-dispatched batch path once per bucket; batches past
 ``max_batch`` are split.  ``KNNServeEngine`` is the kNN facade.
 
-Counterpart of the JAX package's ``serving/engine.py``, single device and
-fp32/bf16 only.  JAX compiles one executable per bucket; here a bucket's
-first call loads the CUDA kernels (built at first use), so warmup touches
-every bucket shape before any timed call.  ``bucket_launches`` counts
-production launches per bucket and never warmup.
+Counterpart of the JAX package's ``serving/engine.py``, single device.
+``policy="int8"`` serves an engine-local ``quantized_copy`` of the
+estimator (the caller's stays as it is) and fills ``quant_report``.  JAX
+compiles one executable per bucket; here a bucket's first call loads the
+CUDA kernels (built at first use), so warmup touches every bucket shape
+before any timed call.  ``bucket_launches`` counts production launches
+per bucket and never warmup.
 """
 from __future__ import annotations
 
@@ -50,9 +52,6 @@ class NonNeuralServeEngine:
                  device: DeviceLike = None, policy: Optional[str] = None,
                  mesh=None, sharded: bool = False,
                  strategy: Optional[str] = None):
-        if policy is not None and str(policy).split("@")[0] == "int8":
-            raise NotImplementedError(
-                "the int8 serving tier is not ported yet (ROADMAP A9)")
         if mesh is not None or sharded or strategy not in (None, "single"):
             raise NotImplementedError(
                 "sharded serving is not ported yet (ROADMAP A15)")
@@ -62,6 +61,22 @@ class NonNeuralServeEngine:
         if estimator.device != self.device:
             raise ValueError(f"estimator lives on {estimator.device}, the "
                              f"engine on {self.device}")
+        self.quant_report: Optional[Dict[str, int]] = None
+        if policy is not None and str(policy).split("@")[0] == "int8":
+            # quantize into an engine-local copy: quantize() would rewrite
+            # the caller's params under any other engine sharing them.  A
+            # fit under the int8 policy arrives quantized and passes through
+            from repro_torch.serving import quant as _q
+            if estimator.quantized:
+                fp32 = estimator.dequantize_params()
+            else:
+                fp32 = estimator.params
+                estimator = estimator.quantized_copy()
+            self.quant_report = {
+                "bytes_int8": _q.param_bytes(estimator.params),
+                "bytes_fp32": _q.param_bytes(fp32),
+                "bytes_predicted": _q.quant_bytes(fp32, min_size=1),
+            }
         self.estimator = estimator
         self.algorithm = estimator.algorithm
         self.max_batch = int(max_batch)

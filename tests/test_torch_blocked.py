@@ -157,8 +157,11 @@ def test_topk_validates_k():
     for bad in (0, 6):
         with pytest.raises(ValueError, match="outside"):
             tops.topk_smallest(x, bad)
-    with pytest.raises(TypeError):
-        tops.topk_smallest(x.to(torch.int32), 2)
+    # int32 rows take B5's int32 key mode; other integer types raise
+    assert tops.topk_smallest(x.to(torch.int32), 2)[0].dtype == torch.int32
+    for dtype in (torch.int64, torch.int8):
+        with pytest.raises(TypeError):
+            tops.topk_smallest(x.to(dtype), 2)
 
 
 # ------------------------------------------------------------------ B9

@@ -180,11 +180,12 @@ def test_gnb_classify_batch_matches_jax(d):
 
 def test_registered_arms():
     assert tdispatch.registered() == {
-        ("gmm", "responsibilities"): ("blocked", "ref"),
-        ("gnb", "scores"): ("blocked", "ref"),
-        ("kmeans", "distance_argmin"): ("fused", "blocked", "ref"),
-        ("knn", "distance_topk"): ("fused", "blocked", "ref"),
-        ("rf", "forest_votes"): ("ref",),
+        ("ann", "adc_topk"): ("fused", "ref"),
+        ("gmm", "responsibilities"): ("blocked", "ref", "quant"),
+        ("gnb", "scores"): ("blocked", "ref", "quant"),
+        ("kmeans", "distance_argmin"): ("fused", "blocked", "ref", "quant"),
+        ("knn", "distance_topk"): ("fused", "blocked", "ref", "quant"),
+        ("rf", "forest_votes"): ("ref", "quant"),
     }
     # every arm the port registers, the reference registers too
     jreg = jdispatch.registered()
@@ -200,6 +201,7 @@ def test_registered_arms():
     ("gmm", "responsibilities", dict(B=8, d=784, k=10)),
     ("gmm", "responsibilities", dict(B=8, d=21, k=3)),
     ("rf", "forest_votes", dict()),
+    ("ann", "adc_topk", dict(Q=8, L=64, m=4, n_codes=16, k=4)),
 ])
 def test_selectors_agree_with_jax(algo, op, kw):
     assert tdispatch.resolve(algo, op, **kw).name == \
@@ -233,11 +235,23 @@ def test_resolve_precedence(monkeypatch):
     monkeypatch.setenv(tdispatch.ENV_VAR, "fused")
     assert tdispatch.resolve("gmm", "responsibilities", B=8, d=4,
                              k=2).name == "ref"
-    # a typo, or the int8 tier this package has no arm for, raises
-    for bad in ("fsued", "quant"):
-        monkeypatch.setenv(tdispatch.ENV_VAR, bad)
-        with pytest.raises(ValueError, match=bad):
-            tdispatch.resolve("knn", "distance_topk", **kw)
+    # REPRO_BACKEND=quant forces the int8 arm of every op that has one;
+    # ANN's ADC op has none and falls through to its selector
+    monkeypatch.setenv(tdispatch.ENV_VAR, "quant")
+    for algo, op, skw in (("knn", "distance_topk", kw),
+                          ("kmeans", "distance_argmin",
+                           dict(N=8, d=21, K=4)),
+                          ("gnb", "scores", dict(B=8, d=784, C=10)),
+                          ("gmm", "responsibilities", dict(B=8, d=4, k=2)),
+                          ("rf", "forest_votes", {})):
+        assert tdispatch.resolve(algo, op, **skw).name == "quant"
+        assert jdispatch.resolve(algo, op, **skw).name == "quant"
+    assert tdispatch.resolve("ann", "adc_topk", Q=8, L=64, m=4, n_codes=16,
+                             k=4).name == "fused"
+    # a typo raises rather than running the default arms
+    monkeypatch.setenv(tdispatch.ENV_VAR, "fsued")
+    with pytest.raises(ValueError, match="fsued"):
+        tdispatch.resolve("knn", "distance_topk", **kw)
     monkeypatch.delenv(tdispatch.ENV_VAR)
     assert tdispatch.resolve("knn", "distance_topk", path="blocked",
                              **kw).name == "blocked"
@@ -282,29 +296,35 @@ def test_policies_and_hot_shapes():
     assert tdispatch.POLICIES["fp32"].dtype == torch.float32
     assert tdispatch.POLICIES["bf16"].dtype == torch.bfloat16
     assert tdispatch.get_policy("bf16") is tdispatch.POLICIES["bf16"]
-    with pytest.raises(NotImplementedError, match="int8"):
-        tdispatch.get_policy("int8")
+    # the int8 tier: fp32 at the API, quantized params behind it
+    int8 = tdispatch.get_policy("int8")
+    assert int8.quantized and int8.dtype == torch.float32
+    assert jdispatch.get_policy("int8").quantized
+    assert not any(tdispatch.get_policy(n).quantized for n in ("fp32",
+                                                               "bf16"))
+    assert int8.cast(torch.ones(2)).dtype == torch.float32
     with pytest.raises(KeyError):
         tdispatch.get_policy("fp16")
     ints = torch.arange(3, dtype=torch.int32)
     assert tdispatch.POLICIES["bf16"].cast(ints) is ints
     assert tdispatch.POLICIES["bf16"].cast(
         torch.ones(2)).dtype == torch.bfloat16
-    assert tdispatch.HOT_OPS == {a: jdispatch.HOT_OPS[a]
-                                 for a in ("knn", "kmeans", "gnb", "gmm",
-                                           "rf")}
+    assert tdispatch.HOT_OPS == jdispatch.HOT_OPS
     shapes = {"knn": {"N": 100, "d": 21, "k": 4},
               "kmeans": {"K": 8, "d": 21}, "gnb": {"C": 3, "d": 70},
-              "gmm": {"K": 4, "d": 70}, "rf": {"T": 16, "depth": 8, "C": 3}}
+              "gmm": {"K": 4, "d": 70}, "rf": {"T": 16, "depth": 8, "C": 3},
+              "ann": {"C": 16, "d": 21, "m": 21, "n_codes": 256,
+                      "L": 4096, "k": 10, "R": 128}}
     for algo, s in shapes.items():
         assert tdispatch.hot_shape_kw(algo, s, 16) == \
             jdispatch.hot_shape_kw(algo, s, 16)
 
 
 def test_unported_algorithms_raise():
-    with pytest.raises(KeyError, match="not yet ported"):
-        port_est.make_estimator("ann", device="cpu")
+    # ANN is ported: make_estimator builds it, as the reference's does
+    ann = port_est.make_estimator("ann", device="cpu", k=3)
+    assert isinstance(ann, port_est.ANNKNNEstimator) and ann.k == 3
     with pytest.raises(KeyError, match="unknown"):
         port_est.make_estimator("svm", device="cpu")
-    assert sorted(port_est.ESTIMATORS) == ["gmm", "gnb", "kmeans", "knn",
-                                           "rf"]
+    assert sorted(port_est.ESTIMATORS) == ["ann", "gmm", "gnb", "kmeans",
+                                           "knn", "rf"]

@@ -18,7 +18,10 @@ for name in names:
     importlib.import_module(name)
 want = {"repro_torch.launch.serve", "repro_torch.core.gmm",
         "repro_torch.core.random_forest", "repro_torch.kernels.topk_select",
-        "repro_torch.kernels.pairwise_sq_dist"}
+        "repro_torch.kernels.pairwise_sq_dist",
+        "repro_torch.kernels.quantized", "repro_torch.kernels.ann",
+        "repro_torch.core.quantization", "repro_torch.core.ann",
+        "repro_torch.serving.quant"}
 assert want <= set(names), sorted(want - set(names))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))

@@ -271,7 +271,9 @@ def test_device_tensors_launch_and_never_reach_plain(monkeypatch):
     assert tops.gnb_scores_batch(*_t(*_gnb_inputs(0, 2, 4, 3))) == "launched"
     assert tops.LAUNCHES == {"distance_topk": 1, "distance_argmin": 1,
                              "gnb_scores_batch": 1, "pairwise_sq_dist": 0,
-                             "topk_smallest": 0, "gnb_scores": 0}
+                             "topk_smallest": 0, "gnb_scores": 0,
+                             "distance_topk_q8": 0, "distance_argmin_q8": 0,
+                             "adc_topk": 0}
     assert [n for n, _ in calls] == ["topk", "argmin", "gnb"]
     assert all(dt == torch.float32 for _, dts in calls for dt in dts)
 

@@ -150,8 +150,14 @@ def test_knn_facade_and_result_alias():
 def test_engine_rejects_unported_options():
     X, y, _, _ = _data("kmeans")
     est = port_est.make_fitted("kmeans", X, y, device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        NonNeuralServeEngine(est, device="cpu", policy="int8")
+    # the int8 tier is ported: the engine serves a quantized copy and
+    # leaves the caller's estimator fp32
+    int8 = NonNeuralServeEngine(est, device="cpu", policy="int8")
+    assert int8.estimator.quantized and not est.quantized
+    assert set(int8.quant_report) == {"bytes_int8", "bytes_fp32",
+                                      "bytes_predicted"}
+    assert torch.equal(int8.classify(X[:5]).classes,
+                       est.quantized_copy().predict_batch(X[:5])[0])
     with pytest.raises(NotImplementedError, match="sharded"):
         NonNeuralServeEngine(est, device="cpu", mesh=object())
     engine = NonNeuralServeEngine(est, device="cpu")
