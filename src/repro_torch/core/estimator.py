@@ -73,7 +73,8 @@ class _EstimatorBase:
     @property
     def quantized(self) -> bool:
         """True once the params are their int8 lattice form: the hot path
-        then runs the int8 kernels whatever ``path`` says (but ``ref``)."""
+        then runs the int8 kernels, or their plain versions under
+        ``path="ref"``, whatever other arm ``path`` names."""
         return self._params is not None and \
             _quant.is_quantized_params(self._params)
 
