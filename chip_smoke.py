@@ -514,30 +514,46 @@ def main() -> int:
             edges += 1
     print("[edge] B6 and B7 at d = 833 raise ValueError")
 
-    def adc_inputs(Q, L, m, n_codes, invalid=0.2, lut_hi=256):
+    def adc_inputs(Q, L, m, n_codes, invalid=0.2, lut_hi=256, code_hi=None):
         lut = torch.randint(0, lut_hi, (Q, m * n_codes), generator=gen,
                             dtype=torch.int32)
-        codes = (torch.randint(0, n_codes, (Q, L, m), generator=gen)
-                 - 128).to(torch.int8)
+        codes = (torch.randint(0, code_hi or n_codes, (Q, L, m),
+                               generator=gen) - 128).to(torch.int8)
         ids = torch.randint(0, 1 << 20, (Q, L), generator=gen,
                             dtype=torch.int32)
         ids[torch.rand((Q, L), generator=gen) < invalid] = -1
         return lut.to(dev), codes.to(dev).contiguous(), ids.to(dev)
 
     from repro_torch.kernels import ann as kann
-    for Q, L, m, n_codes, k, invalid, lut_hi in [
-            (5, 1000, 21, 256, 1, 0.2, 256), (5, 1000, 21, 256, 10, 0.2, 256),
-            (5, 1000, 21, 256, 1000, 0.2, 256), (3, 777, 4, 16, 33, 0.2, 3),
-            (3, 100, 7, 256, 50, 1.0, 256), (2, 300, 256, 256, 20, 0.2, 256),
-            (4, 1001, 3, 256, 128, 0.9, 256), (1, 1, 1, 1, 1, 0.0, 256)]:
-        lut, codes, ids = adc_inputs(Q, L, m, n_codes, invalid, lut_hi)
+    # the last three hold codes past n_codes - 1 (both sides clamp them)
+    # and padding in contiguous runs, as in a ragged cell list, the last
+    # one over several blocks' spans of a query with a ragged end
+    for Q, L, m, n_codes, k, invalid, lut_hi, code_hi in [
+            (5, 1000, 21, 256, 1, 0.2, 256, None),
+            (5, 1000, 21, 256, 10, 0.2, 256, None),
+            (5, 1000, 21, 256, 1000, 0.2, 256, None),
+            (3, 777, 4, 16, 33, 0.2, 3, None),
+            (3, 100, 7, 256, 50, 1.0, 256, None),
+            (2, 300, 256, 256, 20, 0.2, 256, None),
+            (4, 1001, 3, 256, 128, 0.9, 256, None),
+            (1, 1, 1, 1, 1, 0.0, 256, None),
+            (3, 777, 5, 16, 40, 0.2, 256, 256),
+            (4, 4096, 21, 256, 128, "runs", 256, None),
+            (2, 20001, 7, 256, 300, "runs", 256, None)]:
+        lut, codes, ids = adc_inputs(Q, L, m, n_codes,
+                                     0.0 if invalid == "runs" else invalid,
+                                     lut_hi, code_hi)
+        if invalid == "runs":
+            # cells of capacity 1024, each with a padded tail
+            for c in range(L // 1024):
+                ids[:, c * 1024 + 100 * (c % 9 + 1):(c + 1) * 1024] = -1
         equal_case(f"B8 Q={Q} L={L} m={m} k={k}",
                    ops.adc_topk(lut, codes, ids, k),
                    ref.adc_topk(lut, codes, ids, k))
         where = "shared" if kann.lut_in_smem(m, n_codes) else "device"
         print(f"[edge] B8 Q={Q} L={L} m={m} n_codes={n_codes} k={k} "
-              f"invalid={invalid} LUT in {where} memory: distances and "
-              "positions equal")
+              f"invalid={invalid} codes<{code_hi or n_codes} LUT in {where} "
+              "memory: distances and positions equal")
         edges += 1
     print(f"[edge] {edges} ragged and tied cases agree with the plain "
           "versions")
@@ -1261,10 +1277,13 @@ def main() -> int:
         return torch.topk(torch.where(cand < 0, adc_dmax(m), e), want,
                           dim=1, largest=False)
 
-    # bytes: codes and ids of every candidate, the LUTs, the output; ops:
-    # one add per looked-up entry, at the fp32 rate of the CUDA cores
-    b, by = bound_ms(Q * L * m, Q * L * m + 4 * Q * L + 4 * qlut.numel()
-                     + 8 * Q * want, peaks)
+    # bytes: the ids of every candidate, the codes of the valid ones (a
+    # padding slot's distance is the sentinel, known from its id), the
+    # LUTs, the output; ops: one add per looked-up entry of a valid
+    # candidate, at the fp32 rate of the CUDA cores
+    n_valid = int((cand >= 0).sum())
+    b, by = bound_ms(n_valid * m, n_valid * m + 4 * Q * L
+                     + 4 * qlut.numel() + 8 * Q * want, peaks)
     kernels["B8"] = dict(
         name="adc_topk", route="cuda",
         source="src/repro_torch/kernels/csrc/adc_topk.cu",

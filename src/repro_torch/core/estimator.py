@@ -43,7 +43,7 @@ from repro_torch.kernels.dispatch import PrecisionPolicy
 def _q8(path: Optional[str]):
     """The int8 kernels' wrappers, or their plain versions where ``path``
     (or ``REPRO_BACKEND``) asks for ``ref``."""
-    return _ref if dispatch.plain_requested(path) else _ops
+    return _ref if dispatch.requested(path) == "ref" else _ops
 
 
 class _EstimatorBase:

@@ -161,11 +161,11 @@ def env_override() -> Optional[str]:
     return v
 
 
-def plain_requested(path: Optional[str]) -> bool:
-    """Whether ``path=`` (or, without it, ``REPRO_BACKEND``) asks for the
-    plain versions: how the quantized estimators, whose hot path calls
-    the int8 kernels directly, take the ``ref`` arm."""
-    return (path if path is not None else env_override()) == "ref"
+def requested(path: Optional[str]) -> Optional[str]:
+    """The arm the caller asks for: explicit ``path=`` over
+    ``REPRO_BACKEND``, or None.  ``resolve`` and the quantized estimators'
+    hot paths, which call the int8 kernels directly, both read it."""
+    return path if path is not None else env_override()
 
 
 def resolve(algorithm: str, op: str, *, path: Optional[str] = None,
@@ -178,18 +178,12 @@ def resolve(algorithm: str, op: str, *, path: Optional[str] = None,
         raise KeyError(f"no kernel registered for {key}; "
                        f"known: {sorted(_PATHS)}")
     paths = _PATHS[key]
-    if path is not None:
-        if path not in paths:
-            raise KeyError(f"{key} has no {path!r} path "
-                           f"(has {sorted(paths)})")
-        chosen = path
-    else:
-        env = env_override()
-        if env is not None and env in paths:
-            chosen = env
-        else:
-            chosen = _SELECTORS[key](policy=policy or DEFAULT_POLICY,
-                                     **shape_kw)
+    if path is not None and path not in paths:
+        raise KeyError(f"{key} has no {path!r} path (has {sorted(paths)})")
+    chosen = requested(path)
+    if chosen not in paths:
+        # REPRO_BACKEND names an arm this op lacks, or nothing is asked
+        chosen = _SELECTORS[key](policy=policy or DEFAULT_POLICY, **shape_kw)
     return KernelPath(algorithm, op, chosen, paths[chosen])
 
 

@@ -119,14 +119,16 @@ def adc_topk(qlut: torch.Tensor, codes: torch.Tensor,
     (stored code - 128), candidate ids (Q, L) int32 -> (ADC distances
     (Q, k) int32, candidate positions (Q, k) int32): the sum of each
     candidate's m LUT entries, ``adc_dmax(m)`` where the id is negative,
-    ascending, ties to the smallest position.  One gather per subspace
-    keeps the index tensors at (Q, L)."""
+    ascending, ties to the smallest position.  A code past n_codes - 1 is
+    held to n_codes - 1, as the kernel does (valid fits never produce
+    one).  One gather per subspace keeps the index tensors at (Q, L)."""
     Q, L, m = codes.shape
     n_codes = qlut.shape[1] // m
     lut = qlut.to(torch.int32)
     dist = torch.zeros((Q, L), dtype=torch.int32, device=codes.device)
     for j in range(m):
-        col = codes[:, :, j].to(torch.int64) + (128 + j * n_codes)
+        col = (codes[:, :, j].to(torch.int64) + 128).clamp_(
+            max=n_codes - 1) + j * n_codes
         dist += torch.gather(lut, 1, col)
     dist = torch.where(cand_ids < 0, adc_dmax(m), dist)
     return topk_smallest_stable(dist, k, dim=1)

@@ -114,6 +114,20 @@ def test_adc_topk_short_list_tail_is_the_sentinel():
     assert pos[1, 3:].tolist() == [3, 4, 5]
 
 
+def test_adc_topk_holds_codes_past_the_table():
+    """A code past n_codes - 1 (no valid fit makes one) reads the last
+    entry of its own subspace, the rule the CUDA kernel keeps too."""
+    qlut, codes, ids = _adc_case(6, n_codes=16)
+    wild = (np.random.default_rng(7).integers(0, 256, size=codes.shape)
+            - 128).astype(np.int8)
+    held = (np.minimum(wild.astype(np.int64) + 128, 15) - 128).astype(np.int8)
+    args = [torch.from_numpy(a) for a in (qlut, wild, ids)]
+    want = tref.adc_topk(torch.from_numpy(qlut), torch.from_numpy(held),
+                         torch.from_numpy(ids), 9)
+    got = tops.adc_topk(*args, 9)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_adc_constants_match_jax():
     for m in (1, 4, 21, 256):
         assert tak.adc_dmax(m) == jak.adc_dmax(m)

@@ -218,9 +218,12 @@ def test_resolve_precedence(monkeypatch):
                            dict(N=8, d=21, K=4)),
                           ("gnb", "scores", dict(B=8, d=784, C=10))):
         assert tdispatch.resolve(algo, op, **skw).name == "ref"
-    # explicit path= beats the environment
+    # explicit path= beats the environment, in resolve and in the
+    # quantized estimators' hot paths alike
     assert tdispatch.resolve("knn", "distance_topk", path="fused",
                              **kw).name == "fused"
+    assert tdispatch.requested(None) == "ref"
+    assert tdispatch.requested("fused") == "fused"
     # REPRO_BACKEND=blocked selects the two-pass arms of kNN and K-Means;
     # an arm the op lacks in the environment falls through to the selector
     monkeypatch.setenv(tdispatch.ENV_VAR, "blocked")
