@@ -9,6 +9,10 @@ plus the static ``n_class`` — so the port never imports that package.
 The field names say which form they are.  The result is the port's
 NamedTuple of tensors on ``device``; hand it to the estimator's
 ``from_params`` to serve it.
+
+``lm_params_from_numpy`` carries a dense LM's params tree across (the
+reference's ``init_params`` tree with numpy leaves) for
+``serving.ServeEngine``.
 """
 from __future__ import annotations
 
@@ -64,3 +68,44 @@ def params_from_numpy(algorithm: str, leaves: Any, *,
         value = fields[name]
         out[name] = int(value) if name == "n_class" else _leaf(value, dev)
     return cls(**out)
+
+
+def _lm_leaf(value: Any, device: torch.device) -> torch.Tensor:
+    arr = np.asarray(value)
+    if arr.dtype.name == "bfloat16":
+        # numpy's bfloat16 (from JAX) has no torch counterpart: every
+        # bfloat16 is exact in float32, so go through it
+        return torch.tensor(arr.astype(np.float32),
+                            device=device).to(torch.bfloat16)
+    return torch.tensor(arr, device=device)
+
+
+def lm_params_from_numpy(cfg, tree: Mapping[str, Any], *,
+                         device: DeviceLike = None) -> dict:
+    """``tree``: the reference's LM params for ``cfg`` with numpy leaves
+    (``jax.tree.map(np.asarray, params)``): ``embed`` (``tok``,
+    ``unembed``), ``final_norm`` and ``layers/sub0`` with every layer's
+    weights stacked on a leading axis.  Returns the port's params, the
+    same tree of tensors on ``device`` with dtypes kept.  Missing leaves
+    raise ``KeyError`` and wrong shapes ``ValueError``, each naming the
+    leaf; non-dense configs raise ``NotImplementedError``."""
+    from repro_torch.models.transformer import param_shapes
+    want = param_shapes(cfg)
+    dev = resolve_device(device)
+
+    def carry(node, shapes, where):
+        if isinstance(shapes, dict):
+            if not isinstance(node, Mapping):
+                raise KeyError(f"{where}: a mapping expected, got "
+                               f"{type(node).__name__}")
+            missing = set(shapes) - set(node)
+            if missing:
+                raise KeyError(f"{where} lacks {sorted(missing)}")
+            return {k: carry(node[k], shapes[k], f"{where}/{k}")
+                    for k in shapes}
+        if tuple(np.shape(node)) != shapes:
+            raise ValueError(f"{where}: shape {tuple(np.shape(node))}, "
+                             f"{shapes} expected for {cfg.arch_id}")
+        return _lm_leaf(node, dev)
+
+    return carry(tree, want, "params")

@@ -6,8 +6,12 @@ Each wrapper checks device, dtype, shape and contiguity, then
     nothing falls back;
   * for CPU tensors runs the kernel's plain PyTorch version
     (``kernels/ref.py``).
-bf16 inputs are upcast to fp32 before the kernel, as the Pallas kernels
-upcast inside, so both dtypes give the fp32 arithmetic.
+bf16 inputs of the Non-Neural kernels (B1-B5, B9) are upcast to fp32
+before the kernel, as the Pallas kernels upcast inside, so both dtypes
+give the fp32 arithmetic.  The LM stack's B10 (``matmul``) and B11
+(``flash_attention``) take bf16 as bf16: upcasting would copy every
+weight to fp32 on every call.  They sum in fp32 and round once to the
+inputs' dtype.
 
 Counterpart of the JAX package's ``kernels/ops.py``.  The Hopper kernels
 mask ragged edges themselves, so none of that module's padding to block
@@ -38,7 +42,8 @@ LAUNCHES: Dict[str, int] = {"distance_topk": 0, "distance_argmin": 0,
                             "gnb_scores_batch": 0, "pairwise_sq_dist": 0,
                             "topk_smallest": 0, "gnb_scores": 0,
                             "distance_topk_q8": 0, "distance_argmin_q8": 0,
-                            "adc_topk": 0}
+                            "adc_topk": 0, "matmul": 0,
+                            "flash_attention": 0}
 
 _FLOATS = (torch.float32, torch.bfloat16)
 _INT8 = (torch.int8,)
@@ -52,11 +57,13 @@ def reset_launches() -> None:
 
 def _check(op: str, rows: Tuple[str, ...] = (),
            types: Optional[Dict[str, Tuple[torch.dtype, ...]]] = None,
+           inner: Tuple[str, ...] = (),
            **tensors: Tuple[torch.Tensor, int]) -> torch.device:
     """Each argument is (tensor, ndim); all on one device, contiguous, of
     the dtypes ``types`` names for it (float32/bf16 where it names none).
     The arguments named in ``rows`` need only contiguous rows (any row
-    stride).  Returns the device."""
+    stride), those named in ``inner`` only a contiguous last axis.
+    Returns the device."""
     device = None
     types = types or {}
     for name, (t, ndim) in tensors.items():
@@ -69,7 +76,11 @@ def _check(op: str, rows: Tuple[str, ...] = (),
         if t.dtype not in allowed:
             raise TypeError(f"{op}: {name} has dtype {t.dtype}; one of "
                             f"{[str(a) for a in allowed]} expected")
-        if name in rows:
+        if name in inner:
+            if t.shape[-1] > 1 and t.stride(-1) != 1:
+                raise ValueError(f"{op}: {name} must have a contiguous last "
+                                 f"axis, got strides {t.stride()}")
+        elif name in rows:
             if (t.shape[1] > 1 and t.stride(1) != 1) or \
                     (t.shape[0] > 1 and t.stride(0) < t.shape[1]):
                 raise ValueError(f"{op}: {name} must have contiguous rows, "
@@ -293,3 +304,48 @@ def adc_topk(qlut: torch.Tensor, codes: torch.Tensor,
     from repro_torch.kernels import ann as _ann
     return _matrix_topk(lambda lo, hi: _ann.launch_dist(
         qlut[lo:hi], codes[lo:hi], cand_ids[lo:hi]), Q, L, k, "adc_topk")
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """B10: a (M, K) @ b (K, N) -> (M, N) in their dtype (fp32, or bf16
+    kept as bf16), the products summed in fp32 and rounded once.  Any
+    M, N, K >= 1; b is a weight in the (in, out) layout."""
+    dev = _check("matmul", a=(a, 2), b=(b, 2))
+    if a.dtype != b.dtype:
+        raise TypeError(f"matmul: a is {a.dtype}, b is {b.dtype}; one dtype "
+                        "expected")
+    if a.shape[1] != b.shape[0] or min(*a.shape, b.shape[1]) < 1:
+        raise ValueError(f"matmul: a is {tuple(a.shape)}, b is "
+                         f"{tuple(b.shape)}")
+    if dev.type == "cpu":
+        return ref.matmul(a, b)
+    from repro_torch.kernels import gemm as _gemm
+    out = _gemm.launch(a, b)
+    LAUNCHES["matmul"] += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """B11: q, k, v (B, H, S, d) -> softmax(q k^T / sqrt(d)) v, (B, H, S,
+    d) in q's dtype, causal or full.  Any S >= 1 and d <= 128; any
+    (batch, head, position) strides with the d axis contiguous, so a
+    permuted (B, S, H, d) tensor goes in without a copy.  GQA callers
+    expand the KV heads first, as in the reference."""
+    from repro_torch.kernels.flash_attention import D_MAX
+    dev = _check("flash_attention", inner=("q", "k", "v"), q=(q, 4),
+                 k=(k, 4), v=(v, 4))
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"flash_attention: q {q.dtype}, k {k.dtype}, v "
+                        f"{v.dtype}; one dtype expected")
+    if k.shape != q.shape or v.shape != q.shape or min(q.shape) < 1 or \
+            q.shape[-1] > D_MAX:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}; one (B, H, "
+                         f"S, d) shape with d <= {D_MAX} expected")
+    if dev.type == "cpu":
+        return ref.attention(q, k, v, causal=causal)
+    from repro_torch.kernels import flash_attention as _fa
+    out = _fa.launch(q, k, v, causal)
+    LAUNCHES["flash_attention"] += 1
+    return out

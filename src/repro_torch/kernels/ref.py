@@ -5,7 +5,10 @@ The arithmetic follows the JAX package's ``kernels/ref.py`` term for term
 (same expansion, same operand order, fp32 accumulation); bf16 inputs are
 upcast to fp32 first, as the Pallas kernels do inside.  The int8 lattice
 and ADC versions (the oracles of ``kernels/quantized.py`` and
-``kernels/ann.py`` there) compute exact integers on both devices.
+``kernels/ann.py`` there) compute exact integers on both devices.  The LM
+stack's ``matmul`` (B10) and ``attention`` (B11) keep bf16 operands as
+they are and form the fp32 product of them, rounded once to the
+operands' dtype, as the reference's oracles do.
 """
 from __future__ import annotations
 
@@ -132,3 +135,32 @@ def adc_topk(qlut: torch.Tensor, codes: torch.Tensor,
         dist += torch.gather(lut, 1, col)
     dist = torch.where(cand_ids < 0, adc_dmax(m), dist)
     return topk_smallest_stable(dist, k, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# LM stack: GEMM (B10) and causal attention (B11)
+# ---------------------------------------------------------------------------
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ (K, N) -> (M, N) in a's dtype: the fp32 product of the
+    operands (bf16 products are exact in fp32), rounded once."""
+    return (a.to(torch.float32) @ b.to(torch.float32)).to(a.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True) -> torch.Tensor:
+    """(B, H, S, d) x3 -> (B, H, S, d) in q's dtype, in the reference's
+    order: fp32 scores scaled by 1/sqrt(d), masked to -1e30 above the
+    diagonal, an fp32 softmax, p cast to v's dtype, then P·V with an fp32
+    accumulator."""
+    S, d = q.shape[-2], q.shape[-1]
+    s = torch.matmul(q.to(torch.float32),
+                     k.to(torch.float32).transpose(-1, -2)) * \
+        (1.0 / math.sqrt(d))
+    if causal:
+        keep = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(keep, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.matmul(p.to(torch.float32),
+                        v.to(torch.float32)).to(q.dtype)

@@ -1,19 +1,29 @@
-"""Non-Neural serving from the command line: fit one estimator on seeded blobs
-and serve held-out queries through the bucketed engine.
+"""Serving from the command line.
+
+Non-Neural: fit one estimator on seeded blobs and serve held-out queries
+through the bucketed engine.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --algo knn \
       --batch 64 --requests 256 --policy fp32
 
+LM (dense family): seeded random weights and prompts, greedy or sampled
+generation through ``ServeEngine``.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --algo lm \
+      --arch stablelm-3b --batch 4 --prompt-len 512 --new-tokens 32
+
 Runs on the card; ``--device cpu`` runs the kernels' plain versions on the
-CPU instead.  The counterpart of the JAX package's ``launch/serve.py``
-``serve_nonneural`` (non-LM flags only).
+CPU instead (with ``--smoke`` for the LM: the full width does not fit a
+CPU run).  The counterpart of the JAX package's ``launch/serve.py``
+(``serve_nonneural`` and ``serve_lm``; its streaming, tenant, mesh and
+autotune flags wait for ROADMAP A11-A15).
 """
 from __future__ import annotations
 
 import argparse
 import time
 
-from repro_torch.serving.engine import ClassifyResult
+from repro_torch.serving.engine import ClassifyResult, GenerationResult
 
 
 def serve_nonneural(args) -> ClassifyResult:
@@ -64,12 +74,66 @@ def serve_nonneural(args) -> ClassifyResult:
     return result
 
 
-def main(argv=None) -> ClassifyResult:
+def serve_lm(args) -> GenerationResult:
+    import torch
+
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.device import device_name, resolve_device
+    from repro_torch.models import transformer
+    from repro_torch.serving import ServeEngine
+
+    device = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    batch = 4 if args.batch is None else args.batch
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = transformer.init_params(cfg, gen, device=device)
+    engine = ServeEngine(cfg, params, ServeConfig(
+        max_seq=args.prompt_len + args.new_tokens))
+    prompts = torch.randint(0, cfg.vocab_size, (batch, args.prompt_len),
+                            generator=gen, device=device)
+    sampler = torch.Generator(device=device).manual_seed(args.seed + 1)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    sync()
+    t0 = time.perf_counter()
+    result = engine.generate(prompts, args.new_tokens,
+                             temperature=args.temperature, generator=sampler)
+    sync()
+    dt = time.perf_counter() - t0
+    toks = batch * args.new_tokens
+    print(f"[serve] arch={cfg.arch_id} device={device_name(device)} "
+          f"params={cfg.param_count()} batch={batch} "
+          f"prompt={args.prompt_len} generated {toks} tokens in {dt:.3f}s "
+          f"({toks / dt:.1f} tok/s) first row: "
+          f"{result.tokens[0][:8].tolist()}")
+    return result
+
+
+def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--algo", default="knn",
-                    choices=["knn", "ann", "kmeans", "gnb", "gmm", "rf"])
-    ap.add_argument("--batch", type=int, default=64,
-                    help="engine max_batch (largest bucket)")
+                    choices=["knn", "ann", "kmeans", "gnb", "gmm", "rf",
+                             "lm"],
+                    help="lm = decoder LM generation through ServeEngine; "
+                         "otherwise a Non-Neural estimator")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="engine max_batch, the largest bucket (default "
+                         "64); --algo lm: prompts per batch (default 4)")
+    ap.add_argument("--arch", default="stablelm-3b",
+                    help="--algo lm: architecture id")
+    ap.add_argument("--smoke", action="store_true",
+                    help="--algo lm: the reduced config (2 layers, d_model "
+                         "64, fp32) of --arch")
+    ap.add_argument("--prompt-len", type=int, default=64,
+                    help="--algo lm: tokens per prompt")
+    ap.add_argument("--new-tokens", type=int, default=32,
+                    help="--algo lm: tokens generated per prompt")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="--algo lm: 0 is greedy; > 0 samples")
     ap.add_argument("--requests", type=int, default=256)
     ap.add_argument("--train-size", type=int, default=400)
     ap.add_argument("--dim", type=int, default=21)
@@ -89,11 +153,17 @@ def main(argv=None) -> ClassifyResult:
                     help="--algo ann: exact re-rank of the ADC top-R "
                          "survivors (0 = pure ADC ranking)")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the training and query blobs")
+                    help="seed of the training and query blobs (--algo "
+                         "lm: of the weights and prompts)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; without a card the run "
                          "fails unless cpu is named")
-    return serve_nonneural(ap.parse_args(argv))
+    args = ap.parse_args(argv)
+    if args.algo == "lm":
+        return serve_lm(args)
+    if args.batch is None:
+        args.batch = 64
+    return serve_nonneural(args)
 
 
 if __name__ == "__main__":

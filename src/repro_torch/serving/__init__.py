@@ -1,5 +1,7 @@
 """Serving engines of the port."""
-from repro_torch.serving.engine import (ClassifyResult, KNNServeEngine,
-                                        NonNeuralServeEngine)
+from repro_torch.serving.engine import (ClassifyResult, GenerationResult,
+                                        KNNServeEngine, NonNeuralServeEngine,
+                                        ServeEngine)
 
-__all__ = ["ClassifyResult", "KNNServeEngine", "NonNeuralServeEngine"]
+__all__ = ["ClassifyResult", "GenerationResult", "KNNServeEngine",
+           "NonNeuralServeEngine", "ServeEngine"]

@@ -12,6 +12,11 @@ compiles one executable per bucket; here a bucket's first call loads the
 CUDA kernels (built at first use), so warmup touches every bucket shape
 before any timed call.  ``bucket_launches`` counts production launches
 per bucket and never warmup.
+
+``ServeEngine`` is the LM engine (dense family): ``generate`` runs the
+prompt through ``prefill`` (B10 for every projection and the unembedding,
+B11 for causal attention), then one ``decode_step`` per new token (B10 at
+M = batch; attention over the cache in torch ops), greedy or sampled.
 """
 from __future__ import annotations
 
@@ -22,9 +27,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.core import knn as _knn
 from repro_torch.core.estimator import KNNEstimator
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import transformer
 
 
 @dataclass
@@ -182,3 +189,82 @@ class KNNServeEngine(NonNeuralServeEngine):
         self.k = int(k)
         super().__init__(KNNEstimator.from_params(model, k=k, device=device),
                          max_batch=max_batch, device=device)
+
+
+@dataclass
+class GenerationResult:
+    tokens: torch.Tensor       # (B, n_new) int64
+    logprobs: torch.Tensor     # (B, n_new) fp32 log-probability of each
+    steps: int
+
+
+class ServeEngine:
+    """Greedy or sampled generation from a dense decoder's params (a tree
+    from ``models.transformer.init_params`` or
+    ``convert.lm_params_from_numpy``), on the params' device.
+
+    ``path="ref"`` (or ``REPRO_BACKEND=ref``) runs B10 and B11's plain
+    versions: the yardstick the kernels are held against on the card."""
+
+    def __init__(self, cfg: ModelConfig, params, serve_cfg: ServeConfig = None,
+                 *, path: Optional[str] = None):
+        transformer.check_supported(cfg)
+        self.cfg = cfg
+        self.params = params
+        self.serve_cfg = serve_cfg or ServeConfig()
+        self.path = path
+        self.device = params["embed"]["tok"].device
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        if isinstance(tokens, np.ndarray):
+            tokens = torch.from_numpy(np.ascontiguousarray(tokens))
+        return torch.as_tensor(tokens, device=self.device).to(torch.long)
+
+    def prefill(self, tokens):
+        """tokens: (B, S) -> (last logits (B, vocab), DecodeCache)."""
+        return transformer.prefill(self.params, self._tokens(tokens),
+                                   self.cfg, max_seq=self.serve_cfg.max_seq,
+                                   path=self.path)
+
+    def decode(self, cache, tokens):
+        """tokens: (B, 1) -> (logits (B, vocab), the cache one on; written
+        in place)."""
+        return transformer.decode_step(self.params, cache,
+                                       self._tokens(tokens), self.cfg,
+                                       path=self.path)
+
+    def generate(self, prompt_tokens, n_new: int, *,
+                 temperature: float = 0.0,
+                 generator: Optional[torch.Generator] = None
+                 ) -> GenerationResult:
+        """Prefill the prompts (B, S), then ``n_new`` decode steps.
+        ``temperature > 0`` samples from softmax(logits / temperature)
+        with ``generator`` (a ``torch.Generator`` on the engine's device,
+        so a seed gives the same tokens again); 0 is greedy.  Asynchronous
+        on the card: the result is ready after a synchronize."""
+        if temperature > 0.0 and generator is None:
+            # checked before prefill, as the reference does
+            raise ValueError(
+                "generate(temperature>0) samples and needs generator= (a "
+                "torch.Generator on the engine's device, for reproducible "
+                "draws); greedy decoding (temperature=0.0) needs none")
+        tokens = self._tokens(prompt_tokens)
+        B, S = tokens.shape
+        if S + n_new > self.serve_cfg.max_seq:
+            raise ValueError(f"{S} prompt + {n_new} new tokens exceed "
+                             f"max_seq={self.serve_cfg.max_seq}")
+        logits, cache = self.prefill(tokens)
+        toks, lps = [], []
+        for _ in range(n_new):
+            lf = logits.to(torch.float32)
+            if temperature > 0.0:
+                nxt = torch.multinomial(torch.softmax(lf / temperature, -1),
+                                        1, generator=generator)[:, 0]
+            else:
+                nxt = torch.argmax(lf, dim=-1)
+            toks.append(nxt)
+            lps.append(torch.log_softmax(lf, -1).gather(1, nxt[:, None])[:, 0])
+            logits, cache = self.decode(cache, nxt[:, None])
+        return GenerationResult(tokens=torch.stack(toks, dim=1),
+                                logprobs=torch.stack(lps, dim=1),
+                                steps=n_new)

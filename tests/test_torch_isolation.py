@@ -21,7 +21,9 @@ want = {"repro_torch.launch.serve", "repro_torch.core.gmm",
         "repro_torch.kernels.pairwise_sq_dist",
         "repro_torch.kernels.quantized", "repro_torch.kernels.ann",
         "repro_torch.core.quantization", "repro_torch.core.ann",
-        "repro_torch.serving.quant"}
+        "repro_torch.serving.quant", "repro_torch.models.transformer",
+        "repro_torch.kernels.gemm", "repro_torch.kernels.flash_attention",
+        "repro_torch.configs.registry"}
 assert want <= set(names), sorted(want - set(names))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
