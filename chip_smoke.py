@@ -13,7 +13,8 @@ the CUDA toolkit.  In order it
 2. holds each kernel (B1 distance_topk, B2 distance_argmin,
    B3 gnb_scores_batch, B4 pairwise_sq_dist, B5 topk_smallest and its
    int32 key mode, B6 distance_topk_q8, B7 distance_argmin_q8, B8
-   adc_topk, B9 gnb_scores) against its plain PyTorch version on the card
+   adc_topk, B9 gnb_scores, B10 matmul, B11 flash_attention) against its
+   plain PyTorch version on the card
    at the main-path shapes, at ragged edge shapes, on data with exact
    ties, on rows holding NaN and +Inf (int8: saturated ±127, INT_MIN and
    INT_MAX) and at k = 1, k = n and k > 32, and times kernel, plain
@@ -33,7 +34,14 @@ the CUDA toolkit.  In order it
    estimators through ``NonNeuralServeEngine(..., policy="int8")``, held
    against the plain versions on the same quantized params; IVF-PQ ANN
    (``make_fitted("ann")``: B2 in the fit, B1 probe, B8 + B5 serve) is
-   held against ``path="ref"`` and its recall@10 against exact fused kNN.
+   held against ``path="ref"`` and its recall@10 against exact fused kNN;
+4. serves stablelm-3b at full width (bf16, seeded weights) through
+   ``ServeEngine.generate``: batch 4, prompts of 512 seeded tokens, 32
+   greedy new tokens, with B10 computing every projection and the
+   unembedding and B11 the prefill's causal attention; checks the launch
+   counts the shapes imply (B10 225 a forward pass, 33 passes; B11 32),
+   times the prefill and the decode steps, and holds the logits at every
+   step against the plain route (``path="ref"``) on the same tokens.
 
 The comparison rule: integer outputs (B5's int32 mode, B6, B7, B8 and
 the int8 and ANN paths' neighbours, assignments and votes) match
@@ -46,7 +54,12 @@ match exactly except at a rank where the two rows' distances agree within
 that tolerance (a near-tie between different rows), which is counted and
 printed.  On integer-valued data every distance is exact, so there the
 indices must match exactly; B5 ranks the very floats its plain version
-sorts, so its indices must match exactly everywhere.  Any failure exits
+sorts, so its indices must match exactly everywhere.  B10 matches to one
+ulp of the output dtype plus 1e-5·(|A|·|B|) (see ``gemm_case``); B11 to
+2^-7·(P·|V| + |out|) in bf16, from the rounding of p (see
+``attn_case``); the LM logits to ``LM_ATOL + LM_RTOL·|logit|``, and a
+greedy token may differ from the plain route's argmax only where that
+route ranks the two within twice that (a near-tie, counted).  Any failure exits
 non-zero; so does a machine without a card, or a directory without the
 package.  The last lines are a JSON object with each kernel's numbers,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -87,12 +100,27 @@ ANN = dict(n=1 << 18, d=21, classes=256, cells=256, pq_m=21, n_codes=256,
            k=10, refine=128, nprobe=16, train_iters=10)
 Q8_BLOCKED_K = 64
 
+# slice 4: stablelm-3b at full width serves a batch of 4 prompts of 512
+# seeded tokens and 32 greedy new tokens (the KV cache holds 544)
+LM = dict(arch="stablelm-3b", batch=4, prompt=512, new=32)
+# B10's edge sizes (every M, N, K among them) and B11's (S, d)
+GEMM_EDGES = (1, 3, 65, 257, 6913)
+ATTN_EDGES_S = (1, 12, 129, 512)
+ATTN_EDGES_D = (16, 64, 80, 128)
+# the LM path's logits, kernel route against plain route, agree to
+# LM_ATOL + LM_RTOL·|logit|: both round the residual stream to bf16 at
+# every layer, but not the same sums, so 32 layers leave logit
+# differences of a few bf16 ulps (on an H100 the largest of the 6.6
+# million compared comes to about 0.8 of this bound), where a wrong
+# kernel moves logits by their own size (about 1)
+LM_ATOL, LM_RTOL = 2.0 ** -3, 2.0 ** -6
+
 # NVIDIA data-sheet peaks by H100 variant, at the full power limit: fp32
-# outside the tensor cores (FLOP/s), device-memory rate (bytes/s), and the
-# dense int8 tensor-core rate (OP/s)
-PEAKS = {"PCIe": (51.2e12, 2.0e12, 1513e12),
-         "NVL": (60.0e12, 3.9e12, 1671e12),
-         "SXM": (67.0e12, 3.35e12, 1979e12)}
+# outside the tensor cores (FLOP/s), device-memory rate (bytes/s), the
+# dense int8 tensor-core rate (OP/s) and the dense bf16 one (FLOP/s)
+PEAKS = {"PCIe": (51.2e12, 2.0e12, 1513e12, 756e12),
+         "NVL": (60.0e12, 3.9e12, 1671e12, 835e12),
+         "SXM": (67.0e12, 3.35e12, 1979e12, 989e12)}
 
 
 def check(cond, msg: str) -> None:
@@ -130,12 +158,353 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_ops: float, n_bytes: float, peaks, int8: bool = False):
-    """The larger of ops over the peak (fp32, or the int8 tensor cores'
-    with ``int8``) and bytes over the memory rate."""
-    t_ops = n_ops / peaks[2 if int8 else 0] * 1e3
+def bound_ms(n_ops: float, n_bytes: float, peaks, int8: bool = False,
+             bf16: bool = False):
+    """The larger of ops over the peak (fp32, or the int8 or bf16 tensor
+    cores' with ``int8`` or ``bf16``) and bytes over the memory rate."""
+    t_ops = n_ops / peaks[3 if bf16 else 2 if int8 else 0] * 1e3
     t_bytes = n_bytes / peaks[1] * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def ulp(torch, x, dtype):
+    """One unit in the last place, in ``dtype`` (bf16 keeps 8 significant
+    bits, fp32 24), of each value of x: two right roundings of one exact
+    product can differ by that much."""
+    _, e = torch.frexp(x.float())
+    bits = 7 if dtype == torch.bfloat16 else 23
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 1 - bits)
+
+
+def gemm_case(torch, ops, ref, dev, gen, M, N, K, dtype):
+    """B10 against its plain version on N(0, 1) operands.  Tolerance: one
+    ulp of the plain value in the output dtype (each side rounds the fp32
+    sum once; two roundings of sums that differ in their last bits can
+    land one ulp apart, up to 2^-7·|ref| in bf16) plus 1e-5·(|A|·|B|) for
+    the fp32 sums' order.  Returns (max |err|, max err/tol)."""
+    a = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+    b = torch.randn((K, N), generator=gen, device=dev).to(dtype)
+    got = ops.matmul(a, b)
+    want = ref.matmul(a, b)
+    torch.cuda.synchronize()
+    check(got.dtype == dtype and got.shape == (M, N),
+          f"B10 M={M} N={N} K={K} {dtype}: {got.dtype} {tuple(got.shape)}")
+    err = (got.float() - want.float()).abs()
+    tol = ulp(torch, want, dtype) + 1e-5 * (a.float().abs() @ b.float().abs())
+    check(bool((err <= tol).all()), f"B10 M={M} N={N} K={K} {dtype}: "
+          f"{int((err > tol).sum())} values past the tolerance, max error "
+          f"{float(err.max())}")
+    return float(err.max()), float((err / tol).max())
+
+
+def attn_pv(torch, q, k, v, causal):
+    """P·|V| with the plain version's probabilities: the size of the terms
+    an output row sums."""
+    S, d = q.shape[-2], q.shape[-1]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * \
+        (1.0 / math.sqrt(d))
+    if causal:
+        keep = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(keep, s, torch.full_like(s, -1e30))
+    return torch.matmul(torch.softmax(s, -1), v.float().abs())
+
+
+def attn_inputs(torch, dev, gen, B, H, S, d, dtype, layout="model"):
+    """q, k, v (B, H, S, d) of N(0, 1): in the models' (B, S, H, d) memory
+    seen through a permute, or contiguous."""
+    if layout == "model":
+        x = torch.randn((B, S, 3, H, d), generator=gen, device=dev).to(dtype)
+        return [x[:, :, i].permute(0, 2, 1, 3) for i in range(3)]
+    return [torch.randn((B, H, S, d), generator=gen, device=dev).to(dtype)
+            for _ in range(3)]
+
+
+def attn_case(torch, ops, ref, q, k, v, causal, what):
+    """B11 against its plain version.  Tolerance: in bf16 both sides cast
+    p to bf16 before P·V, but the kernel casts exp(s - running max) and
+    the plain version the normalised p, each within 2^-8 relative, so
+    their sums differ by up to 2^-7·(P·|V|); the outputs' own roundings
+    add up to 2^-7·|ref|.  In fp32, 1e-5·(P·|V|) for the sums' order and
+    one ulp.  Returns (max |err|, max err/tol)."""
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.attention(q, k, v, causal)
+    pv = attn_pv(torch, q, k, v, causal)
+    torch.cuda.synchronize()
+    check(got.dtype == q.dtype and got.shape == q.shape,
+          f"{what}: {got.dtype} {tuple(got.shape)}")
+    err = (got.float() - want.float()).abs()
+    if q.dtype == torch.bfloat16:
+        tol = 2.0 ** -7 * (pv + want.float().abs()) + 1e-5 * pv
+    else:
+        tol = 1e-5 * pv + ulp(torch, want, q.dtype)
+    check(bool((err <= tol).all()), f"{what}: {int((err > tol).sum())} "
+          f"values past the tolerance, max error {float(err.max())}")
+    return float(err.max()), float((err / tol).max())
+
+
+def lm_kernel_edges(torch, ops, ref, dev, gen, cfg) -> int:
+    """B10 at every (M, N, K) of ``GEMM_EDGES``, at the LM path's shapes
+    and at the small-M boundary; B11 at every (S, d) of the edge sizes,
+    causal and not, in the models' layout, plus a head dim that is not a
+    multiple of 16 (the CUDA-core kernel in bf16); both dtypes.  Returns
+    the number of cases."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.gemm import SMALL_M
+    d, ff = cfg.d_model, cfg.d_ff
+    rows = LM["batch"] * LM["prompt"]
+    path = [(rows, d, d), (rows, ff, d), (rows, d, ff), (LM["batch"], d, d),
+            (LM["batch"], ff, d), (LM["batch"], d, ff),
+            (LM["batch"], cfg.vocab_size, d),
+            (SMALL_M, ff, d), (SMALL_M + 1, d, ff)]
+    n = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        worst = (0.0, 0.0)
+        for M in GEMM_EDGES:
+            for N in GEMM_EDGES:
+                for K in GEMM_EDGES:
+                    r = gemm_case(torch, ops, ref, dev, gen, M, N, K, dtype)
+                    worst = max(worst, r, key=lambda t: t[1])
+                    n += 1
+        for M, N, K in path:
+            err, ratio = gemm_case(torch, ops, ref, dev, gen, M, N, K, dtype)
+            print(f"[edge] B10 {dtype} M={M} N={N} K={K}: max_abs_err="
+                  f"{err:.4g}, {ratio:.3f} of the tolerance")
+            n += 1
+        print(f"[edge] B10 {dtype}: all {len(GEMM_EDGES) ** 3} shapes with "
+              f"M, N, K in {GEMM_EDGES} within the tolerance; worst "
+              f"max_abs_err={worst[0]:.4g}, {worst[1]:.3f} of it")
+    for dtype in (torch.bfloat16, torch.float32):
+        cases = [(1, 2, S, hd, c, "model") for S in ATTN_EDGES_S
+                 for hd in ATTN_EDGES_D for c in (True, False)]
+        cases += [(1, 2, 129, 24, True, "model"),
+                  (2, 3, 130, 80, True, "contiguous")]
+        worst = (0.0, 0.0)
+        for B, H, S, hd, causal, layout in cases:
+            q, k, v = attn_inputs(torch, dev, gen, B, H, S, hd, dtype, layout)
+            r = attn_case(torch, ops, ref, q, k, v, causal,
+                          f"B11 {dtype} B={B} H={H} S={S} d={hd} "
+                          f"causal={causal} {layout}")
+            worst = max(worst, r, key=lambda t: t[1])
+            n += 1
+        mma = fa.uses_tensor_cores(*attn_inputs(torch, dev, gen, 1, 1, 4, 80,
+                                                dtype))
+        print(f"[edge] B11 {dtype}: {len(cases)} cases (S in {ATTN_EDGES_S}, "
+              f"d in {ATTN_EDGES_D}, causal and full, d = 24, a contiguous "
+              f"layout) within the tolerance; d = 80 on the "
+              f"{'tensor' if mma else 'CUDA'} cores; worst max_abs_err="
+              f"{worst[0]:.4g}, {worst[1]:.3f} of it")
+    return n
+
+
+def lm_kernel_times(torch, ops, ref, dev, gen, cfg, peaks):
+    """B10 at each projection shape of the LM path (prefill M = batch ·
+    prompt, decode M = batch, the unembedding at M = batch) and B11 at
+    the prefill shape, in the models' layout: kernel, plain version and
+    one library call, with each call's bound.  Returns the kernel rows
+    and the per-shape B10 times."""
+    d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    Bt, P = LM["batch"], LM["prompt"]
+    bf = torch.bfloat16
+    shapes = {"prefill qkvo": (Bt * P, d, d),
+              "prefill in/gate": (Bt * P, ff, d),
+              "prefill out": (Bt * P, d, ff), "decode qkvo": (Bt, d, d),
+              "decode in/gate": (Bt, ff, d), "decode out": (Bt, d, ff),
+              "unembed": (Bt, V, d)}
+    b10 = {}
+    for key, (M, N, K) in shapes.items():
+        a = torch.randn((M, K), generator=gen, device=dev).to(bf)
+        w = torch.randn((K, N), generator=gen, device=dev).to(bf)
+        b, by = bound_ms(2 * M * N * K, 2 * (M * K + K * N + M * N), peaks,
+                         bf16=True)
+        b10[key] = dict(M=M, N=N, K=K,
+                        ms=cuda_ms(torch, lambda: ops.matmul(a, w), 20),
+                        plain_ms=cuda_ms(torch, lambda: ref.matmul(a, w), 5),
+                        library_ms=cuda_ms(torch, lambda: torch.matmul(a, w),
+                                           20),
+                        bound_ms=b, bound_by=by,
+                        err=gemm_case(torch, ops, ref, dev, gen, M, N, K,
+                                      bf)[0])
+        r = b10[key]
+        print(f"[time] B10 {key} M={M} N={N} K={K}: kernel {r['ms']:.4f} ms "
+              f"({2 * M * N * K / r['ms'] / 1e9:.1f} TFLOP/s, "
+              f"{2 * (M * K + K * N + M * N) / r['ms'] / 1e9:.3f} TB/s), "
+              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
+              f"ms, bound {b:.4f} ms ({by})")
+    del a, w
+    main = b10["prefill in/gate"]
+    kernels = {"B10": dict(
+        name="matmul", route="cuda",
+        source="src/repro_torch/kernels/csrc/gemm.cu",
+        replaces="src/repro/kernels/gemm.py:19", max_abs_err=main["err"],
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=main["library_ms"],
+        launches=0)}
+
+    H, hd = cfg.n_heads, cfg.head_dim
+    q, k, v = attn_inputs(torch, dev, gen, Bt, H, P, hd, bf)
+    err, _ = attn_case(torch, ops, ref, q, k, v, True, "B11 main")
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    pairs = Bt * H * P * (P + 1) // 2          # unmasked (query, key) pairs
+    b, by = bound_ms(4 * pairs * hd, 4 * 2 * Bt * H * P * hd, peaks,
+                     bf16=True)
+    kernels["B11"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:24", max_abs_err=err,
+        ms=cuda_ms(torch, lambda: ops.flash_attention(q, k, v), 50),
+        plain_ms=cuda_ms(torch, lambda: ref.attention(q, k, v, True), 5),
+        bound_ms=b, bound_by=by,
+        library_ms=cuda_ms(torch, lambda: torch.nn.functional
+                           .scaled_dot_product_attention(qc, kc, vc,
+                                                         is_causal=True), 50),
+        launches=0)
+    contiguous_ms = cuda_ms(torch, lambda: ops.flash_attention(qc, kc, vc), 50)
+    for key in ("B10", "B11"):
+        kr = kernels[key]
+        print(f"[time] {key} {kr['name']}: kernel {kr['ms']:.4f} ms, plain "
+              f"{kr['plain_ms']:.4f} ms, library {kr['library_ms']:.4f} ms, "
+              f"bound {kr['bound_ms']:.4f} ms ({kr['bound_by']})")
+    print(f"[kernel] B11 flash_attention B={Bt} H={H} S={P} d={hd} causal, "
+          f"the models' layout: max_abs_err={err:.4g}; on contiguous "
+          f"(B, H, S, d) tensors {contiguous_ms:.4f} ms")
+    return kernels, b10
+
+
+def lm_path(torch, ops, dev, cfg, kernels, b10):
+    """Serve ``LM`` through ``ServeEngine.generate`` with the launch counts
+    set to 0 just before and read just after; time the prefill and the
+    decode steps; then hold the kernel route's logits, step by step, to
+    the plain route's (``path="ref"``) on the same tokens.  Returns the
+    numbers of the report line."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.models import transformer
+    from repro_torch.serving import ServeEngine
+    Bt, P, new = LM["batch"], LM["prompt"], LM["new"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from (leaves(v) if isinstance(v, dict) else [v])
+    n_params = sum(t.numel() for t in leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    check(n_params == cfg.param_count() + 2 * cfg.d_model * (cfg.n_layers + 1),
+          f"lm: {n_params} parameters in the tree, {cfg.param_count()} "
+          "counted")
+    prompts = torch.randint(0, cfg.vocab_size, (Bt, P), generator=gen,
+                            device=dev)
+    serve_cfg = ServeConfig(max_seq=P + new)
+    engine = ServeEngine(cfg, params, serve_cfg)
+    cache_bytes = 2 * cfg.n_layers * Bt * (P + new) * cfg.kv_dim * \
+        params["embed"]["tok"].dtype.itemsize
+    print(f"[lm] {cfg.arch_id}: {cfg.param_count()} parameters as the "
+          f"reference counts them ({n_params} in the tree, with the "
+          f"LayerNorm biases and the final norm), {n_bytes} bytes of "
+          f"{cfg.dtype}, seeded on the card in {init_s:.2f}s; KV cache "
+          f"{cache_bytes} bytes for batch {Bt} x {P + new} positions")
+    engine.generate(prompts[:, :16], 2)     # first calls outside the count
+    torch.cuda.synchronize()
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = engine.generate(prompts, new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    want = {name: 0 for name in launches}
+    want["matmul"] = (7 * cfg.n_layers + 1) * (1 + new)
+    want["flash_attention"] = cfg.n_layers
+    check(launches == want, f"lm: launches {launches}, the shapes imply "
+          f"{want}")
+    kernels["B10"]["launches"] = launches["matmul"]
+    kernels["B11"]["launches"] = launches["flash_attention"]
+    check(res.tokens.shape == (Bt, new) and
+          bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()) and
+          bool(torch.isfinite(res.logprobs).all()) and
+          bool((res.logprobs <= 0).all()),
+          f"lm: tokens {tuple(res.tokens.shape)} or log-probabilities out of "
+          "range")
+
+    # timed: the prefill alone, then decode steps on its cache
+    prefill_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = engine.prefill(prompts)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    steps, traced = min(8, new // 2), min(2, new - min(8, new // 2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        logits, cache = engine.decode(cache, res.tokens[:, i:i + 1])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    # device time of the next decode steps, from the profiler's kernels
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(steps, steps + traced):
+            logits, cache = engine.decode(cache, res.tokens[:, i:i + 1])
+        torch.cuda.synchronize()
+    dev_us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / traced
+    del logits, cache
+
+    # B10 and B11's share, from their device times at these shapes
+    L_ = cfg.n_layers
+    b10_prefill = L_ * (4 * b10["prefill qkvo"]["ms"] +
+                        2 * b10["prefill in/gate"]["ms"] +
+                        b10["prefill out"]["ms"]) + b10["unembed"]["ms"]
+    b11_prefill = L_ * kernels["B11"]["ms"]
+    b10_step = L_ * (4 * b10["decode qkvo"]["ms"] +
+                     2 * b10["decode in/gate"]["ms"] +
+                     b10["decode out"]["ms"]) + b10["unembed"]["ms"]
+
+    # the plain route on the same tokens, teacher-forced
+    ref_engine = ServeEngine(cfg, params, serve_cfg, path="ref")
+    lk, ck = engine.prefill(prompts)
+    lr, cr = ref_engine.prefill(prompts)
+    worst, near, differ = 0.0, 0, 0
+    for step in range(new + 1):
+        lkf, lrf = lk.float(), lr.float()
+        diff = (lkf - lrf).abs()
+        tol = LM_ATOL + LM_RTOL * lrf.abs()
+        check(bool((diff <= tol).all()), f"lm step {step}: logits differ "
+              f"from the plain route's by up to {float(diff.max())}")
+        worst = max(worst, float((diff / tol).max()))
+        tk, tr = lkf.argmax(-1), lrf.argmax(-1)
+        if step < new:
+            check(torch.equal(tk, res.tokens[:, step]),
+                  f"lm step {step}: generate's tokens are not its logits' "
+                  "argmax")
+        # a token may differ from the plain route's argmax only where the
+        # plain route ranks the two within twice the tolerance
+        gap = lrf.gather(1, tr[:, None]) - lrf.gather(1, tk[:, None])
+        room = 2 * (LM_ATOL + LM_RTOL * lrf.gather(1, tr[:, None]).abs())
+        check(bool((gap <= room).all()), f"lm step {step}: a greedy token "
+              "differs from the plain route's argmax without a near-tie")
+        top2 = lrf.topk(2, dim=-1).values
+        near += int((top2[:, 0] - top2[:, 1] <= room[:, 0]).sum())
+        differ += int((tk != tr).sum())
+        if step == new:
+            break
+        nxt = res.tokens[:, step:step + 1]
+        lk, ck = engine.decode(ck, nxt)
+        lr, cr = ref_engine.decode(cr, nxt)
+    del lk, ck, lr, cr, params, engine, ref_engine
+    return dict(gen_s=gen_s, prefill_ms=min(prefill_ms), step_ms=step_ms,
+                step_dev_ms=dev_us / 1e3, b10_prefill=b10_prefill,
+                b11_prefill=b11_prefill, b10_step=b10_step,
+                decisions=Bt * (new + 1), near=near, differ=differ,
+                worst=worst, first=res.tokens[0, :8].tolist(),
+                launches=launches)
 
 
 def main() -> int:
@@ -555,6 +924,11 @@ def main() -> int:
               f"invalid={invalid} codes<{code_hi or n_codes} LUT in {where} "
               "memory: distances and positions equal")
         edges += 1
+    # ---- slice 4: B10 (GEMM) and B11 (attention), bf16 and fp32
+    from repro_torch.configs.registry import get_config
+    lm_cfg = get_config(LM["arch"])
+    lm_gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    edges += lm_kernel_edges(torch, ops, ref, dev, lm_gen, lm_cfg)
     print(f"[edge] {edges} ragged and tied cases agree with the plain "
           "versions")
 
@@ -1308,6 +1682,34 @@ def main() -> int:
            f"neighbours equal to path='ref' but {n_odd} queries at probe "
            "near-ties", kernels["B8"]["ms"])
     del run, est, res, res_ref, p, Qa, exact
+
+    # ------------------------------------------------ 6. the LM path
+    del A, Cq, Xg, mu, var, lp, xg, ks, ps
+    torch.cuda.empty_cache()
+    lm_kernels, b10 = lm_kernel_times(torch, ops, ref, dev, lm_gen, lm_cfg,
+                                      peaks)
+    kernels.update(lm_kernels)
+    run = lm_path(torch, ops, dev, lm_cfg, kernels, b10)
+    Bt, new = LM["batch"], LM["new"]
+    pre, step = run["prefill_ms"], run["step_ms"]
+    print(f"[path] lm {lm_cfg.arch_id} batch={Bt} prompt={LM['prompt']} "
+          f"new={new}: generate {run['gen_s']:.3f}s "
+          f"({Bt * new / run['gen_s']:.1f} tok/s); prefill {pre:.2f} ms "
+          f"(B10 device {run['b10_prefill']:.2f} ms = "
+          f"{run['b10_prefill'] / pre:.3f}, B11 {run['b11_prefill']:.3f} ms "
+          f"= {run['b11_prefill'] / pre:.4f}); decode step {step:.2f} ms "
+          f"({Bt / step * 1e3:.1f} tok/s; device busy "
+          f"{run['step_dev_ms']:.2f} ms = {run['step_dev_ms'] / step:.3f}, "
+          f"B10 device {run['b10_step']:.2f} ms = "
+          f"{run['b10_step'] / step:.3f}); "
+          f"B10 launches={run['launches']['matmul']} B11 "
+          f"launches={run['launches']['flash_attention']} (the shapes "
+          f"imply them); against the plain route, teacher-forced: logits "
+          f"within {run['worst']:.3f} of the tolerance, {run['differ']} of "
+          f"{run['decisions']} greedy tokens differ from its argmax, all at "
+          f"near-ties ({run['near']} near-ties); first row "
+          f"{run['first']}")
+    del run
 
     # ------------------------------------------------ summary lines
     kernels = dict(sorted(kernels.items(), key=lambda kv: int(kv[0][1:])))

@@ -25,7 +25,7 @@ class MoEConfig:
     num_experts: int
     top_k: int
     d_ff_expert: int
-    every: int = 1            # MoE on layers where layer_idx % every == every-1
+    every: int = 1            # MoE where layer_idx % every == every - 1
     router_dtype: str = "float32"
     load_balance_coef: float = 0.01
 

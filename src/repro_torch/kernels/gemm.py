@@ -35,7 +35,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def strip_width(dtype: torch.dtype) -> int:
     """Columns of one block of the matrix-vector configuration: a warp's
     32 lanes each read 16 bytes of a B row."""
-    return 32 * (16 // torch.empty((), dtype=dtype).element_size())
+    return 32 * (16 // dtype.itemsize)
 
 
 def plan_small(M: int, N: int, K: int, dtype: torch.dtype,

@@ -60,9 +60,7 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   cfg: ModelConfig, causal: bool, q_offset: int = 0,
-                   kv_len_mask: Optional[torch.Tensor] = None
-                   ) -> torch.Tensor:
+                   cfg: ModelConfig, causal: bool) -> torch.Tensor:
     """Materialised-scores attention, in torch ops: fp32 scores, masked to
     -1e30, an fp32 softmax, probabilities cast to v's dtype for P·V.  GQA
     groups the query heads over the KV heads without copying them."""
@@ -75,13 +73,8 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if cap is not None:
         scores = cap * torch.tanh(scores / cap)
     if causal:
-        qpos = torch.arange(Sq, device=q.device) + q_offset
-        kpos = torch.arange(Skv, device=q.device)
-        mask = kpos[None, :] <= qpos[:, None]
+        mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device).tril()
         scores = torch.where(mask[None, None, None], scores,
-                             torch.full_like(scores, NEG_INF))
-    if kv_len_mask is not None:
-        scores = torch.where(kv_len_mask[:, None, None, None, :], scores,
                              torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
@@ -118,18 +111,17 @@ def apply_attention(params, x: torch.Tensor, cfg: ModelConfig,
 
 def decode_attention(params, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos: torch.Tensor,
-                     cfg: ModelConfig, *, length: int, aligned: bool = True,
+                     cfg: ModelConfig, *, length: int,
                      path: Optional[str] = None):
-    """One-token decode: write this token's k and v into the cache at
-    ``pos`` and attend to it.
+    """One-token decode with every row at one position (the reference's
+    ``aligned=True``): write this token's k and v into the cache at
+    ``pos[0]`` and attend to it.
 
     x: (B, 1, d_model); cache_k/v: (B, S_max, Hkv, hd); pos: (B,) int.
-    ``length``: positions already written in the longest row (a host
-    int), so the scores cover ``length + 1`` positions; the rest of the
-    cache is masked in the reference and contributes exact zeros, so this
-    is the same result.  ``aligned=True`` (every row at one position)
-    writes one slice at ``pos[0]``; ``aligned=False`` writes each row at
-    its own position.
+    ``length``: positions already written (a host int, equal to pos), so
+    the scores cover the ``length + 1`` written positions.  The reference
+    scores the whole cache and masks the unwritten rest to -1e30, whose
+    probabilities are exact zeros, so this is the same result.
 
     Unlike the reference, which returns new cache arrays, this writes
     ``cache_k`` and ``cache_v`` IN PLACE and returns them.
@@ -137,17 +129,11 @@ def decode_attention(params, x: torch.Tensor, cache_k: torch.Tensor,
     """
     B = x.shape[0]
     q, k, v = _project_qkv(params, x, cfg, pos[:, None], path)
-    if aligned:
-        at = pos[:1].to(torch.long)
-        cache_k.index_copy_(1, at, k.to(cache_k.dtype))
-        cache_v.index_copy_(1, at, v.to(cache_v.dtype))
-    else:
-        rows = torch.arange(B, device=x.device)
-        cache_k[rows, pos.to(torch.long)] = k[:, 0].to(cache_k.dtype)
-        cache_v[rows, pos.to(torch.long)] = v[:, 0].to(cache_v.dtype)
+    at = pos[:1].to(torch.long)
+    cache_k.index_copy_(1, at, k.to(cache_k.dtype))
+    cache_v.index_copy_(1, at, v.to(cache_v.dtype))
     skv = length + 1
-    valid = torch.arange(skv, device=x.device)[None, :] <= pos[:, None]
     out = full_attention(q, cache_k[:, :skv], cache_v[:, :skv], cfg,
-                         causal=False, kv_len_mask=valid)
+                         causal=False)
     out = out.reshape(B, 1, cfg.q_dim)
     return linear(out, params["wo"], path), cache_k, cache_v

@@ -137,7 +137,7 @@ class DecodeCache(NamedTuple):
     kv_k: torch.Tensor     # (n_layers, B, S_max, Hkv, hd)
     kv_v: torch.Tensor
     pos: torch.Tensor      # (B,) int32: the next position to write
-    length: int            # positions written in the longest row (host)
+    length: int            # the same position, on the host
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -179,14 +179,13 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 
 def decode_step(params, cache: DecodeCache, tokens: torch.Tensor,
-                cfg: ModelConfig, *, aligned: bool = True,
-                path: Optional[str] = None):
-    """tokens (B, 1) -> (logits (B, vocab), cache advanced by one).
+                cfg: ModelConfig, *, path: Optional[str] = None):
+    """tokens (B, 1) -> (logits (B, vocab), cache advanced by one), every
+    row at one position (the reference's ``aligned=True``).
 
     The cache's k and v tensors are written in place (see
     ``attention.decode_attention``): the returned cache holds the same
-    tensors, and the one passed in is spent.  ``aligned``: every row at
-    one position (the engine's case); False for ragged rows."""
+    tensors, and the one passed in is spent."""
     _, _, _, n_units = layer_plan(cfg)
     if cache.length >= cache.kv_k.shape[2]:
         raise ValueError(f"the cache is full: {cache.length} of "
@@ -197,7 +196,7 @@ def decode_step(params, cache: DecodeCache, tokens: torch.Tensor,
         h = L.apply_norm(p["norm_mixer"], x, cfg)
         out, _, _ = attn.decode_attention(
             p["attn"], h, cache.kv_k[i], cache.kv_v[i], cache.pos, cfg,
-            length=cache.length, aligned=aligned, path=path)
+            length=cache.length, path=path)
         x = x + out
         if "mlp" in p:
             x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["norm_ffn"], x,

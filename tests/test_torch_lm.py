@@ -243,17 +243,6 @@ def test_decode_writes_the_cache_in_place(served):
     assert bool((cache2.kv_k[:, :, 13:] == 0).all())
 
 
-def test_ragged_decode_matches_aligned_at_one_position(served):
-    engine = _engine(served)
-    logits, cache = engine.prefill(served["prompts"])
-    nxt = logits.argmax(-1)[:, None]
-    a, _ = T.decode_step(served["params"], cache, nxt, served["cfg"])
-    _, cache = engine.prefill(served["prompts"])
-    b, _ = T.decode_step(served["params"], cache, nxt, served["cfg"],
-                         aligned=False)
-    assert torch.equal(a, b)
-
-
 def test_plain_route_equals_the_default_on_cpu(served):
     a = _engine(served).generate(served["prompts"], 3)
     b = _engine(served, path="ref").generate(served["prompts"], 3)

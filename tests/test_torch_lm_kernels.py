@@ -130,22 +130,25 @@ def test_plain_attention_matches_full_attention(causal):
                                np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
-def test_decode_full_attention_matches_jax():
-    """The port's ``full_attention`` (decode, over the cache, with the
-    written-length mask and grouped KV heads) against the reference's."""
+@pytest.mark.parametrize("written", [1, 6, 9])
+def test_decode_full_attention_matches_jax(written):
+    """Decode's attention over the cache, with grouped KV heads: the
+    reference scores the whole 9-slot cache and masks the unwritten
+    slots; the port scores the written ones only.  Same result."""
     from repro_torch.configs.registry import get_config
     jcfg, tcfg = jax_config("stablelm-3b"), get_config("stablelm-3b")
-    rng = np.random.default_rng(5)
+    rng = np.random.default_rng(written)
     q = rng.normal(size=(3, 1, 4, 80)).astype(np.float32)
     k, v = (rng.normal(size=(3, 9, 2, 80)).astype(np.float32)
             for _ in range(2))
-    mask = np.arange(9)[None, :] <= np.array([8, 3, 0])[:, None]
+    mask = np.broadcast_to(np.arange(9) < written, (3, 9))
     want = jattn.full_attention(jnp.asarray(q), jnp.asarray(k),
                                 jnp.asarray(v), jcfg, causal=False,
                                 kv_len_mask=jnp.asarray(mask))
-    got = tattn.full_attention(*(torch.from_numpy(x) for x in (q, k, v)),
-                               tcfg, causal=False,
-                               kv_len_mask=torch.from_numpy(mask))
+    got = tattn.full_attention(torch.from_numpy(q),
+                               torch.from_numpy(k[:, :written]),
+                               torch.from_numpy(v[:, :written]), tcfg,
+                               causal=False)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
 
@@ -235,8 +238,8 @@ def test_wrong_dtype_or_shape_raises(case, err):
     q = torch.randn(1, 2, 5, 16)
     calls = {
         "mixed dtypes": lambda: tops.matmul(f32, torch.randn(6, 3).bfloat16()),
-        "int operands": lambda: tops.matmul(f32.int(), torch.ones(6, 3,
-                                                                  dtype=torch.int32)),
+        "int operands": lambda: tops.matmul(
+            f32.int(), torch.ones(6, 3, dtype=torch.int32)),
         "inner mismatch": lambda: tops.matmul(f32, torch.randn(5, 3)),
         "1-D operand": lambda: tops.matmul(f32, torch.randn(6)),
         "transposed weight": lambda: tops.matmul(f32, torch.randn(3, 6).T),
