@@ -17,7 +17,9 @@ the CUDA toolkit.  In order it
    plain PyTorch version on the card
    at the main-path shapes, at ragged edge shapes, on data with exact
    ties, on rows holding NaN and +Inf (int8: saturated ±127, INT_MIN and
-   INT_MAX) and at k = 1, k = n and k > 32, and times kernel, plain
+   INT_MAX; B2's NaN rows take centroid 0, ROADMAP C4), B10 and B11 on
+   every route of their shape rules (B11 at head dims up to 256) and at
+   k = 1, k = n and k > 32, and times kernel, plain
    version and one library call; the blocked kNN arm is also checked at
    N = 2^22, where it splits a bucket's queries into chunks to bound its
    distance matrix;
@@ -39,9 +41,15 @@ the CUDA toolkit.  In order it
    ``ServeEngine.generate``: batch 4, prompts of 512 seeded tokens, 32
    greedy new tokens, with B10 computing every projection and the
    unembedding and B11 the prefill's causal attention; checks the launch
-   counts the shapes imply (B10 225 a forward pass, 33 passes; B11 32),
-   times the prefill and the decode steps, and holds the logits at every
-   step against the plain route (``path="ref"``) on the same tokens.
+   counts the shapes imply (B10 225 a forward pass, 33 passes; B11 32)
+   and the route of each (B10 on wgmma in the prefill and on the small-M
+   kernel at M = 4, B11 on wgmma), times the prefill and the decode
+   steps, holds the logits at every step against the plain route
+   (``path="ref"``) on the same tokens, and holds one prefill's residual
+   stream after every layer to the plain route's, within twice the plain
+   route's distance from an fp32 route (``lm_layers``).  B10 and B11 are
+   also timed at each path shape by the profiler's kernel durations
+   (``device_ms``), beside the CUDA-event time of a loop of calls.
 
 The comparison rule: integer outputs (B5's int32 mode, B6, B7, B8 and
 the int8 and ANN paths' neighbours, assignments and votes) match
@@ -106,7 +114,7 @@ LM = dict(arch="stablelm-3b", batch=4, prompt=512, new=32)
 # B10's edge sizes (every M, N, K among them) and B11's (S, d)
 GEMM_EDGES = (1, 3, 65, 257, 6913)
 ATTN_EDGES_S = (1, 12, 129, 512)
-ATTN_EDGES_D = (16, 64, 80, 128)
+ATTN_EDGES_D = (16, 64, 80, 128, 144, 192, 256)
 # the LM path's logits, kernel route against plain route, agree to
 # LM_ATOL + LM_RTOL·|logit|: both round the residual stream to bf16 at
 # every layer, but not the same sums, so 32 layers leave logit
@@ -114,6 +122,15 @@ ATTN_EDGES_D = (16, 64, 80, 128)
 # million compared comes to about 0.8 of this bound), where a wrong
 # kernel moves logits by their own size (about 1)
 LM_ATOL, LM_RTOL = 2.0 ** -3, 2.0 ** -6
+# the per-layer check (ROADMAP C3): after every layer of one teacher-forced
+# prefill, the kernel route's residual stream may stand from the plain
+# route's at most LAYER_FACTOR times as far (Frobenius norm over the whole
+# (B, S, d_model) state) as the plain route stands from an fp32 plain
+# route on the same bf16 weights.  Two right bf16 routes round the same
+# fp32 sums, mostly to the same values, so their distance sits below the
+# bf16 rounding noise that the fp32 route measures; a wrong tile of one
+# head in one layer moves it past that noise at that layer.
+LAYER_FACTOR = 2.0
 
 # NVIDIA data-sheet peaks by H100 variant, at the full power limit: fp32
 # outside the tensor cores (FLOP/s), device-memory rate (bytes/s), the
@@ -156,6 +173,27 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int) -> float:
+    """Mean device time of one call over ``reps`` calls, after one warm
+    call: the summed durations of the kernels the calls launched, from
+    ``torch.profiler``, so the host's time to issue them is left out
+    (``cuda_ms`` includes it wherever the host is the slower side)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+             for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    check(us > 0, "the profiler recorded no device time")
+    return us / reps / 1e3
 
 
 def bound_ms(n_ops: float, n_bytes: float, peaks, int8: bool = False,
@@ -249,6 +287,7 @@ def lm_kernel_edges(torch, ops, ref, dev, gen, cfg) -> int:
     multiple of 16 (the CUDA-core kernel in bf16); both dtypes.  Returns
     the number of cases."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemm
     from repro_torch.kernels.gemm import SMALL_M
     d, ff = cfg.d_model, cfg.d_ff
     rows = LM["batch"] * LM["prompt"]
@@ -257,6 +296,7 @@ def lm_kernel_edges(torch, ops, ref, dev, gen, cfg) -> int:
             (LM["batch"], cfg.vocab_size, d),
             (SMALL_M, ff, d), (SMALL_M + 1, d, ff)]
     n = 0
+    ops.reset_launches()
     for dtype in (torch.bfloat16, torch.float32):
         worst = (0.0, 0.0)
         for M in GEMM_EDGES:
@@ -266,13 +306,31 @@ def lm_kernel_edges(torch, ops, ref, dev, gen, cfg) -> int:
                     worst = max(worst, r, key=lambda t: t[1])
                     n += 1
         for M, N, K in path:
+            way = "small_m" if M <= SMALL_M else \
+                "wgmma" if dtype == torch.bfloat16 else "fp32"
+            before = gemm.ROUTE_LAUNCHES[way]
             err, ratio = gemm_case(torch, ops, ref, dev, gen, M, N, K, dtype)
-            print(f"[edge] B10 {dtype} M={M} N={N} K={K}: max_abs_err="
-                  f"{err:.4g}, {ratio:.3f} of the tolerance")
+            check(gemm.ROUTE_LAUNCHES[way] == before + 1,
+                  f"B10 {dtype} M={M} N={N} K={K} did not take the {way} "
+                  f"route: {gemm.ROUTE_LAUNCHES}")
+            print(f"[edge] B10 {dtype} M={M} N={N} K={K} ({way}): "
+                  f"max_abs_err={err:.4g}, {ratio:.3f} of the tolerance")
             n += 1
         print(f"[edge] B10 {dtype}: all {len(GEMM_EDGES) ** 3} shapes with "
               f"M, N, K in {GEMM_EDGES} within the tolerance; worst "
               f"max_abs_err={worst[0]:.4g}, {worst[1]:.3f} of it")
+    # the shape rule of kernels/gemm.py, applied to every case above
+    want = dict.fromkeys(gemm.ROUTE_LAUNCHES, 0)
+    shapes = [(M, N, K) for M in GEMM_EDGES for N in GEMM_EDGES
+              for K in GEMM_EDGES] + path
+    for dtype in (torch.bfloat16, torch.float32):
+        for M, N, K in shapes:
+            want["small_m" if M <= SMALL_M else "fp32"
+                 if dtype == torch.float32 else "wgmma"
+                 if N % 8 == 0 and K % 8 == 0 else "mma_sync"] += 1
+    edge_routes = dict(gemm.ROUTE_LAUNCHES)
+    check(edge_routes == want, f"B10 edge routes {edge_routes}, the shape "
+          f"rule gives {want}")
     for dtype in (torch.bfloat16, torch.float32):
         cases = [(1, 2, S, hd, c, "model") for S in ATTN_EDGES_S
                  for hd in ATTN_EDGES_D for c in (True, False)]
@@ -286,13 +344,19 @@ def lm_kernel_edges(torch, ops, ref, dev, gen, cfg) -> int:
                           f"causal={causal} {layout}")
             worst = max(worst, r, key=lambda t: t[1])
             n += 1
-        mma = fa.uses_tensor_cores(*attn_inputs(torch, dev, gen, 1, 1, 4, 80,
-                                                dtype))
         print(f"[edge] B11 {dtype}: {len(cases)} cases (S in {ATTN_EDGES_S}, "
               f"d in {ATTN_EDGES_D}, causal and full, d = 24, a contiguous "
-              f"layout) within the tolerance; d = 80 on the "
-              f"{'tensor' if mma else 'CUDA'} cores; worst max_abs_err="
-              f"{worst[0]:.4g}, {worst[1]:.3f} of it")
+              f"layout) within the tolerance; d = 80 takes the "
+              f"{fa.route(*attn_inputs(torch, dev, gen, 1, 1, 4, 80, dtype))} "
+              f"route; worst max_abs_err={worst[0]:.4g}, {worst[1]:.3f} of "
+              "it")
+    # bf16 at d % 16 == 0 takes wgmma; d = 24 and every fp32 case the
+    # CUDA cores
+    n_wg = sum(hd % 16 == 0 for _, _, _, hd, _, _ in cases)
+    want = {"wgmma": n_wg, "cuda_core": 2 * len(cases) - n_wg}
+    check(fa.ROUTE_LAUNCHES == want, f"B11 edge routes "
+          f"{fa.ROUTE_LAUNCHES}, the layout rule gives {want}")
+    print(f"[edge] routes: B10 {edge_routes}, B11 {dict(fa.ROUTE_LAUNCHES)}")
     return n
 
 
@@ -300,8 +364,12 @@ def lm_kernel_times(torch, ops, ref, dev, gen, cfg, peaks):
     """B10 at each projection shape of the LM path (prefill M = batch ·
     prompt, decode M = batch, the unembedding at M = batch) and B11 at
     the prefill shape, in the models' layout: kernel, plain version and
-    one library call, with each call's bound.  Returns the kernel rows
-    and the per-shape B10 times."""
+    one library call, with each call's bound.  Each kernel and library
+    call is timed twice: by CUDA events around a loop of calls
+    (``cuda_ms``, the host's issue time included where it is the slower
+    side) and by the profiler's kernel durations (``device_ms``).  Returns
+    the kernel rows and the per-shape B10 times."""
+    from repro_torch.kernels import gemm
     d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     Bt, P = LM["batch"], LM["prompt"]
     bf = torch.bfloat16
@@ -316,20 +384,33 @@ def lm_kernel_times(torch, ops, ref, dev, gen, cfg, peaks):
         w = torch.randn((K, N), generator=gen, device=dev).to(bf)
         b, by = bound_ms(2 * M * N * K, 2 * (M * K + K * N + M * N), peaks,
                          bf16=True)
-        b10[key] = dict(M=M, N=N, K=K,
+        b10[key] = dict(M=M, N=N, K=K, route=gemm.route(a, w),
                         ms=cuda_ms(torch, lambda: ops.matmul(a, w), 20),
+                        dev_ms=device_ms(torch, lambda: ops.matmul(a, w), 20),
                         plain_ms=cuda_ms(torch, lambda: ref.matmul(a, w), 5),
                         library_ms=cuda_ms(torch, lambda: torch.matmul(a, w),
                                            20),
+                        lib_dev_ms=device_ms(torch, lambda: torch.matmul(a, w),
+                                             20),
                         bound_ms=b, bound_by=by,
                         err=gemm_case(torch, ops, ref, dev, gen, M, N, K,
                                       bf)[0])
         r = b10[key]
-        print(f"[time] B10 {key} M={M} N={N} K={K}: kernel {r['ms']:.4f} ms "
-              f"({2 * M * N * K / r['ms'] / 1e9:.1f} TFLOP/s, "
-              f"{2 * (M * K + K * N + M * N) / r['ms'] / 1e9:.3f} TB/s), "
+        if r["route"] == "wgmma":
+            # every tile width the wgmma kernel has, at this shape
+            widths = {tn: device_ms(torch, lambda: gemm.launch(a, w, tn), 10)
+                      for tn in (128, 160, 192, 256)}
+            r["tile_n"] = gemm.wgmma_tile_n(M, N)
+            print(f"[tile] B10 {key} M={M} N={N} K={K}: device ms by tile "
+                  f"width " + ", ".join(f"{tn}: {t:.4f}"
+                                        for tn, t in widths.items()) +
+                  f"; the kernel takes {r['tile_n']}")
+        print(f"[time] B10 {key} M={M} N={N} K={K} ({r['route']}): kernel "
+              f"{r['ms']:.4f} ms, device {r['dev_ms']:.4f} ms "
+              f"({2 * M * N * K / r['dev_ms'] / 1e9:.1f} TFLOP/s, "
+              f"{2 * (M * K + K * N + M * N) / r['dev_ms'] / 1e9:.3f} TB/s), "
               f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
-              f"ms, bound {b:.4f} ms ({by})")
+              f"ms, device {r['lib_dev_ms']:.4f} ms, bound {b:.4f} ms ({by})")
     del a, w
     main = b10["prefill in/gate"]
     kernels = {"B10": dict(
@@ -359,24 +440,77 @@ def lm_kernel_times(torch, ops, ref, dev, gen, cfg, peaks):
                                                          is_causal=True), 50),
         launches=0)
     contiguous_ms = cuda_ms(torch, lambda: ops.flash_attention(qc, kc, vc), 50)
+    b11 = dict(dev_ms=device_ms(torch, lambda: ops.flash_attention(q, k, v),
+                                50),
+               lib_dev_ms=device_ms(torch, lambda: torch.nn.functional
+                                    .scaled_dot_product_attention(
+                                        qc, kc, vc, is_causal=True), 50))
+    kernels["B11"]["dev_ms"] = b11["dev_ms"]
     for key in ("B10", "B11"):
         kr = kernels[key]
         print(f"[time] {key} {kr['name']}: kernel {kr['ms']:.4f} ms, plain "
               f"{kr['plain_ms']:.4f} ms, library {kr['library_ms']:.4f} ms, "
               f"bound {kr['bound_ms']:.4f} ms ({kr['bound_by']})")
     print(f"[kernel] B11 flash_attention B={Bt} H={H} S={P} d={hd} causal, "
-          f"the models' layout: max_abs_err={err:.4g}; on contiguous "
-          f"(B, H, S, d) tensors {contiguous_ms:.4f} ms")
+          f"the models' layout: max_abs_err={err:.4g}; device "
+          f"{b11['dev_ms']:.4f} ms (SDPA {b11['lib_dev_ms']:.4f} ms); on "
+          f"contiguous (B, H, S, d) tensors {contiguous_ms:.4f} ms")
+    # one line with every path shape's numbers, for the records
+    print("[lm-times] " + json.dumps(dict(
+        b10={k: {f: r[f] for f in ("M", "N", "K", "route", "ms", "dev_ms",
+                                    "plain_ms", "library_ms", "lib_dev_ms",
+                                    "bound_ms", "bound_by")}
+             for k, r in b10.items()},
+        b11=dict(ms=kernels["B11"]["ms"], dev_ms=b11["dev_ms"],
+                 plain_ms=kernels["B11"]["plain_ms"],
+                 library_ms=kernels["B11"]["library_ms"],
+                 lib_dev_ms=b11["lib_dev_ms"],
+                 bound_ms=kernels["B11"]["bound_ms"]))))
     return kernels, b10
+
+
+def lm_layer_check(torch, got, plain, exact):
+    """The per-layer check (ROADMAP C3) on three lists of residual
+    streams, one per layer: two bf16 routes (``got``, ``plain``) and an
+    fp32 route (``exact``) on the same weights.  Returns one row per
+    layer, (layer, ‖got − plain‖, ‖plain − exact‖, ok), ok when the first
+    is at most ``LAYER_FACTOR`` times the second."""
+    rows = []
+    for i, (g, p, e) in enumerate(zip(got, plain, exact)):
+        dist = float((g.float() - p.float()).norm())
+        noise = float((p.float() - e.float()).norm())
+        rows.append((i, dist, noise, dist <= LAYER_FACTOR * noise))
+    return rows
+
+
+def lm_layers(torch, cfg, params, tokens):
+    """One teacher-forced prefill of ``tokens``, layer by layer, through
+    the kernel route, the plain route and the plain route in fp32 on the
+    same (upcast) weights; ``lm_layer_check`` on the three."""
+    from repro_torch.models import transformer
+
+    def upcast(tree):
+        return {k: upcast(v) if isinstance(v, dict) else v.float()
+                for k, v in tree.items()}
+    got = transformer.layer_states(params, tokens, cfg)
+    plain = transformer.layer_states(params, tokens, cfg, path="ref")
+    exact = transformer.layer_states(upcast(params), tokens, cfg,
+                                     path="ref")
+    return lm_layer_check(torch, got, plain, exact), exact[-1].float().norm()
 
 
 def lm_path(torch, ops, dev, cfg, kernels, b10):
     """Serve ``LM`` through ``ServeEngine.generate`` with the launch counts
-    set to 0 just before and read just after; time the prefill and the
-    decode steps; then hold the kernel route's logits, step by step, to
-    the plain route's (``path="ref"``) on the same tokens.  Returns the
-    numbers of the report line."""
+    set to 0 just before and read just after (every B10 launch on the
+    wgmma route in the prefill and the small-M route at M = batch, every
+    B11 launch on the wgmma route); time the prefill and the decode
+    steps; hold the kernel route's logits, step by step, to the plain
+    route's (``path="ref"``) on the same tokens; and hold one prefill's
+    residual stream to the plain route's after every layer
+    (``lm_layers``).  Returns the numbers of the report line."""
     from repro_torch.configs.base import ServeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemm
     from repro_torch.models import transformer
     from repro_torch.serving import ServeEngine
     Bt, P, new = LM["batch"], LM["prompt"], LM["new"]
@@ -414,11 +548,21 @@ def lm_path(torch, ops, dev, cfg, kernels, b10):
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    routes = dict(b10=dict(gemm.ROUTE_LAUNCHES), b11=dict(fa.ROUTE_LAUNCHES))
     want = {name: 0 for name in launches}
     want["matmul"] = (7 * cfg.n_layers + 1) * (1 + new)
     want["flash_attention"] = cfg.n_layers
     check(launches == want, f"lm: launches {launches}, the shapes imply "
           f"{want}")
+    # the prefill's projections at M = batch x prompt on wgmma; its
+    # unembedding (the last position) and every decode launch at M = batch
+    # on the small-M kernel; the prefill's attention on wgmma
+    want_routes = dict(
+        b10=dict(wgmma=7 * cfg.n_layers, mma_sync=0,
+                 small_m=1 + new * (7 * cfg.n_layers + 1), fp32=0),
+        b11=dict(wgmma=cfg.n_layers, cuda_core=0))
+    check(routes == want_routes, f"lm: routes {routes}, the design "
+          f"implies {want_routes}")
     kernels["B10"]["launches"] = launches["matmul"]
     kernels["B11"]["launches"] = launches["flash_attention"]
     check(res.tokens.shape == (Bt, new) and
@@ -459,13 +603,14 @@ def lm_path(torch, ops, dev, cfg, kernels, b10):
 
     # B10 and B11's share, from their device times at these shapes
     L_ = cfg.n_layers
-    b10_prefill = L_ * (4 * b10["prefill qkvo"]["ms"] +
-                        2 * b10["prefill in/gate"]["ms"] +
-                        b10["prefill out"]["ms"]) + b10["unembed"]["ms"]
-    b11_prefill = L_ * kernels["B11"]["ms"]
-    b10_step = L_ * (4 * b10["decode qkvo"]["ms"] +
-                     2 * b10["decode in/gate"]["ms"] +
-                     b10["decode out"]["ms"]) + b10["unembed"]["ms"]
+    b10_prefill = L_ * (4 * b10["prefill qkvo"]["dev_ms"] +
+                        2 * b10["prefill in/gate"]["dev_ms"] +
+                        b10["prefill out"]["dev_ms"]) + \
+        b10["unembed"]["dev_ms"]
+    b11_prefill = L_ * kernels["B11"]["dev_ms"]
+    b10_step = L_ * (4 * b10["decode qkvo"]["dev_ms"] +
+                     2 * b10["decode in/gate"]["dev_ms"] +
+                     b10["decode out"]["dev_ms"]) + b10["unembed"]["dev_ms"]
 
     # the plain route on the same tokens, teacher-forced
     ref_engine = ServeEngine(cfg, params, serve_cfg, path="ref")
@@ -498,13 +643,27 @@ def lm_path(torch, ops, dev, cfg, kernels, b10):
         nxt = res.tokens[:, step:step + 1]
         lk, ck = engine.decode(ck, nxt)
         lr, cr = ref_engine.decode(cr, nxt)
-    del lk, ck, lr, cr, params, engine, ref_engine
+    del lk, ck, lr, cr, engine, ref_engine
+
+    # ROADMAP C3: one teacher-forced prefill, layer by layer
+    rows, scale = lm_layers(torch, cfg, params, prompts)
+    bad = [r for r in rows if not r[3]]
+    check(not bad, "lm layers: " + "; ".join(
+        f"layer {i}: ‖kernel − plain‖ {dist:.4g} > {LAYER_FACTOR} x "
+        f"‖plain − fp32‖ {noise:.4g}" for i, dist, noise, _ in bad))
+    ratios = [dist / noise for _, dist, noise, _ in rows]
+    worst_layer = max(range(len(rows)), key=lambda i: ratios[i])
+    layers = dict(
+        worst=ratios[worst_layer], worst_layer=worst_layer,
+        first=(rows[0][1], rows[0][2]), last=(rows[-1][1], rows[-1][2]),
+        scale=float(scale))
+    del params
     return dict(gen_s=gen_s, prefill_ms=min(prefill_ms), step_ms=step_ms,
                 step_dev_ms=dev_us / 1e3, b10_prefill=b10_prefill,
                 b11_prefill=b11_prefill, b10_step=b10_step,
                 decisions=Bt * (new + 1), near=near, differ=differ,
                 worst=worst, first=res.tokens[0, :8].tolist(),
-                launches=launches)
+                launches=launches, routes=routes, layers=layers)
 
 
 def main() -> int:
@@ -716,6 +875,31 @@ def main() -> int:
                                 ints, f"B2 N={N} d={d} K={K}")
         print(f"[edge] B2 N={N} d={d} K={K} ints={ints}: "
               f"max_abs_err={err:.3g} near_ties={n_near}")
+        edges += 1
+    # ROADMAP C4: a row holding NaN takes centroid 0 at +inf in both
+    # versions (a NaN distance is never the nearest); the other rows as
+    # above
+    nan_rows = rand((1001, 21), False)
+    nan_rows[[5, 600, 1000], [3, 0, 20]] = float("nan")
+    for A_n, C_n, what in [
+            (torch.tensor([[0.0, 0.0], [float("nan"), 1.0], [1.0, 1.0]],
+                          device=dev),
+             torch.tensor([[0.0, 0.0], [1.0, 1.0], [2.0, 2.0]], device=dev),
+             "B2 [[0,0],[nan,1],[1,1]]"),
+            (nan_rows, rand((257, 21), False), "B2 random NaN rows")]:
+        kv, ki = ops.distance_argmin(A_n, C_n)
+        pv, pi = ref.distance_argmin(A_n, C_n)
+        torch.cuda.synchronize()
+        bad = torch.isnan(A_n).any(1)
+        check(bool((ki[bad] == 0).all()) and bool((pi[bad] == 0).all()) and
+              bool(torch.isinf(kv[bad]).all()) and
+              bool(torch.isinf(pv[bad]).all()),
+              f"{what}: a NaN row did not take centroid 0 at +inf "
+              f"(kernel {ki[bad].tolist()}, plain {pi[bad].tolist()})")
+        err, n_near = argmin_case(A_n[~bad].contiguous(), C_n, False, what)
+        print(f"[edge] {what}: {int(bad.sum())} NaN rows take centroid 0 at "
+              f"+inf in both versions; the other rows max_abs_err="
+              f"{err:.3g} near_ties={n_near}")
         edges += 1
     for B, d, C in [(1, 784, 10), (3, 1, 1), (33, 5, 9), (1023, 65, 257)]:
         err = gnb_case(*gnb_inputs(B, d, C), f"B3 B={B} d={d} C={C}")
@@ -1709,6 +1893,15 @@ def main() -> int:
           f"{run['decisions']} greedy tokens differ from its argmax, all at "
           f"near-ties ({run['near']} near-ties); first row "
           f"{run['first']}")
+    lay = run["layers"]
+    print(f"[path] lm routes: B10 {run['routes']['b10']}, B11 "
+          f"{run['routes']['b11']} (the design implies them); per layer, "
+          f"one teacher-forced prefill: ‖kernel − plain‖ within "
+          f"{LAYER_FACTOR} x ‖plain − fp32‖ at all {lm_cfg.n_layers} layers,"
+          f" at most {lay['worst']:.3f} x (layer {lay['worst_layer']}); "
+          f"layer 0 {lay['first'][0]:.4g} against {lay['first'][1]:.4g}, "
+          f"layer {lm_cfg.n_layers - 1} {lay['last'][0]:.4g} against "
+          f"{lay['last'][1]:.4g} (‖fp32 state‖ {lay['scale']:.4g})")
     del run
 
     # ------------------------------------------------ summary lines

@@ -131,8 +131,13 @@ class _EstimatorBase:
             for v in params))
 
     def _tensor(self, x, dtype=None) -> torch.Tensor:
+        """``x`` on this estimator's device, as ``dtype`` if one is named;
+        float64 becomes float32 (what the JAX package's arrays do with x64
+        off), so float64 inputs reach the kernels as float32."""
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(np.ascontiguousarray(x))
+        if dtype is None and getattr(x, "dtype", None) == torch.float64:
+            dtype = torch.float32
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
     def _cast(self, x) -> torch.Tensor:

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exports plain C functions and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library, loaded with ctypes.
 All sources compile in parallel, one ``nvcc`` each.  A library's file
-name carries a digest of its source and flags, so an edited source never
-loads a stale build.  The build directory ``kernels/build/`` is listed in
+name carries a digest of its source, of the ``csrc/*.cuh`` headers it
+includes, and of the flags, so an edited source or header never loads a
+stale build.  The build directory ``kernels/build/`` is listed in
 ``.gitignore``; ``nvcc -Xptxas -v`` output (registers, shared memory,
 spills per kernel) is kept beside each library as ``<name>-<digest>.log``.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,6 +27,7 @@ BUILD_DIR = Path(__file__).resolve().with_name("build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_INCLUDE = re.compile(r'\s*#\s*include\s*"([^"]+\.cuh)"')
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _targets: Dict[str, Path] = {}
@@ -43,8 +46,24 @@ def sources() -> Sequence[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers(src: Path) -> Sequence[Path]:
+    """The ``csrc/*.cuh`` headers ``src`` includes, directly or through
+    another header, sorted by name."""
+    found, todo = set(), [src]
+    while todo:
+        for line in todo.pop().read_text().splitlines():
+            m = _INCLUDE.match(line)
+            if m and (CSRC / m.group(1)).is_file() and m.group(1) not in found:
+                found.add(m.group(1))
+                todo.append(CSRC / m.group(1))
+    return [CSRC / name for name in sorted(found)]
+
+
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for hdr in headers(src):
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:12]}.so"
 

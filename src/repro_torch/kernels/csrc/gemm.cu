@@ -11,48 +11,89 @@
 // What bounds it on an H100.  Prefill (M = batch x prompt = 2048, bf16):
 // operations, 2MNK = 10.4 TFLOP for the whole of stablelm-3b, 10.5 ms at
 // the 989 TFLOP/s bf16 tensor-core peak.  Decode (M = batch = 4): bytes,
-// every weight read once, 5.33 GB a step, 1.59 ms at 3.35 TB/s.  The two
-// regimes get two launch configurations:
+// every weight read once, 5.33 GB a step, 1.59 ms at 3.35 TB/s.  Four
+// routes, chosen on the host by a stated shape rule (kernels/gemm.py):
 //
-//  * M > 16, bf16: a 128 x 128 output tile per block of 8 warps, the K
-//    axis walked in 32-wide steps.  A and B tiles are staged in shared
-//    memory by cp.async in two stages (the copy of step k+1 overlaps the
-//    products of step k), read into registers by ldmatrix (B transposed
-//    on the way), and multiplied by mma.sync m16n8k16 bf16 -> fp32: each
-//    warp owns a 64 x 32 piece of the tile in 64 fp32 registers.  Rows
-//    are padded by 8 elements so that ldmatrix reads are free of bank
-//    conflicts.  wgmma and TMA, the only way to the full tensor-core
-//    rate, are left to a later change.
-//  * M > 16, fp32: 64 x 64 tiles of fp32 fused multiply-adds on the CUDA
+//  * wgmma (M > 16, bf16, K and N multiples of 8, 16-byte-aligned bases):
+//    a persistent grid, one block of three warpgroups per SM walking
+//    128 x BN output tiles (tile t: row tile t mod m_tiles, column tile
+//    t / m_tiles, so the tiles in flight share B's column strips).  One
+//    thread of the producer warpgroup keeps TMA loads of A (128 x 64, K
+//    contiguous) and B (64 x BN, as 64-column boxes, N contiguous) in
+//    flight through a ring of 4-6 shared-memory stages with 128-byte
+//    swizzle, each stage completed on an mbarrier.  Two consumer
+//    warpgroups, 64 rows each, run wgmma.mma_async m64nBNk16 bf16 ->
+//    fp32 on the stages as they land, one group in flight, and release
+//    each stage to the producer through a second mbarrier.  B is
+//    MN-major for wgmma; the descriptor's transpose bit takes it as it
+//    is, so no transposed copy of a weight is ever made.  The producer
+//    gives its registers to the consumers (setmaxnreg 40 / 232), which
+//    hold a 64 x BN fp32 tile (BN / 2 registers a thread).  The epilogue
+//    rounds once to bf16 (nearest even) and masks ragged M and N; it
+//    overlaps the producer's loads for the block's next tile.
+//    The tile width.  Counted in waves over 132 SMs at M = 2048, BN = 160
+//    looks best at N = 2560 (256 tiles, 1.94 waves, against 2.42 for 128
+//    and 1.21 for 256) and BN = 128 at N = 6912 (6.55 waves against 3.27
+//    for 256).  But a tile's time is not its share of the FLOPs: every
+//    tile reads its A rows and B columns from L2, and the time of a wave
+//    follows the bytes a stage moves (A's 16 KB plus 8 KB per 64-column
+//    box of B: 4, 5 and 6 units at BN = 128, 192 and 256) more than its
+//    products, so wider tiles, which move fewer bytes per product, win
+//    back part of what their partial last wave loses, and BN = 160 moves
+//    as many bytes as 192 (three boxes) for fewer products.  chip_smoke.py
+//    times every width at the path's shapes (its [tile] lines); BN = 192
+//    (three whole boxes, 5 stages) is the fastest at all three, so it is
+//    the width for N > 128: N = 2560 makes 224 tiles (1.70 waves), N =
+//    6912 576 (4.36 waves).  N <= 128 takes BN = 128.
+//  * mma.sync (M > 16, bf16 shapes the wgmma route cannot take: K or N
+//    not a multiple of 8, since TMA needs 16-byte global strides): a
+//    128 x 128 output tile per block of 8 warps, the K axis walked in
+//    32-wide steps.  A and B tiles are staged in shared memory by
+//    cp.async in two stages, read into registers by ldmatrix (B
+//    transposed on the way), and multiplied by mma.sync m16n8k16 bf16 ->
+//    fp32.  Rows are padded by 8 elements so that ldmatrix reads are
+//    free of bank conflicts.
+//  * fp32 (M > 16): 64 x 64 tiles of fp32 fused multiply-adds on the CUDA
 //    cores, 4 x 4 outputs a thread.  Not on the served path (the model
 //    is bf16); there so that fp32 callers get the true fp32 product
 //    (TF32 would keep three digits).
-//  * M <= 16 (decode, and prefill's unembedding of the last position):
-//    a matrix-vector shape, bound by reading B.  A block takes a strip of
-//    256 bf16 (or 128 fp32) columns and 4 rows of A; each lane reads 16
-//    bytes of a B row, so a warp reads 512 contiguous bytes, and each
-//    warp walks its own rows of the block's K range with four loads in
-//    flight.  The K axis is split across blocks (split-K) so that about
-//    two waves of blocks cover the card even at N = 2560.  Each block's
-//    warps are summed in shared memory in a fixed order; with more than
-//    one split the blocks write fp32 partials, and the last block of a
-//    column strip to finish (an atomic counter, reset by that block)
-//    sums the partials in split order and rounds once.  So the result is
-//    deterministic and a call is one launch.
+//  * small-M (M <= 16: decode, and prefill's unembedding of the last
+//    position), fp32 or bf16: a matrix-vector shape, bound by reading B
+//    once.  A block owns a strip of B's columns 256 bytes wide and one
+//    slice of K; the K slices of a strip are the blocks of one thread
+//    block cluster (up to 8), so a strip's K is split over up to 8 SMs
+//    and the grid makes up to two blocks per SM (all resident at once:
+//    a third would wait for a second round) even at N = 2560.  A
+//    producer warp streams the slice's B rows through a ring of six
+//    16 KB stages (a TMA box of 64 rows when B's rows are 16-byte
+//    aligned, else plain loads), so 96 KB a block are in flight.  A is
+//    staged once per 512 columns of K with 16-byte loads.  Four consumer
+//    warps take one 4-byte word of each row (two bf16 columns) and
+//    alternate halves of the stage's rows, all rows of A at once.  The
+//    split-K sum stays on chip: each block leaves its partial in shared
+//    memory, and after a cluster barrier each block sums its share of
+//    the strip's columns over the cluster's blocks through distributed
+//    shared memory, in rank order, and rounds once.  So the result is
+//    deterministic and a call is one launch, with no partials in device
+//    memory, no fence and no atomic.
 //
-// Every path masks ragged M, N and K in the kernel (out-of-range elements
-// load as zeros and are never stored); operands whose rows are not 16-byte
-// aligned take element loads instead of vector loads.  Products are
-// summed in fp32 and rounded once to the output dtype (round to nearest
-// even), as the reference does.
+// Every route masks ragged M, N and K (out-of-range elements load as
+// zeros and are never stored).  Products are summed in fp32 and rounded
+// once to the output dtype (round to nearest even), as the reference
+// does.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <climits>
 #include <cstdint>
+#include <mutex>
+
+#include "hopper.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -67,6 +108,13 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+template <int ALIGN>
+__device__ __forceinline__ uint8_t* align_up(uint8_t* p) {
+    return reinterpret_cast<uint8_t*>(
+        (reinterpret_cast<uintptr_t>(p) + ALIGN - 1) &
+        ~static_cast<uintptr_t>(ALIGN - 1));
 }
 
 // ---------------------------------------------------------------- M > 16, bf16
@@ -290,210 +338,480 @@ gemm_f32_fma(const float* __restrict__ A, const float* __restrict__ B,
     }
 }
 
-// ---------------------------------------------------------------- M <= 16
+// ---------------------------------------------------------- M > 16, wgmma
 
-constexpr int SM_ROWS = 4;       // rows of A per block
-constexpr int SM_WARPS = 8;
-constexpr int SM_THREADS = SM_WARPS * 32;
-constexpr int SM_KCHUNK = 256;   // A values staged per pass
-constexpr int SM_UNROLL = 4;     // B rows in flight per warp
+constexpr int WG_BM = 128, WG_BK = 64;
+constexpr int WG_THREADS = 384;    // consumer warpgroups 0, 1; producer 2
 
-// V consecutive elements of row ``row`` from column n, as floats (zeros past
-// N).  VEC: N is a multiple of V and the base 16-byte aligned, so the V
-// elements are one 16-byte load.
-template <typename T, bool VEC>
-__device__ __forceinline__ void load_strip(const T* row, int n, int N,
-                                           float (&b)[16 / sizeof(T)]) {
-    constexpr int V = 16 / sizeof(T);
-    if (VEC) {
-        if (n < N) {
-            const uint4 raw = __ldg(reinterpret_cast<const uint4*>(row + n));
-            if constexpr (sizeof(T) == 2) {
-                const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+template <int BNW>
+struct WgTile {
+    static constexpr int CHUNKS = (BNW + 63) / 64;      // 64-column B boxes
+    static constexpr int A_BYTES = WG_BM * WG_BK * 2;  // 128 rows x 128 B
+    static constexpr int B_BYTES = CHUNKS * WG_BK * 128;
+    static constexpr int STAGE = A_BYTES + B_BYTES;
+    static constexpr int FIT = 200 * 1024 / STAGE;
+    static constexpr int STAGES = FIT < 6 ? FIT : 6;
+    static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
+};
+
+template <int BNW>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+gemm_wgmma(const __grid_constant__ CUtensorMap tm_a,
+           const __grid_constant__ CUtensorMap tm_b, bf16* __restrict__ C,
+           int M, int N, int K) {
+    using T = WgTile<BNW>;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* smem = align_up<1024>(smem_raw);   // 128-byte swizzle atoms
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::STAGES * T::STAGE);
+    uint64_t* empty = full + T::STAGES;
+    const int m_tiles = (M + WG_BM - 1) / WG_BM;
+    const int tiles = m_tiles * ((N + BNW - 1) / BNW);
+    const int k_steps = (K + WG_BK - 1) / WG_BK;
+    const int wg = threadIdx.x / 128;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < T::STAGES; ++s) {
+            hop::mbar_init(&full[s], 1);      // the producer's expect_tx
+            hop::mbar_init(&empty[s], 8);     // one arrival per consumer warp
+        }
+        hop::fence_barrier_init();
+    }
+    __syncthreads();
+
+    if (wg == 2) {
+        hop::setmaxnreg_dec40();
+        if (threadIdx.x == 2 * 128) {
+            int stage = 0;
+            uint32_t phase = 0;
+            for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+                const int m0 = (tile % m_tiles) * WG_BM;
+                const int n0 = (tile / m_tiles) * BNW;
+                for (int ks = 0; ks < k_steps; ++ks) {
+                    hop::mbar_wait(&empty[stage], phase ^ 1u);
+                    uint8_t* a_s = smem + stage * T::STAGE;
+                    uint8_t* b_s = a_s + T::A_BYTES;
+                    hop::mbar_expect_tx(&full[stage], T::STAGE);
+                    hop::tma_load_2d(a_s, &tm_a, &full[stage], ks * WG_BK, m0);
 #pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    const float2 f = __bfloat1622float2(
-                        *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-                    b[2 * i] = f.x;
-                    b[2 * i + 1] = f.y;
+                    for (int c = 0; c < T::CHUNKS; ++c)
+                        hop::tma_load_2d(b_s + c * WG_BK * 128, &tm_b,
+                                         &full[stage], n0 + c * 64,
+                                         ks * WG_BK);
+                    if (++stage == T::STAGES) {
+                        stage = 0;
+                        phase ^= 1u;
+                    }
                 }
-            } else {
-                b[0] = __uint_as_float(raw.x);
-                b[1] = __uint_as_float(raw.y);
-                b[2] = __uint_as_float(raw.z);
-                b[3] = __uint_as_float(raw.w);
             }
-        } else {
-#pragma unroll
-            for (int j = 0; j < V; ++j) b[j] = 0.f;
         }
     } else {
+        hop::setmaxnreg_inc232();
+        const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+        float acc[BNW / 2];
+        int stage = 0;
+        uint32_t phase = 0;
+        for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+            const int m0 = (tile % m_tiles) * WG_BM;
+            const int n0 = (tile / m_tiles) * BNW;
 #pragma unroll
-        for (int j = 0; j < V; ++j)
-            b[j] = (n + j < N) ? to_f(row[n + j]) : 0.f;
+            for (int i = 0; i < BNW / 2; ++i) acc[i] = 0.f;
+            int held = -1;                    // the stage the last group reads
+            for (int ks = 0; ks < k_steps; ++ks) {
+                hop::mbar_wait(&full[stage], phase);
+                const uint8_t* a_s = smem + stage * T::STAGE + wg * 64 * 128;
+                const uint8_t* b_s = smem + stage * T::STAGE + T::A_BYTES;
+                hop::wg_fence();
+#pragma unroll
+                for (int kk = 0; kk < WG_BK / 16; ++kk) {
+                    // A: K-major, 128-byte rows, 8-row groups 1024 B apart;
+                    // a k16 step is 32 bytes along the swizzled row.
+                    // B: MN-major, 16 K rows a step (2048 B), 64-column
+                    // boxes WG_BK x 128 B apart.
+                    const uint64_t da = hop::make_desc(
+                        a_s + kk * 32, 16, 1024, hop::SWIZZLE_128B);
+                    const uint64_t db = hop::make_desc(
+                        b_s + kk * 16 * 128, WG_BK * 128, 1024,
+                        hop::SWIZZLE_128B);
+                    WgmmaSS<BNW>::template run<0, 1>(acc, da, db, 1);
+                }
+                hop::wg_commit();
+                hop::wg_wait<1>();            // the previous step's group is done
+                if (held >= 0) {
+                    __syncwarp();
+                    if (lane == 0) hop::mbar_arrive(&empty[held]);
+                }
+                held = stage;
+                if (++stage == T::STAGES) {
+                    stage = 0;
+                    phase ^= 1u;
+                }
+            }
+            hop::wg_wait<0>();
+            hop::fence_regs(acc);
+            if (held >= 0) {
+                __syncwarp();
+                if (lane == 0) hop::mbar_arrive(&empty[held]);
+            }
+            // epilogue: the accumulator's rows r and r + 8, column pairs
+            const int row = m0 + wg * 64 + warp * 16 + lane / 4;
+#pragma unroll
+            for (int nb = 0; nb < BNW / 8; ++nb) {
+                const int col = n0 + nb * 8 + (lane & 3) * 2;
+                if (col >= N) continue;       // N % 8 == 0: col + 1 < N too
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int r = row + 8 * h;
+                    if (r < M)
+                        *reinterpret_cast<__nv_bfloat162*>(
+                            C + (size_t)r * N + col) =
+                            __floats2bfloat162_rn(acc[4 * nb + 2 * h],
+                                                  acc[4 * nb + 2 * h + 1]);
+                }
+            }
+        }
     }
 }
 
-// grid (column strips, splits, row groups of 4).  Split s covers
-// K rows [s * k_per_split, min(K, (s + 1) * k_per_split)).
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(SM_THREADS)
-gemm_small_m(const T* __restrict__ A, const T* __restrict__ B,
-             T* __restrict__ C, float* __restrict__ partial,
-             unsigned* __restrict__ counters, int M, int N, int K,
-             int k_per_split) {
-    constexpr int V = 16 / sizeof(T);
-    constexpr int TILE_N = 32 * V;
-    __shared__ float a_s[SM_ROWS][SM_KCHUNK];
-    __shared__ float red[SM_WARPS][SM_ROWS][TILE_N];
-    __shared__ unsigned last_block;
+// The tile width of the wgmma route at (M, N) (see the note above).
+int pick_bn(int M, int N) {
+    (void)M;
+    return N > 128 ? 192 : 128;
+}
 
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int split = blockIdx.y, splits = gridDim.y;
-    const int m0 = blockIdx.z * SM_ROWS;
-    const int rows = min(SM_ROWS, M - m0);
-    const int n = blockIdx.x * TILE_N + lane * V;
-    const int k_begin = split * k_per_split;
-    const int k_end = min(K, k_begin + k_per_split);
+template <int BNW>
+cudaError_t launch_wgmma(const CUtensorMap& ta, const CUtensorMap& tb,
+                         bf16* c, int M, int N, int K, int sms,
+                         cudaStream_t s) {
+    using T = WgTile<BNW>;
+    static std::once_flag once;
+    static cudaError_t attr = cudaSuccess;
+    std::call_once(once, [] {
+        attr = cudaFuncSetAttribute(
+            gemm_wgmma<BNW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            T::SMEM);
+    });
+    if (attr != cudaSuccess) return attr;
+    const long long tiles = (long long)((M + WG_BM - 1) / WG_BM) *
+                            ((N + BNW - 1) / BNW);
+    const int grid = (int)(tiles < sms ? tiles : sms);
+    gemm_wgmma<BNW><<<grid, WG_THREADS, T::SMEM, s>>>(ta, tb, c, M, N, K);
+    return cudaGetLastError();
+}
 
-    float acc[SM_ROWS][V];
-#pragma unroll
-    for (int r = 0; r < SM_ROWS; ++r)
-#pragma unroll
-        for (int j = 0; j < V; ++j) acc[r][j] = 0.f;
+// ---------------------------------------------------------------- M <= 16
 
-    for (int c0 = k_begin; c0 < k_end; c0 += SM_KCHUNK) {
-        const int cn = min(SM_KCHUNK, k_end - c0);
-        __syncthreads();
-        for (int e = tid; e < SM_ROWS * SM_KCHUNK; e += SM_THREADS) {
-            const int r = e / SM_KCHUNK, kk = e % SM_KCHUNK;
-            a_s[r][kk] = (r < rows && kk < cn)
-                ? to_f(A[(size_t)(m0 + r) * K + c0 + kk]) : 0.f;
+constexpr int SK_ROWS = 64;          // B rows a stage holds
+constexpr int SK_ROW_BYTES = 256;    // bytes of one strip row
+constexpr int SK_STAGES = 6;
+constexpr int SK_CONSUMERS = 128;    // warps 0-3; warp 4 is the producer
+constexpr int SK_THREADS = SK_CONSUMERS + 32;
+constexpr int SK_ACHUNK = 512;       // K values of A staged at a time
+constexpr int SK_MAX_CLUSTER = 8;
+
+template <typename T, int MR>
+struct SmallCfg {
+    static constexpr int TN = SK_ROW_BYTES / sizeof(T);  // strip columns
+    static constexpr int V = 4 / sizeof(T);              // columns a word
+    static constexpr int STAGE = SK_ROWS * SK_ROW_BYTES; // 16 KB
+    static constexpr int A_OFF = SK_STAGES * STAGE;
+    static constexpr int RED_OFF = A_OFF + MR * SK_ACHUNK * 4;
+    static constexpr int BAR_OFF = RED_OFF + 2 * MR * TN * 4;
+    static constexpr int SMEM = BAR_OFF + 2 * SK_STAGES * 8 + 128;
+};
+
+// grid: (column strips x cluster size); cluster rank r owns K rows
+// [r * per, min(K, (r + 1) * per)).  MR >= M rows of A are computed.
+template <typename T, int MR>
+__global__ void __launch_bounds__(SK_THREADS)
+gemm_small_m(const __grid_constant__ CUtensorMap tm_b,
+             const T* __restrict__ A, const T* __restrict__ B,
+             T* __restrict__ C, int M, int N, int K, int per, int use_tma,
+             int a_vec) {
+    using F = SmallCfg<T, MR>;
+    constexpr int TN = F::TN, V = F::V, WORDS = SK_ROW_BYTES / 4;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* smem = align_up<128>(smem_raw);
+    float* a_s = reinterpret_cast<float*>(smem + F::A_OFF);   // [MR][ACHUNK]
+    float* red = reinterpret_cast<float*>(smem + F::RED_OFF); // [2][MR][TN]
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + F::BAR_OFF);
+    uint64_t* empty = full + SK_STAGES;
+
+    cg::cluster_group cluster = cg::this_cluster();
+    const int cs = (int)cluster.num_blocks();
+    const int rank = (int)cluster.block_rank();
+    const int n0 = (blockIdx.x / cs) * TN;
+    const int k_begin = rank * per;
+    const int k_end = min(K, k_begin + per);
+    const int n_st = k_end > k_begin ? (k_end - k_begin + SK_ROWS - 1) / SK_ROWS
+                                     : 0;
+    const int tid = threadIdx.x;
+
+    if (tid == 0) {
+        for (int s = 0; s < SK_STAGES; ++s) {
+            hop::mbar_init(&full[s], use_tma ? 1 : 32);
+            hop::mbar_init(&empty[s], SK_CONSUMERS);
         }
-        __syncthreads();
-        for (int kk = warp; kk < cn; kk += SM_WARPS * SM_UNROLL) {
-            float b[SM_UNROLL][V];
-#pragma unroll
-            for (int u = 0; u < SM_UNROLL; ++u) {
-                const int k = kk + u * SM_WARPS;
-                if (k < cn) {
-                    load_strip<T, VEC>(B + (size_t)(c0 + k) * N, n, N, b[u]);
+        hop::fence_barrier_init();
+    }
+    __syncthreads();
+
+    if (tid >= SK_CONSUMERS) {
+        // producer warp: TMA boxes of 64 rows x 256 B, or plain loads
+        const int lane = tid - SK_CONSUMERS;
+        if (!use_tma || lane == 0) {
+            int stage = 0;
+            uint32_t phase = 0;
+            for (int s = 0; s < n_st; ++s) {
+                const int k0 = k_begin + s * SK_ROWS;
+                hop::mbar_wait(&empty[stage], phase ^ 1u);
+                uint8_t* dst = smem + stage * F::STAGE;
+                if (use_tma) {
+                    hop::mbar_expect_tx(&full[stage], F::STAGE);
+                    hop::tma_load_2d(dst, &tm_b, &full[stage], n0, k0);
                 } else {
-#pragma unroll
-                    for (int j = 0; j < V; ++j) b[u][j] = 0.f;
+                    T* d = reinterpret_cast<T*>(dst);
+                    for (int e = lane; e < SK_ROWS * TN; e += 32) {
+                        const int k = k0 + e / TN, n = n0 + e % TN;
+                        d[e] = (k < k_end && n < N) ? B[(size_t)k * N + n]
+                                                    : from_f<T>(0.f);
+                    }
+                    hop::mbar_arrive(&full[stage]);
+                }
+                if (++stage == SK_STAGES) {
+                    stage = 0;
+                    phase ^= 1u;
                 }
             }
+        }
+    } else {
+        const int w = tid % WORDS, half = tid / WORDS;
+        float acc[MR][V];
 #pragma unroll
-            for (int u = 0; u < SM_UNROLL; ++u) {
-                const int k = min(kk + u * SM_WARPS, SM_KCHUNK - 1);
+        for (int m = 0; m < MR; ++m)
 #pragma unroll
-                for (int r = 0; r < SM_ROWS; ++r) {
-                    const float a = a_s[r][k];
+            for (int j = 0; j < V; ++j) acc[m][j] = 0.f;
+        int stage = 0;
+        uint32_t phase = 0;
+        for (int s = 0; s < n_st; ++s) {
+            const int k0 = k_begin + s * SK_ROWS;
+            const int ka = (s * SK_ROWS) % SK_ACHUNK;
+            if (ka == 0) {
+                // stage A[:, k0, k0 + ACHUNK) as floats, once per chunk
+                hop::named_sync(1, SK_CONSUMERS);
+                if (a_vec) {
+                    constexpr int V16 = 16 / sizeof(T);
+                    constexpr int PER_ROW = SK_ACHUNK / V16;
+                    for (int e = tid; e < MR * PER_ROW; e += SK_CONSUMERS) {
+                        const int m = e / PER_ROW, kk = (e % PER_ROW) * V16;
+                        const int k = k0 + kk;
+                        float* dst = a_s + m * SK_ACHUNK + kk;
+                        if (m < M && k < k_end) {
+                            const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
+                                A + (size_t)m * K + k));
+                            if constexpr (sizeof(T) == 2) {
+                                const uint32_t wd[4] = {raw.x, raw.y, raw.z,
+                                                        raw.w};
+#pragma unroll
+                                for (int i = 0; i < 4; ++i) {
+                                    const float2 f = __bfloat1622float2(
+                                        *reinterpret_cast<const __nv_bfloat162*>(
+                                            &wd[i]));
+                                    dst[2 * i] = f.x;
+                                    dst[2 * i + 1] = f.y;
+                                }
+                            } else {
+                                dst[0] = __uint_as_float(raw.x);
+                                dst[1] = __uint_as_float(raw.y);
+                                dst[2] = __uint_as_float(raw.z);
+                                dst[3] = __uint_as_float(raw.w);
+                            }
+                        } else {
+#pragma unroll
+                            for (int i = 0; i < V16; ++i) dst[i] = 0.f;
+                        }
+                    }
+                } else {
+                    for (int e = tid; e < MR * SK_ACHUNK; e += SK_CONSUMERS) {
+                        const int m = e / SK_ACHUNK, k = k0 + e % SK_ACHUNK;
+                        a_s[e] = (m < M && k < k_end)
+                            ? to_f(A[(size_t)m * K + k]) : 0.f;
+                    }
+                }
+                hop::named_sync(1, SK_CONSUMERS);
+            }
+            hop::mbar_wait(&full[stage], phase);
+            const uint32_t* rows =
+                reinterpret_cast<const uint32_t*>(smem + stage * F::STAGE);
+            const int r_end = min(SK_ROWS, k_end - k0);
+            const int r_lo = half * (SK_ROWS / 2);
+            const int r_hi = min(r_end, r_lo + SK_ROWS / 2);
+#pragma unroll 4
+            for (int r = r_lo; r < r_hi; ++r) {
+                const uint32_t word = rows[r * WORDS + w];
+                float b[V];
+                if constexpr (sizeof(T) == 2) {
+                    const float2 f = __bfloat1622float2(
+                        *reinterpret_cast<const __nv_bfloat162*>(&word));
+                    b[0] = f.x;
+                    b[V - 1] = f.y;
+                } else {
+                    b[0] = __uint_as_float(word);
+                }
+                const float* ar = a_s + ka + r;
+#pragma unroll
+                for (int m = 0; m < MR; ++m) {
+                    const float a = ar[m * SK_ACHUNK];
 #pragma unroll
                     for (int j = 0; j < V; ++j)
-                        acc[r][j] = fmaf(a, b[u][j], acc[r][j]);
+                        acc[m][j] = fmaf(a, b[j], acc[m][j]);
                 }
             }
+            hop::mbar_arrive(&empty[stage]);
+            if (++stage == SK_STAGES) {
+                stage = 0;
+                phase ^= 1u;
+            }
         }
+        // this block's partial: the two row halves, added in order
+#pragma unroll
+        for (int m = 0; m < MR; ++m)
+#pragma unroll
+            for (int j = 0; j < V; ++j)
+                red[(half * MR + m) * TN + w * V + j] = acc[m][j];
+        hop::named_sync(1, SK_CONSUMERS);
+        for (int o = tid; o < MR * TN; o += SK_CONSUMERS)
+            red[o] += red[MR * TN + o];
     }
+    cluster.sync();   // every block's partial is in its shared memory
+    // rank r sums its share of the strip's columns over the cluster's
+    // blocks, in rank order (deterministic), and rounds once
+    const int cols = (TN + cs - 1) / cs, c_lo = rank * cols;
+    for (int o = tid; o < MR * cols; o += SK_THREADS) {
+        const int m = o / cols, col = c_lo + o % cols, n = n0 + col;
+        if (m >= M || col >= TN || n >= N) continue;
+        float sum = 0.f;
+        for (int q = 0; q < cs; ++q)
+            sum += cluster.map_shared_rank(red, q)[m * TN + col];
+        C[(size_t)m * N + n] = from_f<T>(sum);
+    }
+    cluster.sync();   // no block leaves while its partial may be read
+}
 
-    // the block's warps, summed in warp order
-#pragma unroll
-    for (int r = 0; r < SM_ROWS; ++r)
-#pragma unroll
-        for (int j = 0; j < V; ++j) red[warp][r][lane * V + j] = acc[r][j];
-    __syncthreads();
-    for (int o = tid; o < SM_ROWS * TILE_N; o += SM_THREADS) {
-        const int r = o / TILE_N, col = o % TILE_N;
-        const int nn = blockIdx.x * TILE_N + col;
-        if (r >= rows || nn >= N) continue;
-        float s = 0.f;
-#pragma unroll
-        for (int w = 0; w < SM_WARPS; ++w) s += red[w][r][col];
-        if (splits == 1)
-            C[(size_t)(m0 + r) * N + nn] = from_f<T>(s);
-        else
-            partial[((size_t)split * M + m0 + r) * N + nn] = s;
-    }
-    if (splits == 1) return;
-
-    // split-K: the last block of this strip to finish sums the partials
-    __threadfence();
-    __syncthreads();
-    if (tid == 0) {
-        const unsigned idx = blockIdx.z * gridDim.x + blockIdx.x;
-        const unsigned prev = atomicAdd(&counters[idx], 1u);
-        last_block = (prev == (unsigned)splits - 1u);
-        if (last_block) counters[idx] = 0u;   // ready for the next launch
-    }
-    __syncthreads();
-    if (!last_block) return;
-    __threadfence();
-    for (int o = tid; o < SM_ROWS * TILE_N; o += SM_THREADS) {
-        const int r = o / TILE_N, col = o % TILE_N;
-        const int nn = blockIdx.x * TILE_N + col;
-        if (r >= rows || nn >= N) continue;
-        float s = 0.f;
-        for (int sp = 0; sp < splits; ++sp)
-            s += __ldcg(&partial[((size_t)sp * M + m0 + r) * N + nn]);
-        C[(size_t)(m0 + r) * N + nn] = from_f<T>(s);
-    }
+template <typename T, int MR>
+cudaError_t launch_small(const void* A, const void* B, void* C, int M, int N,
+                         int K, int cluster, int per, cudaStream_t s) {
+    using F = SmallCfg<T, MR>;
+    static std::once_flag once;
+    static cudaError_t attr = cudaSuccess;
+    std::call_once(once, [] {
+        attr = cudaFuncSetAttribute(
+            gemm_small_m<T, MR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            F::SMEM);
+    });
+    if (attr != cudaSuccess) return attr;
+    CUtensorMap map{};
+    const uint64_t dims[2] = {(uint64_t)N, (uint64_t)K};
+    const uint64_t strides[1] = {(uint64_t)N * sizeof(T)};
+    const uint32_t box[2] = {(uint32_t)F::TN, (uint32_t)SK_ROWS};
+    const bool tma =
+        (N * sizeof(T)) % 16 == 0 && reinterpret_cast<uintptr_t>(B) % 16 == 0 &&
+        hop::tensor_map<2>(&map, sizeof(T) == 2
+                                     ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                           B, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+    const int a_vec = K % (16 / (int)sizeof(T)) == 0 &&
+                      reinterpret_cast<uintptr_t>(A) % 16 == 0;
+    const int strips = (N + F::TN - 1) / F::TN;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(strips * cluster, 1, 1);
+    cfg.blockDim = dim3(SK_THREADS, 1, 1);
+    cfg.dynamicSmemBytes = F::SMEM;
+    cfg.stream = s;
+    cudaLaunchAttribute attrs[1];
+    attrs[0].id = cudaLaunchAttributeClusterDimension;
+    attrs[0].val.clusterDim.x = cluster;
+    attrs[0].val.clusterDim.y = 1;
+    attrs[0].val.clusterDim.z = 1;
+    cfg.attrs = attrs;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(
+        &cfg, gemm_small_m<T, MR>, map, static_cast<const T*>(A),
+        static_cast<const T*>(B), static_cast<T*>(C), M, N, K, per,
+        (int)tma, a_vec);
+    if (e != cudaSuccess) return e;
+    return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_small(const void* A, const void* B, void* C,
-                         float* partial, unsigned* counters, int M, int N,
-                         int K, int splits, int k_per_split,
-                         cudaStream_t s) {
-    constexpr int V = 16 / sizeof(T);
-    constexpr int TILE_N = 32 * V;
-    const dim3 grid((N + TILE_N - 1) / TILE_N, splits,
-                    (M + SM_ROWS - 1) / SM_ROWS);
-    const T* a = static_cast<const T*>(A);
-    const T* b = static_cast<const T*>(B);
-    T* c = static_cast<T*>(C);
-    const bool vec = N % V == 0 &&
-                     reinterpret_cast<uintptr_t>(B) % 16 == 0;
-    if (vec)
-        gemm_small_m<T, true><<<grid, SM_THREADS, 0, s>>>(
-            a, b, c, partial, counters, M, N, K, k_per_split);
-    else
-        gemm_small_m<T, false><<<grid, SM_THREADS, 0, s>>>(
-            a, b, c, partial, counters, M, N, K, k_per_split);
-    return cudaGetLastError();
+cudaError_t launch_small_rows(const void* A, const void* B, void* C, int M,
+                              int N, int K, int cluster, int per,
+                              cudaStream_t s) {
+    if (M <= 4) return launch_small<T, 4>(A, B, C, M, N, K, cluster, per, s);
+    if (M <= 8) return launch_small<T, 8>(A, B, C, M, N, K, cluster, per, s);
+    return launch_small<T, 16>(A, B, C, M, N, K, cluster, per, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// M <= 16 rows.  dtype: 0 fp32, 1 bf16 (A, B and C all of it).  With
-// splits > 1, ``partial`` holds (splits, M, N) fp32 and ``counters`` at
-// least ceil(N / strip) * ceil(M / 4) zeros (left zero after the launch).
-// Returns the first CUDA error.
-int gemm_small(int dtype, const void* A, const void* B, void* C,
-               void* partial, void* counters, int M, int N, int K,
-               int splits, int k_per_split, void* stream) {
-    if (M < 1 || N < 1 || K < 1 || M > 16 || splits < 1 ||
-        splits > 65535 || k_per_split < 1 ||
-        (long long)splits * k_per_split < K ||
-        (long long)(splits - 1) * k_per_split >= K ||
-        (splits > 1 && (partial == nullptr || counters == nullptr)))
+// M <= 16 rows.  dtype: 0 fp32, 1 bf16 (A, B and C all of it).  cluster
+// in [1, 8] blocks split K into slices of ``per`` rows (a multiple of 64),
+// none empty.  Returns the first CUDA error.
+int gemm_small(int dtype, const void* A, const void* B, void* C, int M,
+               int N, int K, int cluster, int per, void* stream) {
+    if (M < 1 || N < 1 || K < 1 || M > 16 || cluster < 1 ||
+        cluster > SK_MAX_CLUSTER || per < 1 || per % SK_ROWS != 0 ||
+        (long long)cluster * per < K || (long long)(cluster - 1) * per >= K)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    float* p = static_cast<float*>(partial);
-    unsigned* cnt = static_cast<unsigned*>(counters);
     if (dtype == 1)
-        return (int)launch_small<bf16>(A, B, C, p, cnt, M, N, K, splits,
-                                       k_per_split, s);
+        return (int)launch_small_rows<bf16>(A, B, C, M, N, K, cluster, per, s);
     if (dtype == 0)
-        return (int)launch_small<float>(A, B, C, p, cnt, M, N, K, splits,
-                                        k_per_split, s);
+        return (int)launch_small_rows<float>(A, B, C, M, N, K, cluster, per,
+                                             s);
     return (int)cudaErrorInvalidValue;
 }
 
-// Any M, N, K >= 1 (meant for M > 16): bf16 on the tensor cores, fp32 on
-// the CUDA cores.  Returns the first CUDA error.
+// The wgmma route's tile width at (M, N).
+int gemm_wgmma_tile_n(int M, int N) { return pick_bn(M, N); }
+
+// M > 16, bf16, K and N multiples of 8, A and B 16-byte aligned: the
+// wgmma route on a persistent grid of at most ``sms`` blocks, with output
+// tiles ``tile_n`` wide (one of 128, 160, 192, 256; 0: pick_bn's choice).
+// Returns the first CUDA error (cudaErrorInvalidValue if the shape does
+// not fit the route or the driver refuses a TMA descriptor).
+int gemm_wgmma(const void* A, const void* B, void* C, int M, int N, int K,
+               int sms, int tile_n, void* stream) {
+    if (M <= 16 || N < 8 || K < 8 || N % 8 || K % 8 || sms < 1 ||
+        (reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(B)) % 16)
+        return (int)cudaErrorInvalidValue;
+    CUtensorMap ta{}, tb{};
+    const uint64_t a_dims[2] = {(uint64_t)K, (uint64_t)M};
+    const uint64_t a_strides[1] = {(uint64_t)K * 2};
+    const uint32_t a_box[2] = {WG_BK, WG_BM};
+    const uint64_t b_dims[2] = {(uint64_t)N, (uint64_t)K};
+    const uint64_t b_strides[1] = {(uint64_t)N * 2};
+    const uint32_t b_box[2] = {64, WG_BK};
+    if (!hop::tensor_map<2>(&ta, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, A, a_dims,
+                            a_strides, a_box, CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !hop::tensor_map<2>(&tb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, B, b_dims,
+                            b_strides, b_box, CU_TENSOR_MAP_SWIZZLE_128B))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    bf16* c = static_cast<bf16*>(C);
+    switch (tile_n ? tile_n : pick_bn(M, N)) {
+        case 256: return (int)launch_wgmma<256>(ta, tb, c, M, N, K, sms, s);
+        case 192: return (int)launch_wgmma<192>(ta, tb, c, M, N, K, sms, s);
+        case 160: return (int)launch_wgmma<160>(ta, tb, c, M, N, K, sms, s);
+        case 128: return (int)launch_wgmma<128>(ta, tb, c, M, N, K, sms, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// Any M, N, K >= 1 (meant for M > 16 shapes the wgmma route does not
+// take): bf16 on mma.sync, fp32 on the CUDA cores.  Returns the first
+// CUDA error.
 int gemm_tiled(int dtype, const void* A, const void* B, void* C, int M,
                int N, int K, void* stream) {
     if (M < 1 || N < 1 || K < 1) return (int)cudaErrorInvalidValue;

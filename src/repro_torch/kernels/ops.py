@@ -18,7 +18,9 @@ mask ragged edges themselves, so none of that module's padding to block
 multiples (or the GNB padding correction) is needed.
 
 B9 (``gnb_scores``, one query) is B3 launched at B = 1, as ROADMAP B9
-plans; it keeps its own count.
+plans; it keeps its own count.  B10 and B11 also count their launches
+per route (``gemm.ROUTE_LAUNCHES``, ``flash_attention.ROUTE_LAUNCHES``),
+so a run can show which kernel design served it.
 
 The int8 tier's B6 (``distance_topk_q8``) and B7 (``distance_argmin_q8``)
 and IVF-PQ's B8 (``adc_topk``) take integer tensors and return exact
@@ -51,8 +53,13 @@ _INT32 = (torch.int32,)
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    """Set every count to 0: ``LAUNCHES`` and the per-route counts of B10
+    and B11 (``gemm.ROUTE_LAUNCHES``, ``flash_attention.ROUTE_LAUNCHES``)."""
+    from repro_torch.kernels import flash_attention as _fa
+    from repro_torch.kernels import gemm as _gemm
+    for counts in (LAUNCHES, _gemm.ROUTE_LAUNCHES, _fa.ROUTE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _check(op: str, rows: Tuple[str, ...] = (),
@@ -328,7 +335,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """B11: q, k, v (B, H, S, d) -> softmax(q k^T / sqrt(d)) v, (B, H, S,
-    d) in q's dtype, causal or full.  Any S >= 1 and d <= 128; any
+    d) in q's dtype, causal or full.  Any S >= 1 and d <= 256; any
     (batch, head, position) strides with the d axis contiguous, so a
     permuted (B, S, H, d) tensor goes in without a copy.  GQA callers
     expand the KV heads first, as in the reference."""

@@ -60,8 +60,12 @@ def distance_topk(a: torch.Tensor, c: torch.Tensor, k: int):
 
 def distance_argmin(a: torch.Tensor, c: torch.Tensor):
     """(N, d), (K, d) -> (min sq-dist (N,) f32, nearest id (N,) int32);
-    ``torch.argmin`` returns the first index on ties."""
+    the first index on ties.  B2's rule for NaN (ROADMAP C4): a NaN
+    distance is never the nearest, so a row whose distances are all NaN
+    takes centroid 0 at distance +inf, as the kernel's strict ``<`` scan
+    from (+inf, 0) leaves it."""
     e = pairwise_sq_dist(a, c)                    # (N, K)
+    e = torch.where(torch.isnan(e), torch.full_like(e, float("inf")), e)
     idx = torch.argmin(e, dim=1)
     return e.gather(1, idx[:, None])[:, 0], idx.to(torch.int32)
 

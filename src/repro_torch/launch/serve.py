@@ -1,16 +1,19 @@
 """Serving from the command line.
 
-Non-Neural: fit one estimator on seeded blobs and serve held-out queries
-through the bucketed engine.
-
-  PYTHONPATH=src python -m repro_torch.launch.serve --algo knn \
-      --batch 64 --requests 256 --policy fp32
+The defaults are the JAX package's (``launch/serve.py``): ``--algo lm``
+and ``--batch 4``, so the same bare command serves the same path.
 
 LM (dense family): seeded random weights and prompts, greedy or sampled
 generation through ``ServeEngine``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --algo lm \
       --arch stablelm-3b --batch 4 --prompt-len 512 --new-tokens 32
+
+Non-Neural: fit one estimator on seeded blobs and serve held-out queries
+through the bucketed engine (``--batch`` is the largest bucket).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --algo knn \
+      --batch 64 --requests 256 --policy fp32
 
 Runs on the card; ``--device cpu`` runs the kernels' plain versions on the
 CPU instead (with ``--smoke`` for the LM: the full width does not fit a
@@ -85,7 +88,7 @@ def serve_lm(args) -> GenerationResult:
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    batch = 4 if args.batch is None else args.batch
+    batch = args.batch
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = transformer.init_params(cfg, gen, device=device)
     engine = ServeEngine(cfg, params, ServeConfig(
@@ -115,14 +118,15 @@ def serve_lm(args) -> GenerationResult:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--algo", default="knn",
+    ap.add_argument("--algo", default="lm",
                     choices=["knn", "ann", "kmeans", "gnb", "gmm", "rf",
                              "lm"],
                     help="lm = decoder LM generation through ServeEngine; "
                          "otherwise a Non-Neural estimator")
-    ap.add_argument("--batch", type=int, default=None,
-                    help="engine max_batch, the largest bucket (default "
-                         "64); --algo lm: prompts per batch (default 4)")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="--algo lm: prompts per batch; otherwise the "
+                         "engine's max_batch, its largest bucket (default "
+                         "4, as in the JAX package's CLI)")
     ap.add_argument("--arch", default="stablelm-3b",
                     help="--algo lm: architecture id")
     ap.add_argument("--smoke", action="store_true",
@@ -161,8 +165,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.algo == "lm":
         return serve_lm(args)
-    if args.batch is None:
-        args.batch = 64
     return serve_nonneural(args)
 
 

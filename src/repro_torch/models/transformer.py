@@ -128,6 +128,24 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def layer_states(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+                 path: Optional[str] = None):
+    """tokens (B, S) -> the residual stream (B, S, d_model) after each
+    layer, a list of ``n_layers`` tensors: the prefill's forward pass seen
+    layer by layer, so that two routes can be held against each other at
+    every layer rather than only at the logits."""
+    _, _, _, n_units = layer_plan(cfg)
+    x = L.apply_embed(params["embed"], tokens, cfg)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    states = []
+    for i in range(n_units):
+        x, _ = _sublayer(_layer(params["layers"]["sub0"], i), x, cfg,
+                         positions, path)
+        states.append(x)
+    return states
+
+
 # ---------------------------------------------------------------------------
 # Decode cache
 # ---------------------------------------------------------------------------

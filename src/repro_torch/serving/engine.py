@@ -102,9 +102,13 @@ class NonNeuralServeEngine:
             torch.cuda.synchronize(self.device)
 
     def _as_queries(self, X) -> torch.Tensor:
+        """Queries on the engine's device; float64 becomes float32, as in
+        ``Estimator._tensor``."""
         if isinstance(X, np.ndarray):
             X = torch.from_numpy(np.ascontiguousarray(X))
-        return torch.as_tensor(X, device=self.device)
+        dtype = torch.float32 if getattr(X, "dtype", None) == torch.float64 \
+            else None
+        return torch.as_tensor(X, dtype=dtype, device=self.device)
 
     def _empty(self) -> ClassifyResult:
         return ClassifyResult(

@@ -19,6 +19,7 @@ import torch
 from repro.configs.registry import get_config as jax_config
 from repro.kernels import ops as jops
 from repro.models import attention as jattn
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import gemm as tgemm
 from repro_torch.kernels import ops as tops
@@ -78,9 +79,10 @@ def test_matmul_ragged_shapes_match_the_fp32_product(m, k, n):
 
 
 def test_small_m_plan_covers_k_and_fills_the_card():
-    """The split-K plan of the matrix-vector configuration: splits cover
-    K with none empty, and at the decode shapes of stablelm-3b the blocks
-    make at least one wave over 132 SMs."""
+    """The split-K plan of the matrix-vector kernel: the K slices of a
+    cluster cover K with none empty, each a whole number of 64-row stages
+    and at most 8 of them (a portable cluster), and at the decode shapes
+    of stablelm-3b the blocks make at least one wave over 132 SMs."""
     for M, N, K in [(1, 1, 1), (4, 2560, 2560), (4, 6912, 2560),
                     (4, 2560, 6912), (4, 50304, 2560), (16, 3, 6913),
                     (3, 257, 65)]:
@@ -89,6 +91,8 @@ def test_small_m_plan_covers_k_and_fills_the_card():
             assert splits >= 1 and per >= 1
             assert splits * per >= K > (splits - 1) * per
             assert splits == 1 or per >= tgemm.MIN_SPLIT_ROWS
+            assert splits <= tgemm.MAX_CLUSTER
+            assert per % tgemm.MIN_SPLIT_ROWS == 0
     for N, K in [(2560, 2560), (6912, 2560), (2560, 6912), (50304, 2560)]:
         splits, _ = tgemm.plan_small(4, N, K, torch.bfloat16, 132)
         assert splits * -(-N // tgemm.strip_width(torch.bfloat16)) >= 132
@@ -110,6 +114,23 @@ def test_flash_attention_matches_jax(b, h, s, d, causal, dtype):
     want = jops.flash_attention(jq, jk, jv, causal=causal, bq=64, bk=64)
     np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
                                **_tol(dtype))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [144, 192, 256])
+def test_flash_attention_past_d128_matches_jax(d, causal):
+    """Head dims past the old cap of 128, up to gemma-7b's 256 (ROADMAP
+    C2): the port's B11 wrapper against the Pallas kernel in interpret
+    mode, bf16 as the LM serves it."""
+    rng = np.random.default_rng(d + 7 * causal)
+    q, k, v = ((rng.normal(size=(1, 2, 128, d)) * 0.3).astype(np.float32)
+               for _ in range(3))
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(x, "bfloat16") for x in (q, k, v))
+    got = tops.flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 2, 128, d)
+    want = jops.flash_attention(jq, jk, jv, causal=causal, bq=64, bk=64)
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               **_tol("bfloat16"))
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -151,6 +172,42 @@ def test_decode_full_attention_matches_jax(written):
                                causal=False)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
+
+
+def test_wgmma_shape_rule():
+    """B10's routes: M <= 16 the small-M kernel in either dtype; bf16 with
+    K and N multiples of 8 and aligned bases the wgmma kernel; other bf16
+    shapes mma.sync; fp32 the CUDA cores."""
+    def ab(m, k, n, dtype=torch.bfloat16):
+        return torch.zeros((m, k), dtype=dtype), torch.zeros((k, n),
+                                                              dtype=dtype)
+    assert tgemm.uses_wgmma(*ab(2048, 2560, 6912))
+    assert tgemm.uses_wgmma(*ab(17, 6912, 2560))
+    assert not tgemm.uses_wgmma(*ab(16, 2560, 2560))
+    assert not tgemm.uses_wgmma(*ab(2048, 2560, 2560, torch.float32))
+    assert not tgemm.uses_wgmma(*ab(65, 257, 64))
+    assert not tgemm.uses_wgmma(*ab(65, 64, 6913))
+    a, b = ab(65, 72, 64)
+    assert tgemm.uses_wgmma(a, b)
+    assert not tgemm.uses_wgmma(a.view(-1)[4:4 + 64 * 72].view(64, 72), b)
+    routes = {shape + (str(dt),): tgemm.route(*ab(*shape, dt))
+              for shape in [(4, 2560, 2560), (2048, 2560, 2560),
+                            (257, 65, 3)]
+              for dt in (torch.bfloat16, torch.float32)}
+    assert list(routes.values()) == ["small_m", "small_m", "wgmma", "fp32",
+                                     "mma_sync", "fp32"]
+
+
+@pytest.mark.parametrize("d,dtype,want", [
+    (80, torch.bfloat16, "wgmma"), (144, torch.bfloat16, "wgmma"),
+    (256, torch.bfloat16, "wgmma"), (24, torch.bfloat16, "cuda_core"),
+    (80, torch.float32, "cuda_core"), (256, torch.float32, "cuda_core")])
+def test_attention_route_rule(d, dtype, want):
+    """B11's routes in the models' (B, S, H, d) layout: wgmma for bf16 at
+    d a multiple of 16 up to 256, the CUDA cores otherwise."""
+    q = torch.zeros((2, 5, 4, d), dtype=dtype).permute(0, 2, 1, 3)
+    assert tfa.route(q, q, q) == want
+    assert tfa.D_MAX == 256
 
 
 def test_tensor_core_layout_rule():
@@ -246,7 +303,7 @@ def test_wrong_dtype_or_shape_raises(case, err):
         "attn shapes differ": lambda: tops.flash_attention(
             q, torch.randn(1, 2, 4, 16), q),
         "attn d > 128": lambda: tops.flash_attention(
-            *[torch.randn(1, 1, 3, 129)] * 3),
+            *[torch.randn(1, 1, 3, 264)] * 3),
         "attn strided d": lambda: tops.flash_attention(
             q, q, torch.randn(1, 2, 5, 32)[..., ::2]),
         "attn mixed dtypes": lambda: tops.flash_attention(q, q, q.bfloat16()),
@@ -268,3 +325,44 @@ def test_plain_route_selection(monkeypatch):
     assert not tlayers.plain_route()
     with pytest.raises(ValueError):
         tlayers.plain_route("blocked")
+
+
+# ------------------------------------------------------------------ build
+
+
+def _gen_wgmma():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "gen_wgmma", _build.CSRC / "gen_wgmma.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_wgmma_header_matches_its_generator():
+    """``csrc/wgmma.cuh`` is the committed output of ``gen_wgmma.py``, and
+    it holds every shape B10 and B11 issue: m64n{128,160,192,256} for the
+    GEMM tiles, m64n64 for the scores, m64n{16..128} for P·V."""
+    gen = _gen_wgmma()
+    assert (_build.CSRC / "wgmma.cuh").read_text() == gen.render()
+    assert set(gen.SS_N) >= {64, 128, 160, 192, 256}
+    assert set(gen.RS_N) == set(range(16, 129, 16))
+
+
+def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
+    """A library's name digests the ``csrc/*.cuh`` headers its source
+    includes, so an edited header rebuilds exactly the sources that
+    include it."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert [h.name for h in _build.headers(csrc / "gemm.cu")] == \
+        ["hopper.cuh", "wgmma.cuh"]
+    assert _build.headers(csrc / "distance_topk.cu") == []
+    before = {s.stem: _build._target(s).name for s in _build.sources()}
+    hdr = csrc / "hopper.cuh"
+    hdr.write_text(hdr.read_text() + "\n// edited\n")
+    after = {s.stem: _build._target(s).name for s in _build.sources()}
+    changed = {stem for stem in before if before[stem] != after[stem]}
+    assert changed == {"gemm", "flash_attention"}
