@@ -580,6 +580,17 @@ def lm_path(torch, ops, dev, cfg, kernels, b10):
         logits, cache = engine.prefill(prompts)
         torch.cuda.synchronize()
         prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    # device time of one more prefill, from the profiler's kernels
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.prefill(prompts)
+        torch.cuda.synchronize()
+    prefill_dev_us = sum(getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0))
+                         for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA)
     steps, traced = min(8, new // 2), min(2, new - min(8, new // 2))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -588,8 +599,6 @@ def lm_path(torch, ops, dev, cfg, kernels, b10):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / steps
     # device time of the next decode steps, from the profiler's kernels
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for i in range(steps, steps + traced):
@@ -659,6 +668,7 @@ def lm_path(torch, ops, dev, cfg, kernels, b10):
         scale=float(scale))
     del params
     return dict(gen_s=gen_s, prefill_ms=min(prefill_ms), step_ms=step_ms,
+                prefill_dev_ms=prefill_dev_us / 1e3,
                 step_dev_ms=dev_us / 1e3, b10_prefill=b10_prefill,
                 b11_prefill=b11_prefill, b10_step=b10_step,
                 decisions=Bt * (new + 1), near=near, differ=differ,
@@ -1879,7 +1889,9 @@ def main() -> int:
     print(f"[path] lm {lm_cfg.arch_id} batch={Bt} prompt={LM['prompt']} "
           f"new={new}: generate {run['gen_s']:.3f}s "
           f"({Bt * new / run['gen_s']:.1f} tok/s); prefill {pre:.2f} ms "
-          f"(B10 device {run['b10_prefill']:.2f} ms = "
+          f"(device busy {run['prefill_dev_ms']:.2f} ms = "
+          f"{run['prefill_dev_ms'] / pre:.3f}, "
+          f"B10 device {run['b10_prefill']:.2f} ms = "
           f"{run['b10_prefill'] / pre:.3f}, B11 {run['b11_prefill']:.3f} ms "
           f"= {run['b11_prefill'] / pre:.4f}); decode step {step:.2f} ms "
           f"({Bt / step * 1e3:.1f} tok/s; device busy "

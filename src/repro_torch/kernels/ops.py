@@ -35,6 +35,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import gemm as _gemm
 from repro_torch.kernels import ref
 from repro_torch.kernels.distance_topk import TOPK_K_MAX
 
@@ -55,8 +57,6 @@ _INT32 = (torch.int32,)
 def reset_launches() -> None:
     """Set every count to 0: ``LAUNCHES`` and the per-route counts of B10
     and B11 (``gemm.ROUTE_LAUNCHES``, ``flash_attention.ROUTE_LAUNCHES``)."""
-    from repro_torch.kernels import flash_attention as _fa
-    from repro_torch.kernels import gemm as _gemm
     for counts in (LAUNCHES, _gemm.ROUTE_LAUNCHES, _fa.ROUTE_LAUNCHES):
         for name in counts:
             counts[name] = 0
@@ -321,12 +321,12 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dtype != b.dtype:
         raise TypeError(f"matmul: a is {a.dtype}, b is {b.dtype}; one dtype "
                         "expected")
-    if a.shape[1] != b.shape[0] or min(*a.shape, b.shape[1]) < 1:
+    M, K = a.shape
+    if K != b.shape[0] or M < 1 or K < 1 or b.shape[1] < 1:
         raise ValueError(f"matmul: a is {tuple(a.shape)}, b is "
                          f"{tuple(b.shape)}")
     if dev.type == "cpu":
         return ref.matmul(a, b)
-    from repro_torch.kernels import gemm as _gemm
     out = _gemm.launch(a, b)
     LAUNCHES["matmul"] += 1
     return out
@@ -339,7 +339,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (batch, head, position) strides with the d axis contiguous, so a
     permuted (B, S, H, d) tensor goes in without a copy.  GQA callers
     expand the KV heads first, as in the reference."""
-    from repro_torch.kernels.flash_attention import D_MAX
+    D_MAX = _fa.D_MAX
     dev = _check("flash_attention", inner=("q", "k", "v"), q=(q, 4),
                  k=(k, 4), v=(v, 4))
     if not (q.dtype == k.dtype == v.dtype):
@@ -352,7 +352,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"S, d) shape with d <= {D_MAX} expected")
     if dev.type == "cpu":
         return ref.attention(q, k, v, causal=causal)
-    from repro_torch.kernels import flash_attention as _fa
     out = _fa.launch(q, k, v, causal)
     LAUNCHES["flash_attention"] += 1
     return out
