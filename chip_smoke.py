@@ -175,27 +175,6 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps: int) -> float:
-    """Mean device time of one call over ``reps`` calls, after one warm
-    call: the summed durations of the kernels the calls launched, from
-    ``torch.profiler``, so the host's time to issue them is left out
-    (``cuda_ms`` includes it wherever the host is the slower side)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-             for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-    check(us > 0, "the profiler recorded no device time")
-    return us / reps / 1e3
-
-
 def bound_ms(n_ops: float, n_bytes: float, peaks, int8: bool = False,
              bf16: bool = False):
     """The larger of ops over the peak (fp32, or the int8 or bf16 tensor
@@ -370,6 +349,7 @@ def lm_kernel_times(torch, ops, ref, dev, gen, cfg, peaks):
     side) and by the profiler's kernel durations (``device_ms``).  Returns
     the kernel rows and the per-shape B10 times."""
     from repro_torch.kernels import gemm
+    from repro_torch.launch.lm_kernel_times import device_ms
     d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     Bt, P = LM["batch"], LM["prompt"]
     bf = torch.bfloat16
@@ -386,25 +366,16 @@ def lm_kernel_times(torch, ops, ref, dev, gen, cfg, peaks):
                          bf16=True)
         b10[key] = dict(M=M, N=N, K=K, route=gemm.route(a, w),
                         ms=cuda_ms(torch, lambda: ops.matmul(a, w), 20),
-                        dev_ms=device_ms(torch, lambda: ops.matmul(a, w), 20),
+                        dev_ms=device_ms(lambda: ops.matmul(a, w), 20),
                         plain_ms=cuda_ms(torch, lambda: ref.matmul(a, w), 5),
                         library_ms=cuda_ms(torch, lambda: torch.matmul(a, w),
                                            20),
-                        lib_dev_ms=device_ms(torch, lambda: torch.matmul(a, w),
+                        lib_dev_ms=device_ms(lambda: torch.matmul(a, w),
                                              20),
                         bound_ms=b, bound_by=by,
                         err=gemm_case(torch, ops, ref, dev, gen, M, N, K,
                                       bf)[0])
         r = b10[key]
-        if r["route"] == "wgmma":
-            # every tile width the wgmma kernel has, at this shape
-            widths = {tn: device_ms(torch, lambda: gemm.launch(a, w, tn), 10)
-                      for tn in (128, 160, 192, 256)}
-            r["tile_n"] = gemm.wgmma_tile_n(M, N)
-            print(f"[tile] B10 {key} M={M} N={N} K={K}: device ms by tile "
-                  f"width " + ", ".join(f"{tn}: {t:.4f}"
-                                        for tn, t in widths.items()) +
-                  f"; the kernel takes {r['tile_n']}")
         print(f"[time] B10 {key} M={M} N={N} K={K} ({r['route']}): kernel "
               f"{r['ms']:.4f} ms, device {r['dev_ms']:.4f} ms "
               f"({2 * M * N * K / r['dev_ms'] / 1e9:.1f} TFLOP/s, "
@@ -440,9 +411,9 @@ def lm_kernel_times(torch, ops, ref, dev, gen, cfg, peaks):
                                                          is_causal=True), 50),
         launches=0)
     contiguous_ms = cuda_ms(torch, lambda: ops.flash_attention(qc, kc, vc), 50)
-    b11 = dict(dev_ms=device_ms(torch, lambda: ops.flash_attention(q, k, v),
+    b11 = dict(dev_ms=device_ms(lambda: ops.flash_attention(q, k, v),
                                 50),
-               lib_dev_ms=device_ms(torch, lambda: torch.nn.functional
+               lib_dev_ms=device_ms(lambda: torch.nn.functional
                                     .scaled_dot_product_attention(
                                         qc, kc, vc, is_causal=True), 50))
     kernels["B11"]["dev_ms"] = b11["dev_ms"]
@@ -511,6 +482,7 @@ def lm_path(torch, ops, dev, cfg, kernels, b10):
     from repro_torch.configs.base import ServeConfig
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gemm
+    from repro_torch.launch.lm_kernel_times import device_ms
     from repro_torch.models import transformer
     from repro_torch.serving import ServeEngine
     Bt, P, new = LM["batch"], LM["prompt"], LM["new"]
@@ -580,17 +552,8 @@ def lm_path(torch, ops, dev, cfg, kernels, b10):
         logits, cache = engine.prefill(prompts)
         torch.cuda.synchronize()
         prefill_ms.append((time.perf_counter() - t0) * 1e3)
-    # device time of one more prefill, from the profiler's kernels
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        engine.prefill(prompts)
-        torch.cuda.synchronize()
-    prefill_dev_us = sum(getattr(e, "self_device_time_total",
-                                 getattr(e, "self_cuda_time_total", 0))
-                         for e in prof.key_averages()
-                         if e.device_type == DeviceType.CUDA)
+    # device time of a prefill, from the profiler's kernels
+    prefill_dev_ms = device_ms(lambda: engine.prefill(prompts), 1)
     steps, traced = min(8, new // 2), min(2, new - min(8, new // 2))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -599,6 +562,8 @@ def lm_path(torch, ops, dev, cfg, kernels, b10):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / steps
     # device time of the next decode steps, from the profiler's kernels
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for i in range(steps, steps + traced):
@@ -668,7 +633,7 @@ def lm_path(torch, ops, dev, cfg, kernels, b10):
         scale=float(scale))
     del params
     return dict(gen_s=gen_s, prefill_ms=min(prefill_ms), step_ms=step_ms,
-                prefill_dev_ms=prefill_dev_us / 1e3,
+                prefill_dev_ms=prefill_dev_ms,
                 step_dev_ms=dev_us / 1e3, b10_prefill=b10_prefill,
                 b11_prefill=b11_prefill, b10_step=b10_step,
                 decisions=Bt * (new + 1), near=near, differ=differ,

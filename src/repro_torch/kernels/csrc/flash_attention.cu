@@ -19,10 +19,15 @@
 //
 // What the design does about it:
 //  * bf16 with d a multiple of 16, d <= 256 (the wgmma route): a block of
-//    two consumer warpgroups and one producer warp takes 128 query rows
-//    of one (batch, head), 64 rows a warpgroup (for d > 128, 64 rows,
-//    the two warpgroups splitting the output columns: a 64 x 256 fp32
-//    accumulator would take 128 registers a thread).  The producer warp
+//    one consumer warpgroup and one producer warp takes 64 query rows of
+//    one (batch, head); for d > 128 two consumer warpgroups share the 64
+//    rows and split the output columns (a 64 x 256 fp32 accumulator
+//    would take 128 registers a thread).  Two warpgroups of 64 rows each
+//    in one block share each k/v tile, but at d = 80 they take about 140
+//    registers a thread, so one block fits an SM; one warpgroup a block
+//    lets three blocks share an SM, gives the causal walk twice the
+//    blocks to balance, and was the faster of the two on an H100 at the
+//    LM path's shape.  The producer warp
 //    stages q once, by TMA, then streams key tiles of 64 keys through a
 //    ring of 3 (d <= 128) or 2 stages of k and v, each completed on an
 //    mbarrier and released by the consumers through another.  d = 80
@@ -86,13 +91,15 @@ constexpr float NEG_INF = -INFINITY;
 // ------------------------------------------------------- bf16, wgmma
 
 constexpr int FA_KT = 64;            // keys per tile
-constexpr int FA_THREADS = 288;      // warpgroups 0, 1 consume; warp 8 loads
+constexpr int FA_WGS = 1;            // consumer warpgroups a block, d <= 128
 constexpr int D_MAX = 256;
 
 template <int D>
 struct FaCfg {
+    static constexpr int WGS = D > 128 ? 2 : FA_WGS;  // consumer warpgroups
+    static constexpr int THREADS = WGS * 128 + 32;   // and one producer warp
     static constexpr int DSPLIT = D > 128 ? 2 : 1;   // warpgroups per row
-    static constexpr int QROWS = 128 / DSPLIT;       // query rows a block
+    static constexpr int QROWS = 64 * WGS / DSPLIT;  // query rows a block
     static constexpr int DC = D / 16;                // 16-column chunks
     // output columns of warpgroup 0 and 1 when they split d
     static constexpr int NV0 = DSPLIT == 1 ? D : (DC + 1) / 2 * 16;
@@ -256,7 +263,7 @@ __device__ __forceinline__ void fa_consume(
 // grid (B·H, query tiles): block (x, y) takes (batch, head) x and, when
 // causal, query tile n - 1 - y.
 template <int D>
-__global__ void __launch_bounds__(FA_THREADS, 1)
+__global__ void __launch_bounds__(FaCfg<D>::THREADS, 1)
 flash_wgmma(const __grid_constant__ CUtensorMap tm_q,
             const __grid_constant__ CUtensorMap tm_k,
             const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ O,
@@ -280,7 +287,8 @@ flash_wgmma(const __grid_constant__ CUtensorMap tm_q,
     if (threadIdx.x == 0) {
         for (int s = 0; s < F::STAGES; ++s) {
             hop::mbar_init(&full[s], 1);
-            hop::mbar_init(&empty[s], 8);    // one arrival per consumer warp
+            // one arrival per consumer warp
+            hop::mbar_init(&empty[s], 4 * F::WGS);
         }
         hop::mbar_init(qbar, 1);
         hop::fence_barrier_init();
@@ -288,8 +296,8 @@ flash_wgmma(const __grid_constant__ CUtensorMap tm_q,
     __syncthreads();
 
     const int wg = threadIdx.x / 128;
-    if (wg == 2) {
-        if (threadIdx.x == 2 * 128) {
+    if (wg == F::WGS) {
+        if (threadIdx.x == F::WGS * 128) {
             hop::mbar_expect_tx(qbar, F::Q_BYTES);
 #pragma unroll
             for (int c = 0; c < F::DC; ++c)
@@ -472,7 +480,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
         !attn_map(&tv, v, B, H, S, D, st.vb, st.vh, st.vs, FA_KT))
         return cudaErrorInvalidValue;
     const dim3 grid(B * H, (S + F::QROWS - 1) / F::QROWS);
-    flash_wgmma<D><<<grid, FA_THREADS, F::SMEM, s>>>(
+    flash_wgmma<D><<<grid, F::THREADS, F::SMEM, s>>>(
         tq, tk, tv, static_cast<bf16*>(o), H, S, causal, scale, st.ob, st.oh,
         st.os);
     return cudaGetLastError();

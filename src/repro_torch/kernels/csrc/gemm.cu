@@ -16,42 +16,42 @@
 //
 //  * wgmma (M > 16, bf16, K and N multiples of 8, 16-byte-aligned bases):
 //    a persistent grid, one block of three warpgroups per SM walking
-//    128 x BN output tiles (tile t: row tile t mod m_tiles, column tile
+//    128 x 192 output tiles (tile t: row tile t mod m_tiles, column tile
 //    t / m_tiles, so the tiles in flight share B's column strips).  One
 //    thread of the producer warpgroup keeps TMA loads of A (128 x 64, K
-//    contiguous) and B (64 x BN, as 64-column boxes, N contiguous) in
-//    flight through a ring of 4-6 shared-memory stages with 128-byte
+//    contiguous) and B (64 x 192, as three 64-column boxes, N contiguous)
+//    in flight through a ring of 5 shared-memory stages with 128-byte
 //    swizzle, each stage completed on an mbarrier.  Two consumer
-//    warpgroups, 64 rows each, run wgmma.mma_async m64nBNk16 bf16 ->
+//    warpgroups, 64 rows each, run wgmma.mma_async m64n192k16 bf16 ->
 //    fp32 on the stages as they land, one group in flight, and release
 //    each stage to the producer through a second mbarrier.  B is
 //    MN-major for wgmma; the descriptor's transpose bit takes it as it
 //    is, so no transposed copy of a weight is ever made.  The producer
 //    gives its registers to the consumers (setmaxnreg 40 / 232), which
-//    hold a 64 x BN fp32 tile (BN / 2 registers a thread).  The epilogue
+//    hold a 64 x 192 fp32 tile (96 registers a thread).  The epilogue
 //    rounds once to bf16 (nearest even) and masks ragged M and N; it
 //    overlaps the producer's loads for the block's next tile.
-//    The tile width.  Counted in waves over 132 SMs at M = 2048, BN = 160
+//    The tile width BN.  Counted in waves over 132 SMs at M = 2048, 160
 //    looks best at N = 2560 (256 tiles, 1.94 waves, against 2.42 for 128
-//    and 1.21 for 256) and BN = 128 at N = 6912 (6.55 waves against 3.27
-//    for 256).  But a tile's time is not its share of the FLOPs: every
+//    and 1.21 for 256) and 128 at N = 6912 (6.55 waves against 3.27 for
+//    256).  But a tile's time is not its share of the FLOPs: every
 //    tile reads its A rows and B columns from L2, and the time of a wave
 //    follows the bytes a stage moves (A's 16 KB plus 8 KB per 64-column
 //    box of B: 4, 5 and 6 units at BN = 128, 192 and 256) more than its
 //    products, so wider tiles, which move fewer bytes per product, win
 //    back part of what their partial last wave loses, and BN = 160 moves
-//    as many bytes as 192 (three boxes) for fewer products.  chip_smoke.py
-//    times every width at the path's shapes (its [tile] lines); BN = 192
-//    (three whole boxes, 5 stages) is the fastest at all three, so it is
-//    the width for N > 128: N = 2560 makes 224 tiles (1.70 waves), N =
-//    6912 576 (4.36 waves).  N <= 128 takes BN = 128.
+//    as many bytes as 192 (three boxes) for fewer products.  Timed on an
+//    H100 at the three prefill shapes, BN = 192 (three whole boxes, 5
+//    stages) was the fastest of 128, 160, 192 and 256 at each, so it is
+//    the width: N = 2560 makes 224 tiles (1.70 waves), N = 6912 576
+//    (4.36 waves).
 //  * mma.sync (M > 16, bf16 shapes the wgmma route cannot take: K or N
 //    not a multiple of 8, since TMA needs 16-byte global strides): a
 //    128 x 128 output tile per block of 8 warps, the K axis walked in
-//    32-wide steps.  A and B tiles are staged in shared memory by
-//    cp.async in two stages, read into registers by ldmatrix (B
-//    transposed on the way), and multiplied by mma.sync m16n8k16 bf16 ->
-//    fp32.  Rows are padded by 8 elements so that ldmatrix reads are
+//    32-wide steps.  A and B tiles are staged element by element in two
+//    shared-memory stages (rows that are not 16-byte aligned rule out
+//    vector copies), read into registers by ldmatrix (B transposed on
+//    the way), and multiplied by mma.sync m16n8k16 bf16 -> fp32.  Rows are padded by 8 elements so that ldmatrix reads are
 //    free of bank conflicts.
 //  * fp32 (M > 16): 64 x 64 tiles of fp32 fused multiply-adds on the CUDA
 //    cores, 4 x 4 outputs a thread.  Not on the served path (the model
@@ -124,21 +124,6 @@ constexpr int A_PITCH = BK + 8;    // 80 bytes: ldmatrix rows hit 8 bank groups
 constexpr int B_PITCH = BN + 8;    // 272 bytes
 constexpr int MMA_THREADS = 256;
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-    const int n = valid ? 16 : 0;  // 0 source bytes: the 16 are zero-filled
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(dst), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait1() {
-    asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -164,10 +149,8 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Stage the (BM x BK) tile of A and the (BK x BN) tile of B at k0.  ALIGNED:
-// K and N are multiples of 8 and both bases 16-byte aligned, so every
-// 8-element chunk is in range or out of it as a whole and goes by cp.async.
-template <bool ALIGNED>
+// Stage the (BM x BK) tile of A and the (BK x BN) tile of B at k0, zeros
+// past M, N and K.
 __device__ __forceinline__ void load_tiles(bf16 (*As)[A_PITCH],
                                            bf16 (*Bs)[B_PITCH],
                                            const bf16* A, const bf16* B,
@@ -179,36 +162,23 @@ __device__ __forceinline__ void load_tiles(bf16 (*As)[A_PITCH],
         const int c = tid + i * MMA_THREADS;
         const int r = c >> 2, col = (c & 3) * 8;
         const int gm = m0 + r, gk = k0 + col;
-        if (ALIGNED) {
-            const bool ok = gm < M && gk < K;
-            cp_async16(smem_u32(&As[r][col]),
-                       ok ? A + (size_t)gm * K + gk : A, ok);
-        } else {
 #pragma unroll
-            for (int j = 0; j < 8; ++j)
-                As[r][col + j] = (gm < M && gk + j < K)
-                    ? A[(size_t)gm * K + gk + j] : zero;
-        }
+        for (int j = 0; j < 8; ++j)
+            As[r][col + j] = (gm < M && gk + j < K)
+                ? A[(size_t)gm * K + gk + j] : zero;
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {      // B: 512 chunks of 8
         const int c = tid + i * MMA_THREADS;
         const int r = c >> 4, col = (c & 15) * 8;
         const int gk = k0 + r, gn = n0 + col;
-        if (ALIGNED) {
-            const bool ok = gk < K && gn < N;
-            cp_async16(smem_u32(&Bs[r][col]),
-                       ok ? B + (size_t)gk * N + gn : B, ok);
-        } else {
 #pragma unroll
-            for (int j = 0; j < 8; ++j)
-                Bs[r][col + j] = (gk < K && gn + j < N)
-                    ? B[(size_t)gk * N + gn + j] : zero;
-        }
+        for (int j = 0; j < 8; ++j)
+            Bs[r][col + j] = (gk < K && gn + j < N)
+                ? B[(size_t)gk * N + gn + j] : zero;
     }
 }
 
-template <bool ALIGNED>
 __global__ void __launch_bounds__(MMA_THREADS)
 gemm_bf16_mma(const bf16* __restrict__ A, const bf16* __restrict__ B,
               bf16* __restrict__ C, int M, int N, int K) {
@@ -228,14 +198,11 @@ gemm_bf16_mma(const bf16* __restrict__ A, const bf16* __restrict__ B,
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-    load_tiles<ALIGNED>(As[0], Bs[0], A, B, M, N, K, m0, n0, 0, tid);
-    cp_async_commit();
+    load_tiles(As[0], Bs[0], A, B, M, N, K, m0, n0, 0, tid);
     for (int kt = 0; kt < nk; ++kt) {
         if (kt + 1 < nk)
-            load_tiles<ALIGNED>(As[(kt + 1) & 1], Bs[(kt + 1) & 1], A, B, M,
-                                N, K, m0, n0, (kt + 1) * BK, tid);
-        cp_async_commit();   // an empty group at the last step
-        cp_async_wait1();    // every group but the newest has landed
+            load_tiles(As[(kt + 1) & 1], Bs[(kt + 1) & 1], A, B, M, N, K, m0,
+                       n0, (kt + 1) * BK, tid);
         __syncthreads();
         bf16 (*as)[A_PITCH] = As[kt & 1];
         bf16 (*bs)[B_PITCH] = Bs[kt & 1];
@@ -340,32 +307,29 @@ gemm_f32_fma(const float* __restrict__ A, const float* __restrict__ B,
 
 // ---------------------------------------------------------- M > 16, wgmma
 
-constexpr int WG_BM = 128, WG_BK = 64;
+constexpr int WG_BM = 128, WG_BN = 192, WG_BK = 64;
 constexpr int WG_THREADS = 384;    // consumer warpgroups 0, 1; producer 2
 
-template <int BNW>
 struct WgTile {
-    static constexpr int CHUNKS = (BNW + 63) / 64;      // 64-column B boxes
+    static constexpr int CHUNKS = WG_BN / 64;          // 64-column B boxes
     static constexpr int A_BYTES = WG_BM * WG_BK * 2;  // 128 rows x 128 B
     static constexpr int B_BYTES = CHUNKS * WG_BK * 128;
-    static constexpr int STAGE = A_BYTES + B_BYTES;
-    static constexpr int FIT = 200 * 1024 / STAGE;
-    static constexpr int STAGES = FIT < 6 ? FIT : 6;
+    static constexpr int STAGE = A_BYTES + B_BYTES;    // 40 KB
+    static constexpr int STAGES = 5;
     static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
 };
 
-template <int BNW>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 gemm_wgmma(const __grid_constant__ CUtensorMap tm_a,
            const __grid_constant__ CUtensorMap tm_b, bf16* __restrict__ C,
            int M, int N, int K) {
-    using T = WgTile<BNW>;
+    using T = WgTile;
     extern __shared__ uint8_t smem_raw[];
     uint8_t* smem = align_up<1024>(smem_raw);   // 128-byte swizzle atoms
     uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::STAGES * T::STAGE);
     uint64_t* empty = full + T::STAGES;
     const int m_tiles = (M + WG_BM - 1) / WG_BM;
-    const int tiles = m_tiles * ((N + BNW - 1) / BNW);
+    const int tiles = m_tiles * ((N + WG_BN - 1) / WG_BN);
     const int k_steps = (K + WG_BK - 1) / WG_BK;
     const int wg = threadIdx.x / 128;
 
@@ -385,7 +349,7 @@ gemm_wgmma(const __grid_constant__ CUtensorMap tm_a,
             uint32_t phase = 0;
             for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
                 const int m0 = (tile % m_tiles) * WG_BM;
-                const int n0 = (tile / m_tiles) * BNW;
+                const int n0 = (tile / m_tiles) * WG_BN;
                 for (int ks = 0; ks < k_steps; ++ks) {
                     hop::mbar_wait(&empty[stage], phase ^ 1u);
                     uint8_t* a_s = smem + stage * T::STAGE;
@@ -407,14 +371,14 @@ gemm_wgmma(const __grid_constant__ CUtensorMap tm_a,
     } else {
         hop::setmaxnreg_inc232();
         const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
-        float acc[BNW / 2];
+        float acc[WG_BN / 2];
         int stage = 0;
         uint32_t phase = 0;
         for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
             const int m0 = (tile % m_tiles) * WG_BM;
-            const int n0 = (tile / m_tiles) * BNW;
+            const int n0 = (tile / m_tiles) * WG_BN;
 #pragma unroll
-            for (int i = 0; i < BNW / 2; ++i) acc[i] = 0.f;
+            for (int i = 0; i < WG_BN / 2; ++i) acc[i] = 0.f;
             int held = -1;                    // the stage the last group reads
             for (int ks = 0; ks < k_steps; ++ks) {
                 hop::mbar_wait(&full[stage], phase);
@@ -432,7 +396,7 @@ gemm_wgmma(const __grid_constant__ CUtensorMap tm_a,
                     const uint64_t db = hop::make_desc(
                         b_s + kk * 16 * 128, WG_BK * 128, 1024,
                         hop::SWIZZLE_128B);
-                    WgmmaSS<BNW>::template run<0, 1>(acc, da, db, 1);
+                    WgmmaSS<WG_BN>::template run<0, 1>(acc, da, db, 1);
                 }
                 hop::wg_commit();
                 hop::wg_wait<1>();            // the previous step's group is done
@@ -455,7 +419,7 @@ gemm_wgmma(const __grid_constant__ CUtensorMap tm_a,
             // epilogue: the accumulator's rows r and r + 8, column pairs
             const int row = m0 + wg * 64 + warp * 16 + lane / 4;
 #pragma unroll
-            for (int nb = 0; nb < BNW / 8; ++nb) {
+            for (int nb = 0; nb < WG_BN / 8; ++nb) {
                 const int col = n0 + nb * 8 + (lane & 3) * 2;
                 if (col >= N) continue;       // N % 8 == 0: col + 1 < N too
 #pragma unroll
@@ -472,29 +436,22 @@ gemm_wgmma(const __grid_constant__ CUtensorMap tm_a,
     }
 }
 
-// The tile width of the wgmma route at (M, N) (see the note above).
-int pick_bn(int M, int N) {
-    (void)M;
-    return N > 128 ? 192 : 128;
-}
-
-template <int BNW>
 cudaError_t launch_wgmma(const CUtensorMap& ta, const CUtensorMap& tb,
                          bf16* c, int M, int N, int K, int sms,
                          cudaStream_t s) {
-    using T = WgTile<BNW>;
+    using T = WgTile;
     static std::once_flag once;
     static cudaError_t attr = cudaSuccess;
     std::call_once(once, [] {
         attr = cudaFuncSetAttribute(
-            gemm_wgmma<BNW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            gemm_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
             T::SMEM);
     });
     if (attr != cudaSuccess) return attr;
     const long long tiles = (long long)((M + WG_BM - 1) / WG_BM) *
-                            ((N + BNW - 1) / BNW);
+                            ((N + WG_BN - 1) / WG_BN);
     const int grid = (int)(tiles < sms ? tiles : sms);
-    gemm_wgmma<BNW><<<grid, WG_THREADS, T::SMEM, s>>>(ta, tb, c, M, N, K);
+    gemm_wgmma<<<grid, WG_THREADS, T::SMEM, s>>>(ta, tb, c, M, N, K);
     return cudaGetLastError();
 }
 
@@ -773,16 +730,12 @@ int gemm_small(int dtype, const void* A, const void* B, void* C, int M,
     return (int)cudaErrorInvalidValue;
 }
 
-// The wgmma route's tile width at (M, N).
-int gemm_wgmma_tile_n(int M, int N) { return pick_bn(M, N); }
-
 // M > 16, bf16, K and N multiples of 8, A and B 16-byte aligned: the
-// wgmma route on a persistent grid of at most ``sms`` blocks, with output
-// tiles ``tile_n`` wide (one of 128, 160, 192, 256; 0: pick_bn's choice).
-// Returns the first CUDA error (cudaErrorInvalidValue if the shape does
-// not fit the route or the driver refuses a TMA descriptor).
+// wgmma route on a persistent grid of at most ``sms`` blocks.  Returns
+// the first CUDA error (cudaErrorInvalidValue if the shape does not fit
+// the route or the driver refuses a TMA descriptor).
 int gemm_wgmma(const void* A, const void* B, void* C, int M, int N, int K,
-               int sms, int tile_n, void* stream) {
+               int sms, void* stream) {
     if (M <= 16 || N < 8 || K < 8 || N % 8 || K % 8 || sms < 1 ||
         (reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(B)) % 16)
         return (int)cudaErrorInvalidValue;
@@ -800,13 +753,7 @@ int gemm_wgmma(const void* A, const void* B, void* C, int M, int N, int K,
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     bf16* c = static_cast<bf16*>(C);
-    switch (tile_n ? tile_n : pick_bn(M, N)) {
-        case 256: return (int)launch_wgmma<256>(ta, tb, c, M, N, K, sms, s);
-        case 192: return (int)launch_wgmma<192>(ta, tb, c, M, N, K, sms, s);
-        case 160: return (int)launch_wgmma<160>(ta, tb, c, M, N, K, sms, s);
-        case 128: return (int)launch_wgmma<128>(ta, tb, c, M, N, K, sms, s);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    return (int)launch_wgmma(ta, tb, c, M, N, K, sms, s);
 }
 
 // Any M, N, K >= 1 (meant for M > 16 shapes the wgmma route does not
@@ -819,18 +766,9 @@ int gemm_tiled(int dtype, const void* A, const void* B, void* C, int M,
     if (dtype == 1) {
         if ((M + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
         const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-        const bf16* a = static_cast<const bf16*>(A);
-        const bf16* b = static_cast<const bf16*>(B);
-        bf16* c = static_cast<bf16*>(C);
-        const bool aligned = K % 8 == 0 && N % 8 == 0 &&
-            (reinterpret_cast<uintptr_t>(A) |
-             reinterpret_cast<uintptr_t>(B)) % 16 == 0;
-        if (aligned)
-            gemm_bf16_mma<true><<<grid, MMA_THREADS, 0, s>>>(a, b, c, M, N,
-                                                             K);
-        else
-            gemm_bf16_mma<false><<<grid, MMA_THREADS, 0, s>>>(a, b, c, M, N,
-                                                              K);
+        gemm_bf16_mma<<<grid, MMA_THREADS, 0, s>>>(
+            static_cast<const bf16*>(A), static_cast<const bf16*>(B),
+            static_cast<bf16*>(C), M, N, K);
         return (int)cudaGetLastError();
     }
     if (dtype == 0) {

@@ -21,7 +21,7 @@ scale_d = 0 drops the old d (d = A·B).
 """
 from pathlib import Path
 
-SS_N = (64, 128, 160, 192, 256)
+SS_N = (64, 192)
 RS_N = tuple(range(16, 129, 16))
 OUT = Path(__file__).resolve().with_name("wgmma.cuh")
 

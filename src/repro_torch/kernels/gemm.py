@@ -91,27 +91,18 @@ def sm_count(device: torch.device) -> int:
     return n
 
 
-def wgmma_tile_n(M: int, N: int) -> int:
-    """The wgmma route's output tile width at (M, N), as the kernel
-    chooses it."""
-    fn = _build.bind(_STEM, "gemm_wgmma_tile_n", [_I, _I])
-    return fn(M, N)
-
-
 def _bind() -> None:
     _fns["small"] = _build.bind(_STEM, "gemm_small",
                                 [_I] + [_P] * 3 + [_I] * 5 + [_P])
     _fns["wgmma"] = _build.bind(_STEM, "gemm_wgmma",
-                                [_P] * 3 + [_I] * 5 + [_P])
+                                [_P] * 3 + [_I] * 4 + [_P])
     _fns["tiled"] = _build.bind(_STEM, "gemm_tiled",
                                 [_I] + [_P] * 3 + [_I] * 3 + [_P])
 
 
-def launch(a: torch.Tensor, b: torch.Tensor, tile_n: int = 0
-           ) -> torch.Tensor:
+def launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """B10: a (M, K), b (K, N), both fp32 or both bf16 on the card ->
-    (M, N) in their dtype.  ``tile_n``: the wgmma route's output tile
-    width (128, 160, 192 or 256), 0 for the kernel's own choice."""
+    (M, N) in their dtype."""
     if not _fns:
         _bind()
     M, K = a.shape
@@ -126,7 +117,7 @@ def launch(a: torch.Tensor, b: torch.Tensor, tile_n: int = 0
         what = f"cluster={cluster} per={per}"
     elif way == "wgmma":
         err = _fns["wgmma"](a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N,
-                            K, sm_count(a.device), tile_n, stream)
+                            K, sm_count(a.device), stream)
         what = "wgmma"
     else:
         err = _fns["tiled"](_DTYPES[a.dtype], a.data_ptr(), b.data_ptr(),
