@@ -470,7 +470,7 @@ def lm_layers(torch, cfg, params, tokens):
     return lm_layer_check(torch, got, plain, exact), exact[-1].float().norm()
 
 
-def lm_path(torch, ops, dev, cfg, kernels, b10):
+def lm_path(torch, ops, dev, cfg):
     """Serve ``LM`` through ``ServeEngine.generate`` with the launch counts
     set to 0 just before and read just after (every B10 launch on the
     wgmma route in the prefill and the small-M route at M = batch, every
@@ -478,7 +478,10 @@ def lm_path(torch, ops, dev, cfg, kernels, b10):
     steps; hold the kernel route's logits, step by step, to the plain
     route's (``path="ref"``) on the same tokens; and hold one prefill's
     residual stream to the plain route's after every layer
-    (``lm_layers``).  Returns the numbers of the report line."""
+    (``lm_layers``).  Every host-clock time is taken before the first
+    profiler window of the process: a process that has run
+    ``torch.profiler`` issues later launches more slowly.  Returns the
+    numbers of the report line."""
     from repro_torch.configs.base import ServeConfig
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gemm
@@ -535,8 +538,6 @@ def lm_path(torch, ops, dev, cfg, kernels, b10):
         b11=dict(wgmma=cfg.n_layers, cuda_core=0))
     check(routes == want_routes, f"lm: routes {routes}, the design "
           f"implies {want_routes}")
-    kernels["B10"]["launches"] = launches["matmul"]
-    kernels["B11"]["launches"] = launches["flash_attention"]
     check(res.tokens.shape == (Bt, new) and
           bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()) and
           bool(torch.isfinite(res.logprobs).all()) and
@@ -552,8 +553,6 @@ def lm_path(torch, ops, dev, cfg, kernels, b10):
         logits, cache = engine.prefill(prompts)
         torch.cuda.synchronize()
         prefill_ms.append((time.perf_counter() - t0) * 1e3)
-    # device time of a prefill, from the profiler's kernels
-    prefill_dev_ms = device_ms(lambda: engine.prefill(prompts), 1)
     steps, traced = min(8, new // 2), min(2, new - min(8, new // 2))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -561,7 +560,9 @@ def lm_path(torch, ops, dev, cfg, kernels, b10):
         logits, cache = engine.decode(cache, res.tokens[:, i:i + 1])
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / steps
-    # device time of the next decode steps, from the profiler's kernels
+    # device time of a prefill and of the next decode steps, from the
+    # profiler's kernels
+    prefill_dev_ms = device_ms(lambda: engine.prefill(prompts), 1)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -574,17 +575,6 @@ def lm_path(torch, ops, dev, cfg, kernels, b10):
                  for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA) / traced
     del logits, cache
-
-    # B10 and B11's share, from their device times at these shapes
-    L_ = cfg.n_layers
-    b10_prefill = L_ * (4 * b10["prefill qkvo"]["dev_ms"] +
-                        2 * b10["prefill in/gate"]["dev_ms"] +
-                        b10["prefill out"]["dev_ms"]) + \
-        b10["unembed"]["dev_ms"]
-    b11_prefill = L_ * kernels["B11"]["dev_ms"]
-    b10_step = L_ * (4 * b10["decode qkvo"]["dev_ms"] +
-                     2 * b10["decode in/gate"]["dev_ms"] +
-                     b10["decode out"]["dev_ms"]) + b10["unembed"]["dev_ms"]
 
     # the plain route on the same tokens, teacher-forced
     ref_engine = ServeEngine(cfg, params, serve_cfg, path="ref")
@@ -634,8 +624,7 @@ def lm_path(torch, ops, dev, cfg, kernels, b10):
     del params
     return dict(gen_s=gen_s, prefill_ms=min(prefill_ms), step_ms=step_ms,
                 prefill_dev_ms=prefill_dev_ms,
-                step_dev_ms=dev_us / 1e3, b10_prefill=b10_prefill,
-                b11_prefill=b11_prefill, b10_step=b10_step,
+                step_dev_ms=dev_us / 1e3,
                 decisions=Bt * (new + 1), near=near, differ=differ,
                 worst=worst, first=res.tokens[0, :8].tolist(),
                 launches=launches, routes=routes, layers=layers)
@@ -1845,10 +1834,24 @@ def main() -> int:
     # ------------------------------------------------ 6. the LM path
     del A, Cq, Xg, mu, var, lp, xg, ks, ps
     torch.cuda.empty_cache()
+    # the path first: its host-clock times come before any profiler window
+    run = lm_path(torch, ops, dev, lm_cfg)
     lm_kernels, b10 = lm_kernel_times(torch, ops, ref, dev, lm_gen, lm_cfg,
                                       peaks)
     kernels.update(lm_kernels)
-    run = lm_path(torch, ops, dev, lm_cfg, kernels, b10)
+    kernels["B10"]["launches"] = run["launches"]["matmul"]
+    kernels["B11"]["launches"] = run["launches"]["flash_attention"]
+    # B10 and B11's share, from their device times at the path's shapes
+    L_ = lm_cfg.n_layers
+    run["b10_prefill"] = L_ * (4 * b10["prefill qkvo"]["dev_ms"] +
+                               2 * b10["prefill in/gate"]["dev_ms"] +
+                               b10["prefill out"]["dev_ms"]) + \
+        b10["unembed"]["dev_ms"]
+    run["b11_prefill"] = L_ * kernels["B11"]["dev_ms"]
+    run["b10_step"] = L_ * (4 * b10["decode qkvo"]["dev_ms"] +
+                            2 * b10["decode in/gate"]["dev_ms"] +
+                            b10["decode out"]["dev_ms"]) + \
+        b10["unembed"]["dev_ms"]
     Bt, new = LM["batch"], LM["new"]
     pre, step = run["prefill_ms"], run["step_ms"]
     print(f"[path] lm {lm_cfg.arch_id} batch={Bt} prompt={LM['prompt']} "

@@ -1,5 +1,6 @@
 """Device times of B10 (``ops.matmul``) and B11 (``ops.flash_attention``)
-at the shapes of the LM serving path, for one checkout of the port.
+at the shapes of the LM serving path, and the path's own prefill and
+``generate`` times, for one checkout of the port.
 
     python3 src/repro_torch/launch/lm_kernel_times.py [--src DIR]
 
@@ -14,7 +15,13 @@ checkout: run it on two checkouts in one command on one card (parent,
 change, change, parent) to compare their kernels.  A time is the summed
 duration of the kernels a call launched, from ``torch.profiler``, over
 20 calls after a warm one: device time, without the host's time to issue
-the call.  Prints one JSON line; needs a CUDA card.
+the call.  The path is stablelm-3b at full width with seeded weights,
+batch 4, prompts of 512 tokens, 32 greedy new tokens, through the public
+``ServeEngine``: host-clock prefill and ``generate`` times (three
+readings each, after a warm call) in this fresh process before any
+profiler window, and again after the kernels' profiler windows, since a
+process that has run ``torch.profiler`` issues later launches more
+slowly.  Prints one JSON line; needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import argparse
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 REPS = 20
@@ -51,6 +59,23 @@ def device_ms(fn, reps: int = REPS) -> float:
     return us / reps / 1e3
 
 
+def serve_times(torch, engine, prompts, new: int):
+    """Host-clock ms of three prefills and s of three ``generate`` calls,
+    each ending in a synchronize."""
+    pre, gen = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.prefill(prompts)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        engine.generate(prompts, new)
+        torch.cuda.synchronize()
+        pre.append((t1 - t0) * 1e3)
+        gen.append(time.perf_counter() - t1)
+    return dict(prefill_ms=pre, generate_s=gen)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]),
@@ -61,8 +86,11 @@ def main(argv=None) -> int:
         print("no CUDA device is visible", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(args.src).resolve()))
+    from repro_torch.configs.base import ServeConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import _build, ops
+    from repro_torch.models import transformer
+    from repro_torch.serving import ServeEngine
 
     _build.build_all()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -74,6 +102,13 @@ def main(argv=None) -> int:
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
+    new = 32
+    params = transformer.init_params(cfg, gen, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (Bt, P), generator=gen,
+                            device=dev)
+    engine = ServeEngine(cfg, params, ServeConfig(max_seq=P + new))
+    engine.generate(prompts[:, :16], 2)          # first calls
+    serve = serve_times(torch, engine, prompts, new)
     shapes = {"prefill qkvo": (Bt * P, d, d),
               "prefill in/gate": (Bt * P, ff, d),
               "prefill out": (Bt * P, d, ff), "decode qkvo": (Bt, d, d),
@@ -98,9 +133,11 @@ def main(argv=None) -> int:
                lib_dev_ms=device_ms(
                    lambda: torch.nn.functional.scaled_dot_product_attention(
                        qc, kc, vc, is_causal=True)))
+    serve_after = serve_times(torch, engine, prompts, new)
     print(json.dumps(dict(src=str(Path(args.src).resolve()), card=card,
                           torch=torch.__version__, reps=REPS, b10=b10,
-                          b11=b11)))
+                          b11=b11, serve=serve,
+                          serve_after_profiler=serve_after)))
     return 0
 
 
