@@ -48,7 +48,7 @@ the CUDA toolkit.  In order it
    (``path="ref"``) on the same tokens, and holds one prefill's residual
    stream after every layer to the plain route's, within twice the plain
    route's distance from an fp32 route (``lm_layers``).  B10 and B11 are
-   also timed at each path shape by the profiler's kernel durations
+   also timed at each path shape by a CUDA graph of the calls
    (``device_ms``), beside the CUDA-event time of a loop of calls.
 
 The comparison rule: integer outputs (B5's int32 mode, B6, B7, B8 and
@@ -346,8 +346,9 @@ def lm_kernel_times(torch, ops, ref, dev, gen, cfg, peaks):
     one library call, with each call's bound.  Each kernel and library
     call is timed twice: by CUDA events around a loop of calls
     (``cuda_ms``, the host's issue time included where it is the slower
-    side) and by the profiler's kernel durations (``device_ms``).  Returns
-    the kernel rows and the per-shape B10 times."""
+    side) and by the replay of the calls captured as a CUDA graph
+    (``device_ms``, device time alone).  Returns the kernel rows and the
+    per-shape B10 times."""
     from repro_torch.kernels import gemm
     from repro_torch.launch.lm_kernel_times import device_ms
     d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
@@ -480,12 +481,13 @@ def lm_path(torch, ops, dev, cfg):
     residual stream to the plain route's after every layer
     (``lm_layers``).  Every host-clock time is taken before the first
     profiler window of the process: a process that has run
-    ``torch.profiler`` issues later launches more slowly.  Returns the
-    numbers of the report line."""
+    ``torch.profiler`` issues later launches more slowly.  The device busy
+    time of a prefill and of a decode step is the profiler's kernel time
+    (None, printed "not measured", where a window records no kernel).
+    Returns the numbers of the report line."""
     from repro_torch.configs.base import ServeConfig
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gemm
-    from repro_torch.launch.lm_kernel_times import device_ms
     from repro_torch.models import transformer
     from repro_torch.serving import ServeEngine
     Bt, P, new = LM["batch"], LM["prompt"], LM["new"]
@@ -560,21 +562,31 @@ def lm_path(torch, ops, dev, cfg):
         logits, cache = engine.decode(cache, res.tokens[:, i:i + 1])
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / steps
-    # device time of a prefill and of the next decode steps, from the
-    # profiler's kernels
-    prefill_dev_ms = device_ms(lambda: engine.prefill(prompts), 1)
+    # device busy time of a prefill and of the next decode steps, from
+    # the profiler's kernels
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(steps, steps + traced):
-            logits, cache = engine.decode(cache, res.tokens[:, i:i + 1])
-        torch.cuda.synchronize()
-    dev_us = sum(getattr(e, "self_device_time_total",
+
+    def busy_ms(window):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            window()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0))
                  for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA) / traced
-    del logits, cache
+                 if e.device_type == DeviceType.CUDA)
+        return us / 1e3 if us > 0 else None
+
+    prefill_dev_ms = busy_ms(lambda: engine.prefill(prompts))
+    state = {"cache": cache}
+
+    def decode_steps():
+        for i in range(steps, steps + traced):
+            _, state["cache"] = engine.decode(state["cache"],
+                                              res.tokens[:, i:i + 1])
+    step_busy = busy_ms(decode_steps)
+    del logits, cache, state
 
     # the plain route on the same tokens, teacher-forced
     ref_engine = ServeEngine(cfg, params, serve_cfg, path="ref")
@@ -624,7 +636,7 @@ def lm_path(torch, ops, dev, cfg):
     del params
     return dict(gen_s=gen_s, prefill_ms=min(prefill_ms), step_ms=step_ms,
                 prefill_dev_ms=prefill_dev_ms,
-                step_dev_ms=dev_us / 1e3,
+                step_dev_ms=None if step_busy is None else step_busy / traced,
                 decisions=Bt * (new + 1), near=near, differ=differ,
                 worst=worst, first=res.tokens[0, :8].tolist(),
                 launches=launches, routes=routes, layers=layers)
@@ -1854,16 +1866,19 @@ def main() -> int:
         b10["unembed"]["dev_ms"]
     Bt, new = LM["batch"], LM["new"]
     pre, step = run["prefill_ms"], run["step_ms"]
+
+    def share(busy, wall):
+        return "not measured" if busy is None else \
+            f"{busy:.2f} ms = {busy / wall:.3f}"
     print(f"[path] lm {lm_cfg.arch_id} batch={Bt} prompt={LM['prompt']} "
           f"new={new}: generate {run['gen_s']:.3f}s "
           f"({Bt * new / run['gen_s']:.1f} tok/s); prefill {pre:.2f} ms "
-          f"(device busy {run['prefill_dev_ms']:.2f} ms = "
-          f"{run['prefill_dev_ms'] / pre:.3f}, "
+          f"(device busy {share(run['prefill_dev_ms'], pre)}, "
           f"B10 device {run['b10_prefill']:.2f} ms = "
           f"{run['b10_prefill'] / pre:.3f}, B11 {run['b11_prefill']:.3f} ms "
           f"= {run['b11_prefill'] / pre:.4f}); decode step {step:.2f} ms "
           f"({Bt / step * 1e3:.1f} tok/s; device busy "
-          f"{run['step_dev_ms']:.2f} ms = {run['step_dev_ms'] / step:.3f}, "
+          f"{share(run['step_dev_ms'], step)}, "
           f"B10 device {run['b10_step']:.2f} ms = "
           f"{run['b10_step'] / step:.3f}); "
           f"B10 launches={run['launches']['matmul']} B11 "

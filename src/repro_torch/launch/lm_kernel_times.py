@@ -12,16 +12,14 @@ prefill attention shape (4, 32, 512, 80), causal, in the models' (B, S,
 H, d) layout, with ``torch.matmul`` and SDPA beside them as yardsticks.
 Only the public wrappers are called, so the same script times an older
 checkout: run it on two checkouts in one command on one card (parent,
-change, change, parent) to compare their kernels.  A time is the summed
-duration of the kernels a call launched, from ``torch.profiler``, over
-20 calls after a warm one: device time, without the host's time to issue
-the call.  The path is stablelm-3b at full width with seeded weights,
-batch 4, prompts of 512 tokens, 32 greedy new tokens, through the public
-``ServeEngine``: host-clock prefill and ``generate`` times (three
-readings each, after a warm call) in this fresh process before any
-profiler window, and again after the kernels' profiler windows, since a
-process that has run ``torch.profiler`` issues later launches more
-slowly.  Prints one JSON line; needs a CUDA card.
+change, change, parent) to compare their kernels.  A kernel time is the
+replay of 20 calls captured as a CUDA graph, timed by CUDA events, per
+call: device time, without the host's time to issue the call.  The path
+is stablelm-3b at full width with seeded weights, batch 4, prompts of
+512 tokens, 32 greedy new tokens, through the public ``ServeEngine``:
+host-clock prefill and ``generate`` times (three readings each, after a
+warm call), before and after the kernels are timed.  Prints one JSON
+line; needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -36,27 +34,35 @@ REPS = 20
 
 
 def device_ms(fn, reps: int = REPS) -> float:
-    """Mean device time of one call of ``fn`` over ``reps`` calls, after
-    one warm call: the summed durations of the kernels the calls
-    launched, from ``torch.profiler``, so the host's time to issue them
-    is left out.  Kept here, not in the package, so that it times an
-    older checkout as well."""
+    """Mean device time of one call of ``fn``: ``reps`` calls captured
+    once as a CUDA graph (after warm calls on a side stream, as capture
+    asks), then the graph's replay timed by CUDA events, so the kernels
+    run back to back and the host's time to issue each call is left out.
+    Kept here, not in the package, so that it times an older checkout as
+    well."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-             for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return us / reps / 1e3
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    return ms
 
 
 def serve_times(torch, engine, prompts, new: int):
@@ -136,8 +142,7 @@ def main(argv=None) -> int:
     serve_after = serve_times(torch, engine, prompts, new)
     print(json.dumps(dict(src=str(Path(args.src).resolve()), card=card,
                           torch=torch.__version__, reps=REPS, b10=b10,
-                          b11=b11, serve=serve,
-                          serve_after_profiler=serve_after)))
+                          b11=b11, serve=serve, serve_after=serve_after)))
     return 0
 
 
