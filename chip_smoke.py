@@ -20,7 +20,12 @@ the CUDA toolkit.  In order it
    INT_MAX; B2's NaN rows take centroid 0, ROADMAP C4), B10 and B11 on
    every route of their shape rules (B11 at head dims up to 256) and at
    k = 1, k = n and k > 32, and times kernel, plain
-   version and one library call; the blocked kNN arm is also checked at
+   version and one library call; B1 and B6 also on an unaligned view
+   (``A[1:]``, their ``plain`` route), a last tile ending off a 16-byte
+   multiple, rows in adversarial order (every row beats the threshold),
+   all-equal rows and the ANN probe shape, each on the route their
+   alignment rule gives, with ``[time]`` lines for the ANN probe and the
+   adversarial order; the blocked kNN arm is also checked at
    N = 2^22, where it splits a bucket's queries into chunks to bound its
    distance matrix;
 3. drives each path through the entry points a user calls:
@@ -34,7 +39,8 @@ the CUDA toolkit.  In order it
    a time against the fitted GNB moments under its own count.  The int8
    tier serves the fitted kNN (B6), K-Means (B7), GNB, GMM-wide and RF
    estimators through ``NonNeuralServeEngine(..., policy="int8")``, held
-   against the plain versions on the same quantized params; IVF-PQ ANN
+   against the plain versions on the same quantized params (every B1 and
+   B6 launch of the kNN paths on the ``bulk`` route); IVF-PQ ANN
    (``make_fitted("ann")``: B2 in the fit, B1 probe, B8 + B5 serve) is
    held against ``path="ref"`` and its recall@10 against exact fused kNN;
 4. serves stablelm-3b at full width (bf16, seeded weights) through
@@ -843,6 +849,67 @@ def main() -> int:
         print(f"[edge] B1 NaN and Inf queries N={N} d={d} k={k}: "
               f"{n_nan} NaN and {n_inf} Inf values, indices equal")
         edges += 1
+    # B1's Hopper design (bulk copies, shared lists with queues): an
+    # unaligned view (the plain route), a last tile whose span is not a
+    # multiple of 16 bytes, rows in adversarial order (each ranks before
+    # every earlier one, so every row beats every threshold and the queues
+    # fill between syncs), all-equal rows (exact ties fill a queue in one
+    # tile), and the ANN probe shape
+    from repro_torch.kernels import distance_topk as kdt
+    from repro_torch.kernels import quantized as qk
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def tail_bytes(N, Q, d, itemsize):
+        """Bytes of the last tile of the last split of B1/B6's plan."""
+        n_splits, per = kdt.split_rows(N, Q, sms)
+        last = N - (n_splits - 1) * per
+        return (last - (last - 1) // kdt.TILE_ROWS * kdt.TILE_ROWS) * d * \
+            itemsize
+
+    def adversarial(rows, centre, n_q, jitter):
+        """rows sorted by descending distance to ``centre`` (stable), and
+        n_q queries at the centre (plus ``jitter`` times normal noise)."""
+        dist = ((rows.double() - centre.double()) ** 2).sum(1)
+        rows = rows[dist.argsort(descending=True, stable=True)].contiguous()
+        q = centre.repeat(n_q, 1)
+        if jitter:
+            q = q + jitter * torch.randn(q.shape, generator=gen).to(dev)
+        return rows, q.contiguous()
+
+    check(tail_bytes(4099, 5, 21, 4) % 16 and tail_bytes(4099, 5, 21, 1) % 16,
+          "the ragged-tile case no longer ends off a 16-byte multiple")
+    A_view = rand((100_004, 21), False)
+    A_adv, C_adv = adversarial(rand((65_536, 21), False),
+                               rand((1, 21), False), 129, 1e-3)
+    for what, A_e, C_e, k, exact, way in [
+            ("unaligned view A[1:]", A_view[1:], rand((37, 21), False), 4,
+             False, "plain"),
+            ("ragged last tile N=4099", rand((4099, 21), False),
+             rand((5, 21), False), 8, False, "bulk"),
+            ("adversarial order N=65536", A_adv, C_adv, 4, False, "bulk"),
+            ("all-equal rows N=3000", torch.ones((3000, 21), device=dev),
+             rand((64, 21), True), 8, True, "bulk"),
+            ("ANN probe shape N=256", rand((256, 21), False),
+             rand((1024, 21), False), 16, False, "bulk")]:
+        before = dict(kdt.ROUTE_LAUNCHES)
+        err, n_near = topk_case(A_e, C_e, k, exact, f"B1 {what}")
+        check(kdt.ROUTE_LAUNCHES[way] == before[way] + 1,
+              f"B1 {what}: routes {kdt.ROUTE_LAUNCHES}, the alignment rule "
+              f"gives {way}")
+        print(f"[edge] B1 {what} d=21 Q={C_e.shape[0]} k={k} ({way} route):"
+              f" max_abs_err={err:.3g} near_ties={n_near}")
+        edges += 1
+    A_ann, C_ann = rand((256, 21), False), rand((1024, 21), False)
+    A_shuf = A_adv[torch.randperm(A_adv.shape[0], generator=gen).to(dev)]
+    ann_ms = [cuda_ms(torch, lambda: fn(A_ann, C_ann, 16), 20)
+              for fn in (ops.distance_topk, ref.distance_topk)]
+    adv_ms = [cuda_ms(torch, lambda: ops.distance_topk(rows, C_adv, 4), 20)
+              for rows in (A_adv, A_shuf)]
+    print(f"[time] B1 ANN probe shape N=256 Q=1024 d=21 k=16: kernel "
+          f"{ann_ms[0]:.4f} ms, plain {ann_ms[1]:.4f} ms")
+    print(f"[time] B1 adversarial order N=65536 Q=129 d=21 k=4: kernel "
+          f"{adv_ms[0]:.4f} ms; the same rows shuffled {adv_ms[1]:.4f} ms")
+    del A_view, A_adv, C_adv, A_ann, C_ann, A_shuf
     for N, d, K, ints in [(4099, 1, 1, True), (4099, 5, 257, True),
                           (1001, 784, 257, False), (129, 21, 33, True),
                           (1, 21, 257, False), (70_001, 21, 257, False),
@@ -1025,6 +1092,34 @@ def main() -> int:
         print(f"[edge] B6 N={N} d={d} Q={Q} k={k} {kind}: distances and "
               "rows equal")
         edges += 1
+    # B6's Hopper design: the edges of B1's above, bit-equal
+    A8_view = i8((100_017, 21))
+    A8_adv, C8_adv = adversarial(i8((65_536, 21)), i8((1, 21)), 129, 0)
+    for what, A8, C8, k, way in [
+            ("unaligned view A[1:]", A8_view[1:], i8((37, 21)), 4, "plain"),
+            ("ragged last tile N=4099", i8((4099, 21)), i8((5, 21)), 8,
+             "bulk"),
+            ("adversarial order N=65536", A8_adv, C8_adv, 4, "bulk"),
+            ("all-equal rows N=3000",
+             torch.full((3000, 21), 5, dtype=torch.int8, device=dev),
+             i8((64, 21)), 8, "bulk"),
+            ("ANN probe shape N=256", i8((256, 21)), i8((1024, 21)),
+             16, "bulk")]:
+        before = dict(qk.ROUTE_LAUNCHES)
+        equal_case(f"B6 {what}", ops.distance_topk_q8(A8, C8, k),
+                   ref.distance_topk_q8(A8, C8, k))
+        check(qk.ROUTE_LAUNCHES[way] == before[way] + 1,
+              f"B6 {what}: routes {qk.ROUTE_LAUNCHES}, the alignment rule "
+              f"gives {way}")
+        print(f"[edge] B6 {what} d=21 Q={C8.shape[0]} k={k} ({way} route): "
+              "distances and rows equal")
+        edges += 1
+    A8_shuf = A8_adv[torch.randperm(A8_adv.shape[0], generator=gen).to(dev)]
+    adv_ms = [cuda_ms(torch, lambda: ops.distance_topk_q8(rows, C8_adv, 4), 20)
+              for rows in (A8_adv, A8_shuf)]
+    print(f"[time] B6 adversarial order N=65536 Q=129 d=21 k=4: kernel "
+          f"{adv_ms[0]:.4f} ms; the same rows shuffled {adv_ms[1]:.4f} ms")
+    del A8_view, A8_adv, C8_adv, A8_shuf
     for N, d, K, kind in [(4099, 1, 1, "dup"), (4099, 5, 257, "dup"),
                           (1001, 832, 257, "normal"), (129, 21, 33, "dup"),
                           (1, 21, 257, "normal"), (70_001, 21, 256, "sat")]:
@@ -1304,7 +1399,6 @@ def main() -> int:
           f"max_abs_err={kernels['B9']['max_abs_err']:.3g}")
 
     # ---- slice 3: B6 and B7 on the int8 lattice of the main-path data
-    from repro_torch.kernels import quantized as qk
 
     def chunked(fn, Q, step=128):
         parts = [fn(i, min(Q, i + step)) for i in range(0, Q, step)]
@@ -1445,6 +1539,7 @@ def main() -> int:
         res = engine.classify(Xq)
         torch.cuda.synchronize()
         launches = dict(ops.LAUNCHES)
+        routes = dict(b1=dict(kdt.ROUTE_LAUNCHES), b6=dict(qk.ROUTE_LAUNCHES))
         wall = time.perf_counter() - t0
         check(set(engine.bucket_launches) <= warmed,
               f"{algo}: served buckets {sorted(engine.bucket_launches)} "
@@ -1477,7 +1572,7 @@ def main() -> int:
         torch.cuda.synchronize()
         acc = float((res.classes.cpu().numpy() == yq).mean())
         return dict(est=served, res=res, res_ref=res_ref, launches=launches,
-                    call_ms=call_ms, acc=acc, wall=wall, setup=setup,
+                    routes=routes, call_ms=call_ms, acc=acc, wall=wall, setup=setup,
                     fit_s=fit_s, engine=engine,
                     n_buckets=len(warmed) + res.launches)
 
@@ -1586,6 +1681,11 @@ def main() -> int:
     # kNN, k = 4: the fused B1
     run = drive("knn", knn_data, KNN["classes"])
     n_near, n_odd = knn_checks("knn", run)
+    check(run["routes"]["b1"] == {"bulk": run["launches"]["distance_topk"],
+                                  "plain": 0},
+          f"knn: B1 routes {run['routes']['b1']} for "
+          f"{run['launches']['distance_topk']} launches: not all on the bulk "
+          "route")
     report("knn", ["B1"], run, f"near_ties={n_near}, classes differing at "
            f"near-ties={n_odd}", kernels["B1"]["serve_ms"])
     fitted = {"knn": run["est"]}     # served again by the int8 tier
@@ -1733,6 +1833,9 @@ def main() -> int:
     msg = int8_checks("knn", run)
     check(run["launches"]["distance_topk_q8"] == run["n_buckets"],
           f"knn int8: launches {run['launches']}")
+    check(run["routes"]["b6"] == {"bulk": run["n_buckets"], "plain": 0},
+          f"knn int8: B6 routes {run['routes']['b6']}: not all on the bulk "
+          "route")
     report("knn int8", ["B6"], run, f"{msg}; neighbours and classes equal "
            "to the plain version's", kernels["B6"]["serve_ms"])
     del run

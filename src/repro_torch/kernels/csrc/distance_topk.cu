@@ -15,214 +15,338 @@
 // card's ~20 flop/byte fp32 ridge; B2 at the K-Means fit shape (N = 262144,
 // K = 256, d = 21) does 2.8 GFLOP against 22 MB, ~128 flop per byte.
 //
-// What the design does about it:
-//  * B1: the TPU walks N as one sequential grid with a carried (Q, k)
-//    accumulator, which on this card would occupy one SM.  Here N is split
-//    across blocks.  A block takes 32 queries (one per lane) and a range of
-//    rows, stages 64-row x 32-feature tiles of A in shared memory and
-//    register-blocks 8 rows per thread, so each row value is a shared-memory
-//    broadcast to the warp.  Each thread keeps a sorted (value, row) list of
-//    its k best; after the first few tiles an insertion is rare, so the list
-//    costs one compare per row.  A second small kernel merges the
-//    n_splits * 8 partial lists of each query by (value, global row), the
-//    rule of core/cluster.py::_butterfly_topk_merge, so ties go to the
-//    smallest row as in the reference.  A NaN distance (a NaN or Inf in a
-//    query or row) ranks after every number, as a stable sort puts it
-//    last, so every output is a real row of A.  Rows past N are masked in
-//    the kernel; nothing is padded.  k is limited to TOPK_K_MAX.
+// B1's design.  The TPU walks N as one sequential grid with a carried
+// (Q, k) accumulator.  Here a block takes QB = 128 queries and a split of
+// the rows (the grid is splits x query tiles, about two blocks an SM), and
+// a second kernel merges the splits' lists of each query.
+//  * Arithmetic: each of the 256 threads computes an 8-query x 8-row
+//    micro-tile.  Per feature it loads its 8 query values as two float4
+//    (the queries sit transposed in shared memory, scaled by -2) and 8 row
+//    values, and issues 64 FMAs: 6.4 FMAs a shared load, against 0.9 in
+//    the per-lane list design this replaces, whose inner loop the load
+//    unit bounded.  The sum starts from ||a||^2 + ||c||^2, so after the
+//    last feature it is the distance.  The feature loop is not unrolled:
+//    with 64 accumulators the registers of a deeper unroll spill at the
+//    two blocks an SM that hide the loads' latency.
+//  * Staging (the bulk route): rows are contiguous, so a 128-row tile is
+//    one span of 512*d bytes.  One thread copies it into a ring of three
+//    shared-memory stages with a 1-D bulk asynchronous copy
+//    (hop::bulk_load_1d) that completes an mbarrier; the copies of the
+//    next two tiles run under the current tile's arithmetic.  Tiled TMA
+//    cannot be used: a tensor map needs 16-byte global strides and a row
+//    of d = 21 floats is 84 bytes.  The row norms come from the staged
+//    tile, two threads a row, all rows at once.
+//  * Selection: csrc/block_select.cuh, one list per query per block.  A
+//    thread reads its queries' thresholds once a tile, ors the compares of
+//    a push group (one branch for 16 candidates) and queues every
+//    candidate whose value is not above its query's threshold with one
+//    shared atomic; the merge settles ties and NaN.  Rows are arranged so
+//    that a query takes at most 32 candidates in one push group (two of a
+//    thread's eight rows, 16 threads a query); after each group the block
+//    merges early if any queue holds more than bsel::FILL, so a queue
+//    (bsel::QCAP slots) never overflows and no candidate is dropped.
+//    The merge kernel reads n_splits * k candidates a query.
+//  * What bounds it: the CUDA cores' FMA issue in the dot products, then
+//    the selection's queue traffic while the thresholds are still loose
+//    (the first tiles of a block, or rows in an order that keeps every
+//    row ahead of the threshold).
+//  * Order: ascending by (value, row), ties to the smallest row, a NaN
+//    distance (a NaN or Inf in a query or row) after every number, every
+//    index a real row of A; k <= TOPK_K_MAX.
+//  * The alignment rule (routes, counted by the wrapper): the bulk route
+//    needs A's base 16-byte aligned and d <= BULK_MAX_D (three stages of
+//    128 rows stay within 48 KB); rows_per_split is a multiple of 32, so
+//    every tile starts 16-byte aligned.  The last tile's span may end off
+//    a 16-byte multiple: the bulk copy takes its 16-byte part and the
+//    copying thread loads the last (rows*d) % 4 floats itself before it
+//    arrives on the barrier.  Any other A (a view such as A[1:], or
+//    d > BULK_MAX_D) takes the plain route: the block loads 32-feature
+//    chunks of each tile with element loads into one buffer, between
+//    barriers, and adds the row norms after the last chunk.  Both routes
+//    share the arithmetic and the selection.
 //  * B2: one row per thread; centroids are staged in shared memory in tiles
 //    of 32 (so any K*d fits) and read as float4 broadcasts into 32 running
 //    dot products held in registers.  The scan uses strict < in ascending
 //    centroid order: the first index wins ties.
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
 #include <climits>
+#include <cstdint>
+
+#include "block_select.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int TOPK_K_MAX = 32;  // longest per-query list a thread keeps
-constexpr int QT = 32;          // queries per block, one per lane
-constexpr int RL = 8;           // row lanes (warps) per block
-constexpr int RPT = 8;          // rows per thread in a tile
-constexpr int TILE_ROWS = RL * RPT;
-constexpr int DC = 32;          // features staged per chunk
-constexpr int MERGE_THREADS = 256;
+using bsel::QB;
+using bsel::RB;
+using bsel::THREADS;
 
-// (value, row) order: NaN after every number, equal values (NaN with NaN
-// too) to the smaller row.  The empty slot (NaN, INT_MAX) ranks after
-// every real row.
-__device__ __forceinline__ bool rank_less(float v, int i, float w, int j) {
-    const bool vn = v != v, wn = w != w;
-    if (vn || wn) return vn ? (wn && i < j) : true;
-    return v < w || (v == w && i < j);
+constexpr int TOPK_K_MAX = bsel::K_MAX;
+constexpr int BULK_MAX_D = 32;   // widest row the bulk route stages whole
+constexpr int STAGES = 3;        // bulk route: tiles in flight
+constexpr int DC = 32;           // plain route: features of a chunk
+constexpr int PSTRIDE = DC + 1;  // plain route: padded row of a chunk
+constexpr int TQ = 8;            // queries of a thread
+constexpr int TR = 8;            // rows of a thread: tr + 16 i
+
+struct F32Layout {
+    size_t stage_bytes, c_t, cn, an, lists, bars, total;
+};
+
+// byte offsets of B1's dynamic shared memory (host and device agree)
+__host__ __device__ inline F32Layout f32_layout(bool bulk, int d, int k) {
+    F32Layout L{};
+    const int floats = bulk ? RB * d : RB * PSTRIDE;
+    L.stage_bytes = (static_cast<size_t>(floats) * 4 + 127) & ~size_t{127};
+    size_t off = L.stage_bytes * (bulk ? STAGES : 1);
+    L.c_t = off;
+    off += bsel::align16(static_cast<size_t>(d < DC ? d : DC) * QB * 4);
+    L.cn = off;
+    off += QB * 4;
+    L.an = off;
+    off += RB * 4;
+    L.lists = off;
+    off += bsel::lists_bytes(k);
+    L.bars = off;
+    L.total = off + 8 * STAGES;
+    return L;
 }
 
-__global__ void __launch_bounds__(QT * RL)
+// c_t[j][q] = -2 * C[q0 + q][c0 + j] for j < dc, 0 past Q
+__device__ void stage_queries(float* c_t, const float* __restrict__ C,
+                              int q0, int Q, int d, int c0, int dc) {
+    for (int e = threadIdx.x; e < dc * QB; e += THREADS) {
+        const int j = e / QB, q = e - j * QB;
+        c_t[e] = q0 + q < Q ? -2.f * C[static_cast<size_t>(q0 + q) * d + c0 + j]
+                            : 0.f;
+    }
+}
+
+// the n floats of a tile into a stage: the 16-byte part by one bulk copy,
+// the rest by this thread, which then arrives on the stage's barrier
+__device__ __forceinline__ void issue_tile(float* dst, const float* src,
+                                           int n, uint64_t* bar) {
+    const int bulk = n & ~3;
+    for (int f = bulk; f < n; ++f) dst[f] = src[f];
+    hop::mbar_expect_tx(bar, static_cast<uint32_t>(bulk) * 4);
+    if (bulk) hop::bulk_load_1d(dst, src, static_cast<uint32_t>(bulk) * 4, bar);
+}
+
+// sum of squares of features [0, dc) of row tid / 2 of a tile (stride
+// ``stride``), two threads a row, each half of the features
+__device__ __forceinline__ float half_norm(const float* a_s, int stride,
+                                           int dc) {
+    const float* r = a_s + (threadIdx.x >> 1) * stride;
+    float s = 0.f;
+    for (int j = threadIdx.x & 1; j < dc; j += 2) s = fmaf(r[j], r[j], s);
+    return s;
+}
+
+// acc[qi][ri] += sum_j c_t[j][q(qi)] * a_s[r(ri)][j] over j < dc
+__device__ __forceinline__ void dots(const float* a_s, int stride,
+                                     const float* c_t, int dc, int tq, int tr,
+                                     float (&acc)[TQ][TR]) {
+    const float* ar = a_s + tr * stride;
+    const float* cq = c_t + 4 * tq;
+    const int rs = 16 * stride;
+#pragma unroll 1
+    for (int j = 0; j < dc; ++j) {
+        float a[TR];
+#pragma unroll
+        for (int i = 0; i < TR; ++i) a[i] = ar[i * rs + j];
+        const float4 c0 = *reinterpret_cast<const float4*>(cq + j * QB);
+        const float4 c1 = *reinterpret_cast<const float4*>(cq + j * QB + 64);
+        const float c[TQ] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+        for (int qi = 0; qi < TQ; ++qi)
+#pragma unroll
+            for (int ri = 0; ri < TR; ++ri)
+                acc[qi][ri] = fmaf(c[qi], a[ri], acc[qi][ri]);
+    }
+}
+
+// the block-local query of a thread's query slot qi (queries 4 tq.. and
+// 64 + 4 tq.., so the eight load as two float4)
+__device__ __forceinline__ int qloc(int tq, int qi) {
+    return (qi < 4 ? 0 : 64 - 4) + 4 * tq + qi;
+}
+
+template <bool BULK>
+__global__ void __launch_bounds__(THREADS, 2)
 topk_partial_kernel(const float* __restrict__ A, const float* __restrict__ C,
                     float* __restrict__ part_v, int* __restrict__ part_i,
                     int N, int Q, int d, int k, int rows_per_split) {
-    __shared__ float a_s[TILE_ROWS][DC + 1];
-    __shared__ float c_s[DC][QT + 1];
-    __shared__ float an_s[TILE_ROWS];
+    extern __shared__ __align__(128) unsigned char smem[];
+    const F32Layout lay = f32_layout(BULK, d, k);
+    float* stage = reinterpret_cast<float*>(smem);
+    float* c_t = reinterpret_cast<float*>(smem + lay.c_t);
+    float* cn_s = reinterpret_cast<float*>(smem + lay.cn);
+    float* an_s = reinterpret_cast<float*>(smem + lay.an);
+    const bsel::Lists<float> L = bsel::carve<float>(smem + lay.lists, k);
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bars);
+    const int stage_floats = static_cast<int>(lay.stage_bytes / 4);
 
-    const int lane = threadIdx.x;
-    const int rl = threadIdx.y;
-    const int tid = rl * QT + lane;
-    const int q = blockIdx.y * QT + lane;
-    const bool q_ok = q < Q;
-    const int row_lo = blockIdx.x * rows_per_split;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    // a warp covers 8 query groups x 4 row groups
+    const int tq = (warp & 1) * 8 + (lane & 7);
+    const int tr = (warp >> 1) * 4 + (lane >> 3);
+    const int split = blockIdx.x, q0 = blockIdx.y * QB;
+    const int row_lo = split * rows_per_split;
     const int row_hi = min(N, row_lo + rows_per_split);
-    const int nchunks = (d + DC - 1) / DC;
+    const int n_tiles = (row_hi - row_lo + RB - 1) / RB;
+    const int nch = BULK ? 1 : (d + DC - 1) / DC;
 
-    float cn = 0.f;  // this lane's query norm, read once from global memory
-    if (q_ok) {
-        for (int j = 0; j < d; ++j) {
-            const float v = C[(size_t)q * d + j];
-            cn += v * v;
+    bsel::init(L);
+    {   // query norms, two threads a query
+        const int q = tid >> 1;
+        float s = 0.f;
+        if (q0 + q < Q) {
+            const float* c = C + static_cast<size_t>(q0 + q) * d;
+            for (int j = tid & 1; j < d; j += 2) s = fmaf(c[j], c[j], s);
         }
+        s += __shfl_xor_sync(bsel::FULL, s, 1);
+        if ((tid & 1) == 0) cn_s[q] = s;
     }
-
-    float tv[TOPK_K_MAX];
-    int ti[TOPK_K_MAX];
-    for (int r = 0; r < TOPK_K_MAX; ++r) {
-        tv[r] = CUDART_NAN_F;
-        ti[r] = INT_MAX;
-    }
-    float worst = CUDART_NAN_F;
-    int worst_i = INT_MAX;
-
-    for (int row0 = row_lo; row0 < row_hi; row0 += TILE_ROWS) {
-        float acc[RPT];
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) acc[r] = 0.f;
-        float an_part = 0.f;
-        for (int ch = 0; ch < nchunks; ++ch) {
-            const int c0 = ch * DC;
-            const int dc = min(DC, d - c0);
-            __syncthreads();  // every thread is done with the last tile
-            for (int e = tid; e < TILE_ROWS * DC; e += QT * RL) {
-                const int r = e / DC, j = e % DC;
-                const int row = row0 + r;
-                a_s[r][j] = (row < row_hi && j < dc)
-                    ? A[(size_t)row * d + c0 + j] : 0.f;
-            }
-            if (nchunks > 1 || row0 == row_lo) {  // queries: once if d <= DC
-                for (int e = tid; e < QT * DC; e += QT * RL) {
-                    const int qq = e / DC, j = e % DC;
-                    const int qg = blockIdx.y * QT + qq;
-                    c_s[j][qq] = (qg < Q && j < dc)
-                        ? C[(size_t)qg * d + c0 + j] : 0.f;
-                }
-            }
-            __syncthreads();
-            if (tid < TILE_ROWS) {
-                for (int j = 0; j < dc; ++j)
-                    an_part += a_s[tid][j] * a_s[tid][j];
-            }
-            for (int j = 0; j < dc; ++j) {
-                const float cj = c_s[j][lane];
-#pragma unroll
-                for (int r = 0; r < RPT; ++r)
-                    acc[r] += a_s[rl * RPT + r][j] * cj;
-            }
-        }
-        if (tid < TILE_ROWS) an_s[tid] = an_part;
-        __syncthreads();
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-            const int row = row0 + rl * RPT + r;
-            const float dist = (an_s[rl * RPT + r] - 2.0f * acc[r]) + cn;
-            // one compare rejects the common row; ties and NaN take the
-            // full (value, row) order
-            if (row < row_hi && !(dist > worst) &&
-                rank_less(dist, row, worst, worst_i)) {
-                int p = k - 1;
-                while (p > 0 && rank_less(dist, row, tv[p - 1], ti[p - 1])) {
-                    tv[p] = tv[p - 1];
-                    ti[p] = ti[p - 1];
-                    --p;
-                }
-                tv[p] = dist;
-                ti[p] = row;
-                worst = tv[k - 1];
-                worst_i = ti[k - 1];
-            }
-        }
-    }
-
-    if (q_ok) {
-        const int n_lists = gridDim.x * RL;
-        const size_t base = ((size_t)q * n_lists + blockIdx.x * RL + rl) * k;
-        for (int r = 0; r < k; ++r) {
-            part_v[base + r] = tv[r];
-            part_i[base + r] = ti[r];
-        }
-    }
-}
-
-// One block per query: k rounds, each taking the smallest (value, row)
-// strictly after the previous pick.  Rows are unique across the lists, and
-// k <= N real rows rank before the empty slots, so this is the k smallest
-// by (value, row).
-__global__ void __launch_bounds__(MERGE_THREADS)
-topk_merge_kernel(const float* __restrict__ part_v,
-                  const int* __restrict__ part_i, float* __restrict__ vals,
-                  int* __restrict__ idx, int n_cand, int k) {
-    __shared__ float wv[MERGE_THREADS / 32];
-    __shared__ int wi[MERGE_THREADS / 32];
-    __shared__ float prev_v;
-    __shared__ int prev_i;
-    const int q = blockIdx.x;
-    const float* v = part_v + (size_t)q * n_cand;
-    const int* ix = part_i + (size_t)q * n_cand;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    if (threadIdx.x == 0) {
-        prev_v = -CUDART_INF_F;
-        prev_i = INT_MIN;
+    if (nch == 1) stage_queries(c_t, C, q0, Q, d, 0, d);
+    if (BULK && tid == 0) {
+        for (int s = 0; s < STAGES; ++s) hop::mbar_init(&full[s], 1);
+        hop::fence_barrier_init();
     }
     __syncthreads();
-    for (int r = 0; r < k; ++r) {
-        const float pv = prev_v;
-        const int pi = prev_i;
-        float bv = CUDART_NAN_F;
-        int bi = INT_MAX;
-        for (int t = threadIdx.x; t < n_cand; t += MERGE_THREADS) {
-            const float cv = v[t];
-            const int ci = ix[t];
-            if (rank_less(pv, pi, cv, ci) && rank_less(cv, ci, bv, bi)) {
-                bv = cv;
-                bi = ci;
+
+    auto issue = [&](int t) {   // tile t into stage t % STAGES
+        const int row0 = row_lo + t * RB;
+        issue_tile(stage + (t % STAGES) * stage_floats,
+                   A + static_cast<size_t>(row0) * d,
+                   min(RB, row_hi - row0) * d, &full[t % STAGES]);
+    };
+    if (BULK && tid == 0)
+        for (int t = 0; t < STAGES && t < n_tiles; ++t) issue(t);
+
+    bool flag = false;   // a queue this thread pushed to passed FILL
+    auto sync_merge = [&]() {   // true if the block merged
+        const bool merged = __syncthreads_or(flag);
+        if (merged) {
+            bsel::merge(L);
+            __syncthreads();
+        }
+        flag = false;
+        return merged;
+    };
+
+    for (int t = 0; t < n_tiles; ++t) {
+        const int row0 = row_lo + t * RB;
+        const int rows = min(RB, row_hi - row0);
+        if (t > 0) {
+            sync_merge();   // also: every thread is done with tile t - 1
+            if (BULK && tid == 0 && t - 1 + STAGES < n_tiles)
+                issue(t - 1 + STAGES);
+        }
+        float acc[TQ][TR];
+        if (BULK) {
+            const float* a_s = stage + (t % STAGES) * stage_floats;
+            hop::mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
+            float s = half_norm(a_s, d, d);
+            s += __shfl_xor_sync(bsel::FULL, s, 1);
+            if ((tid & 1) == 0) an_s[tid >> 1] = s;
+            __syncthreads();
+#pragma unroll
+            for (int qi = 0; qi < TQ; ++qi)
+#pragma unroll
+                for (int ri = 0; ri < TR; ++ri)
+                    acc[qi][ri] = an_s[tr + 16 * ri] + cn_s[qloc(tq, qi)];
+            dots(a_s, d, c_t, d, tq, tr, acc);
+        } else {
+#pragma unroll
+            for (int qi = 0; qi < TQ; ++qi)
+#pragma unroll
+                for (int ri = 0; ri < TR; ++ri)
+                    acc[qi][ri] = cn_s[qloc(tq, qi)];
+            float s = 0.f;
+            for (int ch = 0; ch < nch; ++ch) {
+                const int c0 = ch * DC, dc = min(DC, d - c0);
+                if (ch > 0) __syncthreads();
+                for (int e = tid; e < RB * dc; e += THREADS) {
+                    const int r = e / dc, j = e - r * dc;
+                    stage[r * PSTRIDE + j] = r < rows
+                        ? A[static_cast<size_t>(row0 + r) * d + c0 + j] : 0.f;
+                }
+                if (nch > 1) stage_queries(c_t, C, q0, Q, d, c0, dc);
+                __syncthreads();
+                s += half_norm(stage, PSTRIDE, dc);
+                dots(stage, PSTRIDE, c_t, dc, tq, tr, acc);
             }
+            s += __shfl_xor_sync(bsel::FULL, s, 1);
+            if ((tid & 1) == 0) an_s[tid >> 1] = s;
+            __syncthreads();
+#pragma unroll
+            for (int qi = 0; qi < TQ; ++qi)
+#pragma unroll
+                for (int ri = 0; ri < TR; ++ri)
+                    acc[qi][ri] += an_s[tr + 16 * ri];
         }
-        for (int off = 16; off > 0; off >>= 1) {
-            const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-            const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-            if (rank_less(ov, oi, bv, bi)) {
-                bv = ov;
-                bi = oi;
-            }
-        }
-        if (lane == 0) {
-            wv[warp] = bv;
-            wi[warp] = bi;
-        }
-        __syncthreads();
-        if (threadIdx.x == 0) {
-            bv = wv[0];
-            bi = wi[0];
-            for (int w = 1; w < MERGE_THREADS / 32; ++w) {
-                if (rank_less(wv[w], wi[w], bv, bi)) {
-                    bv = wv[w];
-                    bi = wi[w];
+        // the thresholds of the thread's queries, read here so that they
+        // take no registers across the dot products (-inf past Q, which
+        // only a NaN distance passes, to be dropped by the q0 + ql < Q test)
+        float tau[TQ];
+        auto load_tau = [&]() {
+#pragma unroll
+            for (int qi = 0; qi < TQ; ++qi)
+                tau[qi] = q0 + qloc(tq, qi) < Q
+                    ? L.threshold(qloc(tq, qi)) : -CUDART_INF_F;
+        };
+        load_tau();
+        // four push groups of two rows each: at most 32 candidates a query.
+        // One branch a group: the 16 compares are or-ed first.
+#pragma unroll
+        for (int g = 0; g < TR / 2; ++g) {
+            if (g > 0 && sync_merge()) load_tau();
+            bool any = false;
+#pragma unroll
+            for (int ri = 2 * g; ri < 2 * g + 2; ++ri)
+#pragma unroll
+                for (int qi = 0; qi < TQ; ++qi)
+                    any |= !(acc[qi][ri] > tau[qi]);
+            if (any) {
+#pragma unroll
+                for (int ri = 2 * g; ri < 2 * g + 2; ++ri) {
+                    const int rl = tr + 16 * ri;
+#pragma unroll
+                    for (int qi = 0; qi < TQ; ++qi)
+                        if (rl < rows && q0 + qloc(tq, qi) < Q &&
+                            !(acc[qi][ri] > tau[qi]))
+                            flag |= bsel::queue(L, qloc(tq, qi), acc[qi][ri],
+                                                row0 + rl);
                 }
             }
-            vals[(size_t)q * k + r] = bv;
-            idx[(size_t)q * k + r] = bi;
-            prev_v = bv;
-            prev_i = bi;
         }
-        __syncthreads();
     }
+    __syncthreads();
+    bsel::merge(L);
+    __syncthreads();
+    bsel::write_lists(L, part_v, part_i, q0, Q, split, gridDim.x);
+}
+
+template <bool BULK>
+cudaError_t launch_partial(const float* A, const float* C, float* part_v,
+                           int* part_i, int N, int Q, int d, int k,
+                           int n_splits, int rows_per_split, cudaStream_t s) {
+    const size_t bytes = f32_layout(BULK, d, k).total;
+    static size_t allowed = 48 * 1024;   // the dynamic size allowed so far
+    if (bytes > allowed) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            topk_partial_kernel<BULK>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(bytes));
+        if (err != cudaSuccess) return err;
+        allowed = bytes;
+    }
+    const dim3 grid(n_splits, (Q + QB - 1) / QB);
+    topk_partial_kernel<BULK><<<grid, THREADS, bytes, s>>>(
+        A, C, part_v, part_i, N, Q, d, k, rows_per_split);
+    return cudaGetLastError();
 }
 
 constexpr int AM_ROWS = 128;  // rows per block, one per thread
@@ -309,25 +433,37 @@ argmin_kernel(const float* __restrict__ A, const float* __restrict__ C,
 extern "C" {
 
 int distance_topk_k_max() { return TOPK_K_MAX; }
-int distance_topk_lists_per_split() { return RL; }
-int distance_topk_tile_rows() { return TILE_ROWS; }
+int distance_topk_query_tile() { return QB; }
+int distance_topk_tile_rows() { return RB; }
+int distance_topk_bulk_max_d() { return BULK_MAX_D; }
 
 // A (N, d), C (Q, d) fp32 row-major; part_v/part_i scratch of
-// Q * n_splits * RL * k; vals/idx (Q, k).  Returns the first CUDA error.
+// Q * n_splits * k; vals/idx (Q, k).  bulk: 1 for the bulk route (A 16-byte
+// aligned, d <= BULK_MAX_D), 0 for the plain route.  The splits must cover
+// N with none empty, in multiples of 32 rows.  Returns the first CUDA error.
 int distance_topk_f32(const float* A, const float* C, float* part_v,
                       int* part_i, float* vals, int* idx, int N, int Q, int d,
-                      int k, int n_splits, int rows_per_split, void* stream) {
-    if (k < 1 || k > TOPK_K_MAX || Q < 1 || N < 1 || d < 1 || n_splits < 1)
-        return (int)cudaErrorInvalidValue;
+                      int k, int n_splits, int rows_per_split, int bulk,
+                      void* stream) {
+    if (k < 1 || k > TOPK_K_MAX || Q < 1 || N < 1 || d < 1 || n_splits < 1 ||
+        rows_per_split < 1 || rows_per_split % 32 ||
+        static_cast<long long>(n_splits - 1) * rows_per_split >= N ||
+        static_cast<long long>(n_splits) * rows_per_split < N ||
+        (bulk && (d > BULK_MAX_D ||
+                  reinterpret_cast<uintptr_t>(A) % 16 != 0)))
+        return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const dim3 grid(n_splits, (Q + QT - 1) / QT);
-    topk_partial_kernel<<<grid, dim3(QT, RL), 0, s>>>(
-        A, C, part_v, part_i, N, Q, d, k, rows_per_split);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    topk_merge_kernel<<<Q, MERGE_THREADS, 0, s>>>(
-        part_v, part_i, vals, idx, n_splits * RL * k, k);
-    return (int)cudaGetLastError();
+    cudaError_t err = bulk
+        ? launch_partial<true>(A, C, part_v, part_i, N, Q, d, k, n_splits,
+                               rows_per_split, s)
+        : launch_partial<false>(A, C, part_v, part_i, N, Q, d, k, n_splits,
+                                rows_per_split, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int per_block = bsel::MERGE_THREADS / 32;
+    bsel::merge_splits_kernel<float>
+        <<<(Q + per_block - 1) / per_block, bsel::MERGE_THREADS, 0, s>>>(
+            part_v, part_i, vals, idx, Q, n_splits * k, k);
+    return static_cast<int>(cudaGetLastError());
 }
 
 // A (N, d), C (K, d) fp32 row-major -> out_v (N,), out_i (N,).

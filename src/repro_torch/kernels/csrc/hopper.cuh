@@ -1,6 +1,7 @@
-// Hopper building blocks shared by B10 (gemm.cu) and B11
-// (flash_attention.cu): mbarriers, TMA tile loads, wgmma matrix
-// descriptors and fences, and the host-side TMA descriptor cache.
+// Hopper building blocks shared by B10 (gemm.cu), B11
+// (flash_attention.cu), B1 (distance_topk.cu) and B6 (quantized.cu):
+// mbarriers, TMA tile loads and 1-D bulk copies, wgmma matrix descriptors
+// and fences, and the host-side TMA descriptor cache.
 //
 // TMA descriptors (CUtensorMap) are encoded on the host by the driver's
 // cuTensorMapEncodeTiled.  The libraries are not linked against libcuda,
@@ -68,6 +69,19 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
         "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
         :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
            "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+        : "memory");
+}
+
+// One contiguous span of global memory into shared memory by the copy
+// engine, completing ``bytes`` of ``bar``'s transaction count.  dst, src
+// and bytes must be multiples of 16 (B1 and B6 stage whole row tiles so).
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n"
+        :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+           "r"(bytes), "r"(smem_u32(bar))
         : "memory");
 }
 

@@ -8,9 +8,8 @@
 //       int8 arm of K-Means OP1+OP2)
 //
 // Both compute the lattice distance ||a||^2 - 2 a.c + ||c||^2 of int8 rows
-// in exact int32 arithmetic: __dp4a takes four int8 products a cycle and
-// sums them into an int32, and for d <= 832 every sum stays far inside
-// int32 (4 * 832 * 127^2 < 2^26).  So both kernels are bit-equal to the
+// in exact int32 arithmetic.  For d <= 832 every sum stays far inside
+// int32 (4 * 832 * 127^2 < 2^26), so both kernels are bit-equal to the
 // plain versions, whatever order they sum in.  The TPU kernels fed the
 // int8 operands to the f32 matrix unit, offset the distance by OFF, left a
 // norm to be restored outside and packed (distance, lane) into one int32
@@ -18,49 +17,80 @@
 // same order and the same ties.  d <= 832 stays the wrappers' contract,
 // as in the reference.
 //
-// Rows are int8 with a stride of d bytes, so a row is not 4-byte aligned
-// in general (d = 21).  The kernels stage rows in shared memory as 4-byte
-// words, zero-padded past d; zero lanes add nothing to a dot product or a
-// norm.
+// What bounds B6 on an H100.  At the kNN serving shape (N = 2^20 rows,
+// Q = 1024 queries, d = 21) it does 2*N*Q*d = 45 G integer operations
+// against 22 MB of A: 0.023 ms at the int8 tensor-core peak.  That bound
+// is out of reach: each of the N*Q = 2^30 (row, query) pairs also needs its
+// distance formed and compared with the query's threshold, a few CUDA-core
+// instructions a pair (~0.1 ms at the card's instruction rate), so the
+// selection, not the products, sets the pace: the epilogue, the queue
+// traffic while thresholds are loose, and the latency of each tile's
+// barriers at two blocks an SM.
 //
-// What bounds them on an H100: operations.  At the kNN serving shape
-// (N = 2^20 rows, Q = 1024 queries, d = 21) B6 does 2*N*Q*d = 45 G integer
-// operations against 22 MB of A.  Against the int8 tensor-core peak that is
-// 0.023 ms; these kernels use the CUDA cores' dp4a, a rate far below the
-// tensor cores' (int8 mma/wgmma is work for a later change).
-//
-// What the design does about it:
-//  * B6, k <= TOPK_K_MAX: B1's structure (csrc/distance_topk.cu).  N is
-//    split across blocks; a block takes 32 queries (one per lane) and a
-//    range of rows, stages 64-row tiles of A as words in shared memory and
-//    register-blocks 8 rows per thread, so a row word is a shared-memory
-//    broadcast to the warp.  Each thread keeps a sorted (distance, row)
-//    list of its k best, and a second kernel merges the n_splits * 8
-//    partial lists of each query on the (distance, row) rule.
+// B6's design, k <= TOPK_K_MAX (B1's, csrc/distance_topk.cu, with these
+// differences):
+//  * The products run on the int8 tensor cores: mma.sync m16n8k32 s8 x s8
+//    -> s32.  A block scores QB = 128 queries against 128-row tiles; each
+//    warp takes 32 rows x 64 queries (2 x 8 fragments).  Rows and queries
+//    sit in shared memory as 4-byte words, zero-padded to a multiple of 32
+//    features (d = 21 is one k-step), in rows of 32 * k-steps + 16 bytes so
+//    that the eight rows a fragment load touches fall in distinct banks.
+//  * Staging (the bulk route): a 128-row tile is one span of 128*d bytes.
+//    One thread copies it into a ring of three stages with a 1-D bulk
+//    asynchronous copy (hop::bulk_load_1d); the block then repacks it into
+//    the padded word layout with aligned 4-byte shared loads and a funnel
+//    shift (load_word, no byte loads) and forms the row norms with __dp4a,
+//    two threads a row.
+//  * Epilogue: x = ||a||^2 - 2 a.c is compared with the query's threshold
+//    less ||c||^2, kept in registers (one multiply-add and one compare a
+//    pair, the 16 compares of a push group or-ed under one branch); a pair
+//    that passes is queued through csrc/block_select.cuh.  A query takes
+//    at most 32 candidates in one push group (one of a thread's four
+//    rows, 32 threads a query), and the block merges early when a queue
+//    passes bsel::FILL, so no candidate is dropped.
+//  * The alignment rule (routes, counted by the wrapper): the bulk route
+//    needs A's base 16-byte aligned and d <= Q8_BULK_MAX_D (four k-steps);
+//    rows_per_split is a multiple of 32, so every tile starts 16-byte
+//    aligned.  The last tile's span may end off a 16-byte multiple: the
+//    bulk copy takes its 16-byte part and the copying thread loads the
+//    last (rows*d) % 16 bytes itself before it arrives on the barrier.
+//    Any other A (a view such as A[1:], or d > Q8_BULK_MAX_D) takes the
+//    plain route: the block repacks each tile straight from device memory
+//    with the same aligned word loads, four k-steps at a time between
+//    barriers.  A word load reads only aligned words that hold a byte of
+//    the row.
 //  * B6, larger k: the reference takes every 1 <= k <= N.  For k past the
 //    lists the wrapper has this file write the int32 (Q, N) lattice matrix,
 //    one query per row so B5 reads rows contiguously, in chunks of queries
 //    that bound its bytes; B5 (csrc/topk_select.cu) then selects in its
 //    int32 key mode.  The matrix tile puts rows on the lanes, so the
-//    stores of a warp are contiguous.
+//    stores of a warp are contiguous.  Rows are staged there as words
+//    built from bytes (row_word), zero-padded past d.
 //  * B7: one row per thread; centroids are staged in shared memory in tiles
 //    of 32 (so any K fits) and read as broadcasts into 32 running dot
-//    products in registers.  The scan compares (distance, column) with
-//    strict < in ascending column order: the first index wins ties, so the
-//    reference's packed/unpacked fork is not needed.
+//    products in registers, by __dp4a.  The scan compares (distance,
+//    column) with strict < in ascending column order: the first index wins
+//    ties, so the reference's packed/unpacked fork is not needed.
 #include <cuda_runtime.h>
+
 #include <climits>
 #include <cstdint>
 
+#include "block_select.cuh"
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int TOPK_K_MAX = 32;  // longest per-query list a thread keeps
-constexpr int QT = 32;          // queries per block, one per lane
-constexpr int RL = 8;           // row lanes (warps) per block
-constexpr int RPT = 8;          // rows per thread in a tile
-constexpr int TILE_ROWS = RL * RPT;
-constexpr int WC = 16;          // 4-byte feature words staged per chunk
-constexpr int MERGE_THREADS = 256;
+using bsel::QB;
+using bsel::RB;
+using bsel::THREADS;
+
+constexpr int TOPK_K_MAX = bsel::K_MAX;
+constexpr int Q8_BULK_MAX_D = 128;  // widest row the bulk route stages
+constexpr int STAGES = 3;           // bulk route: tiles in flight
+constexpr int KSC = 4;              // k-steps (32 features) of a chunk
+constexpr int RL = 8;               // matrix mode: warps of a block
+constexpr int WC = 16;              // matrix mode, B7: words of a chunk
 constexpr int MAX_D = 832;
 
 // features [f, f + 4) of an int8 row of d as one word, zero past d
@@ -76,171 +106,278 @@ __device__ __forceinline__ int row_word(const int8_t* __restrict__ row,
     return (int)w;
 }
 
-// (distance, row) order; the empty slot (INT_MAX, INT_MAX) ranks after
-// every real row, whose distance is below INT_MAX
-__device__ __forceinline__ bool rank_less(int v, int i, int w, int j) {
-    return v < w || (v == w && i < j);
+// The same word from aligned 4-byte loads and a funnel shift: reads the
+// aligned word holding byte f and, only if the four bytes cross it, the
+// next one.  ``row`` may point to shared or device memory.
+__device__ __forceinline__ uint32_t load_word(const int8_t* row, int f,
+                                              int d) {
+    const int n = min(4, d - f);
+    if (n <= 0) return 0u;
+    const uintptr_t at = reinterpret_cast<uintptr_t>(row + f);
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(at & ~uintptr_t{3});
+    const int sh = static_cast<int>(at & 3);
+    const uint32_t lo = w[0];
+    const uint32_t hi = sh + n > 4 ? w[1] : 0u;
+    const uint32_t v = __funnelshift_r(lo, hi, 8 * sh);
+    return n == 4 ? v : v & ((1u << (8 * n)) - 1u);
 }
 
-__global__ void __launch_bounds__(QT * RL)
+struct Q8Layout {
+    size_t stage_bytes, a_w, c_w, cn, an, lists, bars, total;
+    int st;   // words of a padded row
+};
+
+// byte offsets of B6's dynamic shared memory (host and device agree)
+__host__ __device__ inline Q8Layout q8_layout(bool bulk, int d, int k) {
+    Q8Layout L{};
+    const int ks = (d + 31) / 32;
+    L.st = 8 * (ks < KSC ? ks : KSC) + 4;
+    // +16: the funnel shift may read the word after a tile's last byte
+    L.stage_bytes = bulk ? (static_cast<size_t>(RB) * d + 16 + 127)
+                           & ~size_t{127} : 0;
+    size_t off = L.stage_bytes * STAGES;
+    L.a_w = off;
+    off += static_cast<size_t>(RB) * L.st * 4;
+    L.c_w = off;
+    off += static_cast<size_t>(QB) * L.st * 4;
+    L.cn = off;
+    off += QB * 4;
+    L.an = off;
+    off += RB * 4;
+    L.lists = off;
+    off += bsel::lists_bytes(k);
+    L.bars = off;
+    L.total = off + 8 * STAGES;
+    return L;
+}
+
+// words [w0, w0 + W) of the rows at src (row r at src + r*d bytes) into
+// rows of st words of dst, zeros for rows >= rows: two threads a row, each
+// half of the words.  Returns the thread's part of the squared norms.
+__device__ __forceinline__ int repack(uint32_t* dst, int st, const int8_t* src,
+                                      int rows, int d, int w0, int W) {
+    const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
+    const int8_t* row = src + static_cast<size_t>(r) * d;
+    int s = 0;
+    for (int w = half * (W / 2); w < (half + 1) * (W / 2); ++w) {
+        const uint32_t v = r < rows ? load_word(row, 4 * (w0 + w), d) : 0u;
+        dst[r * st + w] = v;
+        s = __dp4a(static_cast<int>(v), static_cast<int>(v), s);
+    }
+    return s;
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc[mi][ni] += rows x queries over nks k-steps: the warp's rows
+// 32 wr + 16 mi + (gid, gid + 8), queries 64 wq + 8 ni + gid (B operand)
+__device__ __forceinline__ void cross(const uint32_t* a_w,
+                                      const uint32_t* c_w, int st, int nks,
+                                      int wr, int wq, int gid, int tig,
+                                      int (&acc)[2][8][4]) {
+    for (int s = 0; s < nks; ++s) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+            const uint32_t* p = a_w + (32 * wr + 16 * mi + gid) * st + 8 * s
+                                + tig;
+            a[mi][0] = p[0];
+            a[mi][1] = p[8 * st];
+            a[mi][2] = p[4];
+            a[mi][3] = p[8 * st + 4];
+        }
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni) {
+            const uint32_t* p = c_w + (64 * wq + 8 * ni + gid) * st + 8 * s
+                                + tig;
+            const uint32_t b0 = p[0], b1 = p[4];
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) mma_s8(acc[mi][ni], a[mi], b0, b1);
+        }
+    }
+}
+
+template <bool BULK>
+__global__ void __launch_bounds__(THREADS, 2)
 q8_topk_partial_kernel(const int8_t* __restrict__ A,
                        const int8_t* __restrict__ C, int* __restrict__ part_v,
                        int* __restrict__ part_i, int N, int Q, int d, int k,
                        int rows_per_split) {
-    __shared__ int a_s[TILE_ROWS][WC + 1];
-    __shared__ int c_s[WC][QT + 1];
-    __shared__ int an_s[TILE_ROWS];
+    extern __shared__ __align__(128) unsigned char smem[];
+    const Q8Layout lay = q8_layout(BULK, d, k);
+    int8_t* stage = reinterpret_cast<int8_t*>(smem);
+    uint32_t* a_w = reinterpret_cast<uint32_t*>(smem + lay.a_w);
+    uint32_t* c_w = reinterpret_cast<uint32_t*>(smem + lay.c_w);
+    int* cn_s = reinterpret_cast<int*>(smem + lay.cn);
+    int* an_s = reinterpret_cast<int*>(smem + lay.an);
+    const bsel::Lists<int> L = bsel::carve<int>(smem + lay.lists, k);
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bars);
+    const int st = lay.st;
 
-    const int lane = threadIdx.x;
-    const int rl = threadIdx.y;
-    const int tid = rl * QT + lane;
-    const int q = blockIdx.y * QT + lane;
-    const bool q_ok = q < Q;
-    const int row_lo = blockIdx.x * rows_per_split;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int gid = lane >> 2, tig = lane & 3;
+    const int wr = warp & 3, wq = warp >> 2;
+    const int split = blockIdx.x, q0 = blockIdx.y * QB;
+    const int row_lo = split * rows_per_split;
     const int row_hi = min(N, row_lo + rows_per_split);
-    const int dw = (d + 3) / 4;
-    const int nchunks = (dw + WC - 1) / WC;
+    const int n_tiles = (row_hi - row_lo + RB - 1) / RB;
+    const int ks = (d + 31) / 32;
+    const int nch = (ks + KSC - 1) / KSC;
+    const int q_rows = min(QB, Q - q0);
+    const int8_t* Cb = C + static_cast<size_t>(q0) * d;
 
-    int cn = 0;  // this lane's query norm
-    if (q_ok) {
-        for (int j = 0; j < d; ++j) {
-            const int v = C[(size_t)q * d + j];
-            cn += v * v;
-        }
-    }
-
-    int tv[TOPK_K_MAX];
-    int ti[TOPK_K_MAX];
-    for (int r = 0; r < TOPK_K_MAX; ++r) {
-        tv[r] = INT_MAX;
-        ti[r] = INT_MAX;
-    }
-    int worst = INT_MAX, worst_i = INT_MAX;
-
-    for (int row0 = row_lo; row0 < row_hi; row0 += TILE_ROWS) {
-        int acc[RPT];
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) acc[r] = 0;
-        int an_part = 0;
-        for (int ch = 0; ch < nchunks; ++ch) {
-            const int w0 = ch * WC;
-            const int wc = min(WC, dw - w0);
-            __syncthreads();  // every thread is done with the last tile
-            for (int e = tid; e < TILE_ROWS * WC; e += QT * RL) {
-                const int r = e / WC, w = e % WC;
-                const int row = row0 + r;
-                a_s[r][w] = (row < row_hi && w < wc)
-                    ? row_word(A + (size_t)row * d, 4 * (w0 + w), d) : 0;
-            }
-            if (nchunks > 1 || row0 == row_lo) {  // queries: once if small d
-                for (int e = tid; e < QT * WC; e += QT * RL) {
-                    const int qq = e / WC, w = e % WC;
-                    const int qg = blockIdx.y * QT + qq;
-                    c_s[w][qq] = (qg < Q && w < wc)
-                        ? row_word(C + (size_t)qg * d, 4 * (w0 + w), d) : 0;
-                }
-            }
-            __syncthreads();
-            if (tid < TILE_ROWS) {
-                for (int w = 0; w < wc; ++w)
-                    an_part = __dp4a(a_s[tid][w], a_s[tid][w], an_part);
-            }
-            for (int w = 0; w < wc; ++w) {
-                const int cw = c_s[w][lane];
-#pragma unroll
-                for (int r = 0; r < RPT; ++r)
-                    acc[r] = __dp4a(a_s[rl * RPT + r][w], cw, acc[r]);
+    bsel::init(L);
+    {   // query norms over every word, two threads a query
+        const int q = tid >> 1;
+        int s = 0;
+        if (q < q_rows) {
+            const int8_t* c = Cb + static_cast<size_t>(q) * d;
+            for (int w = tid & 1; w < (d + 3) / 4; w += 2) {
+                const int v = static_cast<int>(load_word(c, 4 * w, d));
+                s = __dp4a(v, v, s);
             }
         }
-        if (tid < TILE_ROWS) an_s[tid] = an_part;
-        __syncthreads();
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-            const int row = row0 + rl * RPT + r;
-            const int dist = an_s[rl * RPT + r] - 2 * acc[r] + cn;
-            if (row < row_hi && rank_less(dist, row, worst, worst_i)) {
-                int p = k - 1;
-                while (p > 0 && rank_less(dist, row, tv[p - 1], ti[p - 1])) {
-                    tv[p] = tv[p - 1];
-                    ti[p] = ti[p - 1];
-                    --p;
-                }
-                tv[p] = dist;
-                ti[p] = row;
-                worst = tv[k - 1];
-                worst_i = ti[k - 1];
-            }
-        }
+        s += __shfl_xor_sync(bsel::FULL, s, 1);
+        if ((tid & 1) == 0) cn_s[q] = s;
     }
-
-    if (q_ok) {
-        const int n_lists = gridDim.x * RL;
-        const size_t base = ((size_t)q * n_lists + blockIdx.x * RL + rl) * k;
-        for (int r = 0; r < k; ++r) {
-            part_v[base + r] = tv[r];
-            part_i[base + r] = ti[r];
-        }
-    }
-}
-
-// One block per query: k rounds, each taking the smallest (distance, row)
-// strictly after the previous pick.  Rows are unique across the lists and
-// k <= N real rows rank before the empty slots.
-__global__ void __launch_bounds__(MERGE_THREADS)
-q8_topk_merge_kernel(const int* __restrict__ part_v,
-                     const int* __restrict__ part_i, int* __restrict__ vals,
-                     int* __restrict__ idx, int n_cand, int k) {
-    __shared__ int wv[MERGE_THREADS / 32];
-    __shared__ int wi[MERGE_THREADS / 32];
-    __shared__ int prev_v, prev_i;
-    const int q = blockIdx.x;
-    const int* v = part_v + (size_t)q * n_cand;
-    const int* ix = part_i + (size_t)q * n_cand;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    if (threadIdx.x == 0) {
-        prev_v = INT_MIN;
-        prev_i = INT_MIN;
+    if (nch == 1) repack(c_w, st, Cb, q_rows, d, 0, 8 * ks);
+    if (BULK && tid == 0) {
+        for (int s = 0; s < STAGES; ++s) hop::mbar_init(&full[s], 1);
+        hop::fence_barrier_init();
     }
     __syncthreads();
-    for (int r = 0; r < k; ++r) {
-        const int pv = prev_v, pi = prev_i;
-        int bv = INT_MAX, bi = INT_MAX;
-        for (int t = threadIdx.x; t < n_cand; t += MERGE_THREADS) {
-            const int cv = v[t], ci = ix[t];
-            if (rank_less(pv, pi, cv, ci) && rank_less(cv, ci, bv, bi)) {
-                bv = cv;
-                bi = ci;
+
+    auto issue = [&](int t) {   // tile t into stage t % STAGES
+        const int row0 = row_lo + t * RB;
+        const int n = min(RB, row_hi - row0) * d;
+        int8_t* dst = stage + (t % STAGES) * lay.stage_bytes;
+        const int8_t* src = A + static_cast<size_t>(row0) * d;
+        const int bulk = n & ~15;
+        for (int b = bulk; b < n; ++b) dst[b] = src[b];
+        hop::mbar_expect_tx(&full[t % STAGES], static_cast<uint32_t>(bulk));
+        if (bulk)
+            hop::bulk_load_1d(dst, src, static_cast<uint32_t>(bulk),
+                              &full[t % STAGES]);
+    };
+    if (BULK && tid == 0)
+        for (int t = 0; t < STAGES && t < n_tiles; ++t) issue(t);
+
+    // the thread's 16 queries 64 wq + 8 ni + 2 tig + e: threshold less the
+    // query norm, INT_MIN past Q (no pair passes)
+    int tcn[16];
+    auto load_thresholds = [&]() {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+            const int ql = 64 * wq + 8 * (j >> 1) + 2 * tig + (j & 1);
+            tcn[j] = ql < q_rows ? L.threshold(ql) - cn_s[ql] : INT_MIN;
+        }
+    };
+    load_thresholds();
+    bool flag = false;   // a queue this thread pushed to passed FILL
+    auto sync_merge = [&]() {
+        if (__syncthreads_or(flag)) {
+            bsel::merge(L);
+            __syncthreads();
+            load_thresholds();
+        }
+        flag = false;
+    };
+
+    for (int t = 0; t < n_tiles; ++t) {
+        const int row0 = row_lo + t * RB;
+        const int rows = min(RB, row_hi - row0);
+        if (t > 0) {
+            sync_merge();   // also: every thread is done with tile t - 1
+            if (BULK && tid == 0 && t - 1 + STAGES < n_tiles)
+                issue(t - 1 + STAGES);
+        }
+        int acc[2][8][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) acc[mi][ni][c] = 0;
+        int s = 0;
+        if (BULK) {
+            hop::mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
+            s = repack(a_w, st, stage + (t % STAGES) * lay.stage_bytes, rows,
+                       d, 0, 8 * ks);
+            s += __shfl_xor_sync(bsel::FULL, s, 1);
+            if ((tid & 1) == 0) an_s[tid >> 1] = s;
+            __syncthreads();
+            cross(a_w, c_w, st, ks, wr, wq, gid, tig, acc);
+        } else {
+            const int8_t* Ab = A + static_cast<size_t>(row0) * d;
+            for (int ch = 0; ch < nch; ++ch) {
+                const int nks = min(KSC, ks - ch * KSC);
+                if (ch > 0) __syncthreads();
+                s += repack(a_w, st, Ab, rows, d, 8 * KSC * ch, 8 * nks);
+                if (nch > 1)
+                    repack(c_w, st, Cb, q_rows, d, 8 * KSC * ch, 8 * nks);
+                __syncthreads();
+                cross(a_w, c_w, st, nks, wr, wq, gid, tig, acc);
             }
+            s += __shfl_xor_sync(bsel::FULL, s, 1);
+            if ((tid & 1) == 0) an_s[tid >> 1] = s;
+            __syncthreads();
         }
-        for (int off = 16; off > 0; off >>= 1) {
-            const int ov = __shfl_down_sync(0xffffffffu, bv, off);
-            const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-            if (rank_less(ov, oi, bv, bi)) {
-                bv = ov;
-                bi = oi;
+        // four push groups, one of the thread's rows each: at most 32
+        // candidates a query.  One branch a group: the 16 compares are
+        // or-ed first.
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+            if (g > 0) sync_merge();
+            const int mi = g >> 1, h = g & 1;
+            const int rl = 32 * wr + 16 * mi + 8 * h + gid;
+            const int an = an_s[rl];
+            int x[16];
+            bool any = false;
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+                x[j] = an - 2 * acc[mi][j >> 1][2 * h + (j & 1)];
+                any |= x[j] <= tcn[j];
             }
-        }
-        if (lane == 0) {
-            wv[warp] = bv;
-            wi[warp] = bi;
-        }
-        __syncthreads();
-        if (threadIdx.x == 0) {
-            bv = wv[0];
-            bi = wi[0];
-            for (int w = 1; w < MERGE_THREADS / 32; ++w) {
-                if (rank_less(wv[w], wi[w], bv, bi)) {
-                    bv = wv[w];
-                    bi = wi[w];
+            if (any && rl < rows) {
+#pragma unroll
+                for (int j = 0; j < 16; ++j) {
+                    const int ql = 64 * wq + 8 * (j >> 1) + 2 * tig + (j & 1);
+                    if (x[j] <= tcn[j])
+                        flag |= bsel::queue(L, ql, x[j] + cn_s[ql], row0 + rl);
                 }
             }
-            vals[(size_t)q * k + r] = bv;
-            idx[(size_t)q * k + r] = bi;
-            prev_v = bv;
-            prev_i = bi;
         }
-        __syncthreads();
     }
+    __syncthreads();
+    bsel::merge(L);
+    __syncthreads();
+    bsel::write_lists(L, part_v, part_i, q0, Q, split, gridDim.x);
+}
+
+template <bool BULK>
+cudaError_t launch_partial(const int8_t* A, const int8_t* C, int* part_v,
+                           int* part_i, int N, int Q, int d, int k,
+                           int n_splits, int rows_per_split, cudaStream_t s) {
+    const size_t bytes = q8_layout(BULK, d, k).total;
+    static size_t allowed = 48 * 1024;   // the dynamic size allowed so far
+    if (bytes > allowed) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            q8_topk_partial_kernel<BULK>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(bytes));
+        if (err != cudaSuccess) return err;
+        allowed = bytes;
+    }
+    const dim3 grid(n_splits, (Q + QB - 1) / QB);
+    q8_topk_partial_kernel<BULK><<<grid, THREADS, bytes, s>>>(
+        A, C, part_v, part_i, N, Q, d, k, rows_per_split);
+    return cudaGetLastError();
 }
 
 // The (Q, N) lattice matrix, one query per row: a block covers MR rows
@@ -403,28 +540,40 @@ q8_argmin_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ C,
 extern "C" {
 
 int q8_topk_k_max() { return TOPK_K_MAX; }
-int q8_lists_per_split() { return RL; }
-int q8_tile_rows() { return TILE_ROWS; }
+int q8_query_tile() { return QB; }
+int q8_tile_rows() { return RB; }
+int q8_bulk_max_d() { return Q8_BULK_MAX_D; }
 int q8_max_d() { return MAX_D; }
 
 // A (N, d), C (Q, d) int8 row-major; part_v/part_i scratch of
-// Q * n_splits * RL * k; vals/idx (Q, k) int32.  Returns the first CUDA
-// error.
+// Q * n_splits * k; vals/idx (Q, k) int32.  bulk: 1 for the bulk route (A
+// 16-byte aligned, d <= Q8_BULK_MAX_D), 0 for the plain route.  The splits
+// must cover N with none empty, in multiples of 32 rows.  Returns the
+// first CUDA error.
 int distance_topk_q8(const int8_t* A, const int8_t* C, int* part_v,
                      int* part_i, int* vals, int* idx, int N, int Q, int d,
-                     int k, int n_splits, int rows_per_split, void* stream) {
+                     int k, int n_splits, int rows_per_split, int bulk,
+                     void* stream) {
     if (k < 1 || k > TOPK_K_MAX || k > N || Q < 1 || N < 1 || d < 1 ||
-        d > MAX_D || n_splits < 1)
-        return (int)cudaErrorInvalidValue;
+        d > MAX_D || n_splits < 1 || rows_per_split < 1 ||
+        rows_per_split % 32 ||
+        static_cast<long long>(n_splits - 1) * rows_per_split >= N ||
+        static_cast<long long>(n_splits) * rows_per_split < N ||
+        (bulk && (d > Q8_BULK_MAX_D ||
+                  reinterpret_cast<uintptr_t>(A) % 16 != 0)))
+        return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const dim3 grid(n_splits, (Q + QT - 1) / QT);
-    q8_topk_partial_kernel<<<grid, dim3(QT, RL), 0, s>>>(
-        A, C, part_v, part_i, N, Q, d, k, rows_per_split);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    q8_topk_merge_kernel<<<Q, MERGE_THREADS, 0, s>>>(
-        part_v, part_i, vals, idx, n_splits * RL * k, k);
-    return (int)cudaGetLastError();
+    cudaError_t err = bulk
+        ? launch_partial<true>(A, C, part_v, part_i, N, Q, d, k, n_splits,
+                               rows_per_split, s)
+        : launch_partial<false>(A, C, part_v, part_i, N, Q, d, k, n_splits,
+                                rows_per_split, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int per_block = bsel::MERGE_THREADS / 32;
+    bsel::merge_splits_kernel<int>
+        <<<(Q + per_block - 1) / per_block, bsel::MERGE_THREADS, 0, s>>>(
+            part_v, part_i, vals, idx, Q, n_splits * k, k);
+    return static_cast<int>(cudaGetLastError());
 }
 
 // A (N, d), C (Q, d) int8 row-major -> out (Q, N) int32 row-major.

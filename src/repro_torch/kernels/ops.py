@@ -35,8 +35,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import distance_topk as _dt
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gemm as _gemm
+from repro_torch.kernels import quantized as _q
 from repro_torch.kernels import ref
 from repro_torch.kernels.distance_topk import TOPK_K_MAX
 
@@ -55,9 +57,12 @@ _INT32 = (torch.int32,)
 
 
 def reset_launches() -> None:
-    """Set every count to 0: ``LAUNCHES`` and the per-route counts of B10
-    and B11 (``gemm.ROUTE_LAUNCHES``, ``flash_attention.ROUTE_LAUNCHES``)."""
-    for counts in (LAUNCHES, _gemm.ROUTE_LAUNCHES, _fa.ROUTE_LAUNCHES):
+    """Set every count to 0: ``LAUNCHES`` and the per-route counts of B1,
+    B6, B10 and B11 (``ROUTE_LAUNCHES`` of ``kernels/distance_topk.py``,
+    ``kernels/quantized.py``, ``kernels/gemm.py`` and
+    ``kernels/flash_attention.py``)."""
+    for counts in (LAUNCHES, _dt.ROUTE_LAUNCHES, _q.ROUTE_LAUNCHES,
+                   _gemm.ROUTE_LAUNCHES, _fa.ROUTE_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -120,7 +125,6 @@ def distance_topk(a: torch.Tensor, c: torch.Tensor, k: int
                          "arm (pairwise_sq_dist, then topk_smallest)")
     if dev.type == "cpu":
         return ref.distance_topk(a, c, k)
-    from repro_torch.kernels import distance_topk as _dt
     out = _dt.launch_topk(a.float(), c.float(), k)
     LAUNCHES["distance_topk"] += 1
     return out
@@ -136,7 +140,6 @@ def distance_argmin(a: torch.Tensor, c: torch.Tensor
                          f"{tuple(c.shape)}")
     if dev.type == "cpu":
         return ref.distance_argmin(a, c)
-    from repro_torch.kernels import distance_topk as _dt
     out = _dt.launch_argmin(a.float(), c.float())
     LAUNCHES["distance_argmin"] += 1
     return out
@@ -254,7 +257,6 @@ def distance_topk_q8(a: torch.Tensor, c: torch.Tensor, k: int
     if c.shape[1] != d or c.shape[0] < 1:
         raise ValueError(f"distance_topk_q8: a is {tuple(a.shape)}, c is "
                          f"{tuple(c.shape)}")
-    from repro_torch.kernels import quantized as _q
     _q.check_width(d, "distance_topk_q8")
     if not 1 <= k <= N:
         raise ValueError(f"distance_topk_q8: k={k} outside [1, N={N}]")
@@ -278,7 +280,6 @@ def distance_argmin_q8(a: torch.Tensor, c: torch.Tensor
     if c.shape[1] != a.shape[1] or a.shape[0] < 1 or c.shape[0] < 1:
         raise ValueError(f"distance_argmin_q8: a is {tuple(a.shape)}, c is "
                          f"{tuple(c.shape)}")
-    from repro_torch.kernels import quantized as _q
     _q.check_width(a.shape[1], "distance_argmin_q8")
     if dev.type == "cpu":
         return ref.distance_argmin_q8(a, c)

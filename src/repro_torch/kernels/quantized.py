@@ -8,17 +8,22 @@ distances are exact int32 lattice integers.  ``_MAX_D``, ``dist_span`` and
 ``packed_rows_limit`` are the reference's API contract: d > 832 raises.
 The launchers take int8, contiguous CUDA tensors that ``kernels/ops.py``
 has already checked, allocate outputs and scratch with ``torch.empty``,
-and launch on the current stream without synchronising.
+and launch on the current stream without synchronising.  B6 plans its
+splits as B1 does and stages rows by B1's alignment rule
+(``distance_topk.route``, here with ``BULK_MAX_D``); ``ROUTE_LAUNCHES``
+counts its routes.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.distance_topk import TOPK_K_MAX, split_rows
+from repro_torch.kernels.distance_topk import (QUERY_TILE, TILE_ROWS,
+                                               TOPK_K_MAX, route, split_rows)
+from repro_torch.kernels.gemm import sm_count
 
 _QMAX = 127                     # symmetric int8 lattice: values in [-127, 127]
 # the reference's supported feature count: its packed selection key
@@ -84,15 +89,22 @@ def affine_scores(xq: torch.Tensor, quad: torch.Tensor, lin: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _STEM = "quantized"
+BULK_MAX_D = 128        # widest int8 row of B6's bulk route (4 k-steps)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _fns = {}
+
+# B6's launches per route (``distance_topk.route`` with ``BULK_MAX_D``)
+# since the last ``ops.reset_launches``
+ROUTE_LAUNCHES: Dict[str, int] = {"bulk": 0, "plain": 0}
 
 
 def _fn(name: str, argtypes):
     if name not in _fns:
         for const, want in (("q8_topk_k_max", TOPK_K_MAX),
-                            ("q8_lists_per_split", 8),
-                            ("q8_tile_rows", 64), ("q8_max_d", _MAX_D)):
+                            ("q8_query_tile", QUERY_TILE),
+                            ("q8_tile_rows", TILE_ROWS),
+                            ("q8_bulk_max_d", BULK_MAX_D),
+                            ("q8_max_d", _MAX_D)):
             got = _build.bind(_STEM, const, [])()
             if got != want:
                 raise RuntimeError(f"{const}() = {got} in the built "
@@ -110,20 +122,24 @@ def launch_topk(a: torch.Tensor, c: torch.Tensor, k: int
     """B6, k <= TOPK_K_MAX: a (N, d), c (Q, d) int8 on the card -> (lattice
     distances (Q, k) int32, rows (Q, k) int32), ascending by (distance,
     row)."""
-    fn = _fn("distance_topk_q8", [_P] * 6 + [_I] * 6 + [_P])
+    fn = _fn("distance_topk_q8", [_P] * 6 + [_I] * 7 + [_P])
     N, d = a.shape
     Q = c.shape[0]
-    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-    n_splits, rows_per_split = split_rows(N, Q, sms)
-    n_cand = n_splits * 8 * k
-    part_v = torch.empty((Q, n_cand), dtype=torch.int32, device=a.device)
-    part_i = torch.empty((Q, n_cand), dtype=torch.int32, device=a.device)
+    n_splits, rows_per_split = split_rows(N, Q, sm_count(a.device))
+    way = route(a, BULK_MAX_D)
+    part_v = torch.empty((Q, n_splits * k), dtype=torch.int32,
+                         device=a.device)
+    part_i = torch.empty((Q, n_splits * k), dtype=torch.int32,
+                         device=a.device)
     vals = torch.empty((Q, k), dtype=torch.int32, device=a.device)
     idx = torch.empty((Q, k), dtype=torch.int32, device=a.device)
     err = fn(a.data_ptr(), c.data_ptr(), part_v.data_ptr(),
              part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-             N, Q, d, k, n_splits, rows_per_split, _stream())
-    _build.check(_STEM, err, f"distance_topk_q8 N={N} Q={Q} d={d} k={k}")
+             N, Q, d, k, n_splits, rows_per_split, int(way == "bulk"),
+             _stream())
+    _build.check(_STEM, err,
+                 f"distance_topk_q8 N={N} Q={Q} d={d} k={k} {way}")
+    ROUTE_LAUNCHES[way] += 1
     return vals, idx
 
 

@@ -281,10 +281,83 @@ def test_device_tensors_launch_and_never_reach_plain(monkeypatch):
 
 def test_split_rows_covers_every_row():
     for N, Q, sms in ((1, 1, 132), (1 << 20, 1024, 132), (1000, 3, 132),
-                      (64 * 17 + 5, 40, 8)):
+                      (64 * 17 + 5, 40, 8), (256, 1024, 132),
+                      (32, 5000, 132), (33, 1, 1)):
         n_splits, rows = tdt.split_rows(N, Q, sms)
-        assert rows % 64 == 0 and n_splits * rows >= N
+        assert rows % tdt.SPLIT_ROWS == 0 and n_splits * rows >= N
         assert (n_splits - 1) * rows < N        # no empty split
+
+
+@pytest.mark.parametrize("N,Q,sms,want", [
+    (1 << 20, 1024, 132, (33, 31776)),    # kNN: 8 query tiles x 33 splits
+    (256, 1024, 132, (8, 32)),            # the ANN probe: 32-row splits
+    (1 << 20, 100, 132, (263, 4000)),     # one query tile
+    (1 << 20, 4096, 132, (9, 116512)),    # 32 query tiles
+])
+def test_split_rows_fills_the_card(N, Q, sms, want):
+    """About ``BLOCKS_PER_SM`` blocks an SM (splits x query tiles of 128),
+    in multiples of 32 rows."""
+    assert tdt.split_rows(N, Q, sms) == want
+
+
+def test_route_follows_the_alignment_rule():
+    """``bulk`` needs a 16-byte-aligned base and d <= the route's width;
+    a view such as ``A[1:]`` (84 bytes in at d = 21) takes ``plain``, a
+    view whose offset is a multiple of 16 bytes keeps ``bulk``."""
+    a = torch.zeros((64, 21))
+    assert a.data_ptr() % 16 == 0
+    assert tdt.route(a) == "bulk"
+    assert tdt.route(a[1:]) == "plain"
+    assert tdt.route(a[4:]) == "bulk"                # 336 bytes in
+    assert tdt.route(torch.zeros((8, tdt.BULK_MAX_D))) == "bulk"
+    assert tdt.route(torch.zeros((8, tdt.BULK_MAX_D + 1))) == "plain"
+    assert tdt.route(torch.zeros((8, 784))) == "plain"
+
+
+def _fake_launch(monkeypatch, mod, sms=132):
+    """Run a launcher on CPU tensors: record the C function's arguments
+    and the shapes the launcher allocates, launch nothing."""
+    calls, shapes = [], []
+    real_empty = torch.empty
+
+    def empty(shape, **kw):
+        shapes.append(tuple(shape))
+        return real_empty(shape, **kw)
+
+    monkeypatch.setattr(mod, "_fn", lambda name, argtypes: (
+        lambda *args: calls.append((name, args)) or 0))
+    monkeypatch.setattr(mod, "sm_count", lambda device: sms)
+    monkeypatch.setattr(mod, "_stream", lambda: 0)
+    monkeypatch.setattr(torch, "empty", empty)
+    return calls, shapes
+
+
+@pytest.mark.parametrize("N,d,Q,k,view,route", [
+    (5000, 21, 1024, 4, False, "bulk"),     # kNN width, one full bucket
+    (256, 21, 1024, 16, False, "bulk"),     # the ANN probe shape
+    (5000, 21, 37, 4, True, "plain"),       # A[1:]: base off 16 bytes
+    (300, 40, 5, 32, False, "plain"),       # d past the bulk route
+])
+def test_launch_topk_arguments(monkeypatch, N, d, Q, k, view, route):
+    """B1's launcher hands the C function the planned splits, the route
+    flag and one list of k per (query, split) as scratch, and counts the
+    launch under its route."""
+    calls, shapes = _fake_launch(monkeypatch, tdt)
+    a = torch.zeros((N + 1, d))[1:] if view else torch.zeros((N, d))
+    c = torch.zeros((Q, d))
+    tops.reset_launches()
+    vals, idx = tdt.launch_topk(a, c, k)
+    n_splits, rows = tdt.split_rows(N, Q, 132)
+    (name, args), = calls
+    assert name == "distance_topk_f32"
+    assert args[0] == a.data_ptr() and args[1] == c.data_ptr()
+    assert args[6:13] == (N, Q, d, k, n_splits, rows, int(route == "bulk"))
+    assert shapes == [(Q, n_splits * k)] * 2 + [(Q, k)] * 2
+    assert vals.shape == idx.shape == (Q, k)
+    assert tdt.ROUTE_LAUNCHES == {"bulk": int(route == "bulk"),
+                                  "plain": int(route == "plain")}
+    tops.reset_launches()
+    assert tdt.ROUTE_LAUNCHES == {"bulk": 0, "plain": 0}
 
 
 def test_nonfinite_queries_rank_nan_last():

@@ -359,10 +359,18 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", csrc)
     assert [h.name for h in _build.headers(csrc / "gemm.cu")] == \
         ["hopper.cuh", "wgmma.cuh"]
-    assert _build.headers(csrc / "distance_topk.cu") == []
+    assert [h.name for h in _build.headers(csrc / "distance_topk.cu")] == \
+        ["block_select.cuh", "hopper.cuh"]
+    assert _build.headers(csrc / "gnb_score.cu") == []
     before = {s.stem: _build._target(s).name for s in _build.sources()}
     hdr = csrc / "hopper.cuh"
     hdr.write_text(hdr.read_text() + "\n// edited\n")
     after = {s.stem: _build._target(s).name for s in _build.sources()}
     changed = {stem for stem in before if before[stem] != after[stem]}
-    assert changed == {"gemm", "flash_attention"}
+    assert changed == {"gemm", "flash_attention", "distance_topk",
+                       "quantized"}
+    hdr = csrc / "block_select.cuh"
+    hdr.write_text(hdr.read_text() + "\n// edited\n")
+    again = {s.stem: _build._target(s).name for s in _build.sources()}
+    assert {stem for stem in after if after[stem] != again[stem]} == \
+        {"distance_topk", "quantized"}

@@ -220,6 +220,45 @@ def test_q8_wrappers_on_device_tensors_launch(monkeypatch):
                for dt in dts)
 
 
+@pytest.mark.parametrize("N,d,Q,k,offset,route", [
+    (5000, 21, 1024, 4, 0, "bulk"),       # kNN int8: one full bucket
+    (5000, 21, 1024, 4, 1, "plain"),      # A[1:]: 21 bytes off
+    (5000, 21, 37, 4, 16, "bulk"),        # A[16:]: 336 bytes, aligned
+    (500, 832, 3, 32, 0, "plain"),        # d past the bulk route
+    (256, 128, 5, 7, 0, "bulk"),          # the bulk route's widest row
+])
+def test_q8_launch_topk_arguments(monkeypatch, N, d, Q, k, offset, route):
+    """B6's launcher plans as B1's (``split_rows``), stages by the same
+    alignment rule with its own width, hands the C function one list of k
+    per (query, split) as scratch, and counts the launch per route."""
+    from repro_torch.kernels import distance_topk as tdt
+    calls, shapes = [], []
+    real_empty = torch.empty
+
+    def empty(shape, **kw):
+        shapes.append(tuple(shape))
+        return real_empty(shape, **kw)
+
+    monkeypatch.setattr(tqk, "_fn", lambda name, argtypes: (
+        lambda *args: calls.append((name, args)) or 0))
+    monkeypatch.setattr(tqk, "sm_count", lambda device: 132)
+    monkeypatch.setattr(tqk, "_stream", lambda: 0)
+    monkeypatch.setattr(torch, "empty", empty)
+    a = torch.zeros((N + offset, d), dtype=torch.int8)[offset:]
+    c = torch.zeros((Q, d), dtype=torch.int8)
+    tops.reset_launches()
+    vals, idx = tqk.launch_topk(a, c, k)
+    n_splits, rows = tdt.split_rows(N, Q, 132)
+    (name, args), = calls
+    assert name == "distance_topk_q8"
+    assert args[6:13] == (N, Q, d, k, n_splits, rows, int(route == "bulk"))
+    assert shapes == [(Q, n_splits * k)] * 2 + [(Q, k)] * 2
+    assert vals.shape == idx.shape == (Q, k) and vals.dtype == torch.int32
+    assert tqk.ROUTE_LAUNCHES == {"bulk": int(route == "bulk"),
+                                  "plain": int(route == "plain")}
+    assert tdt.ROUTE_LAUNCHES == {"bulk": 0, "plain": 0}
+
+
 def test_q8_wrappers_on_cpu_tensors_count_nothing(monkeypatch):
     def boom(*_):
         raise AssertionError("a CPU tensor reached a kernel launcher")
