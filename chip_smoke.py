@@ -25,15 +25,25 @@ the CUDA toolkit.  In order it
    multiple, rows in adversarial order (every row beats the threshold),
    all-equal rows and the ANN probe shape, each on the route their
    alignment rule gives, with ``[time]`` lines for the ANN probe and the
-   adversarial order; the blocked kNN arm is also checked at
-   N = 2^22, where it splits a bucket's queries into chunks to bound its
-   distance matrix;
+   adversarial order; B5 on both its routes (``filter`` up to
+   ``FILTER_K_MAX``, ``radix`` past it) in both key modes, bit for bit, at
+   k = 1, k = n and either side of the cap, on split rows (R = 1, 16),
+   descending rows (timed against the same rows shuffled), offset and
+   row-strided views and n not a multiple of 4; B4 on both its routes and
+   under each store mechanism (``tma``, ``bulk``, ``vec``, ``scalar``) in
+   both layouts, with one feature, 784 features, ragged N and K and
+   K = 1; at k = 32 the blocked arm's values and indices are checked
+   bitwise equal to fused B1's, and the two arms are timed there; the
+   blocked kNN arm is also checked at N = 2^22, where it splits a
+   bucket's queries into chunks to bound its distance matrix;
 3. drives each path through the entry points a user calls:
    ``make_fitted`` -> ``NonNeuralServeEngine.warmup_buckets`` ->
    ``classify``, with every launch count set to 0 just before and read
    just after, and checks what it serves against the same estimator run
-   with ``path="ref"`` on the card.  The paths: kNN at k = 4 (B1) and k = 64 (the blocked arm, B4 then
-   B5), K-Means fused (B2) and blocked (B4, by ``REPRO_BACKEND=blocked``),
+   with ``path="ref"`` on the card.  The paths: kNN at k = 4 (B1) and
+   k = 64 (the blocked arm, B4 then B5, every launch on B4's ``bulk`` and
+   B5's ``filter`` route, checked), K-Means fused (B2) and blocked (B4,
+   by ``REPRO_BACKEND=blocked``),
    GNB (B3), GMM at d = 784 (B3) and at d = 21 (no kernel), RF (no
    kernel).  B9's entry is ``ops.gnb_scores`` itself, driven one query at
    a time against the fitted GNB moments under its own count.  The int8
@@ -42,7 +52,8 @@ the CUDA toolkit.  In order it
    against the plain versions on the same quantized params (every B1 and
    B6 launch of the kNN paths on the ``bulk`` route); IVF-PQ ANN
    (``make_fitted("ann")``: B2 in the fit, B1 probe, B8 + B5 serve) is
-   held against ``path="ref"`` and its recall@10 against exact fused kNN;
+   held against ``path="ref"`` and its recall@10 against exact fused kNN,
+   and B5's int32 mode is timed on a bucket's ADC distance matrix;
 4. serves stablelm-3b at full width (bf16, seeded weights) through
    ``ServeEngine.generate``: batch 4, prompts of 512 seeded tokens, 32
    greedy new tokens, with B10 computing every projection and the
@@ -1076,6 +1087,133 @@ def main() -> int:
         print(f"[edge] B5 int32 R={R} n={n} k={k} with INT_MIN, INT_MAX "
               "and ties: values and indices equal")
         edges += 1
+    # ---- slice 7: B5's two routes (filter up to FILTER_K_MAX, radix past
+    # it) and B4's tile design, each edge on the route its rule gives;
+    # B5 bit for bit in both key modes (its values are x's own bits)
+    from repro_torch.kernels import pairwise_sq_dist as kpd
+    from repro_torch.kernels import topk_select as kts
+    k_cap = kts.FILTER_K_MAX
+
+    def bits(v):
+        return v.view(torch.int32) if v.dtype == torch.float32 else v
+
+    def select_exact(x, k, what):
+        before = dict(kts.ROUTE_LAUNCHES)
+        kv, ki = ops.topk_smallest(x, k)
+        pv, pi = ref.topk_smallest(x, k)
+        torch.cuda.synchronize()
+        way = kts.route(k)
+        check(kts.ROUTE_LAUNCHES[way] == before[way] + 1,
+              f"{what}: routes {kts.ROUTE_LAUNCHES}, the rule gives {way}")
+        check(torch.equal(ki, pi), f"{what}: indices differ from the plain "
+              f"version's at {int((ki != pi).sum())} places")
+        check(torch.equal(bits(kv), bits(pv)),
+              f"{what}: values differ from the plain version's bits")
+        return way
+
+    def i32_rows(R, n):
+        x = torch.randint(-5, 5, (R, n), generator=gen, dtype=torch.int32)
+        x[:, ::7] = 2 ** 31 - 1
+        x[:, ::11] = -2 ** 31
+        return x.to(dev)
+
+    def descending(x):
+        return torch.sort(x, dim=1, descending=True, stable=True).values
+
+    M = KNN["n"]
+    x_off = rows(37, 70_002, "nan")
+    x_str = rows(30, 20_000, "normal")
+    for what, x, k in [
+            ("R=1 n=2^20 k=64 (split rows)", rows(1, M, "normal"), 64),
+            ("R=16 n=2^20 k=64 NaN/Inf/zeros", rows(16, M, "nan"), 64),
+            (f"R=5 n=70003 k=FILTER_K_MAX={k_cap} ties",
+             rows(5, 70_003, "ints"), k_cap),
+            (f"R=5 n=70003 k={k_cap - 1}", rows(5, 70_003, "normal"),
+             k_cap - 1),
+            (f"R=5 n=70003 k={k_cap + 1}", rows(5, 70_003, "normal"),
+             k_cap + 1),
+            ("R=3 n=k=2053 NaN", rows(3, 2053, "nan"), 2053),
+            ("R=4 n=k=1000 ties", rows(4, 1000, "ints"), 1000),
+            ("R=6 n=4097 k=1 NaN", rows(6, 4097, "nan"), 1),
+            ("R=9 n=100000 k=128 long runs of ties",
+             rows(9, 100_000, "ints"), 128),
+            ("R=6 n=7 k=5 NaN", rows(6, 7, "nan"), 5),
+            ("descending rows R=16 n=2^18 k=64",
+             descending(rows(16, 1 << 18, "normal")), 64),
+            ("R=37 n=70001 k=64 offset view x[:, 1:] (ragged head)",
+             x_off[:, 1:], 64),
+            ("R=10 n=20000 k=300 row-strided view x[::3]", x_str[::3], 300),
+            ("int32 R=1 n=2^20 k=64", i32_rows(1, M), 64),
+            ("int32 R=16 n=70003 k=128", i32_rows(16, 70_003), 128),
+            (f"int32 R=3 n=4099 k={k_cap}", i32_rows(3, 4099), k_cap),
+            (f"int32 R=3 n=4099 k={k_cap + 1}", i32_rows(3, 4099),
+             k_cap + 1),
+            ("int32 R=5 n=k=3001", i32_rows(5, 3001), 3001),
+            ("int32 descending R=8 n=2^16 k=64",
+             descending(i32_rows(8, 1 << 16)), 64),
+            ("int32 R=7 n=5001 k=33 offset view x[:, 1:]",
+             i32_rows(7, 5002)[:, 1:], 33)]:
+        way = select_exact(x, k, f"B5 {what}")
+        print(f"[edge] B5 {what} ({way} route): values and indices "
+              "bit-equal to the plain version")
+        edges += 1
+    del x_off, x_str
+    # a row in descending order pushes every element past the threshold
+    x_desc = descending(rows(16, 1 << 18, "normal"))
+    x_shuf = x_desc[:, torch.randperm(1 << 18, generator=gen).to(dev)]
+    desc_ms = [cuda_ms(torch, lambda: ops.topk_smallest(x, 64), 20)
+               for x in (x_desc, x_shuf)]
+    print(f"[time] B5 descending rows R=16 n=262144 k=64: kernel "
+          f"{desc_ms[0]:.4f} ms; the same rows shuffled {desc_ms[1]:.4f} ms")
+    del x_desc, x_shuf
+
+    def dist_exact(A, C, col_major, what, store=None):
+        """B4 on the route its rule gives (and, with ``store``, a forced
+        store mechanism) against the plain version."""
+        before = dict(kpd.ROUTE_LAUNCHES)
+        way = kpd.route(A)
+        e = ops.pairwise_sq_dist(A, C, col_major=col_major) if store is None \
+            else kpd.launch(A, C, col_major, store)
+        if store is None:
+            check(kpd.ROUTE_LAUNCHES[way] == before[way] + 1,
+                  f"{what}: routes {kpd.ROUTE_LAUNCHES}, the rule gives "
+                  f"{way}")
+        p_ = ref.pairwise_sq_dist(A, C)
+        torch.cuda.synchronize()
+        check(e.shape == p_.shape and
+              (e.T if col_major else e).is_contiguous(),
+              f"{what}: layout {tuple(e.shape)} strides {e.stride()}")
+        scale = (A * A).sum(1)[:, None] + (C * C).sum(1)[None, :]
+        check(bool(near(e, p_, scale).all()),
+              f"{what}: values differ by {float((e - p_).abs().max())}")
+        return way, float((e - p_).abs().max())
+
+    A_view = rand((5001, 21), False)
+    for what, A_e, K_e, col in [
+            ("view A[1:]", A_view[1:], 300, True),
+            ("one feature", rand((4099, 1), False), 130, True),
+            ("wide rows", rand((1001, 784), False), 130, False),
+            ("scalar stores", rand((70_001, 21), False), 1023, True),
+            ("tma stores", rand((4100, 21), False), 257, True),
+            ("scalar stores", rand((4099, 21), False), 257, False),
+            ("tma stores", rand((4099, 21), False), 260, False),
+            ("K=1", rand((4099, 21), False), 1, True),
+            ("K=1", rand((4099, 21), False), 1, False)]:
+        C_e = rand((K_e, A_e.shape[1]), False)
+        way, err = dist_exact(A_e, C_e, col, f"B4 {what}")
+        print(f"[edge] B4 {what} N={A_e.shape[0]} K={K_e} "
+              f"d={A_e.shape[1]} col_major={col} ({way} route): "
+              f"max_abs_err={err:.3g}")
+        edges += 1
+    A_s, C_s = rand((4096, 21), False), rand((300, 21), False)
+    for store, label in ((0, "bulk"), (1, "vec"), (2, "scalar"),
+                         (3, "tma")):
+        for col in (True, False):
+            _, err = dist_exact(A_s, C_s, col, f"B4 {label} stores", store)
+            edges += 1
+    print("[edge] B4 N=4096 K=300 d=21 under each store mechanism (bulk, "
+          "vec, scalar, tma), both layouts: agree with the plain version")
+    del A_view, A_s, C_s
     for N, d, Q, k, kind in [(4099, 1, 3, 1, "dup"), (4099, 3, 37, 4, "dup"),
                              (4099, 21, 37, TOPK_K_MAX, "normal"),
                              (70_001, 21, 5, 4, "normal"),
@@ -1333,16 +1471,30 @@ def main() -> int:
                                                      largest=False), 3))
     kernels["B5"]["serve_ms"] = kernels["B5"]["ms"]
     # the two arms meet at k = 32: B4 + B5 and the fused B1 rank the same
-    # distances, summed in the same order
+    # distances, summed in the same order (csrc/distance_tile.cuh), so
+    # their values and indices are bitwise equal
     bv, bi = ops.topk_smallest(X5, TOPK_K_MAX)
     fv, fi = ops.distance_topk(A, Cq, TOPK_K_MAX)
     torch.cuda.synchronize()
     same_idx = int((bi == fi).sum())
-    same_val = int((bv == fv).sum())
+    same_val = int((bv.view(torch.int32) == fv.view(torch.int32)).sum())
+    check(same_idx == same_val == bi.numel(),
+          f"k={TOPK_K_MAX} blocked vs fused B1: {same_idx} of {bi.numel()} "
+          f"indices and {same_val} values bitwise equal")
     print(f"[kernel] B5 topk_smallest R={R} n={n} k={kb} on B4's "
           f"transpose: indices and values equal the plain version's; at "
           f"k={TOPK_K_MAX} blocked vs fused B1: {same_idx} of {bi.numel()} "
-          f"indices and {same_val} values bitwise equal")
+          f"indices and {same_val} values bitwise equal (checked)")
+    # where the arms cross (ROADMAP A14): both at k = 32, the largest k
+    # the fused arm takes
+    cross = dict(b1=cuda_ms(torch, lambda: ops.distance_topk(
+                     A, Cq, TOPK_K_MAX), 10),
+                 b5=cuda_ms(torch, lambda: ops.topk_smallest(
+                     X5, TOPK_K_MAX), 10))
+    print(f"[time] k={TOPK_K_MAX} at N={N} Q={Q}: fused B1 "
+          f"{cross['b1']:.4f} ms; blocked B4 + B5 "
+          f"{kernels['B4']['ms'] + cross['b5']:.4f} ms (B4 "
+          f"{kernels['B4']['ms']:.4f}, B5 {cross['b5']:.4f})")
     del E, X5, kv, ki, bv, bi, fv, fi
 
     # the blocked kNN arm past its byte budget: at N = 2^22 one bucket's
@@ -1539,7 +1691,8 @@ def main() -> int:
         res = engine.classify(Xq)
         torch.cuda.synchronize()
         launches = dict(ops.LAUNCHES)
-        routes = dict(b1=dict(kdt.ROUTE_LAUNCHES), b6=dict(qk.ROUTE_LAUNCHES))
+        routes = dict(b1=dict(kdt.ROUTE_LAUNCHES), b6=dict(qk.ROUTE_LAUNCHES),
+                      b4=dict(kpd.ROUTE_LAUNCHES), b5=dict(kts.ROUTE_LAUNCHES))
         wall = time.perf_counter() - t0
         check(set(engine.bucket_launches) <= warmed,
               f"{algo}: served buckets {sorted(engine.bucket_launches)} "
@@ -1704,8 +1857,13 @@ def main() -> int:
           and ln["distance_topk"] == 0,
           f"knn k={KNN_BLOCKED_K}: {run['n_buckets']} buckets, launches "
           f"{ln}: a bucket did not go through B4 and B5")
+    check(run["routes"]["b4"] == {"bulk": run["n_buckets"], "plain": 0} and
+          run["routes"]["b5"] == {"filter": run["n_buckets"], "radix": 0},
+          f"knn k={KNN_BLOCKED_K}: B4 routes {run['routes']['b4']}, B5 "
+          f"routes {run['routes']['b5']}: not every launch on bulk/filter")
     report(f"knn k={KNN_BLOCKED_K}", ["B4", "B5"], run,
-           f"all {run['n_buckets']} buckets through B4 then B5, no B1 and "
+           f"all {run['n_buckets']} buckets through B4 (bulk route) then B5 "
+           f"(filter route), no B1 and "
            f"no plain version, near_ties={n_near}, classes differing at "
            f"near-ties={n_odd}",
            kernels["B4"]["serve_ms"] + kernels["B5"]["serve_ms"])
@@ -1936,6 +2094,30 @@ def main() -> int:
           f"k={want}: equal to the plain version; ADC distances alone "
           f"{dist_ms:.4f} ms, then B5 int32; {invalid:.3f} of the "
           "candidates are list padding")
+    # B5's int32 key mode at the ANN shape: the ADC distance matrix of
+    # this bucket, k = max(k, refine)
+    e_ann = kann.launch_dist(qlut, codes, cand)
+    before = dict(kts.ROUTE_LAUNCHES)
+    got = ops.topk_smallest(e_ann, want)
+    check(kts.ROUTE_LAUNCHES["filter"] == before["filter"] + 1,
+          f"B5 int32 ANN: routes {kts.ROUTE_LAUNCHES}")
+    equal_case("B5 int32 ANN", got, chunked(
+        lambda i, j: ref.topk_smallest(e_ann[i:j], want), Q))
+    b, by = bound_ms(e_ann.numel(), 4 * e_ann.numel() + 8 * Q * want, peaks)
+    b5_ann = dict(
+        ms=cuda_ms(torch, lambda: ops.topk_smallest(e_ann, want), 20),
+        plain=cuda_ms(torch, lambda: chunked(
+            lambda i, j: ref.topk_smallest(e_ann[i:j], want), Q), 3),
+        lib=cuda_ms(torch, lambda: torch.topk(e_ann, want, dim=1,
+                                              largest=False), 20),
+        bound=b, by=by)
+    kernels["B5"]["ann_int32"] = b5_ann
+    print(f"[time] B5 int32 at the ANN shape R={Q} n={L} k={want} (filter "
+          f"route): kernel {b5_ann['ms']:.4f} ms, plain "
+          f"{b5_ann['plain']:.4f} ms, library {b5_ann['lib']:.4f} ms "
+          f"(torch.topk), bound {b:.4f} ms ({by}); bit-equal to the plain "
+          "version")
+    del e_ann, got
     del flat, codes, cand, qlut
     report("ann", ["B2", "B1", "B8", "B5"], run,
            f"fit {run['fit_s']:.2f}s, L={L} candidates per query "

@@ -25,7 +25,9 @@
 //    values, and issues 64 FMAs: 6.4 FMAs a shared load, against 0.9 in
 //    the per-lane list design this replaces, whose inner loop the load
 //    unit bounded.  The sum starts from ||a||^2 + ||c||^2, so after the
-//    last feature it is the distance.  The feature loop is not unrolled:
+//    last feature it is the distance.  The order of these operations is
+//    csrc/distance_tile.cuh's, which B4 shares, so that the blocked arm's
+//    distances are these bit for bit.  The feature loop is not unrolled:
 //    with 64 accumulators the registers of a deeper unroll spill at the
 //    two blocks an SM that hide the loads' latency.
 //  * Staging (the bulk route): rows are contiguous, so a 128-row tile is
@@ -75,6 +77,7 @@
 #include <cstdint>
 
 #include "block_select.cuh"
+#include "distance_tile.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -86,10 +89,12 @@ using bsel::THREADS;
 constexpr int TOPK_K_MAX = bsel::K_MAX;
 constexpr int BULK_MAX_D = 32;   // widest row the bulk route stages whole
 constexpr int STAGES = 3;        // bulk route: tiles in flight
-constexpr int DC = 32;           // plain route: features of a chunk
-constexpr int PSTRIDE = DC + 1;  // plain route: padded row of a chunk
-constexpr int TQ = 8;            // queries of a thread
-constexpr int TR = 8;            // rows of a thread: tr + 16 i
+using dtile::DC;                 // plain route: features of a chunk
+using dtile::PSTRIDE;            // plain route: padded row of a chunk
+using dtile::TQ;                 // queries of a thread
+using dtile::TR;                 // rows of a thread: tr + 16 i
+static_assert(dtile::QB == QB && dtile::RB == RB &&
+              dtile::THREADS == THREADS, "B1's tile is distance_tile.cuh's");
 
 struct F32Layout {
     size_t stage_bytes, c_t, cn, an, lists, bars, total;
@@ -112,65 +117,6 @@ __host__ __device__ inline F32Layout f32_layout(bool bulk, int d, int k) {
     L.bars = off;
     L.total = off + 8 * STAGES;
     return L;
-}
-
-// c_t[j][q] = -2 * C[q0 + q][c0 + j] for j < dc, 0 past Q
-__device__ void stage_queries(float* c_t, const float* __restrict__ C,
-                              int q0, int Q, int d, int c0, int dc) {
-    for (int e = threadIdx.x; e < dc * QB; e += THREADS) {
-        const int j = e / QB, q = e - j * QB;
-        c_t[e] = q0 + q < Q ? -2.f * C[static_cast<size_t>(q0 + q) * d + c0 + j]
-                            : 0.f;
-    }
-}
-
-// the n floats of a tile into a stage: the 16-byte part by one bulk copy,
-// the rest by this thread, which then arrives on the stage's barrier
-__device__ __forceinline__ void issue_tile(float* dst, const float* src,
-                                           int n, uint64_t* bar) {
-    const int bulk = n & ~3;
-    for (int f = bulk; f < n; ++f) dst[f] = src[f];
-    hop::mbar_expect_tx(bar, static_cast<uint32_t>(bulk) * 4);
-    if (bulk) hop::bulk_load_1d(dst, src, static_cast<uint32_t>(bulk) * 4, bar);
-}
-
-// sum of squares of features [0, dc) of row tid / 2 of a tile (stride
-// ``stride``), two threads a row, each half of the features
-__device__ __forceinline__ float half_norm(const float* a_s, int stride,
-                                           int dc) {
-    const float* r = a_s + (threadIdx.x >> 1) * stride;
-    float s = 0.f;
-    for (int j = threadIdx.x & 1; j < dc; j += 2) s = fmaf(r[j], r[j], s);
-    return s;
-}
-
-// acc[qi][ri] += sum_j c_t[j][q(qi)] * a_s[r(ri)][j] over j < dc
-__device__ __forceinline__ void dots(const float* a_s, int stride,
-                                     const float* c_t, int dc, int tq, int tr,
-                                     float (&acc)[TQ][TR]) {
-    const float* ar = a_s + tr * stride;
-    const float* cq = c_t + 4 * tq;
-    const int rs = 16 * stride;
-#pragma unroll 1
-    for (int j = 0; j < dc; ++j) {
-        float a[TR];
-#pragma unroll
-        for (int i = 0; i < TR; ++i) a[i] = ar[i * rs + j];
-        const float4 c0 = *reinterpret_cast<const float4*>(cq + j * QB);
-        const float4 c1 = *reinterpret_cast<const float4*>(cq + j * QB + 64);
-        const float c[TQ] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
-#pragma unroll
-        for (int qi = 0; qi < TQ; ++qi)
-#pragma unroll
-            for (int ri = 0; ri < TR; ++ri)
-                acc[qi][ri] = fmaf(c[qi], a[ri], acc[qi][ri]);
-    }
-}
-
-// the block-local query of a thread's query slot qi (queries 4 tq.. and
-// 64 + 4 tq.., so the eight load as two float4)
-__device__ __forceinline__ int qloc(int tq, int qi) {
-    return (qi < 4 ? 0 : 64 - 4) + 4 * tq + qi;
 }
 
 template <bool BULK>
@@ -199,17 +145,8 @@ topk_partial_kernel(const float* __restrict__ A, const float* __restrict__ C,
     const int nch = BULK ? 1 : (d + DC - 1) / DC;
 
     bsel::init(L);
-    {   // query norms, two threads a query
-        const int q = tid >> 1;
-        float s = 0.f;
-        if (q0 + q < Q) {
-            const float* c = C + static_cast<size_t>(q0 + q) * d;
-            for (int j = tid & 1; j < d; j += 2) s = fmaf(c[j], c[j], s);
-        }
-        s += __shfl_xor_sync(bsel::FULL, s, 1);
-        if ((tid & 1) == 0) cn_s[q] = s;
-    }
-    if (nch == 1) stage_queries(c_t, C, q0, Q, d, 0, d);
+    dtile::query_norms(cn_s, C, q0, Q, d);
+    if (nch == 1) dtile::stage_queries(c_t, C, q0, Q, d, 0, d);
     if (BULK && tid == 0) {
         for (int s = 0; s < STAGES; ++s) hop::mbar_init(&full[s], 1);
         hop::fence_barrier_init();
@@ -218,7 +155,7 @@ topk_partial_kernel(const float* __restrict__ A, const float* __restrict__ C,
 
     auto issue = [&](int t) {   // tile t into stage t % STAGES
         const int row0 = row_lo + t * RB;
-        issue_tile(stage + (t % STAGES) * stage_floats,
+        dtile::issue_rows(stage + (t % STAGES) * stage_floats,
                    A + static_cast<size_t>(row0) * d,
                    min(RB, row_hi - row0) * d, &full[t % STAGES]);
     };
@@ -248,7 +185,7 @@ topk_partial_kernel(const float* __restrict__ A, const float* __restrict__ C,
         if (BULK) {
             const float* a_s = stage + (t % STAGES) * stage_floats;
             hop::mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
-            float s = half_norm(a_s, d, d);
+            float s = dtile::half_norm(a_s, d, 1, d);
             s += __shfl_xor_sync(bsel::FULL, s, 1);
             if ((tid & 1) == 0) an_s[tid >> 1] = s;
             __syncthreads();
@@ -256,27 +193,23 @@ topk_partial_kernel(const float* __restrict__ A, const float* __restrict__ C,
             for (int qi = 0; qi < TQ; ++qi)
 #pragma unroll
                 for (int ri = 0; ri < TR; ++ri)
-                    acc[qi][ri] = an_s[tr + 16 * ri] + cn_s[qloc(tq, qi)];
-            dots(a_s, d, c_t, d, tq, tr, acc);
+                    acc[qi][ri] = an_s[tr + 16 * ri] + cn_s[dtile::slot(tq, qi)];
+            dtile::dots<false>(a_s, d, c_t, d, tq, tr, acc);
         } else {
 #pragma unroll
             for (int qi = 0; qi < TQ; ++qi)
 #pragma unroll
                 for (int ri = 0; ri < TR; ++ri)
-                    acc[qi][ri] = cn_s[qloc(tq, qi)];
+                    acc[qi][ri] = cn_s[dtile::slot(tq, qi)];
             float s = 0.f;
             for (int ch = 0; ch < nch; ++ch) {
                 const int c0 = ch * DC, dc = min(DC, d - c0);
                 if (ch > 0) __syncthreads();
-                for (int e = tid; e < RB * dc; e += THREADS) {
-                    const int r = e / dc, j = e - r * dc;
-                    stage[r * PSTRIDE + j] = r < rows
-                        ? A[static_cast<size_t>(row0 + r) * d + c0 + j] : 0.f;
-                }
-                if (nch > 1) stage_queries(c_t, C, q0, Q, d, c0, dc);
+                dtile::stage_rows(stage, A, row0, rows, d, c0, dc);
+                if (nch > 1) dtile::stage_queries(c_t, C, q0, Q, d, c0, dc);
                 __syncthreads();
-                s += half_norm(stage, PSTRIDE, dc);
-                dots(stage, PSTRIDE, c_t, dc, tq, tr, acc);
+                s += dtile::half_norm(stage, PSTRIDE, 1, dc);
+                dtile::dots<false>(stage, PSTRIDE, c_t, dc, tq, tr, acc);
             }
             s += __shfl_xor_sync(bsel::FULL, s, 1);
             if ((tid & 1) == 0) an_s[tid >> 1] = s;
@@ -294,8 +227,8 @@ topk_partial_kernel(const float* __restrict__ A, const float* __restrict__ C,
         auto load_tau = [&]() {
 #pragma unroll
             for (int qi = 0; qi < TQ; ++qi)
-                tau[qi] = q0 + qloc(tq, qi) < Q
-                    ? L.threshold(qloc(tq, qi)) : -CUDART_INF_F;
+                tau[qi] = q0 + dtile::slot(tq, qi) < Q
+                    ? L.threshold(dtile::slot(tq, qi)) : -CUDART_INF_F;
         };
         load_tau();
         // four push groups of two rows each: at most 32 candidates a query.
@@ -315,9 +248,9 @@ topk_partial_kernel(const float* __restrict__ A, const float* __restrict__ C,
                     const int rl = tr + 16 * ri;
 #pragma unroll
                     for (int qi = 0; qi < TQ; ++qi)
-                        if (rl < rows && q0 + qloc(tq, qi) < Q &&
+                        if (rl < rows && q0 + dtile::slot(tq, qi) < Q &&
                             !(acc[qi][ri] > tau[qi]))
-                            flag |= bsel::queue(L, qloc(tq, qi), acc[qi][ri],
+                            flag |= bsel::queue(L, dtile::slot(tq, qi), acc[qi][ri],
                                                 row0 + rl);
                 }
             }

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by B10 (gemm.cu), B11
-// (flash_attention.cu), B1 (distance_topk.cu) and B6 (quantized.cu):
-// mbarriers, TMA tile loads and 1-D bulk copies, wgmma matrix descriptors
-// and fences, and the host-side TMA descriptor cache.
+// (flash_attention.cu), B1 (distance_topk.cu), B6 (quantized.cu) and B4
+// (pairwise_sq_dist.cu): mbarriers, TMA tile loads and stores, 1-D bulk
+// copies both ways and their bulk groups, wgmma matrix descriptors and
+// fences, and the host-side TMA descriptor cache.
 //
 // TMA descriptors (CUtensorMap) are encoded on the host by the driver's
 // cuTensorMapEncodeTiled.  The libraries are not linked against libcuda,
@@ -83,6 +84,54 @@ __device__ __forceinline__ void bulk_load_1d(void* dst, const void* src,
         :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
            "r"(bytes), "r"(smem_u32(bar))
         : "memory");
+}
+
+// The reverse: one contiguous span of shared memory into global memory by
+// the copy engine, as a bulk group of the issuing thread (B4's epilogue).
+// dst, src and bytes must be multiples of 16.  Order the block's writes of
+// the span before it with fence_proxy_async() and a barrier.
+__device__ __forceinline__ void bulk_store_1d(void* dst, const void* src,
+                                              uint32_t bytes) {
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+        :: "l"(reinterpret_cast<uint64_t>(dst)), "r"(smem_u32(src)),
+           "r"(bytes)
+        : "memory");
+}
+
+// A box of a tiled tensor map from shared memory into global memory, as
+// a bulk group of the issuing thread; coordinates innermost first.  The
+// parts of the box past the tensor's bounds are not written.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group "
+        "[%0, {%2, %3}], [%1];\n"
+        :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
+           "r"(c0), "r"(c1)
+        : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// until at most N of this thread's bulk groups are still in flight
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+    asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// make this thread's shared-memory writes visible to the async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,

@@ -18,9 +18,9 @@ mask ragged edges themselves, so none of that module's padding to block
 multiples (or the GNB padding correction) is needed.
 
 B9 (``gnb_scores``, one query) is B3 launched at B = 1, as ROADMAP B9
-plans; it keeps its own count.  B10 and B11 also count their launches
-per route (``gemm.ROUTE_LAUNCHES``, ``flash_attention.ROUTE_LAUNCHES``),
-so a run can show which kernel design served it.
+plans; it keeps its own count.  B1, B4, B5, B6, B10 and B11 also count
+their launches per route (``ROUTE_LAUNCHES`` in their modules), so a run
+can show which kernel design served it.
 
 The int8 tier's B6 (``distance_topk_q8``) and B7 (``distance_argmin_q8``)
 and IVF-PQ's B8 (``adc_topk``) take integer tensors and return exact
@@ -38,7 +38,9 @@ import torch
 from repro_torch.kernels import distance_topk as _dt
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gemm as _gemm
+from repro_torch.kernels import pairwise_sq_dist as _pd
 from repro_torch.kernels import quantized as _q
+from repro_torch.kernels import topk_select as _ts
 from repro_torch.kernels import ref
 from repro_torch.kernels.distance_topk import TOPK_K_MAX
 
@@ -58,10 +60,12 @@ _INT32 = (torch.int32,)
 
 def reset_launches() -> None:
     """Set every count to 0: ``LAUNCHES`` and the per-route counts of B1,
-    B6, B10 and B11 (``ROUTE_LAUNCHES`` of ``kernels/distance_topk.py``,
-    ``kernels/quantized.py``, ``kernels/gemm.py`` and
-    ``kernels/flash_attention.py``)."""
-    for counts in (LAUNCHES, _dt.ROUTE_LAUNCHES, _q.ROUTE_LAUNCHES,
+    B4, B5, B6, B10 and B11 (``ROUTE_LAUNCHES`` of
+    ``kernels/distance_topk.py``, ``kernels/pairwise_sq_dist.py``,
+    ``kernels/topk_select.py``, ``kernels/quantized.py``,
+    ``kernels/gemm.py`` and ``kernels/flash_attention.py``)."""
+    for counts in (LAUNCHES, _dt.ROUTE_LAUNCHES, _pd.ROUTE_LAUNCHES,
+                   _ts.ROUTE_LAUNCHES, _q.ROUTE_LAUNCHES,
                    _gemm.ROUTE_LAUNCHES, _fa.ROUTE_LAUNCHES):
         for name in counts:
             counts[name] = 0
@@ -179,7 +183,6 @@ def pairwise_sq_dist(a: torch.Tensor, c: torch.Tensor, *,
     if dev.type == "cpu":
         e = ref.pairwise_sq_dist(a, c)
         return e.T.contiguous().T if col_major else e
-    from repro_torch.kernels import pairwise_sq_dist as _pd
     out = _pd.launch(a.float(), c.float(), col_major)
     LAUNCHES["pairwise_sq_dist"] += 1
     return out
@@ -201,7 +204,6 @@ def topk_smallest(x: torch.Tensor, k: int
                          f"rows in {tuple(x.shape)}")
     if dev.type == "cpu":
         return ref.topk_smallest(x, k)
-    from repro_torch.kernels import topk_select as _ts
     out = _ts.launch(x if x.dtype == torch.int32 else x.float(), k)
     LAUNCHES["topk_smallest"] += 1
     return out

@@ -1,5 +1,6 @@
-"""Device times of B1 (``ops.distance_topk``) and B6
-(``ops.distance_topk_q8``) at the shapes of the kNN serving paths, and the
+"""Device times of B1 (``ops.distance_topk``), B6
+(``ops.distance_topk_q8``), B4 (``ops.pairwise_sq_dist``) and B5
+(``ops.topk_smallest``) at the shapes of the kNN serving paths, and the
 host-clock served rate of those paths, for one checkout of the port.
 
     python3 src/repro_torch/launch/knn_kernel_times.py [--src DIR]
@@ -17,19 +18,35 @@ compare them.  The shapes:
               in place of a K-Means fit; the probe's shape is what is
               timed);
   B6 kNN      the kNN rows and bucket on the int8 lattice (per-feature
-              scales from the rows), k = 4.
+              scales from the rows), k = 4;
+  B4 kNN      the kNN rows against the bucket, column-major: the blocked
+              arm's (1024, 2^20) matrix at k = 64;
+  B5 kNN      that matrix's rows (B4's transpose, in place), k = 64;
+  B5 ANN i32  int32 rows at ANN's selection shape (1024 queries, 32,768
+              candidates, k = 128): seeded values in [0, 21 * 255] (the
+              range of ADC sums of 21 byte-sized LUT entries, so with
+              ties), a fifth of each row the padding sentinel
+              ``adc_dmax(21)``;
+  B4 K-Means  the first 262,144 kNN rows against 256 of them, row-major
+              (the K-Means fit's blocked shape).
 
-A kernel time is ``lm_kernel_times.device_ms``: the replay of 20 calls
+A B1 or B6 time is ``lm_kernel_times.device_ms``: the replay of 20 calls
 captured as a CUDA graph, timed by CUDA events, per call (device time,
 without the host's time to issue the call); run this file as a script,
 so that its directory, which holds ``lm_kernel_times.py``, is on the
-path.  The served rate is ``NonNeuralServeEngine.classify`` of 4096
-queries in 1024-query buckets after ``warmup_buckets``, host clock to a
-synchronize, five calls a reading and three readings, queries from host
-memory and from the card, for the fp32 engine (B1) and the int8 engine
-(B6) over the same fitted kNN.  Where the checkout counts its kernels'
-routes (``ROUTE_LAUNCHES`` in ``kernels/distance_topk.py`` and
-``kernels/quantized.py``), the counts of the timed calls are printed too.
+path.  A B4 or B5 time is the mean of 10 calls by CUDA events after a
+warm call (their outputs at the kNN shape are 4.29 GB, too large to keep
+20 of in a graph's pool; each call takes far longer than the host's time
+to issue it).  The served rate is ``NonNeuralServeEngine.classify`` of
+4096 queries in 1024-query buckets after ``warmup_buckets``, host clock
+to a synchronize, five calls a reading and three readings, queries from
+host memory and from the card, for the fp32 engine (B1), the int8
+engine (B6) over the same fitted kNN, and the fp32 engine of a kNN fitted
+with k = 64 (the blocked arm: B4 then B5).  Where the checkout counts its
+kernels' routes (``ROUTE_LAUNCHES`` in ``kernels/distance_topk.py``,
+``kernels/quantized.py``, ``kernels/pairwise_sq_dist.py`` and
+``kernels/topk_select.py``), the counts of the timed calls are printed
+too.
 Prints one JSON line; needs a CUDA card.
 """
 from __future__ import annotations
@@ -44,6 +61,8 @@ from pathlib import Path
 N_ROWS, D, CLASSES, K = 1 << 20, 21, 3, 4
 N_QUERIES, BUCKET = 4096, 1024
 ANN_CELLS, ANN_CLASSES, ANN_K = 256, 256, 16
+BLOCKED_K, ANN_L, ANN_SELECT_K, PQ_M = 64, 32768, 128, 21
+KMEANS_ROWS, KMEANS_K = 1 << 18, 256
 
 
 def served_qps(torch, engine, queries, calls: int = 5, readings: int = 3):
@@ -57,6 +76,21 @@ def served_qps(torch, engine, queries, calls: int = 5, readings: int = 3):
         torch.cuda.synchronize()
         out.append(calls * len(queries) / (time.perf_counter() - t0))
     return out
+
+
+def events_ms(torch, fn, reps: int = 10) -> float:
+    """Mean device time of one call over ``reps`` calls after a warm
+    call, from CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def main(argv=None) -> int:
@@ -74,7 +108,10 @@ def main(argv=None) -> int:
     from repro_torch.data.datasets import class_blobs
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import distance_topk as dt
+    from repro_torch.kernels import pairwise_sq_dist as pd
+    from repro_torch.kernels.ann import adc_dmax
     from repro_torch.kernels import quantized as qk
+    from repro_torch.kernels import topk_select as ts
     from repro_torch.serving import NonNeuralServeEngine
     from lm_kernel_times import REPS, device_ms
 
@@ -96,7 +133,8 @@ def main(argv=None) -> int:
     scale = qk.feature_scales(A.abs().amax(0))
     A8, C8 = qk.quantize_rows(A, scale), qk.quantize_rows(Cq, scale)
     routes = {name: getattr(mod, "ROUTE_LAUNCHES", None)
-              for name, mod in (("b1", dt), ("b6", qk))}
+              for name, mod in (("b1", dt), ("b6", qk), ("b4", pd),
+                                ("b5", ts))}
     ops.reset_launches()
     cases = {"b1_knn": lambda: ops.distance_topk(A, Cq, K),
              "b1_ann_probe": lambda: ops.distance_topk(cells, Qa, ANN_K),
@@ -108,12 +146,38 @@ def main(argv=None) -> int:
         if not bool(torch.isfinite(out[0].float()).all()):
             raise RuntimeError(f"{key}: output not finite")
         times[key] = device_ms(fn)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    E = ops.pairwise_sq_dist(A, Cq, col_major=True)
+    Xi = torch.randint(0, adc_dmax(PQ_M), (BUCKET, ANN_L), generator=gen,
+                       device=dev, dtype=torch.int32)
+    Xi[torch.rand((BUCKET, ANN_L), generator=gen, device=dev) < 0.2] = \
+        adc_dmax(PQ_M)
+    A2 = A[:KMEANS_ROWS].contiguous()
+    C2 = A2[:KMEANS_K].clone()
+    blocked = {"b4_knn": lambda: ops.pairwise_sq_dist(A, Cq,
+                                                      col_major=True),
+               "b5_knn": lambda: ops.topk_smallest(E.T, BLOCKED_K),
+               "b5_ann_i32": lambda: ops.topk_smallest(Xi, ANN_SELECT_K),
+               "b4_kmeans_fit": lambda: ops.pairwise_sq_dist(A2, C2)}
+    for key, fn in blocked.items():
+        out = fn()
+        torch.cuda.synchronize()
+        vals = out[0] if isinstance(out, tuple) else out
+        if not bool(torch.isfinite(vals.float()).all()):
+            raise RuntimeError(f"{key}: output not finite")
+        del out, vals
+        times[key] = events_ms(torch, fn)
+    del E, Xi, A2, C2
     timed_routes = {name: dict(r) for name, r in routes.items()
                     if r is not None}
     est = est_mod.make_fitted("knn", Xtr, ytr, n_groups=CLASSES, device=dev)
+    est64 = est_mod.make_fitted("knn", Xtr, ytr, n_groups=CLASSES,
+                                device=dev, k=BLOCKED_K)
     qps = {}
-    for label, policy in (("knn", None), ("knn_int8", "int8")):
-        engine = NonNeuralServeEngine(est, max_batch=BUCKET, device=dev,
+    for label, fitted, policy in (("knn", est, None),
+                                  ("knn_int8", est, "int8"),
+                                  (f"knn_k{BLOCKED_K}", est64, None)):
+        engine = NonNeuralServeEngine(fitted, max_batch=BUCKET, device=dev,
                                       policy=policy)
         engine.warmup_buckets(D)
         engine.classify(Xq)

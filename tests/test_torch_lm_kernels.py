@@ -360,7 +360,9 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     assert [h.name for h in _build.headers(csrc / "gemm.cu")] == \
         ["hopper.cuh", "wgmma.cuh"]
     assert [h.name for h in _build.headers(csrc / "distance_topk.cu")] == \
-        ["block_select.cuh", "hopper.cuh"]
+        ["block_select.cuh", "distance_tile.cuh", "hopper.cuh"]
+    assert [h.name for h in _build.headers(csrc / "pairwise_sq_dist.cu")] \
+        == ["distance_tile.cuh", "hopper.cuh"]
     assert _build.headers(csrc / "gnb_score.cu") == []
     before = {s.stem: _build._target(s).name for s in _build.sources()}
     hdr = csrc / "hopper.cuh"
@@ -368,9 +370,14 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     after = {s.stem: _build._target(s).name for s in _build.sources()}
     changed = {stem for stem in before if before[stem] != after[stem]}
     assert changed == {"gemm", "flash_attention", "distance_topk",
-                       "quantized"}
+                       "quantized", "pairwise_sq_dist"}
     hdr = csrc / "block_select.cuh"
     hdr.write_text(hdr.read_text() + "\n// edited\n")
     again = {s.stem: _build._target(s).name for s in _build.sources()}
     assert {stem for stem in after if after[stem] != again[stem]} == \
         {"distance_topk", "quantized"}
+    hdr = csrc / "distance_tile.cuh"
+    hdr.write_text(hdr.read_text() + "\n// edited\n")
+    last = {s.stem: _build._target(s).name for s in _build.sources()}
+    assert {stem for stem in again if again[stem] != last[stem]} == \
+        {"distance_topk", "pairwise_sq_dist"}
