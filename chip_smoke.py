@@ -30,11 +30,12 @@ the CUDA toolkit.  In order it
    k = 1, k = n and either side of the cap, on split rows (R = 1, 16),
    descending rows (timed against the same rows shuffled), offset and
    row-strided views and n not a multiple of 4; B4 on both its routes and
-   under each store mechanism (``tma``, ``bulk``, ``vec``, ``scalar``) in
-   both layouts, with one feature, 784 features, ragged N and K and
-   K = 1; at k = 32 the blocked arm's values and indices are checked
-   bitwise equal to fused B1's, and the two arms are timed there; the
-   blocked kNN arm is also checked at N = 2^22, where it splits a
+   both its store mechanisms (``tma`` where E's pitch is 16-byte aligned,
+   ``scalar`` otherwise) in both layouts, with one feature, 784
+   features, ragged N and K and K = 1; at k = 32 the blocked arm's values
+   and indices are checked bitwise equal to fused B1's, and the two arms
+   are timed there; the blocked kNN arm is also checked at N = 2^22,
+   where it splits a
    bucket's queries into chunks to bound its distance matrix;
 3. drives each path through the entry points a user calls:
    ``make_fitted`` -> ``NonNeuralServeEngine.warmup_buckets`` ->
@@ -1167,17 +1168,13 @@ def main() -> int:
           f"{desc_ms[0]:.4f} ms; the same rows shuffled {desc_ms[1]:.4f} ms")
     del x_desc, x_shuf
 
-    def dist_exact(A, C, col_major, what, store=None):
-        """B4 on the route its rule gives (and, with ``store``, a forced
-        store mechanism) against the plain version."""
+    def dist_exact(A, C, col_major, what):
+        """B4 on the route its rule gives against the plain version."""
         before = dict(kpd.ROUTE_LAUNCHES)
         way = kpd.route(A)
-        e = ops.pairwise_sq_dist(A, C, col_major=col_major) if store is None \
-            else kpd.launch(A, C, col_major, store)
-        if store is None:
-            check(kpd.ROUTE_LAUNCHES[way] == before[way] + 1,
-                  f"{what}: routes {kpd.ROUTE_LAUNCHES}, the rule gives "
-                  f"{way}")
+        e = ops.pairwise_sq_dist(A, C, col_major=col_major)
+        check(kpd.ROUTE_LAUNCHES[way] == before[way] + 1,
+              f"{what}: routes {kpd.ROUTE_LAUNCHES}, the rule gives {way}")
         p_ = ref.pairwise_sq_dist(A, C)
         torch.cuda.synchronize()
         check(e.shape == p_.shape and
@@ -1205,15 +1202,7 @@ def main() -> int:
               f"d={A_e.shape[1]} col_major={col} ({way} route): "
               f"max_abs_err={err:.3g}")
         edges += 1
-    A_s, C_s = rand((4096, 21), False), rand((300, 21), False)
-    for store, label in ((0, "bulk"), (1, "vec"), (2, "scalar"),
-                         (3, "tma")):
-        for col in (True, False):
-            _, err = dist_exact(A_s, C_s, col, f"B4 {label} stores", store)
-            edges += 1
-    print("[edge] B4 N=4096 K=300 d=21 under each store mechanism (bulk, "
-          "vec, scalar, tma), both layouts: agree with the plain version")
-    del A_view, A_s, C_s
+    del A_view
     for N, d, Q, k, kind in [(4099, 1, 3, 1, "dup"), (4099, 3, 37, 4, "dup"),
                              (4099, 21, 37, TOPK_K_MAX, "normal"),
                              (70_001, 21, 5, 4, "normal"),

@@ -1,7 +1,7 @@
 // Hopper building blocks shared by B10 (gemm.cu), B11
 // (flash_attention.cu), B1 (distance_topk.cu), B6 (quantized.cu) and B4
-// (pairwise_sq_dist.cu): mbarriers, TMA tile loads and stores, 1-D bulk
-// copies both ways and their bulk groups, wgmma matrix descriptors and
+// (pairwise_sq_dist.cu): mbarriers, TMA tile loads and stores and their
+// bulk groups, 1-D bulk loads, wgmma matrix descriptors and
 // fences, and the host-side TMA descriptor cache.
 //
 // TMA descriptors (CUtensorMap) are encoded on the host by the driver's
@@ -83,19 +83,6 @@ __device__ __forceinline__ void bulk_load_1d(void* dst, const void* src,
         "[%0], [%1], %2, [%3];\n"
         :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
            "r"(bytes), "r"(smem_u32(bar))
-        : "memory");
-}
-
-// The reverse: one contiguous span of shared memory into global memory by
-// the copy engine, as a bulk group of the issuing thread (B4's epilogue).
-// dst, src and bytes must be multiples of 16.  Order the block's writes of
-// the span before it with fence_proxy_async() and a barrier.
-__device__ __forceinline__ void bulk_store_1d(void* dst, const void* src,
-                                              uint32_t bytes) {
-    asm volatile(
-        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-        :: "l"(reinterpret_cast<uint64_t>(dst)), "r"(smem_u32(src)),
-           "r"(bytes)
         : "memory");
 }
 

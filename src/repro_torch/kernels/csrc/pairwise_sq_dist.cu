@@ -48,23 +48,21 @@
 //    h have read it; so tile t's stores run under tile t + 1's FMAs.
 //    Each thread writes its values into the buffer as float4 (lanes are
 //    laid out so that a quarter-warp writes 128 consecutive bytes).  The
-//    stores (``store``; the host picks by E's alignment):
-//      - tma: one thread stores the 64 x 128 half tile with one 2-D TMA
-//        tensor store (cp.async.bulk.tensor.2d, a tensor map of E; the
-//        parts past E's edges are not written), when E's base and row
-//        pitch are multiples of 16 bytes (N % 4 == 0 column-major,
-//        K % 4 == 0 row-major).  The default there;
+//    stores, chosen by the entry from E's alignment:
+//      - tma: where E's base and row pitch are multiples of 16 bytes
+//        (N % 4 == 0 column-major, K % 4 == 0 row-major), one thread
+//        stores the 64 x 128 half tile with one 2-D TMA tensor store
+//        (cp.async.bulk.tensor.2d, a tensor map of E; the parts past E's
+//        edges are not written);
 //      - scalar: element streaming stores read back from the buffer, any
-//        pitch.  The default otherwise;
-//      - bulk: 64 threads each issue a 1-D bulk store of a 512-byte line;
-//      - vec: every thread stores 16 bytes at a time (the alignment of
-//        tma for both).
-//    Measured (launch/blocked_breakdown.py --new, NVIDIA H100 80GB HBM3,
-//    700 W): at the kNN shape tma 1.654 ms, vec 2.024, bulk 2.081,
-//    scalar 2.818; at the K-Means fit shape tma 0.1141, vec 0.1278, bulk
-//    0.1356, scalar 0.1740.  With tma the tile's stores and its FMAs
-//    overlap: the kernel takes 1.654 ms where its stores alone (no FMAs)
-//    take 1.612 and its FMAs alone (no stores) 1.659.
+//        pitch.
+//    tma was chosen by measurement against two other mechanisms on the
+//    same aligned pitch, since removed: 64 threads each issuing a 1-D
+//    bulk store of a 512-byte line, and every thread storing 16 bytes at
+//    a time.  Measured (launch/blocked_breakdown.py, NVIDIA H100 80GB
+//    HBM3, 700 W): at the kNN shape tma 1.654 ms, 16-byte stores 2.024,
+//    1-D bulk 2.081, scalar 2.818; at the K-Means fit shape tma 0.1141,
+//    16-byte 0.1278, 1-D bulk 0.1356, scalar 0.1740.
 //  * E is written row-major (N, K), or with ``a_fast`` as (K, N): the
 //    transposed matrix whose rows the kNN arm's top-k pass reads.
 //  * Ragged N and K are masked in the kernel; nothing is padded.
@@ -87,7 +85,6 @@ using dtile::TR;
 constexpr int BULK_MAX_D = 32;   // widest row the bulk route stages whole
 constexpr int HALF = 64;         // lines of a staging buffer
 constexpr int LINE = 128;        // floats of a staging line
-enum Store { STORE_BULK = 0, STORE_VEC = 1, STORE_SCALAR = 2, STORE_TMA = 3 };
 
 constexpr int STAGES = 3;        // bulk route: row tiles in flight
 using dtile::DC;
@@ -117,8 +114,9 @@ __host__ __device__ inline Layout layout(bool bulk, int d) {
 // Write a finished tile through the two staging buffers.  The major axis
 // (the tile's lines) is the query axis when A_FAST, else the row axis; a
 // line is 128 values along E's contiguous axis.  (tf, ts): the thread's
-// slot indices along the contiguous and the major axis.
-template <bool A_FAST, int STORE>
+// slot indices along the contiguous and the major axis.  TMA: the 2-D
+// tensor store of each half, else element stores.
+template <bool A_FAST, bool TMA>
 __device__ __forceinline__ void epilogue(const float (&acc)[TQ][TR],
                                          float* out_s, float* __restrict__ E,
                                          const CUtensorMap* tm_e,
@@ -126,9 +124,7 @@ __device__ __forceinline__ void epilogue(const float (&acc)[TQ][TR],
                                          int n_major, int minor0, int ext,
                                          int tf, int ts) {
     const int tid = threadIdx.x;
-    // the threads that issue bulk groups
-    const bool issuer = STORE == STORE_BULK ? tid < HALF
-                                            : STORE == STORE_TMA && tid == 0;
+    const bool issuer = TMA && tid == 0;   // the thread of the bulk groups
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
         float* buf = out_s + h * HALF * LINE;
@@ -155,30 +151,13 @@ __device__ __forceinline__ void epilogue(const float (&acc)[TQ][TR],
             *reinterpret_cast<float4*>(line + 4 * tf) = lo;
             *reinterpret_cast<float4*>(line + 64 + 4 * tf) = hi;
         }
-        if (STORE == STORE_BULK || STORE == STORE_TMA)
-            hop::fence_proxy_async();
+        if (TMA) hop::fence_proxy_async();
         __syncthreads();   // the half is in the buffer
         const int first = major0 + h * HALF;
-        if (STORE == STORE_TMA) {
+        if (TMA) {
             if (tid == 0) {
                 hop::tma_store_2d(tm_e, buf, minor0, first);
                 hop::bulk_commit();
-            }
-        } else if (STORE == STORE_BULK) {
-            if (tid < HALF) {
-                if (first + tid < n_major)
-                    hop::bulk_store_1d(E + (first + tid) * pitch + minor0,
-                                       buf + tid * LINE,
-                                       static_cast<uint32_t>(ext) * 4);
-                hop::bulk_commit();
-            }
-        } else if (STORE == STORE_VEC) {
-            for (int e = tid; e < HALF * LINE / 4; e += THREADS) {
-                const int l = e / (LINE / 4), c = 4 * (e - l * (LINE / 4));
-                if (first + l < n_major && c < ext)
-                    __stcs(reinterpret_cast<float4*>(
-                               E + (first + l) * pitch + minor0 + c),
-                           *reinterpret_cast<const float4*>(buf + l * LINE + c));
             }
         } else {
             for (int e = tid; e < HALF * LINE; e += THREADS) {
@@ -193,7 +172,7 @@ __device__ __forceinline__ void epilogue(const float (&acc)[TQ][TR],
 
 // Tile w: row tile w / q_tiles, query tile w % q_tiles.  Block b takes
 // tiles b, b + gridDim.x, ..; its i-th tile's rows land in stage i % STAGES.
-template <bool BULK, bool A_FAST, int STORE>
+template <bool BULK, bool A_FAST, bool TMA>
 __global__ void __launch_bounds__(THREADS, 2)
 pairwise_kernel(const float* __restrict__ A, const float* __restrict__ C,
                 float* __restrict__ E,
@@ -291,26 +270,25 @@ pairwise_kernel(const float* __restrict__ A, const float* __restrict__ C,
         // the epilogue's first barrier also ends every read of this tile's
         // stage, c_t, cn_s and an_s
         if (A_FAST)
-            epilogue<true, STORE>(acc, out_s, E, &tm_e, pitch, q0, K, row0,
+            epilogue<true, TMA>(acc, out_s, E, &tm_e, pitch, q0, K, row0,
                                   rows, tf, ts);
         else
-            epilogue<false, STORE>(acc, out_s, E, &tm_e, pitch, row0, N, q0,
+            epilogue<false, TMA>(acc, out_s, E, &tm_e, pitch, row0, N, q0,
                                    min(QB, K - q0), tf, ts);
         if (BULK && tid == 0 && w + STAGES * gridDim.x < tiles)
             issue(i + STAGES);
     }
-    if ((STORE == STORE_BULK && tid < HALF) || (STORE == STORE_TMA && tid == 0))
-        hop::bulk_wait<0>();
+    if (TMA && tid == 0) hop::bulk_wait<0>();
 }
 
-template <bool BULK, bool A_FAST, int STORE>
+template <bool BULK, bool A_FAST, bool TMA>
 cudaError_t launch(const float* A, const float* C, float* E,
                    const CUtensorMap& tm_e, int N, int K, int d, int tiles,
                    int grid, cudaStream_t s) {
     const size_t bytes = layout(BULK, d).total;
     static size_t allowed = 48 * 1024;   // the dynamic size allowed so far
     if (bytes > allowed) {
-        auto* kernel = pairwise_kernel<BULK, A_FAST, STORE>;
+        auto* kernel = pairwise_kernel<BULK, A_FAST, TMA>;
         cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(bytes));
@@ -321,29 +299,19 @@ cudaError_t launch(const float* A, const float* C, float* E,
         if (err != cudaSuccess) return err;
         allowed = bytes;
     }
-    pairwise_kernel<BULK, A_FAST, STORE><<<grid, THREADS, bytes, s>>>(
+    pairwise_kernel<BULK, A_FAST, TMA><<<grid, THREADS, bytes, s>>>(
         A, C, E, tm_e, N, K, d, tiles);
     return cudaGetLastError();
 }
 
 template <bool BULK, bool A_FAST>
-cudaError_t launch_store(int store, const float* A, const float* C, float* E,
+cudaError_t launch_store(bool tma, const float* A, const float* C, float* E,
                          const CUtensorMap& tm_e, int N, int K, int d,
                          int tiles, int grid, cudaStream_t s) {
-    switch (store) {
-        case STORE_BULK:
-            return launch<BULK, A_FAST, STORE_BULK>(A, C, E, tm_e, N, K, d,
-                                                    tiles, grid, s);
-        case STORE_VEC:
-            return launch<BULK, A_FAST, STORE_VEC>(A, C, E, tm_e, N, K, d,
-                                                   tiles, grid, s);
-        case STORE_TMA:
-            return launch<BULK, A_FAST, STORE_TMA>(A, C, E, tm_e, N, K, d,
-                                                   tiles, grid, s);
-        default:
-            return launch<BULK, A_FAST, STORE_SCALAR>(A, C, E, tm_e, N, K, d,
-                                                      tiles, grid, s);
-    }
+    return tma ? launch<BULK, A_FAST, true>(A, C, E, tm_e, N, K, d, tiles,
+                                            grid, s)
+               : launch<BULK, A_FAST, false>(A, C, E, tm_e, N, K, d, tiles,
+                                             grid, s);
 }
 
 }  // namespace
@@ -353,34 +321,28 @@ extern "C" {
 int pairwise_bulk_max_d() { return BULK_MAX_D; }
 int pairwise_tile() { return RB; }
 
-// The default store of an aligned pitch, by measurement (see the note)
-int pairwise_default_store() { return STORE_TMA; }
-
 // A (N, d), C (K, d) fp32 row-major -> E: (N, K) row-major, or (K, N)
 // row-major when a_fast != 0.  bulk: 1 for the bulk route (A 16-byte
 // aligned, d <= BULK_MAX_D), 0 for the plain route.  ``grid`` persistent
-// blocks walk the 128 x 128 tiles.  store: 0 bulk, 1 vec, 2 scalar, 3 tma,
-// -1 the default for E's alignment; all but scalar need a 16-byte-aligned
-// E and pitch.  Returns the first CUDA error.
+// blocks walk the 128 x 128 tiles; the tiles are stored by TMA where E
+// and its pitch are 16-byte aligned, else element by element.  Returns
+// the first CUDA error.
 int pairwise_sq_dist_f32(const float* A, const float* C, float* E, int N,
                          int K, int d, int a_fast, int bulk, int grid,
-                         int store, void* stream) {
+                         void* stream) {
     const long long tiles = static_cast<long long>((N + RB - 1) / RB) *
                             ((K + QB - 1) / QB);
     const long long pitch = a_fast ? N : K;
-    const bool aligned = pitch % 4 == 0 &&
-                         reinterpret_cast<uintptr_t>(E) % 16 == 0;
+    const bool tma = pitch % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(E) % 16 == 0;
     if (N < 1 || K < 1 || d < 1 || grid < 1 || tiles > INT_MAX ||
-        store < -1 || store > 3 ||
-        (store >= 0 && store != STORE_SCALAR && !aligned) ||
         (bulk && (d > BULK_MAX_D ||
                   reinterpret_cast<uintptr_t>(A) % 16 != 0)))
         return static_cast<int>(cudaErrorInvalidValue);
-    if (store < 0) store = aligned ? pairwise_default_store() : STORE_SCALAR;
     // the tma store: a map of E, lines of 128 along its contiguous axis,
     // 64 lines a box (a half of a tile)
     CUtensorMap tm_e{};
-    if (store == STORE_TMA) {
+    if (tma) {
         const uint64_t dims[2] = {static_cast<uint64_t>(a_fast ? N : K),
                                   static_cast<uint64_t>(a_fast ? K : N)};
         const uint64_t strides[1] = {static_cast<uint64_t>(pitch) * 4};
@@ -395,14 +357,14 @@ int pairwise_sq_dist_f32(const float* A, const float* C, float* E, int N,
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err;
     if (bulk)
-        err = a_fast ? launch_store<true, true>(store, A, C, E, tm_e, N, K, d,
+        err = a_fast ? launch_store<true, true>(tma, A, C, E, tm_e, N, K, d,
                                                 n, grid, s)
-                     : launch_store<true, false>(store, A, C, E, tm_e, N, K,
+                     : launch_store<true, false>(tma, A, C, E, tm_e, N, K,
                                                  d, n, grid, s);
     else
-        err = a_fast ? launch_store<false, true>(store, A, C, E, tm_e, N, K,
+        err = a_fast ? launch_store<false, true>(tma, A, C, E, tm_e, N, K,
                                                  d, n, grid, s)
-                     : launch_store<false, false>(store, A, C, E, tm_e, N, K,
+                     : launch_store<false, false>(tma, A, C, E, tm_e, N, K,
                                                   d, n, grid, s);
     return static_cast<int>(err);
 }

@@ -27,7 +27,6 @@ _STEM = "pairwise_sq_dist"
 TILE = 128              # rows and queries of a tile
 BULK_MAX_D = 32         # widest row of the bulk route
 BLOCKS_PER_SM = 2       # persistent blocks an SM
-STORE_AUTO = -1         # the kernel's default store for E's alignment
 
 # launches per route since the last ``ops.reset_launches``
 ROUTE_LAUNCHES: Dict[str, int] = {"bulk": 0, "plain": 0}
@@ -45,7 +44,7 @@ def _fn():
                 raise RuntimeError(f"{const}() = {got} in the built "
                                    f"library, the wrapper expects {want}")
         _fns["dist"] = _build.bind(_STEM, "pairwise_sq_dist_f32",
-                                   [_P] * 3 + [_I] * 7 + [_P])
+                                   [_P] * 3 + [_I] * 6 + [_P])
     return _fns["dist"]
 
 
@@ -71,14 +70,10 @@ def plan(N: int, K: int, sms: int) -> int:
     return q_tiles * min(row_tiles, want // q_tiles)
 
 
-def launch(a: torch.Tensor, c: torch.Tensor, a_fast: bool,
-           store: int = STORE_AUTO) -> torch.Tensor:
+def launch(a: torch.Tensor, c: torch.Tensor, a_fast: bool) -> torch.Tensor:
     """B4: a (N, d), c (K, d) fp32 on the card -> E (N, K) f32.  With
     ``a_fast`` the kernel writes E's transpose row-major, and E comes back
-    as the (N, K) view of that (K, N) buffer: ``E.T`` is contiguous.
-    ``store`` forces a store mechanism (0 bulk, 1 vec, 2 scalar, 3 tma)
-    for timing them; by default the kernel takes its own for E's
-    alignment."""
+    as the (N, K) view of that (K, N) buffer: ``E.T`` is contiguous."""
     fn = _fn()
     N, d = a.shape
     K = c.shape[0]
@@ -87,7 +82,7 @@ def launch(a: torch.Tensor, c: torch.Tensor, a_fast: bool,
     shape = (K, N) if a_fast else (N, K)
     out = torch.empty(shape, dtype=torch.float32, device=a.device)
     err = fn(a.data_ptr(), c.data_ptr(), out.data_ptr(), N, K, d,
-             int(a_fast), int(way == "bulk"), grid, store, _stream())
+             int(a_fast), int(way == "bulk"), grid, _stream())
     _build.check(_STEM, err, f"pairwise_sq_dist N={N} K={K} d={d} "
                              f"a_fast={a_fast} {way}")
     ROUTE_LAUNCHES[way] += 1

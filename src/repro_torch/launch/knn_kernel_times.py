@@ -22,11 +22,14 @@ compare them.  The shapes:
   B4 kNN      the kNN rows against the bucket, column-major: the blocked
               arm's (1024, 2^20) matrix at k = 64;
   B5 kNN      that matrix's rows (B4's transpose, in place), k = 64;
-  B5 ANN i32  int32 rows at ANN's selection shape (1024 queries, 32,768
-              candidates, k = 128): seeded values in [0, 21 * 255] (the
-              range of ADC sums of 21 byte-sized LUT entries, so with
-              ties), a fifth of each row the padding sentinel
-              ``adc_dmax(21)``;
+  B5 ANN i32  the int32 ADC distance matrix of the IVF-PQ ANN path's
+              first bucket, k = max(k, refine) = 128: an ANN fitted on
+              2^18 seeded 256-class ``class_blobs`` rows (256 cells,
+              m = 21, 256 codes, k = 10, refine = 128, nprobe = 16, the
+              configuration of ``chip_smoke.py``), the bucket's 1024
+              queries probed by B1 and their candidates' ADC distances
+              computed by B8's matrix kernel (``kernels/ann.launch_dist``),
+              so the rows hold the path's ties and list padding;
   B4 K-Means  the first 262,144 kNN rows against 256 of them, row-major
               (the K-Means fit's blocked shape).
 
@@ -37,13 +40,14 @@ so that its directory, which holds ``lm_kernel_times.py``, is on the
 path.  A B4 or B5 time is the mean of 10 calls by CUDA events after a
 warm call (their outputs at the kNN shape are 4.29 GB, too large to keep
 20 of in a graph's pool; each call takes far longer than the host's time
-to issue it).  The served rate is ``NonNeuralServeEngine.classify`` of
-4096 queries in 1024-query buckets after ``warmup_buckets``, host clock
-to a synchronize, five calls a reading and three readings, queries from
-host memory and from the card, for the fp32 engine (B1), the int8
-engine (B6) over the same fitted kNN, and the fp32 engine of a kNN fitted
-with k = 64 (the blocked arm: B4 then B5).  Where the checkout counts its
-kernels' routes (``ROUTE_LAUNCHES`` in ``kernels/distance_topk.py``,
+to issue it; ``kernel_cuts.events_ms``).  The served rate is
+``NonNeuralServeEngine.classify`` of 4096 queries in 1024-query buckets
+after ``warmup_buckets``, host clock to a synchronize, five calls a
+reading and three readings, queries from host memory and from the card,
+for the fp32 engine (B1), the int8 engine (B6) over the same fitted kNN,
+and the fp32 engine of a kNN fitted with k = 64 (the blocked arm: B4
+then B5).  Where the checkout counts its kernels' routes
+(``ROUTE_LAUNCHES`` in ``kernels/distance_topk.py``,
 ``kernels/quantized.py``, ``kernels/pairwise_sq_dist.py`` and
 ``kernels/topk_select.py``), the counts of the timed calls are printed
 too.
@@ -53,7 +57,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -61,7 +64,9 @@ from pathlib import Path
 N_ROWS, D, CLASSES, K = 1 << 20, 21, 3, 4
 N_QUERIES, BUCKET = 4096, 1024
 ANN_CELLS, ANN_CLASSES, ANN_K = 256, 256, 16
-BLOCKED_K, ANN_L, ANN_SELECT_K, PQ_M = 64, 32768, 128, 21
+BLOCKED_K = 64
+ANN_FIT = dict(n=1 << 18, classes=256, cells=256, pq_m=21, n_codes=256,
+               k=10, refine=128, nprobe=16, train_iters=10)
 KMEANS_ROWS, KMEANS_K = 1 << 18, 256
 
 
@@ -76,21 +81,6 @@ def served_qps(torch, engine, queries, calls: int = 5, readings: int = 3):
         torch.cuda.synchronize()
         out.append(calls * len(queries) / (time.perf_counter() - t0))
     return out
-
-
-def events_ms(torch, fn, reps: int = 10) -> float:
-    """Mean device time of one call over ``reps`` calls after a warm
-    call, from CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def main(argv=None) -> int:
@@ -109,16 +99,15 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import distance_topk as dt
     from repro_torch.kernels import pairwise_sq_dist as pd
-    from repro_torch.kernels.ann import adc_dmax
+    from repro_torch.core.ann import build_query_luts
+    from repro_torch.kernels import ann as kann
     from repro_torch.kernels import quantized as qk
     from repro_torch.kernels import topk_select as ts
     from repro_torch.serving import NonNeuralServeEngine
+    from kernel_cuts import card, events_ms
     from lm_kernel_times import REPS, device_ms
 
     _build.build_all()
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
     dev = torch.device("cuda:0")
 
     def on_card(x):
@@ -132,6 +121,23 @@ def main(argv=None) -> int:
     cells, Qa = on_card(Xa[:ANN_CELLS]), on_card(Xa[ANN_CELLS:])
     scale = qk.feature_scales(A.abs().amax(0))
     A8, C8 = qk.quantize_rows(A, scale), qk.quantize_rows(Cq, scale)
+    # the ANN path's first bucket: its ADC distance matrix for B5 int32
+    Xf, yf = class_blobs(n=ANN_FIT["n"] + N_QUERIES, d=D,
+                         n_class=ANN_FIT["classes"], seed=3)
+    ann = est_mod.make_fitted(
+        "ann", Xf[:ANN_FIT["n"]], yf[:ANN_FIT["n"]],
+        n_groups=ANN_FIT["classes"], device=dev, k=ANN_FIT["k"],
+        n_cells=ANN_FIT["cells"], nprobe=ANN_FIT["nprobe"],
+        pq_m=ANN_FIT["pq_m"], n_codes=ANN_FIT["n_codes"],
+        refine=ANN_FIT["refine"], train_iters=ANN_FIT["train_iters"])
+    p = ann.params
+    Xb = on_card(Xf[ANN_FIT["n"]:ANN_FIT["n"] + BUCKET])
+    _, probed = ops.distance_topk(p.centroids, Xb, ANN_FIT["nprobe"])
+    cand = p.cell_ids[probed.long()].reshape(BUCKET, -1).contiguous()
+    codes = p.codes[cand.clamp(min=0).long()].contiguous()
+    Xi = kann.launch_dist(build_query_luts(Xb, p.codebooks), codes, cand)
+    ann_select_k = max(ANN_FIT["k"], ANN_FIT["refine"])
+    del ann, p, Xb, probed, cand, codes
     routes = {name: getattr(mod, "ROUTE_LAUNCHES", None)
               for name, mod in (("b1", dt), ("b6", qk), ("b4", pd),
                                 ("b5", ts))}
@@ -146,18 +152,13 @@ def main(argv=None) -> int:
         if not bool(torch.isfinite(out[0].float()).all()):
             raise RuntimeError(f"{key}: output not finite")
         times[key] = device_ms(fn)
-    gen = torch.Generator(device=dev).manual_seed(1)
     E = ops.pairwise_sq_dist(A, Cq, col_major=True)
-    Xi = torch.randint(0, adc_dmax(PQ_M), (BUCKET, ANN_L), generator=gen,
-                       device=dev, dtype=torch.int32)
-    Xi[torch.rand((BUCKET, ANN_L), generator=gen, device=dev) < 0.2] = \
-        adc_dmax(PQ_M)
     A2 = A[:KMEANS_ROWS].contiguous()
     C2 = A2[:KMEANS_K].clone()
     blocked = {"b4_knn": lambda: ops.pairwise_sq_dist(A, Cq,
                                                       col_major=True),
                "b5_knn": lambda: ops.topk_smallest(E.T, BLOCKED_K),
-               "b5_ann_i32": lambda: ops.topk_smallest(Xi, ANN_SELECT_K),
+               "b5_ann_i32": lambda: ops.topk_smallest(Xi, ann_select_k),
                "b4_kmeans_fit": lambda: ops.pairwise_sq_dist(A2, C2)}
     for key, fn in blocked.items():
         out = fn()
@@ -166,7 +167,8 @@ def main(argv=None) -> int:
         if not bool(torch.isfinite(vals.float()).all()):
             raise RuntimeError(f"{key}: output not finite")
         del out, vals
-        times[key] = events_ms(torch, fn)
+        times[key] = events_ms(fn, 10)
+    ann_shape = list(Xi.shape)
     del E, Xi, A2, C2
     timed_routes = {name: dict(r) for name, r in routes.items()
                     if r is not None}
@@ -184,8 +186,9 @@ def main(argv=None) -> int:
         qps[label] = dict(host=served_qps(torch, engine, Xq),
                           card=served_qps(torch, engine, on_card(Xq)))
         del engine
-    print(json.dumps(dict(src=str(Path(args.src).resolve()), card=card,
+    print(json.dumps(dict(src=str(Path(args.src).resolve()), card=card(),
                           torch=torch.__version__, reps=REPS,
+                          ann_matrix=dict(shape=ann_shape, k=ann_select_k),
                           device_ms=times, routes=timed_routes,
                           launches=dict(ops.LAUNCHES), qps=qps)))
     return 0

@@ -13,7 +13,8 @@ every variant with nvcc for sm_90a into ``kernels/build/breakdown/`` of
 this checkout, and times each through its C entry point at N = 2^20
 rows, Q = 1024 queries, d = 21, k = 4 (random normal fp32 rows and
 queries for B1, uniform int8 lattice rows for B6), by CUDA events over
-20 calls after warm calls.  The variants:
+20 calls after warm calls (helpers in ``kernel_cuts.py``).  The
+variants:
 
   base       the source as it is;
   no_select  no row is ever inserted: the one compare per row stays,
@@ -34,7 +35,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -106,39 +106,6 @@ VARIANTS = {
 ENTRY = {"distance_topk": "distance_topk_f32", "quantized": "distance_topk_q8"}
 
 
-def cut(text: str, edits) -> str:
-    """Apply (old, new) replacements to their first occurrence (B6's
-    staging statement recurs in its matrix kernel, after the partial
-    kernel); raise if one is missing."""
-    for old, new in edits:
-        if old not in text:
-            raise SystemExit(f"not the split-N list design: {old[:60]!r} "
-                             "not found")
-        text = text.replace(old, new, 1)
-    return text
-
-
-def build(nvcc: str, src: Path, out: Path) -> str:
-    proc = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-                           "-std=c++17", "-O3", "-shared", "-Xcompiler",
-                           "-fPIC", "-Xptxas", "-v", "-o", str(out),
-                           str(src)], capture_output=True, text=True)
-    if proc.returncode:
-        raise SystemExit(f"nvcc failed for {src.name}:\n{proc.stderr}")
-    return proc.stderr
-
-
-def ptxas_line(log: str, kernel: str) -> str:
-    """The registers/stack line ptxas printed for ``kernel``."""
-    lines = log.splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry function" in line and kernel in line:
-            for nxt in lines[i + 1:i + 6]:
-                if "registers" in nxt:
-                    return " ".join(nxt.split())
-    return "not found"
-
-
 def old_split(n: int, q: int, sms: int):
     """The design's own planning: 64-row tiles, 32 queries a block, N
     split until about four blocks an SM."""
@@ -156,6 +123,7 @@ def main(argv=None) -> int:
                          "split-N list design")
     args = ap.parse_args(argv)
     import torch
+    from kernel_cuts import build, card, cut, events_ms, ptxas_line
     if not torch.cuda.is_available():
         print("no CUDA device is visible", file=sys.stderr)
         return 1
@@ -163,7 +131,6 @@ def main(argv=None) -> int:
     out_dir = Path(__file__).resolve().parents[1] / "kernels" / "build" / \
         "breakdown"
     out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc = "/usr/local/cuda/bin/nvcc"
     jobs = {}
     for stem, variants in VARIANTS.items():
         text = (csrc / f"{stem}.cu").read_text()
@@ -172,11 +139,7 @@ def main(argv=None) -> int:
             src.write_text(cut(text, edits))
             jobs[(stem, name)] = (src, out_dir / f"{stem}_{name}.so")
     with ThreadPoolExecutor(len(jobs)) as pool:
-        logs = dict(zip(jobs, pool.map(lambda j: build(nvcc, *j),
-                                       jobs.values())))
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
+        logs = dict(zip(jobs, pool.map(lambda j: build(*j), jobs.values())))
     dev = torch.device("cuda:0")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -211,22 +174,12 @@ def main(argv=None) -> int:
             if err:
                 raise SystemExit(f"{stem} {name}: CUDA error {err}")
 
-        for _ in range(3):
-            call()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(REPS):
-            call()
-        end.record()
-        end.synchronize()
         kernel = "q8_topk_partial_kernel" if stem == "quantized" else \
             "topk_partial_kernel"
         result.setdefault(stem, {})[name] = dict(
-            ms=start.elapsed_time(end) / REPS,
+            ms=events_ms(call, REPS, warm=3),
             ptxas=ptxas_line(logs[(stem, name)], kernel))
-    print(json.dumps(dict(src=str(Path(args.src).resolve()), card=card,
+    print(json.dumps(dict(src=str(Path(args.src).resolve()), card=card(),
                           torch=torch.__version__, shape=dict(N=N, Q=Q, d=D,
                                                               k=K),
                           splits=n_splits, rows_per_split=rows, reps=REPS,

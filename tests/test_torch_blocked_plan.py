@@ -10,6 +10,8 @@ the route it counts are checked.  Parity: the same numpy rows go through
 ``repro.kernels.ref`` and ``repro_torch.kernels.ops`` on CPU tensors (the
 plain version); indices and values exact.
 """
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -189,7 +191,7 @@ def test_pairwise_launch_arguments(monkeypatch, N, K, d, a_fast, view):
     assert args[0] == a.data_ptr() and args[1] == c.data_ptr()
     assert args[2] == e.data_ptr()
     assert args[3:8] == (N, K, d, int(a_fast), int(way == "bulk"))
-    assert args[8:11] == (tpd.plan(N, K, 132), tpd.STORE_AUTO, 0)
+    assert args[8:10] == (tpd.plan(N, K, 132), 0)
     assert shapes == [(K, N) if a_fast else (N, K)]
     assert e.shape == (N, K) and (e.T if a_fast else e).is_contiguous()
     assert tpd.ROUTE_LAUNCHES == {"bulk": int(way == "bulk"),
@@ -243,3 +245,28 @@ def test_knn_blocked_arm_matches_jax_past_the_lists(k):
         jnp.asarray(a), jnp.asarray(c), k, path="blocked"))
     np.testing.assert_array_equal(ti.numpy(), ji)
     np.testing.assert_allclose(tv.numpy(), jv, **TOL)
+
+
+def test_breakdown_cuts_apply_to_this_checkout():
+    """Every cut-down variant of ``blocked_breakdown.py --new`` applies to
+    this checkout's sources and changes them (the base variant aside)."""
+    from repro_torch.launch import blocked_breakdown as bb
+    from repro_torch.launch.kernel_cuts import cut
+    csrc = Path(tpd.__file__).resolve().parent / "csrc"
+    for stem, variants in (("pairwise_sq_dist", bb.NEW_VARIANTS),
+                           ("topk_select", bb.NEW_B5_VARIANTS)):
+        text = (csrc / f"{stem}.cu").read_text()
+        for name, edits in variants.items():
+            assert (cut(text, edits) != text) == bool(edits), (stem, name)
+    stores = cut((csrc / "pairwise_sq_dist.cu").read_text(),
+                 bb.NEW_VARIANTS["no_stores"])
+    assert "tma_store_2d(" not in stores
+    assert "__stcs(" not in stores
+
+
+def test_cut_matches_any_white_space_and_refuses_other_text():
+    from repro_torch.launch.kernel_cuts import cut
+    src = "if (a)\n        f(x,\n          y);\nf(x, y);"
+    assert cut(src, [("f(x, y);", "{}")]) == "if (a)\n        {}\nf(x, y);"
+    with pytest.raises(SystemExit, match="not found"):
+        cut(src, [("g(x, y);", "")])
