@@ -20,7 +20,16 @@ the CUDA toolkit.  In order it
    INT_MAX; B2's NaN rows take centroid 0, ROADMAP C4), B10 and B11 on
    every route of their shape rules (B11 at head dims up to 256) and at
    k = 1, k = n and k > 32, and times kernel, plain
-   version and one library call; B1 and B6 also on an unaligned view
+   version and one library call; B2 on each of its routes (``rows`` for
+   d <= 4, ``narrow`` for few rows, ``bulk``/``plain`` by B1's alignment
+   rule, ``stream`` past its resident centroids) at d in {1, 21, 33, 784}
+   and K in {1, 255, 257}, each bitwise equal to the blocked K-Means arm
+   (B4, then the row min), at the fit shape too, and timed at d = 1
+   beside its bound and ``cdist`` + ``argmin``; B8 on both its routes
+   (``fused`` up to ``FUSED_K_MAX``, the matrix and B5 past it), at the
+   ANN bucket on either side of that capacity, on all-padding rows, L not
+   a multiple of 32, a split query and LUT entries past 255; B1 and B6
+   also on an unaligned view
    (``A[1:]``, their ``plain`` route), a last tile ending off a 16-byte
    multiple, rows in adversarial order (every row beats the threshold),
    all-equal rows and the ANN probe shape, each on the route their
@@ -52,9 +61,12 @@ the CUDA toolkit.  In order it
    estimators through ``NonNeuralServeEngine(..., policy="int8")``, held
    against the plain versions on the same quantized params (every B1 and
    B6 launch of the kNN paths on the ``bulk`` route); IVF-PQ ANN
-   (``make_fitted("ann")``: B2 in the fit, B1 probe, B8 + B5 serve) is
-   held against ``path="ref"`` and its recall@10 against exact fused kNN,
-   and B5's int32 mode is timed on a bucket's ADC distance matrix;
+   (``make_fitted("ann")``: B2 in the fit, on its bulk and rows routes,
+   B1 probe, B8's fused route serving, one launch a bucket) is held
+   against ``path="ref"`` and its recall@10 against exact fused kNN, and
+   B5's int32 mode is timed on a bucket's ADC distance matrix (B8's
+   matrix route); the K-Means path's B2 launches are checked to take the
+   bulk route in the fit and the narrow route in serving;
 4. serves stablelm-3b at full width (bf16, seeded weights) through
    ``ServeEngine.generate``: batch 4, prompts of 512 seeded tokens, 32
    greedy new tokens, with B10 computing every projection and the
@@ -922,15 +934,48 @@ def main() -> int:
     print(f"[time] B1 adversarial order N=65536 Q=129 d=21 k=4: kernel "
           f"{adv_ms[0]:.4f} ms; the same rows shuffled {adv_ms[1]:.4f} ms")
     del A_view, A_adv, C_adv, A_ann, C_ann, A_shuf
-    for N, d, K, ints in [(4099, 1, 1, True), (4099, 5, 257, True),
-                          (1001, 784, 257, False), (129, 21, 33, True),
-                          (1, 21, 257, False), (70_001, 21, 257, False),
-                          (129, 784, 1, False)]:
-        err, n_near = argmin_case(rand((N, d), ints), rand((K, d), ints),
-                                ints, f"B2 N={N} d={d} K={K}")
-        print(f"[edge] B2 N={N} d={d} K={K} ints={ints}: "
-              f"max_abs_err={err:.3g} near_ties={n_near}")
+    # B2 on the route its rule gives (rows for d <= 4, narrow for few
+    # rows, bulk/plain by B1's alignment rule, stream past the resident
+    # centroids), d in {1, 21, 33, 784} and K in {1, 255, 257}; on every
+    # route B2 sums in B4's order, so the fused arm equals the blocked one
+    # (B4, then the row min) bit for bit
+    from repro_torch.kernels import distance_argmin as kda
+
+    def blocked_argmin(A, C):
+        v, i = torch.min(ops.pairwise_sq_dist(A, C), dim=1)
+        return v, i.to(torch.int32)
+
+    def bitwise(got, want):
+        return torch.equal(got[0].view(torch.int32),
+                           want[0].view(torch.int32)) and \
+            torch.equal(got[1], want[1])
+
+    A_view = rand((5001, 21), False)
+    for N, d, K, ints, A_e in [
+            (4099, 1, 1, True, None), (4099, 1, 255, False, None),
+            (70_001, 1, 257, False, None), (70_001, 21, 255, False, None),
+            (4099, 5, 257, True, None), (1024, 21, 256, False, None),
+            (129, 21, 33, True, None), (1, 21, 257, False, None),
+            (5000, 33, 255, False, None), (5000, 33, 1, True, None),
+            (5000, 21, 256, False, A_view[1:]),
+            (1001, 784, 257, False, None), (129, 784, 1, False, None),
+            (20_000, 21, 1000, False, None)]:
+        A_e = rand((N, d), ints) if A_e is None else A_e
+        C_e = rand((K, d), ints)
+        before = dict(kda.ROUTE_LAUNCHES)
+        way = kda.route(A_e, C_e)
+        err, n_near = argmin_case(A_e, C_e, ints, f"B2 N={N} d={d} K={K}")
+        check(kda.ROUTE_LAUNCHES[way] == before[way] + 1,
+              f"B2 N={N} d={d} K={K}: routes {kda.ROUTE_LAUNCHES}, the rule "
+              f"gives {way}")
+        same = bitwise(ops.distance_argmin(A_e, C_e), blocked_argmin(A_e, C_e))
+        check(same, f"B2 N={N} d={d} K={K} ({way}): the fused arm differs "
+              "from the blocked arm's bits")
+        print(f"[edge] B2 N={N} d={d} K={K} ints={ints} ({way} route): "
+              f"max_abs_err={err:.3g} near_ties={n_near}, bitwise equal to "
+              "B4 + row min")
         edges += 1
+    del A_view
     # ROADMAP C4: a row holding NaN takes centroid 0 at +inf in both
     # versions (a NaN distance is never the nearest); the other rows as
     # above
@@ -1276,20 +1321,29 @@ def main() -> int:
         return lut.to(dev), codes.to(dev).contiguous(), ids.to(dev)
 
     from repro_torch.kernels import ann as kann
-    # the last three hold codes past n_codes - 1 (both sides clamp them)
-    # and padding in contiguous runs, as in a ragged cell list, the last
-    # one over several blocks' spans of a query with a ragged end
+    # each on the route k gives (fused up to FUSED_K_MAX, the matrix and
+    # B5 past it); L not a multiple of 32, all-padding rows, codes past
+    # n_codes - 1 (both sides clamp them), LUT entries past 255 (the fused
+    # route then reads the LUT from device memory), codes wider than its
+    # register path, a query split across blocks (Q = 1), and padding in
+    # contiguous runs, as in a ragged cell list
+    k_cap = kann.FUSED_K_MAX
     for Q, L, m, n_codes, k, invalid, lut_hi, code_hi in [
             (5, 1000, 21, 256, 1, 0.2, 256, None),
             (5, 1000, 21, 256, 10, 0.2, 256, None),
             (5, 1000, 21, 256, 1000, 0.2, 256, None),
+            (2, 5001, 21, 256, k_cap, 0.2, 256, None),
+            (2, 5001, 21, 256, k_cap + 1, 0.2, 256, None),
             (3, 777, 4, 16, 33, 0.2, 3, None),
             (3, 100, 7, 256, 50, 1.0, 256, None),
             (2, 300, 256, 256, 20, 0.2, 256, None),
             (4, 1001, 3, 256, 128, 0.9, 256, None),
             (1, 1, 1, 1, 1, 0.0, 256, None),
             (3, 777, 5, 16, 40, 0.2, 256, 256),
+            (3, 777, 5, 16, 40, 0.2, 1000, None),
+            (4, 4096, 25, 256, 100, 0.3, 256, None),
             (4, 4096, 21, 256, 128, "runs", 256, None),
+            (1, 40_000, 21, 256, 128, "runs", 256, None),
             (2, 20001, 7, 256, 300, "runs", 256, None)]:
         lut, codes, ids = adc_inputs(Q, L, m, n_codes,
                                      0.0 if invalid == "runs" else invalid,
@@ -1298,13 +1352,22 @@ def main() -> int:
             # cells of capacity 1024, each with a padded tail
             for c in range(L // 1024):
                 ids[:, c * 1024 + 100 * (c % 9 + 1):(c + 1) * 1024] = -1
+        before = dict(kann.ROUTE_LAUNCHES)
+        way = kann.route(k)
         equal_case(f"B8 Q={Q} L={L} m={m} k={k}",
                    ops.adc_topk(lut, codes, ids, k),
                    ref.adc_topk(lut, codes, ids, k))
-        where = "shared" if kann.lut_in_smem(m, n_codes) else "device"
+        check(kann.ROUTE_LAUNCHES[way] > before[way] and
+              sum(kann.ROUTE_LAUNCHES.values()) - sum(before.values()) ==
+              kann.ROUTE_LAUNCHES[way] - before[way],
+              f"B8 Q={Q} L={L} m={m} k={k}: routes {kann.ROUTE_LAUNCHES}, "
+              f"the rule gives {way}")
+        where = "shared" if kann.lut_in_smem(m, n_codes) and lut_hi <= 256 \
+            else "device"
         print(f"[edge] B8 Q={Q} L={L} m={m} n_codes={n_codes} k={k} "
-              f"invalid={invalid} codes<{code_hi or n_codes} LUT in {where} "
-              "memory: distances and positions equal")
+              f"invalid={invalid} codes<{code_hi or n_codes} LUT<{lut_hi} "
+              f"in {where} memory ({way} route): distances and positions "
+              "equal")
         edges += 1
     # ---- slice 4: B10 (GEMM) and B11 (attention), bf16 and fp32
     from repro_torch.configs.registry import get_config
@@ -1341,16 +1404,27 @@ def main() -> int:
     print(f"[kernel] B1 distance_topk N={N} Q={Q} d={d} k={k}: "
           f"max_abs_err={err:.3g} near_ties={n_near}")
 
-    # B2 at the K-Means fit shape: every training row against K centroids
+    # B2 at the K-Means fit shape: every training row against K centroids;
+    # K-Means' fused (B2) and blocked (B4, then the row min) arms give the
+    # same bits in every value and index
     A2 = on_card(km_data[0])
     C2 = A2[: KMEANS["K"]].clone()
     err, n_near = argmin_case(A2, C2, False, "B2 main")
+    fused = ops.distance_argmin(A2, C2)
+    blocked = blocked_argmin(A2, C2)
+    same_v = int((fused[0].view(torch.int32) ==
+                  blocked[0].view(torch.int32)).sum())
+    same_i = int((fused[1] == blocked[1]).sum())
+    check(same_v == same_i == A2.shape[0],
+          f"B2 main: fused vs blocked K-Means arms: {same_v} values and "
+          f"{same_i} indices of {A2.shape[0]} bitwise equal")
+    del fused, blocked
     N, d, K = A2.shape[0], A2.shape[1], C2.shape[0]
     b, by = bound_ms(N * K * (2 * d + 1) + 2 * d * (N + K),
                      4 * d * (N + K) + 8 * N, peaks)
     kernels["B2"] = dict(
         name="distance_argmin", route="cuda",
-        source="src/repro_torch/kernels/csrc/distance_topk.cu",
+        source="src/repro_torch/kernels/csrc/distance_argmin.cu",
         replaces="src/repro/kernels/distance_topk.py:116",
         max_abs_err=err,
         ms=cuda_ms(torch, lambda: ops.distance_argmin(A2, C2), 20),
@@ -1362,9 +1436,12 @@ def main() -> int:
     Aq2 = on_card(km_data[2][:MAX_BATCH])
     kernels["B2"]["serve_ms"] = cuda_ms(
         torch, lambda: ops.distance_argmin(Aq2, C2), 200)
-    print(f"[kernel] B2 distance_argmin N={N} K={K} d={d}: "
-          f"max_abs_err={err:.3g} near_ties={n_near}; at the serving "
-          f"shape N={MAX_BATCH}: {kernels['B2']['serve_ms']:.4f} ms")
+    print(f"[kernel] B2 distance_argmin N={N} K={K} d={d} "
+          f"({kda.route(A2, C2)} route): max_abs_err={err:.3g} "
+          f"near_ties={n_near}; fused vs blocked arms: all {same_v} values "
+          f"and {same_i} indices bitwise equal (checked); at the serving "
+          f"shape N={MAX_BATCH} ({kda.route(Aq2, C2)} route): "
+          f"{kernels['B2']['serve_ms']:.4f} ms")
 
     # B3 at the GNB serving shape: one full bucket against fitted moments
     Xg = on_card(gnb_data[2][:MAX_BATCH])
@@ -1637,16 +1714,29 @@ def main() -> int:
     print(f"[kernel] B7 distance_argmin_q8 N={N} K={K} d={d}: equal to the "
           f"plain version; at the serving shape N={MAX_BATCH}: "
           f"{kernels['B7']['serve_ms']:.4f} ms")
-    # B2 at d = 1, K = 256: each PQ codebook fit of the ANN path
+    # B2 at d = 1, K = 256: each PQ codebook fit of the ANN path (65,536
+    # training rows) and encoding (every row)
     A1 = A2[:, :1].contiguous()
     C1 = A1[:KMEANS["K"]].clone()
-    err, n_near = argmin_case(A1, C1, False, "B2 d=1")
-    print(f"[kernel] B2 distance_argmin at d=1 N={A1.shape[0]} "
-          f"K={C1.shape[0]} (the ANN path's codebook fits): "
-          f"{cuda_ms(torch, lambda: ops.distance_argmin(A1, C1), 20):.4f} ms,"
-          f" plain {cuda_ms(torch, lambda: ref.distance_argmin(A1, C1), 10):.4f}"
-          f" ms, max_abs_err={err:.3g} near_ties={n_near}")
-    del A28, C28, Aq28, A1, C1
+    kernels["B2"]["d1"] = {}
+    for n1 in (1 << 16, A1.shape[0]):
+        A1n = A1[:n1].contiguous()
+        err, n_near = argmin_case(A1n, C1, False, f"B2 d=1 N={n1}")
+        b1, by1 = bound_ms(n1 * KMEANS["K"] * 3 + 2 * (n1 + KMEANS["K"]),
+                           4 * (n1 + KMEANS["K"]) + 8 * n1, peaks)
+        row = dict(
+            ms=cuda_ms(torch, lambda: ops.distance_argmin(A1n, C1), 50),
+            plain=cuda_ms(torch, lambda: ref.distance_argmin(A1n, C1), 10),
+            lib=cuda_ms(torch, lambda: torch.cdist(A1n, C1).argmin(1), 10),
+            bound=b1, by=by1)
+        kernels["B2"]["d1"][n1] = row
+        print(f"[kernel] B2 distance_argmin at d=1 N={n1} K={C1.shape[0]} "
+              f"({kda.route(A1n, C1)} route; the ANN path's codebook "
+              f"fits): kernel {row['ms']:.4f} ms, plain {row['plain']:.4f} "
+              f"ms, library {row['lib']:.4f} ms (cdist + argmin), bound "
+              f"{b1:.4f} ms ({by1}), max_abs_err={err:.3g} "
+              f"near_ties={n_near}")
+    del A28, C28, Aq28, A1, C1, A1n
     for kr in kernels.values():
         kr["launches"] = 0
     for key, kr in kernels.items():
@@ -1681,7 +1771,9 @@ def main() -> int:
         torch.cuda.synchronize()
         launches = dict(ops.LAUNCHES)
         routes = dict(b1=dict(kdt.ROUTE_LAUNCHES), b6=dict(qk.ROUTE_LAUNCHES),
-                      b4=dict(kpd.ROUTE_LAUNCHES), b5=dict(kts.ROUTE_LAUNCHES))
+                      b4=dict(kpd.ROUTE_LAUNCHES), b5=dict(kts.ROUTE_LAUNCHES),
+                      b2=dict(kda.ROUTE_LAUNCHES),
+                      b8=dict(kann.ROUTE_LAUNCHES))
         wall = time.perf_counter() - t0
         check(set(engine.bucket_launches) <= warmed,
               f"{algo}: served buckets {sorted(engine.bucket_launches)} "
@@ -1858,11 +1950,18 @@ def main() -> int:
            kernels["B4"]["serve_ms"] + kernels["B5"]["serve_ms"])
     del run
 
-    # K-Means: the fused B2, in the fit and in serving
+    # K-Means: the fused B2, in the fit (the bulk route, n_iter + 1
+    # launches) and in serving (the narrow route, one launch a bucket)
     run = drive("kmeans", km_data, KMEANS["K"])
     n_iter, n_near = kmeans_checks("kmeans", run)
+    want_b2 = dict.fromkeys(kda.ROUTES, 0)
+    want_b2.update(bulk=n_iter + 1, narrow=run["n_buckets"])
+    check(run["routes"]["b2"] == want_b2 and
+          run["launches"]["distance_argmin"] == n_iter + 1 + run["n_buckets"],
+          f"kmeans: B2 routes {run['routes']['b2']}, expected {want_b2}")
     report("kmeans", ["B2"], run, f"n_iter={n_iter} (ref arm the same), "
-           f"near_ties={n_near}", kernels["B2"]["serve_ms"])
+           f"near_ties={n_near}, B2 routes {run['routes']['b2']}",
+           kernels["B2"]["serve_ms"])
     fitted["kmeans"] = run["est"]
     del run
 
@@ -2050,9 +2149,19 @@ def main() -> int:
     want = max(ANN["k"], ANN["refine"])
     Q, L, m = codes.shape
     n_codes = qlut.shape[1] // m
-    equal_case("B8 main", ops.adc_topk(qlut, codes, cand, want), chunked(
-        lambda i, j: ref.adc_topk(qlut[i:j], codes[i:j], cand[i:j], want),
-        Q))
+    # k = max(k, refine) on the fused route, and on either side of its
+    # capacity (the fused route, then the matrix and B5)
+    for k8 in (want, kann.FUSED_K_MAX, kann.FUSED_K_MAX + 1):
+        before = dict(kann.ROUTE_LAUNCHES)
+        equal_case(f"B8 main k={k8}", ops.adc_topk(qlut, codes, cand, k8),
+                   chunked(lambda i, j: ref.adc_topk(
+                       qlut[i:j], codes[i:j], cand[i:j], k8), Q))
+        way = kann.route(k8)
+        check(kann.ROUTE_LAUNCHES[way] > before[way],
+              f"B8 main k={k8}: routes {kann.ROUTE_LAUNCHES}, the rule "
+              f"gives {way}")
+        print(f"[kernel] B8 adc_topk at the bucket k={k8} ({way} route): "
+              "distances and positions equal to the plain version")
     flat = (codes.long() + 128 + torch.arange(m, device=dev) * n_codes
             ).reshape(Q, L * m)
 
@@ -2080,9 +2189,10 @@ def main() -> int:
     dist_ms = cuda_ms(torch, lambda: kann.launch_dist(qlut, codes, cand), 10)
     invalid = float((cand < 0).float().mean())
     print(f"[kernel] B8 adc_topk Q={Q} L={L} m={m} n_codes={n_codes} "
-          f"k={want}: equal to the plain version; ADC distances alone "
-          f"{dist_ms:.4f} ms, then B5 int32; {invalid:.3f} of the "
-          "candidates are list padding")
+          f"k={want} ({kann.route(want)} route, one launch): equal to the "
+          f"plain version; the matrix route's distances alone "
+          f"{dist_ms:.4f} ms; {invalid:.3f} of the candidates are list "
+          "padding")
     # B5's int32 key mode at the ANN shape: the ADC distance matrix of
     # this bucket, k = max(k, refine)
     e_ann = kann.launch_dist(qlut, codes, cand)
@@ -2108,13 +2218,26 @@ def main() -> int:
           "version")
     del e_ann, got
     del flat, codes, cand, qlut
-    report("ann", ["B2", "B1", "B8", "B5"], run,
+    # every launch's route: B2 in the fit on its bulk route (the cells,
+    # d = 21) and rows route (the codebooks, d = 1); B8 fused, one launch a
+    # bucket, no B5
+    ln, rt = run["launches"], run["routes"]
+    check(set(k_ for k_, v in rt["b2"].items() if v) <= {"bulk", "rows"} and
+          rt["b2"]["bulk"] > 0 and rt["b2"]["rows"] > 0 and
+          sum(rt["b2"].values()) == ln["distance_argmin"],
+          f"ann: B2 routes {rt['b2']} for {ln['distance_argmin']} launches")
+    check(rt["b8"] == {"fused": run["n_buckets"], "matrix": 0} and
+          ln["adc_topk"] == run["n_buckets"] and ln["topk_smallest"] == 0,
+          f"ann: B8 routes {rt['b8']}, launches {ln} for "
+          f"{run['n_buckets']} buckets")
+    report("ann", ["B2", "B1", "B8"], run,
            f"fit {run['fit_s']:.2f}s, L={L} candidates per query "
            f"(nprobe={ANN['nprobe']}, {p.cell_ids.shape[0]} cells of "
            f"capacity {p.cell_ids.shape[1]}), recall@{ANN['k']}="
            f"{recall:.4f} against exact fused kNN, refine={ANN['refine']}; "
            f"neighbours equal to path='ref' but {n_odd} queries at probe "
-           "near-ties", kernels["B8"]["ms"])
+           f"near-ties; B2 routes {rt['b2']}, B8 routes {rt['b8']}",
+           kernels["B8"]["ms"])
     del run, est, res, res_ref, p, Qa, exact
 
     # ------------------------------------------------ 6. the LM path

@@ -1,6 +1,7 @@
-// The fp32 distance-tile arithmetic shared by B1 (distance_topk.cu) and B4
-// (pairwise_sq_dist.cu), so that the two arms of kNN compute the same
-// distances bit for bit.
+// The fp32 distance-tile arithmetic shared by B1 (distance_topk.cu), B2
+// (distance_argmin.cu) and B4 (pairwise_sq_dist.cu), so that the two arms
+// of kNN, and the two arms of K-Means, compute the same distances bit for
+// bit.
 //
 // A tile scores QB queries against RB rows with 256 threads, each owning
 // an 8-query x 8-row register micro-tile.  The expansion is
@@ -97,6 +98,23 @@ __device__ __forceinline__ float half_norm(const float* a_s, int rs, int fs,
     return s;
 }
 
+// the plain route's half of a row's squared norm, read from the row's d
+// floats (device or shared memory): per 32-feature chunk a fused
+// multiply-add chain from zero over the chunk's features of this parity,
+// the chunks' sums added in order; it is what half_norm sums chunk by
+// chunk on the plain route, and half_norm's own sum where d <= DC
+__device__ __forceinline__ float chunked_half_norm(const float* row, int d,
+                                                   int parity) {
+    float s = 0.f;
+    for (int c0 = 0; c0 < d; c0 += DC) {
+        const int c1 = c0 + DC < d ? c0 + DC : d;
+        float h = 0.f;
+        for (int j = c0 + parity; j < c1; j += 2) h = fmaf(row[j], row[j], h);
+        s += h;
+    }
+    return s;
+}
+
 // one feature of the micro-tile: acc[qi][ri] += c[qi] * a[ri], fused
 __device__ __forceinline__ void fma_tile(const float (&c)[TQ],
                                          const float (&a)[TR],
@@ -119,16 +137,19 @@ __device__ __forceinline__ int slot(int t, int i) {
 // rows row-major with row stride ``stride``; c_t the queries transposed
 // (QB a feature).  A thread's rows: slot(tr, ri) with CONSEC (B4: four
 // consecutive rows a half, for float4 writes of a finished tile), or
-// tr + 16 ri (B1).  Eight scalar loads of rows and two float4 of queries
-// feed 64 FMAs a feature.  The loop is not unrolled: with 64
-// accumulators the registers of a deeper unroll spill at two blocks an SM.
-template <bool CONSEC>
+// tr + 16 ri (B1, B2).  Eight scalar loads of rows and two float4 of
+// queries feed 64 FMAs a feature.  B1 and B4 keep the loop rolled: with
+// 64 accumulators and their lists or staging the registers of a deeper
+// unroll spill at two blocks an SM.  B2 keeps no list and unrolls it by
+// two (UNROLL): 0.099 against 0.106 ms at the K-Means fit shape
+// (launch/ann_breakdown.py's probes).  The unroll does not change a value.
+template <bool CONSEC, int UNROLL = 1>
 __device__ __forceinline__ void dots(const float* a_s, int stride,
                                      const float* c_t, int dc, int tq, int tr,
                                      float (&acc)[TQ][TR]) {
     const float* ar = a_s + (CONSEC ? 4 * tr : tr) * stride;
     const float* cq = c_t + 4 * tq;
-#pragma unroll 1
+#pragma unroll (UNROLL)
     for (int j = 0; j < dc; ++j) {
         float a[TR];
 #pragma unroll

@@ -1,19 +1,17 @@
 // Fused squared distance -> nearest rows, for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of the JAX package:
-//   B1  kernels/distance_topk.py::_fused_kernel  (distance_topk, kNN OP1+OP2)
-//   B2  kernels/distance_topk.py::_argmin_kernel (distance_argmin, K-Means
-//       OP1+OP2, Selection Sort with k = 1)
+// Replaces the Pallas TPU kernel B1 of the JAX package:
+//   kernels/distance_topk.py::_fused_kernel (distance_topk, kNN OP1+OP2).
+// (B2, the same file's _argmin_kernel, is csrc/distance_argmin.cu.)
 //
-// Both score rows of A against queries/centroids with the expansion
+// B1 scores rows of A against queries with the expansion
 // ||a||^2 - 2 a.c + ||c||^2 in fp32 on the CUDA cores.  TF32 tensor cores
 // are not used: they keep ~10 mantissa bits, which reorders near neighbours.
 //
-// What bounds them on an H100: fp32 CUDA-core throughput.  At the kNN
+// What bounds it on an H100: fp32 CUDA-core throughput.  At the kNN
 // serving shape (N = 2^20 rows, Q = 1024 queries, d = 21) B1 does
 // 2*N*Q*d = 45 GFLOP against 88 MB of A, ~510 flop per byte, far above the
-// card's ~20 flop/byte fp32 ridge; B2 at the K-Means fit shape (N = 262144,
-// K = 256, d = 21) does 2.8 GFLOP against 22 MB, ~128 flop per byte.
+// card's ~20 flop/byte fp32 ridge.
 //
 // B1's design.  The TPU walks N as one sequential grid with a carried
 // (Q, k) accumulator.  Here a block takes QB = 128 queries and a split of
@@ -66,10 +64,6 @@
 //    chunks of each tile with element loads into one buffer, between
 //    barriers, and adds the row norms after the last chunk.  Both routes
 //    share the arithmetic and the selection.
-//  * B2: one row per thread; centroids are staged in shared memory in tiles
-//    of 32 (so any K*d fits) and read as float4 broadcasts into 32 running
-//    dot products held in registers.  The scan uses strict < in ascending
-//    centroid order: the first index wins ties.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -282,85 +276,6 @@ cudaError_t launch_partial(const float* A, const float* C, float* part_v,
     return cudaGetLastError();
 }
 
-constexpr int AM_ROWS = 128;  // rows per block, one per thread
-constexpr int KT = 32;        // centroids per shared-memory tile
-constexpr int ADC = 32;       // features staged per chunk
-
-__global__ void __launch_bounds__(AM_ROWS)
-argmin_kernel(const float* __restrict__ A, const float* __restrict__ C,
-              float* __restrict__ out_v, int* __restrict__ out_i,
-              int N, int K, int d) {
-    __shared__ float a_s[AM_ROWS][ADC + 1];
-    __shared__ __align__(16) float c_s[ADC][KT];
-    __shared__ float cn_s[KT];
-
-    const int t = threadIdx.x;
-    const int row0 = blockIdx.x * AM_ROWS;
-    const int row = row0 + t;
-    const int nchunks = (d + ADC - 1) / ADC;
-    float an = 0.f;
-    float best = CUDART_INF_F;
-    int best_i = 0;
-
-    for (int k0 = 0; k0 < K; k0 += KT) {
-        const int kt = min(KT, K - k0);
-        float acc[KT];
-#pragma unroll
-        for (int kk = 0; kk < KT; ++kk) acc[kk] = 0.f;
-        float cn_part = 0.f;
-        for (int ch = 0; ch < nchunks; ++ch) {
-            const int c0 = ch * ADC;
-            const int dc = min(ADC, d - c0);
-            __syncthreads();
-            if (nchunks > 1 || k0 == 0) {  // rows: once if d <= ADC
-                for (int e = t; e < AM_ROWS * ADC; e += AM_ROWS) {
-                    const int r = e / ADC, j = e % ADC;
-                    a_s[r][j] = (row0 + r < N && j < dc)
-                        ? A[(size_t)(row0 + r) * d + c0 + j] : 0.f;
-                }
-            }
-            for (int e = t; e < KT * ADC; e += AM_ROWS) {
-                const int kk = e % KT, j = e / KT;
-                c_s[j][kk] = (kk < kt && j < dc)
-                    ? C[(size_t)(k0 + kk) * d + c0 + j] : 0.f;
-            }
-            __syncthreads();
-            if (k0 == 0) {
-                for (int j = 0; j < dc; ++j) an += a_s[t][j] * a_s[t][j];
-            }
-            if (t < KT) {
-                for (int j = 0; j < dc; ++j) cn_part += c_s[j][t] * c_s[j][t];
-            }
-            for (int j = 0; j < dc; ++j) {
-                const float aj = a_s[t][j];
-                const float4* c4 = reinterpret_cast<const float4*>(&c_s[j][0]);
-#pragma unroll
-                for (int q4 = 0; q4 < KT / 4; ++q4) {
-                    const float4 cv = c4[q4];
-                    acc[4 * q4 + 0] += aj * cv.x;
-                    acc[4 * q4 + 1] += aj * cv.y;
-                    acc[4 * q4 + 2] += aj * cv.z;
-                    acc[4 * q4 + 3] += aj * cv.w;
-                }
-            }
-        }
-        if (t < KT) cn_s[t] = cn_part;
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < KT; ++kk) {
-            const float dist = (an - 2.0f * acc[kk]) + cn_s[kk];
-            if (kk < kt && dist < best) {
-                best = dist;
-                best_i = k0 + kk;
-            }
-        }
-    }
-    if (row < N) {
-        out_v[row] = best;
-        out_i[row] = best_i;
-    }
-}
-
 }  // namespace
 
 extern "C" {
@@ -397,16 +312,6 @@ int distance_topk_f32(const float* A, const float* C, float* part_v,
         <<<(Q + per_block - 1) / per_block, bsel::MERGE_THREADS, 0, s>>>(
             part_v, part_i, vals, idx, Q, n_splits * k, k);
     return static_cast<int>(cudaGetLastError());
-}
-
-// A (N, d), C (K, d) fp32 row-major -> out_v (N,), out_i (N,).
-int distance_argmin_f32(const float* A, const float* C, float* out_v,
-                        int* out_i, int N, int K, int d, void* stream) {
-    if (N < 1 || K < 1 || d < 1) return (int)cudaErrorInvalidValue;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    argmin_kernel<<<(N + AM_ROWS - 1) / AM_ROWS, AM_ROWS, 0, s>>>(
-        A, C, out_v, out_i, N, K, d);
-    return (int)cudaGetLastError();
 }
 
 const char* cuda_error_string(int err) {

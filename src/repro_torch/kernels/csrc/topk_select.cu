@@ -54,6 +54,9 @@
 //    the keys below tau go to the block's queue, which follows the list in
 //    one shared buffer of F_CAP keys: a warp scan and one shared atomic a
 //    warp reserve their slots.
+//  * The keys, the bitonic sort, the list merge, the queue reservation and
+//    the split merge are csrc/key_select.cuh's, which B8's fused route
+//    (adc_topk.cu) selects with too.
 //  * Merge: after each push group (a stage; the first stage in F_FIRST
 //    groups) the block synchronises with __syncthreads_or("my warp's push
 //    took the queue to EAGER = max(k, F_EAGER) keys"), and if so sorts
@@ -95,6 +98,8 @@
 #include <climits>
 #include <cstdint>
 
+#include "key_select.cuh"
+
 namespace {
 
 constexpr int TK_THREADS = 512;
@@ -112,54 +117,20 @@ constexpr int F_CAP = 8192;           // keys of the list and its queue
 // the longest list: list, a stage's pushes and a queue as long as the
 // list fit in F_CAP (64 KB, three blocks an SM)
 constexpr int FILTER_K_MAX = 2048;
-constexpr int MERGE_KEYS = 2048;      // most keys the split merge sorts
-constexpr unsigned long long NONE = ~0ull;   // the empty key
-constexpr unsigned FULL = 0xffffffffu;
+using ksel::bitonic;
+using ksel::FULL;
+using ksel::merge_list;
+using ksel::MERGE_KEYS;
+using ksel::NONE;
+using ksel::reserve;
+using ksel::sort_key;
 constexpr size_t F_SMEM = static_cast<size_t>(F_CAP) * 8 + 16;
 static_assert(FILTER_K_MAX + F_STAGE <= F_CAP, "a list and a stage fit");
 static_assert((F_CAP & (F_CAP - 1)) == 0, "F_CAP is a power of two");
 
-__device__ __forceinline__ unsigned long long sort_key(float v, int e) {
-    unsigned int b;
-    if (v != v) {
-        b = 0xFFFFFFFFu;              // every NaN, after +inf
-    } else if (v == 0.f) {
-        b = 0x80000000u;              // -0 sorts as +0
-    } else {
-        b = __float_as_uint(v);
-        b = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-    }
-    return ((unsigned long long)b << 32) | (unsigned int)e;
-}
-
-// int32 key mode: flipping the sign bit maps signed order onto unsigned
-// order (INT_MIN -> 0, INT_MAX -> 0xFFFFFFFF)
-__device__ __forceinline__ unsigned long long sort_key(int v, int e) {
-    const unsigned int b = (unsigned int)v ^ 0x80000000u;
-    return ((unsigned long long)b << 32) | (unsigned int)e;
-}
-
 // digit width below ``shift``: 64 -> 52 -> 40 -> 32 | -> 20 -> 8 -> 0
 __device__ __forceinline__ int digit_bits(int shift) {
     return (shift == 40 || shift == 8) ? 8 : 12;
-}
-
-// Ascending bitonic sort of keys[0, p2), p2 a power of two, by the whole
-// block; ends with a barrier.
-__device__ void bitonic(unsigned long long* keys, int p2) {
-    for (int size = 2; size <= p2; size <<= 1) {
-        for (int stride = size >> 1; stride > 0; stride >>= 1) {
-            for (int i = threadIdx.x; i < p2 / 2; i += blockDim.x) {
-                const int lo = 2 * i - (i & (stride - 1)), hi = lo + stride;
-                const unsigned long long a = keys[lo], b = keys[hi];
-                if ((a > b) == ((lo & size) == 0)) {
-                    keys[lo] = b;
-                    keys[hi] = a;
-                }
-            }
-            __syncthreads();
-        }
-    }
 }
 
 template <typename T>
@@ -315,42 +286,6 @@ __device__ __forceinline__ void load4(const int* p, int* v) {
     v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
 }
 
-// keys[0, k) the sorted list, keys[k, k + *cnt) the queue: sort both
-// together, so the first k are the new list; *cnt = 0.  By the whole
-// block, after a barrier; ends with one.  Returns the new threshold.
-__device__ unsigned long long merge_list(unsigned long long* keys, int k,
-                                         unsigned* cnt) {
-    const int total = k + static_cast<int>(*cnt);
-    int p2 = 1;
-    while (p2 < total) p2 <<= 1;
-    for (int i = total + threadIdx.x; i < p2; i += blockDim.x) keys[i] = NONE;
-    __syncthreads();   // every thread has read *cnt, the padding is set
-    bitonic(keys, p2);
-    if (threadIdx.x == 0) *cnt = 0;
-    const unsigned long long tau = keys[k - 1];
-    __syncthreads();
-    return tau;
-}
-
-// Reserve ``c`` queue slots for this lane, with one shared atomic a warp.
-// Returns (the lane's first slot, the queue's length after the warp's
-// push); the length is 0 if the warp pushes nothing.
-__device__ __forceinline__ uint2 reserve(unsigned* cnt, unsigned c) {
-    const int lane = threadIdx.x & 31;
-    unsigned incl = c;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-        const unsigned y = __shfl_up_sync(FULL, incl, off);
-        if (lane >= off) incl += y;
-    }
-    const unsigned total = __shfl_sync(FULL, incl, 31);
-    if (total == 0) return make_uint2(0, 0);
-    unsigned base = 0;
-    if (lane == 31) base = atomicAdd(cnt, total);
-    base = __shfl_sync(FULL, base, 31);
-    return make_uint2(base + incl - c, base + total);
-}
-
 // Block b: split b % n_splits of row b / n_splits (splits of a row are
 // adjacent blocks).  One split: the row's k smallest into vals/idx; more:
 // the split's list of k keys into part[b * k ..].
@@ -470,31 +405,6 @@ filter_kernel(const T* __restrict__ x, long long ld, int n, int k, int seg,
     }
 }
 
-// The n_splits lists of each row (n_splits * k <= MERGE_KEYS keys) -> its
-// k smallest: one block a row sorts them all.  A row holds at least k
-// real keys, and the empty keys sort after every real one.
-template <typename T>
-__global__ void __launch_bounds__(F_THREADS)
-split_merge_kernel(const T* __restrict__ x, long long ld, int k,
-                   int n_splits, const unsigned long long* __restrict__ part,
-                   T* __restrict__ vals, int* __restrict__ idx) {
-    __shared__ unsigned long long keys[MERGE_KEYS];
-    const int r = blockIdx.x, total = n_splits * k;
-    int p2 = 1;
-    while (p2 < total) p2 <<= 1;
-    const unsigned long long* src = part + static_cast<size_t>(r) * total;
-    for (int i = threadIdx.x; i < p2; i += F_THREADS)
-        keys[i] = i < total ? src[i] : NONE;
-    __syncthreads();
-    bitonic(keys, p2);
-    const T* row = x + static_cast<size_t>(r) * ld;
-    for (int j = threadIdx.x; j < k; j += F_THREADS) {
-        const int e = static_cast<int>(static_cast<unsigned>(keys[j]));
-        idx[static_cast<size_t>(r) * k + j] = e;
-        vals[static_cast<size_t>(r) * k + j] = row[e];
-    }
-}
-
 template <typename T>
 int launch_topk(const T* x, long long ld, int R, int n, int k, T* vals,
                 int* idx, unsigned long long* part, int n_splits, int seg,
@@ -531,8 +441,8 @@ int launch_topk(const T* x, long long ld, int R, int n, int k, T* vals,
         x, ld, n, k, seg, n_splits, vals, idx, part);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || n_splits == 1) return (int)err;
-    split_merge_kernel<T><<<R, F_THREADS, 0, s>>>(x, ld, k, n_splits, part,
-                                                   vals, idx);
+    ksel::split_merge_kernel<T, false><<<R, ksel::MERGE_THREADS, 0, s>>>(
+        x, ld, k, n_splits, part, vals, idx);
     return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
-"""Launchers of the CUDA kernels B1 (distance -> top-k) and B2 (distance ->
-argmin) in ``csrc/distance_topk.cu``.
+"""Launcher of the CUDA kernel B1 (distance -> top-k) in
+``csrc/distance_topk.cu``.
 
-Counterpart of the JAX package's ``kernels/distance_topk.py``.  These
+Counterpart of the JAX package's ``kernels/distance_topk.py`` (its B2,
+``distance_argmin``, is ``kernels/distance_argmin.py`` here).  These
 functions take fp32, contiguous CUDA tensors that ``kernels/ops.py`` has
 already checked, allocate outputs and scratch with ``torch.empty``, and
 launch on the current stream; they never synchronise.
@@ -103,17 +104,3 @@ def launch_topk(a: torch.Tensor, c: torch.Tensor, k: int
     ROUTE_LAUNCHES[way] += 1
     return vals, idx
 
-
-def launch_argmin(a: torch.Tensor, c: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B2: a (N, d), c (K, d) fp32 on the card -> (min sq-dist (N,) f32,
-    nearest id (N,) int32), first index on ties."""
-    fn = _fn("distance_argmin_f32", [_P] * 4 + [_I] * 3 + [_P])
-    N, d = a.shape
-    K = c.shape[0]
-    vals = torch.empty((N,), dtype=torch.float32, device=a.device)
-    idx = torch.empty((N,), dtype=torch.int32, device=a.device)
-    err = fn(a.data_ptr(), c.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-             N, K, d, _stream())
-    _build.check(_STEM, err, f"distance_argmin N={N} K={K} d={d}")
-    return vals, idx

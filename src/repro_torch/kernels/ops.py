@@ -18,16 +18,17 @@ mask ragged edges themselves, so none of that module's padding to block
 multiples (or the GNB padding correction) is needed.
 
 B9 (``gnb_scores``, one query) is B3 launched at B = 1, as ROADMAP B9
-plans; it keeps its own count.  B1, B4, B5, B6, B10 and B11 also count
-their launches per route (``ROUTE_LAUNCHES`` in their modules), so a run
-can show which kernel design served it.
+plans; it keeps its own count.  B1, B2, B4, B5, B6, B8, B10 and B11 also
+count their launches per route (``ROUTE_LAUNCHES`` in their modules), so
+a run can show which kernel design served it.
 
 The int8 tier's B6 (``distance_topk_q8``) and B7 (``distance_argmin_q8``)
 and IVF-PQ's B8 (``adc_topk``) take integer tensors and return exact
-integers.  B6 past B1's list length and B8 at every k write an int32
-matrix in chunks of queries and hand it to B5 in its int32 key mode: a
-call then counts its matrix launches under its own name and its
-selections under ``topk_smallest``.
+integers.  B8 up to its fused list length (``ann.FUSED_K_MAX``) sums and
+selects in one launch.  B6 past B1's list length and B8 past its own
+write an int32 matrix in chunks of queries and hand it to B5 in its
+int32 key mode: a call then counts its matrix launches under its own
+name and its selections under ``topk_smallest``.
 """
 from __future__ import annotations
 
@@ -35,6 +36,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import ann as _ann
+from repro_torch.kernels import distance_argmin as _da
 from repro_torch.kernels import distance_topk as _dt
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gemm as _gemm
@@ -60,13 +63,15 @@ _INT32 = (torch.int32,)
 
 def reset_launches() -> None:
     """Set every count to 0: ``LAUNCHES`` and the per-route counts of B1,
-    B4, B5, B6, B10 and B11 (``ROUTE_LAUNCHES`` of
-    ``kernels/distance_topk.py``, ``kernels/pairwise_sq_dist.py``,
-    ``kernels/topk_select.py``, ``kernels/quantized.py``,
-    ``kernels/gemm.py`` and ``kernels/flash_attention.py``)."""
-    for counts in (LAUNCHES, _dt.ROUTE_LAUNCHES, _pd.ROUTE_LAUNCHES,
-                   _ts.ROUTE_LAUNCHES, _q.ROUTE_LAUNCHES,
-                   _gemm.ROUTE_LAUNCHES, _fa.ROUTE_LAUNCHES):
+    B2, B4, B5, B6, B8, B10 and B11 (``ROUTE_LAUNCHES`` of
+    ``kernels/distance_topk.py``, ``kernels/distance_argmin.py``,
+    ``kernels/pairwise_sq_dist.py``, ``kernels/topk_select.py``,
+    ``kernels/quantized.py``, ``kernels/ann.py``, ``kernels/gemm.py`` and
+    ``kernels/flash_attention.py``)."""
+    for counts in (LAUNCHES, _dt.ROUTE_LAUNCHES, _da.ROUTE_LAUNCHES,
+                   _pd.ROUTE_LAUNCHES, _ts.ROUTE_LAUNCHES, _q.ROUTE_LAUNCHES,
+                   _ann.ROUTE_LAUNCHES, _gemm.ROUTE_LAUNCHES,
+                   _fa.ROUTE_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -144,7 +149,7 @@ def distance_argmin(a: torch.Tensor, c: torch.Tensor
                          f"{tuple(c.shape)}")
     if dev.type == "cpu":
         return ref.distance_argmin(a, c)
-    out = _dt.launch_argmin(a.float(), c.float())
+    out = _da.launch(a.float(), c.float())
     LAUNCHES["distance_argmin"] += 1
     return out
 
@@ -311,7 +316,10 @@ def adc_topk(qlut: torch.Tensor, codes: torch.Tensor,
         raise ValueError(f"adc_topk: k={k} outside [1, L={L}]")
     if dev.type == "cpu":
         return ref.adc_topk(qlut, codes, cand_ids, k)
-    from repro_torch.kernels import ann as _ann
+    if _ann.route(k) == "fused":
+        out = _ann.launch_topk(qlut, codes, cand_ids, k)
+        LAUNCHES["adc_topk"] += 1
+        return out
     return _matrix_topk(lambda lo, hi: _ann.launch_dist(
         qlut[lo:hi], codes[lo:hi], cand_ids[lo:hi]), Q, L, k, "adc_topk")
 

@@ -23,10 +23,10 @@ compare them.  The shapes:
               arm's (1024, 2^20) matrix at k = 64;
   B5 kNN      that matrix's rows (B4's transpose, in place), k = 64;
   B5 ANN i32  the int32 ADC distance matrix of the IVF-PQ ANN path's
-              first bucket, k = max(k, refine) = 128: an ANN fitted on
-              2^18 seeded 256-class ``class_blobs`` rows (256 cells,
-              m = 21, 256 codes, k = 10, refine = 128, nprobe = 16, the
-              configuration of ``chip_smoke.py``), the bucket's 1024
+              first bucket, k = max(k, refine) = 128: the ANN of
+              ``chip_smoke.py`` (``kernel_cuts.ann_fit``: 2^18 seeded
+              256-class ``class_blobs`` rows, 256 cells, m = 21, 256
+              codes, k = 10, refine = 128, nprobe = 16), the bucket's 1024
               queries probed by B1 and their candidates' ADC distances
               computed by B8's matrix kernel (``kernels/ann.launch_dist``),
               so the rows hold the path's ties and list padding;
@@ -65,8 +65,6 @@ N_ROWS, D, CLASSES, K = 1 << 20, 21, 3, 4
 N_QUERIES, BUCKET = 4096, 1024
 ANN_CELLS, ANN_CLASSES, ANN_K = 256, 256, 16
 BLOCKED_K = 64
-ANN_FIT = dict(n=1 << 18, classes=256, cells=256, pq_m=21, n_codes=256,
-               k=10, refine=128, nprobe=16, train_iters=10)
 KMEANS_ROWS, KMEANS_K = 1 << 18, 256
 
 
@@ -99,12 +97,11 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import distance_topk as dt
     from repro_torch.kernels import pairwise_sq_dist as pd
-    from repro_torch.core.ann import build_query_luts
     from repro_torch.kernels import ann as kann
     from repro_torch.kernels import quantized as qk
     from repro_torch.kernels import topk_select as ts
     from repro_torch.serving import NonNeuralServeEngine
-    from kernel_cuts import card, events_ms
+    from kernel_cuts import ann_bucket, ann_fit, card, events_ms
     from lm_kernel_times import REPS, device_ms
 
     _build.build_all()
@@ -122,22 +119,10 @@ def main(argv=None) -> int:
     scale = qk.feature_scales(A.abs().amax(0))
     A8, C8 = qk.quantize_rows(A, scale), qk.quantize_rows(Cq, scale)
     # the ANN path's first bucket: its ADC distance matrix for B5 int32
-    Xf, yf = class_blobs(n=ANN_FIT["n"] + N_QUERIES, d=D,
-                         n_class=ANN_FIT["classes"], seed=3)
-    ann = est_mod.make_fitted(
-        "ann", Xf[:ANN_FIT["n"]], yf[:ANN_FIT["n"]],
-        n_groups=ANN_FIT["classes"], device=dev, k=ANN_FIT["k"],
-        n_cells=ANN_FIT["cells"], nprobe=ANN_FIT["nprobe"],
-        pq_m=ANN_FIT["pq_m"], n_codes=ANN_FIT["n_codes"],
-        refine=ANN_FIT["refine"], train_iters=ANN_FIT["train_iters"])
-    p = ann.params
-    Xb = on_card(Xf[ANN_FIT["n"]:ANN_FIT["n"] + BUCKET])
-    _, probed = ops.distance_topk(p.centroids, Xb, ANN_FIT["nprobe"])
-    cand = p.cell_ids[probed.long()].reshape(BUCKET, -1).contiguous()
-    codes = p.codes[cand.clamp(min=0).long()].contiguous()
-    Xi = kann.launch_dist(build_query_luts(Xb, p.codebooks), codes, cand)
-    ann_select_k = max(ANN_FIT["k"], ANN_FIT["refine"])
-    del ann, p, Xb, probed, cand, codes
+    ann, ann_q, _ = ann_fit(dev, N_QUERIES)
+    qlut, codes, cand, ann_select_k = ann_bucket(ann, ann_q[:BUCKET])
+    Xi = kann.launch_dist(qlut, codes, cand)
+    del ann, ann_q, qlut, codes, cand
     routes = {name: getattr(mod, "ROUTE_LAUNCHES", None)
               for name, mod in (("b1", dt), ("b6", qk), ("b4", pd),
                                 ("b5", ts))}

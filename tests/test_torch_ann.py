@@ -147,9 +147,12 @@ def test_adc_wrapper_validates_inputs():
 
 
 def test_adc_wrapper_on_device_tensors_launches(monkeypatch):
-    """The CUDA branch, driven on the CPU: B8 writes the distances of each
-    query chunk and B5's int32 mode selects; the answer is the plain
-    version's and no plain version of the whole op runs."""
+    """The CUDA branch, driven on the CPU, at a k past the fused list
+    (``ann.FUSED_K_MAX`` lowered to 8 here, so k = 9 takes the matrix
+    route): B8 writes the distances of each query chunk and B5's int32
+    mode selects; the answer is the plain version's and no plain version
+    of the whole op runs.  (The fused route: tests/test_torch_argmin_adc.
+    py.)"""
     calls = []
 
     def dist(qlut, codes, ids):
@@ -168,6 +171,7 @@ def test_adc_wrapper_on_device_tensors_launches(monkeypatch):
         raise AssertionError("a device tensor reached a plain version")
 
     monkeypatch.setattr(tak, "launch_dist", dist)
+    monkeypatch.setattr(tak, "FUSED_K_MAX", 8)
     monkeypatch.setattr(tts, "launch", select)
     monkeypatch.setattr(tdispatch, "BLOCKED_BYTES", 4 * 37 * 2)
     qlut, codes, ids = (torch.from_numpy(a) for a in _adc_case(1))

@@ -24,6 +24,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import distribution as tdist
 from repro_torch.core import topk as ttopk
+from repro_torch.kernels import distance_argmin as tda
 from repro_torch.kernels import distance_topk as tdt
 from repro_torch.kernels import gnb_score as tgs
 from repro_torch.kernels import ops as tops
@@ -229,7 +230,7 @@ def test_cpu_tensors_run_plain_and_count_no_launch(monkeypatch):
         raise AssertionError("a CPU tensor reached a kernel launcher")
 
     monkeypatch.setattr(tdt, "launch_topk", boom)
-    monkeypatch.setattr(tdt, "launch_argmin", boom)
+    monkeypatch.setattr(tda, "launch", boom)
     monkeypatch.setattr(tgs, "launch_scores_batch", boom)
     tops.reset_launches()
     a, c = _t(_points(0, 30, 4), _points(1, 3, 4))
@@ -259,7 +260,7 @@ def test_device_tensors_launch_and_never_reach_plain(monkeypatch):
     for name in ("distance_topk", "distance_argmin", "gnb_scores_batch"):
         monkeypatch.setattr(tref, name, boom)
     monkeypatch.setattr(tdt, "launch_topk", launcher("topk"))
-    monkeypatch.setattr(tdt, "launch_argmin", launcher("argmin"))
+    monkeypatch.setattr(tda, "launch", launcher("argmin"))
     monkeypatch.setattr(tgs, "launch_scores_batch", launcher("gnb"))
     real_check = tops._check
     monkeypatch.setattr(tops, "_check", lambda op, **kw: (

@@ -363,6 +363,11 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
         ["block_select.cuh", "distance_tile.cuh", "hopper.cuh"]
     assert [h.name for h in _build.headers(csrc / "pairwise_sq_dist.cu")] \
         == ["distance_tile.cuh", "hopper.cuh"]
+    assert [h.name for h in _build.headers(csrc / "distance_argmin.cu")] \
+        == ["distance_tile.cuh", "hopper.cuh"]
+    for src in ("adc_topk.cu", "topk_select.cu"):
+        assert [h.name for h in _build.headers(csrc / src)] == \
+            ["key_select.cuh"]
     assert _build.headers(csrc / "gnb_score.cu") == []
     before = {s.stem: _build._target(s).name for s in _build.sources()}
     hdr = csrc / "hopper.cuh"
@@ -370,7 +375,7 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     after = {s.stem: _build._target(s).name for s in _build.sources()}
     changed = {stem for stem in before if before[stem] != after[stem]}
     assert changed == {"gemm", "flash_attention", "distance_topk",
-                       "quantized", "pairwise_sq_dist"}
+                       "distance_argmin", "quantized", "pairwise_sq_dist"}
     hdr = csrc / "block_select.cuh"
     hdr.write_text(hdr.read_text() + "\n// edited\n")
     again = {s.stem: _build._target(s).name for s in _build.sources()}
@@ -380,4 +385,9 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     hdr.write_text(hdr.read_text() + "\n// edited\n")
     last = {s.stem: _build._target(s).name for s in _build.sources()}
     assert {stem for stem in again if again[stem] != last[stem]} == \
-        {"distance_topk", "pairwise_sq_dist"}
+        {"distance_topk", "distance_argmin", "pairwise_sq_dist"}
+    hdr = csrc / "key_select.cuh"
+    hdr.write_text(hdr.read_text() + "\n// edited\n")
+    final = {s.stem: _build._target(s).name for s in _build.sources()}
+    assert {stem for stem in last if last[stem] != final[stem]} == \
+        {"adc_topk", "topk_select"}
