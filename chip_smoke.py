@@ -28,7 +28,14 @@ the CUDA toolkit.  In order it
    beside its bound and ``cdist`` + ``argmin``; B8 on both its routes
    (``fused`` up to ``FUSED_K_MAX``, the matrix and B5 past it), at the
    ANN bucket on either side of that capacity, on all-padding rows, L not
-   a multiple of 32, a split query and LUT entries past 255; B1 and B6
+   a multiple of 32, a split query and LUT entries past 255; B3 (and B9,
+   B3 at B = 1) on both its routes (``resident``, ``stream`` past its
+   resident (mu, var) pairs), at C = 16, 17, 33 (its class groups),
+   B = 1, 31, 1025 and d = 1 to 1300, each timed at the path shape by
+   graph replay beside CUDA events; B7 on both its routes (``resident``,
+   ``stream`` past its resident centroids), on its packed keys and past
+   them, at N = 1, 1024, 1025 and on duplicated centroids, bit for bit,
+   and timed at the K-Means fit shape and at a serving bucket; B1 and B6
    also on an unaligned view
    (``A[1:]``, their ``plain`` route), a last tile ending off a 16-byte
    multiple, rows in adversarial order (every row beats the threshold),
@@ -66,7 +73,9 @@ the CUDA toolkit.  In order it
    against ``path="ref"`` and its recall@10 against exact fused kNN, and
    B5's int32 mode is timed on a bucket's ADC distance matrix (B8's
    matrix route); the K-Means path's B2 launches are checked to take the
-   bulk route in the fit and the narrow route in serving;
+   bulk route in the fit and the narrow route in serving, every B3 launch
+   of the GNB, GMM-wide and B9 paths and every B7 launch of the K-Means
+   int8 path the resident route;
 4. serves stablelm-3b at full width (bf16, seeded weights) through
    ``ServeEngine.generate``: batch 4, prompts of 512 seeded tokens, 32
    greedy new tokens, with B10 computing every projection and the
@@ -1001,9 +1010,23 @@ def main() -> int:
               f"+inf in both versions; the other rows max_abs_err="
               f"{err:.3g} near_ties={n_near}")
         edges += 1
-    for B, d, C in [(1, 784, 10), (3, 1, 1), (33, 5, 9), (1023, 65, 257)]:
+    # B3's Hopper design: class groups of at most 16 (C = 16, 17, 33),
+    # one query (B9's case) and ragged query counts, d from one feature to
+    # past the resident (mu, var) pairs (C d past gnb_score.RESIDENT_MAX:
+    # the stream route), each on the route its rule gives
+    from repro_torch.kernels import gnb_score as kgs
+    for B, d, C in [(1, 784, 10), (3, 1, 1), (33, 5, 9), (1023, 65, 257),
+                    (1, 784, 16), (31, 785, 16), (1025, 5, 17), (31, 1, 33),
+                    (1, 785, 17), (5, 1300, 10), (1025, 784, 33),
+                    (1025, 784, 10)]:
+        before = dict(kgs.ROUTE_LAUNCHES)
+        way = kgs.route(C, d)
         err = gnb_case(*gnb_inputs(B, d, C), f"B3 B={B} d={d} C={C}")
-        print(f"[edge] B3 B={B} d={d} C={C}: max_abs_err={err:.3g}")
+        check(kgs.ROUTE_LAUNCHES[way] == before[way] + 1,
+              f"B3 B={B} d={d} C={C}: routes {kgs.ROUTE_LAUNCHES}, the rule "
+              f"gives {way}")
+        print(f"[edge] B3 B={B} d={d} C={C} ({way} route, plan "
+              f"{kgs.plan(B, C, d, sms)}): max_abs_err={err:.3g}")
         edges += 1
 
     def dist_case(N, K, d, col_major, ints, what):
@@ -1088,16 +1111,22 @@ def main() -> int:
     select_case(e.T[::3], 100, "B5 on a row-strided view")
     edges += 3
     del e
-    for d, C in [(784, 10), (1, 1), (65, 257), (5, 9)]:
+    for d, C in [(784, 10), (1, 1), (65, 257), (5, 9), (1, 16), (5, 17),
+                 (784, 33), (785, 10), (1300, 17)]:
         X, mu_e, var_e, lp_e = gnb_inputs(1, d, C)
+        before = dict(kgs.ROUTE_LAUNCHES)
+        way = kgs.route(C, d)
         ks = ops.gnb_scores(X[0], mu_e, var_e, lp_e)
         ps = ref.gnb_scores(X[0], mu_e, var_e, lp_e)
         torch.cuda.synchronize()
         check(ks.shape == (C,) and bool(torch.isclose(ks, ps, **TOL).all()),
               f"B9 d={d} C={C}: scores differ by "
               f"{float((ks - ps).abs().max())}")
-        print(f"[edge] B9 d={d} C={C}: max_abs_err="
-              f"{float((ks - ps).abs().max()):.3g}")
+        check(kgs.ROUTE_LAUNCHES[way] == before[way] + 1,
+              f"B9 d={d} C={C}: B3 routes {kgs.ROUTE_LAUNCHES}, the rule "
+              f"gives {way}")
+        print(f"[edge] B9 d={d} C={C} (B3 at B=1, {way} route): "
+              f"max_abs_err={float((ks - ps).abs().max()):.3g}")
         edges += 1
     # ---- slice 3: integer kernels, bit-equal to their plain versions
     def i8(shape, kind="normal"):
@@ -1292,14 +1321,28 @@ def main() -> int:
     print(f"[time] B6 adversarial order N=65536 Q=129 d=21 k=4: kernel "
           f"{adv_ms[0]:.4f} ms; the same rows shuffled {adv_ms[1]:.4f} ms")
     del A8_view, A8_adv, C8_adv, A8_shuf
+    # B7 on both its routes (``resident``; ``stream`` past
+    # quantized.ARGMIN_RESIDENT_MAX), on its packed keys (d = 21 up to
+    # K = 2048) and past them (d = 832), at N = 1, 1024 and 1025 and on
+    # duplicated centroids (the first index wins)
     for N, d, K, kind in [(4099, 1, 1, "dup"), (4099, 5, 257, "dup"),
                           (1001, 832, 257, "normal"), (129, 21, 33, "dup"),
-                          (1, 21, 257, "normal"), (70_001, 21, 256, "sat")]:
+                          (1, 21, 257, "normal"), (70_001, 21, 256, "sat"),
+                          (1, 1, 1, "normal"), (1024, 21, 255, "dup"),
+                          (1025, 21, 257, "normal"), (1024, 21, 1200, "dup"),
+                          (1025, 21, 2049, "normal"), (1025, 832, 1, "sat"),
+                          (70, 832, 257, "dup"), (1024, 1, 256, "dup")]:
         A8, C8 = i8((N, d), kind), i8((K, d), kind)
+        before = dict(qk.ARGMIN_ROUTE_LAUNCHES)
+        way = qk.argmin_route(K, d)
         equal_case(f"B7 N={N} d={d} K={K}", ops.distance_argmin_q8(A8, C8),
                    ref.distance_argmin_q8(A8, C8))
-        print(f"[edge] B7 N={N} d={d} K={K} {kind}: distances and "
-              "centroids equal")
+        check(qk.ARGMIN_ROUTE_LAUNCHES[way] == before[way] + 1,
+              f"B7 N={N} d={d} K={K}: routes {qk.ARGMIN_ROUTE_LAUNCHES}, the "
+              f"rule gives {way}")
+        print(f"[edge] B7 N={N} d={d} K={K} {kind} ({way} route, plan "
+              f"{qk.argmin_plan(N, K, d, sms)}): distances and centroids "
+              "equal")
         edges += 1
     for fn in (lambda: ops.distance_topk_q8(i8((10, 833)), i8((2, 833)), 1),
                lambda: ops.distance_argmin_q8(i8((10, 833)), i8((2, 833)))):
@@ -1452,19 +1495,26 @@ def main() -> int:
     d_g = d
     b, by = bound_ms(7 * B * C * d + C * d + B * C,
                      4 * (B * d + 2 * C * d + C + B * C), peaks)
+    # ms: device time (the replay of a CUDA graph of 20 calls), which the
+    # redesigned B3 takes in less than the wrapper's host time, so a loop
+    # of calls timed by events (events_ms) measures the host
+    from repro_torch.launch.lm_kernel_times import device_ms
     kernels["B3"] = dict(
         name="gnb_scores_batch", route="cuda",
         source="src/repro_torch/kernels/csrc/gnb_score.cu",
         replaces="src/repro/kernels/gnb_score.py:38",
         max_abs_err=err,
-        ms=cuda_ms(torch, lambda: ops.gnb_scores_batch(Xg, mu, var, lp),
-                   200),
+        ms=device_ms(lambda: ops.gnb_scores_batch(Xg, mu, var, lp)),
+        events_ms=cuda_ms(torch, lambda: ops.gnb_scores_batch(Xg, mu, var,
+                                                              lp), 200),
         plain_ms=cuda_ms(torch, lambda: ref.gnb_scores_batch(Xg, mu, var,
                                                              lp), 50),
         bound_ms=b, bound_by=by, library_ms=None)
     kernels["B3"]["serve_ms"] = kernels["B3"]["ms"]
-    print(f"[kernel] B3 gnb_scores_batch B={B} C={C} d={d}: "
-          f"max_abs_err={err:.3g}")
+    print(f"[kernel] B3 gnb_scores_batch B={B} C={C} d={d} "
+          f"({kgs.route(C, d)} route, plan {kgs.plan(B, C, d, sms)}): "
+          f"device {kernels['B3']['ms']:.4f} ms (graph replay), events "
+          f"{kernels['B3']['events_ms']:.4f} ms, max_abs_err={err:.3g}")
 
     # B4 at the kNN serving shape: the (N, Q) matrix of one full bucket,
     # column-major as the blocked kNN arm writes it
@@ -1609,11 +1659,15 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/gnb_score.cu",
         replaces="src/repro/kernels/gnb_score.py:20",
         max_abs_err=float((ks - ps).abs().max()),
-        ms=cuda_ms(torch, lambda: ops.gnb_scores(xg, mu, var, lp), 200),
+        ms=device_ms(lambda: ops.gnb_scores(xg, mu, var, lp)),
+        events_ms=cuda_ms(torch, lambda: ops.gnb_scores(xg, mu, var, lp),
+                          200),
         plain_ms=cuda_ms(torch, lambda: ref.gnb_scores(xg, mu, var, lp),
                          200),
         bound_ms=b, bound_by=by, library_ms=None)
-    print(f"[kernel] B9 gnb_scores C={C} d={d_g}: "
+    print(f"[kernel] B9 gnb_scores C={C} d={d_g} (B3 at B=1, plan "
+          f"{kgs.plan(1, C, d_g, sms)}): device {kernels['B9']['ms']:.4f} "
+          f"ms (graph replay), events {kernels['B9']['events_ms']:.4f} ms, "
           f"max_abs_err={kernels['B9']['max_abs_err']:.3g}")
 
     # ---- slice 3: B6 and B7 on the int8 lattice of the main-path data
@@ -1709,11 +1763,20 @@ def main() -> int:
         bound_ms=b, bound_by=by,
         library_ms=library("B7", lambda: torch.min(int_mm_dist(A28, C28),
                                                    dim=1), 10))
-    kernels["B7"]["serve_ms"] = cuda_ms(
+    equal_case("B7 serving bucket", ops.distance_argmin_q8(Aq28, C28),
+               ref.distance_argmin_q8(Aq28, C28))
+    kernels["B7"]["serve_ms"] = device_ms(
+        lambda: ops.distance_argmin_q8(Aq28, C28))
+    kernels["B7"]["serve_events_ms"] = cuda_ms(
         torch, lambda: ops.distance_argmin_q8(Aq28, C28), 200)
-    print(f"[kernel] B7 distance_argmin_q8 N={N} K={K} d={d}: equal to the "
-          f"plain version; at the serving shape N={MAX_BATCH}: "
-          f"{kernels['B7']['serve_ms']:.4f} ms")
+    print(f"[kernel] B7 distance_argmin_q8 N={N} K={K} d={d} "
+          f"({qk.argmin_route(K, d)} route, plan "
+          f"{qk.argmin_plan(N, K, d, sms)}): {kernels['B7']['ms']:.4f} ms "
+          f"(events), equal to the plain version; at the serving bucket "
+          f"N={MAX_BATCH} (plan {qk.argmin_plan(MAX_BATCH, K, d, sms)}): "
+          f"device {kernels['B7']['serve_ms']:.4f} ms (graph replay), "
+          f"events {kernels['B7']['serve_events_ms']:.4f} ms, equal to the "
+          "plain version")
     # B2 at d = 1, K = 256: each PQ codebook fit of the ANN path (65,536
     # training rows) and encoding (every row)
     A1 = A2[:, :1].contiguous()
@@ -1773,7 +1836,9 @@ def main() -> int:
         routes = dict(b1=dict(kdt.ROUTE_LAUNCHES), b6=dict(qk.ROUTE_LAUNCHES),
                       b4=dict(kpd.ROUTE_LAUNCHES), b5=dict(kts.ROUTE_LAUNCHES),
                       b2=dict(kda.ROUTE_LAUNCHES),
-                      b8=dict(kann.ROUTE_LAUNCHES))
+                      b8=dict(kann.ROUTE_LAUNCHES),
+                      b3=dict(kgs.ROUTE_LAUNCHES),
+                      b7=dict(qk.ARGMIN_ROUTE_LAUNCHES))
         wall = time.perf_counter() - t0
         check(set(engine.bucket_launches) <= warmed,
               f"{algo}: served buckets {sorted(engine.bucket_launches)} "
@@ -1990,8 +2055,13 @@ def main() -> int:
     top2 = res_ref.aux.topk(2, dim=1).values
     check(bool(torch.isclose(top2[:, 0], top2[:, 1], **TOL)[odd].all()),
           "gnb: a class differs from the ref arm without a near-tie")
+    n_b3 = run["launches"]["gnb_scores_batch"]
+    check(run["routes"]["b3"] == {"resident": n_b3, "stream": 0},
+          f"gnb: B3 routes {run['routes']['b3']}: not all of its {n_b3} "
+          "launches on the resident route")
     report("gnb", ["B3"], run, f"classes differing at near-ties="
-           f"{int(odd.sum())}", kernels["B3"]["serve_ms"])
+           f"{int(odd.sum())}, every B3 launch on the resident route",
+           kernels["B3"]["serve_ms"])
     fitted["gnb"] = run["est"]
 
     # B9's own entry, ops.gnb_scores: one query at a time against the
@@ -2007,6 +2077,9 @@ def main() -> int:
     check(b9["launches"]["gnb_scores"] == singles and
           sum(b9["launches"].values()) == singles,
           f"gnb one query: launches {b9['launches']} for {singles} calls")
+    check(kgs.ROUTE_LAUNCHES == {"resident": singles, "stream": 0},
+          f"gnb one query: B3 routes {kgs.ROUTE_LAUNCHES} for {singles} "
+          "calls, not all resident")
     for i, s1 in enumerate(one):
         check(torch.allclose(s1, res.aux[i], **TOL),
               f"gnb one query: scores of query {i} differ from its batch "
@@ -2015,7 +2088,8 @@ def main() -> int:
     print(f"[path] gnb one query: ops.gnb_scores (B9) launches={n_launch} "
           f"(kernel {kernels['B9']['ms']:.4f} ms, plain "
           f"{kernels['B9']['plain_ms']:.4f} ms) for {singles} queries, "
-          "scores equal to their rows of the served batch")
+          "all on B3's resident route, scores equal to their rows of the "
+          "served batch")
     del run, res, res_ref, one, Xs
 
     # GMM at the GNB width: EM on the chunked E-step, served through B3
@@ -2023,9 +2097,14 @@ def main() -> int:
     check(run["acc"] >= 0.95, f"gmm wide: {run['acc']} of the queries in "
           "their blob")
     err, n_odd, n_iter = gmm_checks("gmm wide", run, gnb_data[2])
+    n_b3 = run["launches"]["gnb_scores_batch"]
+    check(run["routes"]["b3"] == {"resident": n_b3, "stream": 0},
+          f"gmm wide: B3 routes {run['routes']['b3']}: not all of its "
+          f"{n_b3} launches on the resident route")
     report("gmm wide", ["B3"], run, f"n_iter={n_iter}, log-resp max diff "
            f"from the ref arm {err:.3g}, classes differing at near-ties="
-           f"{n_odd}", kernels["B3"]["serve_ms"])
+           f"{n_odd}, every B3 launch on the resident route",
+           kernels["B3"]["serve_ms"])
     fitted["gmm"] = run["est"]
     del run
 
@@ -2088,8 +2167,13 @@ def main() -> int:
     run = drive("kmeans", km_data, KMEANS["K"], est=fitted["kmeans"],
                 policy="int8")
     msg = int8_checks("kmeans", run)
+    n_b7 = run["launches"]["distance_argmin_q8"]
+    check(run["routes"]["b7"] == {"resident": n_b7, "stream": 0},
+          f"kmeans int8: B7 routes {run['routes']['b7']}: not all of its "
+          f"{n_b7} launches on the resident route")
     report("kmeans int8", ["B7"], run, f"{msg}; assignments and distances "
-           "equal to the plain version's", kernels["B7"]["serve_ms"])
+           "equal to the plain version's, every B7 launch on the resident "
+           "route", kernels["B7"]["serve_ms"])
     del run
     for algo, data, groups in (("gnb", gnb_data, GNB["classes"]),
                                ("gmm", gnb_data, GNB["classes"]),

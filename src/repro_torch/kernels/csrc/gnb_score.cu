@@ -1,91 +1,253 @@
 // Batched Gaussian Naive Bayes joint log-likelihood, for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel B3 of the JAX package:
+// Replaces the Pallas TPU kernels B3 and B9 of the JAX package:
 //   kernels/gnb_score.py::_gnb_batch_kernel (gnb_scores_batch, paper Fig. 5
-//   OP1 + OP2):  out[b, c] = sum_f -1/2 ((x - mu)^2 / var + log var
-//                                       + log 2 pi) + log_prior[c]
+//   OP1 + OP2) and, launched with one query, kernels/gnb_score.py::
+//   _gnb_kernel (gnb_scores):
+//     out[b, c] = sum_f -1/2 ((x - mu)^2 / var + log var + log 2 pi)
+//                 + log_prior[c]
 //
 // What bounds it on an H100: at the GNB serving shape (B = 1024 queries,
-// C = 10 classes, d = 784) the call reads 3.2 MB of X and does 7 fp32
-// operations on each of B*C*d = 8.0 M terms (one of them a division), about
-// a microsecond either way; at this size launch overhead and the division's
-// latency dominate.
+// C = 10 classes, d = 784) the call reads 3.3 MB, 0.0010 ms at the memory
+// rate, and has B C d = 8.0 M terms of an IEEE-rounded division and four
+// other operations: about 14 instructions a term, ~4 us of issue with every
+// scheduler of the card busy.  So the issue rate, and filling the card with
+// warps that keep it busy, set the pace; the bytes do not.
 //
-// What the design does about it: the TPU walks the feature axis as a
-// sequential grid dimension that accumulates into the output block.  Here
-// one block owns a (32 query x 8 class) output tile and loops over d
-// inside the block, staging 64-feature chunks of X, mu and var in shared
-// memory; nothing is carried between blocks and each output is written
-// once.  log var is computed in the kernel, once per (class, feature) per
-// block while staging, not per query.  The ragged feature edge is masked
-// in the kernel, so the reference wrapper's padding and its
-// 1/2 log(2 pi) n_pad correction do not exist here.  The division is the
-// IEEE-rounded one (no fast math), as in the plain version.
+// The design.
+//  * The terms that do not depend on the query, -1/2 sum_f (log var +
+//    log 2 pi) + log_prior, are one constant a class: gnb_class_const takes
+//    them once a call (a block a class), so no block takes a logarithm.
+//    The scores kernel then sums (x - mu)^2 / var alone and writes
+//    -1/2 sum + constant.  Each term rounds as the plain version's
+//    (x - mu, its square, the IEEE-rounded division: no fast math, no
+//    reciprocal); only the order of the sum differs, which the plain
+//    version's tolerance covers.
+//  * A warp or more a query (``split``, by the wrapper's plan): lane l of
+//    warp w takes the features 32 j + l of the 32-feature stripes
+//    j = w % split, + split, .. and keeps a running sum for every class of
+//    a group of at most CG = 16 in registers; classes past 16 loop over
+//    groups (C split as evenly as it goes: the kernel is a template on
+//    the group's size, so its class loops unroll without a test).  The
+//    split fills the card: at B = 1024 four warps a query make 256 blocks
+//    of 16 warps, two an SM; at B = 1 (B9) sixteen warps share the query.
+//    The warps of a query reduce by shuffles, then through shared memory.
+//  * Every (mu, var) pair and numerator of a feature is formed before its
+//    divisions: each division is nvcc's IEEE sequence with its own
+//    slow-path branch, which no instruction crosses, so the loads and
+//    subtractions of a feature overlap only when they come first.
+//  * mu and var are staged in shared memory as (mu, var) pairs, a class's
+//    features in a row: a lane's 8-byte load of its feature is
+//    conflict-free and feeds one term.  Where a group's C d pairs fit
+//    RESIDENT_MAX bytes (C = 10, d = 784: 62,720) they are staged once a
+//    block and stay resident (route "resident"); else each block streams
+//    chunks of ``chunk`` features of each group in turn, two barriers a
+//    chunk (route "stream").
+//  * X is read once, by the lane whose feature it is, coalesced, from
+//    device memory (a group of 16 classes or fewer reads it once).
+//  * Blocks are persistent (at most two an SM): a block walks its query
+//    groups, so the resident pairs are staged once a block.
+//  * Measured on an H100 (launch/gnb_breakdown.py --new): of ~0.0135 ms a
+//    GNB bucket, ~0.004 is the divisions, ~0.002 the constants' launch,
+//    ~0.007 the launches, staging and stores without any term.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int GCT = 8;    // classes per block (threadIdx.x)
-constexpr int GBT = 32;   // queries per block (threadIdx.y)
-constexpr int GDC = 64;   // features staged per chunk
+constexpr int WARPS = 16;               // warps of a scores block
+constexpr int THREADS = WARPS * 32;
+constexpr int CG = 16;                  // classes of a group: a lane's sums
+constexpr int RESIDENT_MAX = 98304;     // bytes of staged (mu, var) pairs
+constexpr int CONST_THREADS = 256;
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2PI = 1.8378770664093453f;
 
-__global__ void __launch_bounds__(GCT * GBT)
-gnb_batch_kernel(const float* __restrict__ X, const float* __restrict__ mu,
-                 const float* __restrict__ var,
-                 const float* __restrict__ log_prior, float* __restrict__ out,
-                 int B, int C, int d) {
-    __shared__ float x_s[GBT][GDC + 1];
-    __shared__ float mu_s[GCT][GDC + 1];
-    __shared__ float var_s[GCT][GDC + 1];
-    __shared__ float lv_s[GCT][GDC + 1];
+// cst[c] = -1/2 sum_f (log var[c, f] + log 2 pi) + log_prior[c]
+__global__ void __launch_bounds__(CONST_THREADS)
+gnb_class_const(const float* __restrict__ var,
+                const float* __restrict__ log_prior, float* __restrict__ cst,
+                int C, int d) {
+    __shared__ float part[CONST_THREADS / 32];
+    const int c = blockIdx.x;
+    float s = 0.f;
+    for (int f = threadIdx.x; f < d; f += CONST_THREADS)
+        s += logf(var[static_cast<size_t>(c) * d + f]) + LOG2PI;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+    if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = s;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        float t = 0.f;
+        for (int w = 0; w < CONST_THREADS / 32; ++w) t += part[w];
+        cst[c] = -0.5f * t + log_prior[c];
+    }
+}
 
-    const int tx = threadIdx.x, ty = threadIdx.y;
-    const int tid = ty * GCT + tx;
-    const int b0 = blockIdx.x * GBT, c0 = blockIdx.y * GCT;
-    float acc = 0.f;
+// the classes a group holds where C classes split into the fewest groups
+// of at most CG, as evenly as they go
+__host__ __device__ inline int group_size(int C) {
+    const int groups = (C + CG - 1) / CG;
+    return (C + groups - 1) / groups;
+}
 
-    for (int f0 = 0; f0 < d; f0 += GDC) {
-        const int dc = min(GDC, d - f0);
-        __syncthreads();
-        for (int e = tid; e < GBT * GDC; e += GCT * GBT) {
-            const int r = e / GDC, j = e % GDC;
-            x_s[r][j] = (b0 + r < B && j < dc)
-                ? X[(size_t)(b0 + r) * d + f0 + j] : 0.f;
+// Block: WARPS / split queries, split warps each; see the notes above.
+// NC: the classes of a group (group_size(C)); a group's slots past C hold
+// (mu, var) = (0, 1) and are never written.  Shared memory: the (mu, var)
+// pairs [NC][chunk], then the warps' sums [WARPS][NC].
+template <int NC>
+__global__ void __launch_bounds__(THREADS)
+gnb_scores_kernel(const float* __restrict__ X, const float* __restrict__ mu,
+                  const float* __restrict__ var,
+                  const float* __restrict__ cst, float* __restrict__ out,
+                  int B, int C, int d, int split, int chunk) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    float2* mv = reinterpret_cast<float2*>(smem);
+    float* red = reinterpret_cast<float*>(
+        smem + static_cast<size_t>(NC) * chunk * sizeof(float2));
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int per_block = WARPS / split;
+    const int wq = warp % split;
+    const bool resident = C <= NC && chunk >= d;
+
+    // the pairs of classes [g0, g0 + NC), features [f0, f0 + fc): a
+    // feature's loads of every class are issued unconditionally (a slot
+    // past C loads the last class again), so all are in flight before its
+    // stores
+    auto stage = [&](int g0, int f0, int fc) {
+        for (int f = tid; f < fc; f += THREADS) {
+            float2 v[NC];
+#pragma unroll
+            for (int c = 0; c < NC; ++c) {
+                const size_t at =
+                    static_cast<size_t>(min(g0 + c, C - 1)) * d + f0 + f;
+                v[c] = g0 + c < C
+                    ? make_float2(__ldg(mu + at), __ldg(var + at))
+                    : make_float2(0.f, 1.f);
+            }
+#pragma unroll
+            for (int c = 0; c < NC; ++c) mv[c * chunk + f] = v[c];
         }
-        for (int e = tid; e < GCT * GDC; e += GCT * GBT) {
-            const int r = e / GDC, j = e % GDC;
-            const bool ok = c0 + r < C && j < dc;
-            const float v = ok ? var[(size_t)(c0 + r) * d + f0 + j] : 1.f;
-            mu_s[r][j] = ok ? mu[(size_t)(c0 + r) * d + f0 + j] : 0.f;
-            var_s[r][j] = v;
-            lv_s[r][j] = logf(v);
-        }
+    };
+    if (resident) {
+        stage(0, 0, d);
         __syncthreads();
-        for (int j = 0; j < dc; ++j) {
-            const float diff = x_s[ty][j] - mu_s[tx][j];
-            acc += -0.5f * ((diff * diff) / var_s[tx][j] + lv_s[tx][j]
-                            + LOG2PI);
+    }
+    for (int q0 = blockIdx.x * per_block; q0 < B;
+         q0 += gridDim.x * per_block) {
+        const int b = q0 + warp / split;
+        const float* x = X + static_cast<size_t>(min(b, B - 1)) * d;
+        for (int g0 = 0; g0 < C; g0 += NC) {
+            float acc[NC];
+#pragma unroll
+            for (int c = 0; c < NC; ++c) acc[c] = 0.f;
+            for (int f0 = 0; f0 < d; f0 += chunk) {
+                const int fc = min(chunk, d - f0);
+                if (!resident) {
+                    __syncthreads();   // the last chunk is consumed
+                    stage(g0, f0, fc);
+                    __syncthreads();
+                }
+                if (b >= B) continue;
+                for (int f = 32 * wq + lane; f < fc; f += 32 * split) {
+                    const float xv = __ldg(x + f0 + f);
+                    // every numerator first, then the divisions, so the
+                    // loads and subtractions of the classes overlap
+                    float num[NC], den[NC];
+#pragma unroll
+                    for (int c = 0; c < NC; ++c) {
+                        const float2 m = mv[c * chunk + f];
+                        const float diff = xv - m.x;
+                        num[c] = diff * diff;
+                        den[c] = m.y;
+                    }
+#pragma unroll
+                    for (int c = 0; c < NC; ++c) acc[c] += num[c] / den[c];
+                }
+            }
+            // every lane ends with the warp's sums; lane c keeps class c's
+#pragma unroll
+            for (int c = 0; c < NC; ++c) {
+#pragma unroll
+                for (int o = 16; o > 0; o >>= 1)
+                    acc[c] += __shfl_xor_sync(FULL, acc[c], o);
+                if (lane == c) red[warp * NC + c] = acc[c];
+            }
+            __syncthreads();
+            if (tid < per_block * NC) {
+                const int q = tid / NC, c = tid % NC;
+                if (q0 + q < B && g0 + c < C) {
+                    float s = 0.f;
+                    for (int w = 0; w < split; ++w)
+                        s += red[(q * split + w) * NC + c];
+                    out[static_cast<size_t>(q0 + q) * C + g0 + c] =
+                        fmaf(-0.5f, s, cst[g0 + c]);
+                }
+            }
+            __syncthreads();   // red is read before the next group writes it
         }
     }
-    const int b = b0 + ty, c = c0 + tx;
-    if (b < B && c < C) out[(size_t)b * C + c] = acc + log_prior[c];
+}
+
+template <int NC>
+cudaError_t launch_scores(const float* X, const float* mu, const float* var,
+                          const float* cst, float* out, int B, int C, int d,
+                          int split, int chunk, int grid, cudaStream_t s) {
+    if (NC != group_size(C))
+        return launch_scores<NC - 1>(X, mu, var, cst, out, B, C, d, split,
+                                     chunk, grid, s);
+    const size_t bytes = static_cast<size_t>(NC) * chunk * sizeof(float2) +
+                         WARPS * NC * sizeof(float);
+    static size_t allowed = 48 * 1024;
+    if (bytes > allowed) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            gnb_scores_kernel<NC>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(bytes));
+        if (err != cudaSuccess) return err;
+        allowed = bytes;
+    }
+    gnb_scores_kernel<NC><<<grid, THREADS, bytes, s>>>(X, mu, var, cst, out,
+                                                       B, C, d, split, chunk);
+    return cudaGetLastError();
+}
+
+template <>
+cudaError_t launch_scores<0>(const float*, const float*, const float*,
+                             const float*, float*, int, int, int, int, int,
+                             int, cudaStream_t) {
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// X (B, d), mu/var (C, d), log_prior (C,) fp32 row-major -> out (B, C).
+int gnb_resident_max() { return RESIDENT_MAX; }
+int gnb_class_group() { return CG; }
+int gnb_warps() { return WARPS; }
+
+// X (B, d), mu/var (C, d), log_prior (C,) fp32 row-major -> out (B, C);
+// cst: scratch of C floats.  split: warps a query (a divisor of WARPS);
+// chunk: features of mu/var staged at once (d where a group's pairs fit
+// RESIDENT_MAX bytes); grid: the persistent blocks.  Two launches: the
+// class constants, then the scores.  Returns the first CUDA error.
 int gnb_scores_batch_f32(const float* X, const float* mu, const float* var,
-                         const float* log_prior, float* out, int B, int C,
-                         int d, void* stream) {
-    if (B < 1 || C < 1 || d < 1) return (int)cudaErrorInvalidValue;
+                         const float* log_prior, float* cst, float* out,
+                         int B, int C, int d, int split, int chunk, int grid,
+                         void* stream) {
+    const int fc = chunk < d ? chunk : d;
+    if (B < 1 || C < 1 || d < 1 || grid < 1 || split < 1 ||
+        split > WARPS || WARPS % split || chunk < 1 ||
+        static_cast<size_t>(group_size(C)) * fc * sizeof(float2) >
+            RESIDENT_MAX)
+        return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const dim3 grid((B + GBT - 1) / GBT, (C + GCT - 1) / GCT);
-    gnb_batch_kernel<<<grid, dim3(GCT, GBT), 0, s>>>(X, mu, var, log_prior,
-                                                     out, B, C, d);
-    return (int)cudaGetLastError();
+    gnb_class_const<<<C, CONST_THREADS, 0, s>>>(var, log_prior, cst, C, d);
+    cudaError_t err = cudaGetLastError();
+    if (err == cudaSuccess)
+        err = launch_scores<CG>(X, mu, var, cst, out, B, C, d, split, fc,
+                                grid, s);
+    return static_cast<int>(err);
 }
 
 const char* cuda_error_string(int err) {

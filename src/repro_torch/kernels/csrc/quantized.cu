@@ -66,11 +66,38 @@
 //    int32 key mode.  The matrix tile puts rows on the lanes, so the
 //    stores of a warp are contiguous.  Rows are staged there as words
 //    built from bytes (row_word), zero-padded past d.
-//  * B7: one row per thread; centroids are staged in shared memory in tiles
-//    of 32 (so any K fits) and read as broadcasts into 32 running dot
-//    products in registers, by __dp4a.  The scan compares (distance,
-//    column) with strict < in ascending column order: the first index wins
-//    ties, so the reference's packed/unpacked fork is not needed.
+//  * B7 (what bounds it).  At the K-Means int8 fit shape (N = 262,144
+//    rows, K = 256, d = 21) it forms 67 M distances: 0.0023 ms of bytes,
+//    and on the int8 tensor cores the dot products are ~1 us, so each
+//    distance's CUDA-core work (form it, compare it) sets the pace.  A
+//    serving bucket (N = 1024) is 262,144 distances: there the launch, the
+//    staging and how many SMs take part do.
+//  * B7's design.  Centroids are staged in shared memory once a block as
+//    B6 stages its queries (zero-padded words, rows of 8 ks + 4 words, so
+//    fragment loads are conflict-free), with their int32 norms; past
+//    AM_RESIDENT_MAX bytes they stream in chunks of kc centroids (route
+//    "stream"; "resident" otherwise).  A warp owns a 16-row tile: its A
+//    fragments are built from device memory by aligned word loads
+//    (load_word), and the dot products run on mma.sync m16n8k32 s8, four
+//    8-centroid tiles (a 32-centroid group) at a time.  The epilogue ranks
+//    ||c||^2 - 2 a.c (||a||^2 is the same for a row's every centroid and is
+//    added at the end).  Where every key fits int32 (3 d 127^2 2^b < 2^31
+//    for b bits of a centroid index: d = 21 with K up to 2048), a centroid's
+//    norm is staged as (||c||^2 << b) + k, so a distance's key is one
+//    multiply-add and the running minimum one min: the smallest key is the
+//    smallest distance and, on ties, the first centroid.  Otherwise the
+//    epilogue takes the minimum of a thread's 8 values of a row and only
+//    where that beats the running minimum finds the first centroid holding
+//    it (measured on an H100 at the fit shape: 0.042 ms that way, 0.031
+//    with keys).
+//    ``split`` warps share a tile's groups (the wrapper's plan: eight at a
+//    1024-row bucket, so 64 blocks take part where 8 would); the four
+//    lanes of a row and then the split warps reduce (value, index) by
+//    shuffles and through shared memory, the smallest value and then the
+//    smallest index.  Blocks are persistent (at most four an SM) and walk
+//    their tiles.  The distances are exact int32 and the scan keeps the
+//    first index on ties, so the reference's packed/unpacked fork is not
+//    needed.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -90,7 +117,7 @@ constexpr int Q8_BULK_MAX_D = 128;  // widest row the bulk route stages
 constexpr int STAGES = 3;           // bulk route: tiles in flight
 constexpr int KSC = 4;              // k-steps (32 features) of a chunk
 constexpr int RL = 8;               // matrix mode: warps of a block
-constexpr int WC = 16;              // matrix mode, B7: words of a chunk
+constexpr int WC = 16;              // matrix mode: words of a chunk
 constexpr int MAX_D = 832;
 
 // features [f, f + 4) of an int8 row of d as one word, zero past d
@@ -460,78 +487,221 @@ q8_dist_matrix_kernel(const int8_t* __restrict__ A,
     }
 }
 
-constexpr int AM_ROWS = 128;  // rows per block, one per thread
-constexpr int KT = 32;        // centroids per shared-memory tile
+// B7.  Block b, iteration i: the 16-row tiles t = (i gridDim.x + b) TPB +
+// warp / split; the split warps of a tile take the 32-centroid groups
+// G = warp % split, + split, .. of each chunk of centroids in shared memory.
+constexpr int AM_THREADS = 256;
+constexpr int AM_WARPS = AM_THREADS / 32;
+constexpr int AM_RESIDENT_MAX = 57344;  // bytes of staged centroid words, norms
 
-__global__ void __launch_bounds__(AM_ROWS)
+// bytes a staged centroid takes: 8 ks + 4 words (B6's padded row), a norm
+__host__ __device__ inline int am_record(int d) {
+    return (8 * ((d + 31) / 32) + 4) * 4 + 4;
+}
+
+// the k-step s fragment of rows r and r + 8 (mma.sync A operand): bytes
+// 32 s + 4 tig and 32 s + 16 + 4 tig of each, zero past d and past N
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4],
+                                       const int8_t* __restrict__ A, int r,
+                                       int N, int d, int s, int tig) {
+    const int f = 32 * s + 4 * tig;
+    const int8_t* lo = A + static_cast<size_t>(r) * d;
+    const int8_t* hi = lo + static_cast<size_t>(8) * d;
+    a[0] = r < N ? load_word(lo, f, d) : 0u;
+    a[1] = r + 8 < N ? load_word(hi, f, d) : 0u;
+    a[2] = r < N ? load_word(lo, f + 16, d) : 0u;
+    a[3] = r + 8 < N ? load_word(hi, f + 16, d) : 0u;
+}
+
+// PACKED: a centroid's norm is staged as the key (||c||^2 << shift) + k,
+// and a distance's key (||c||^2 - 2 a.c) << shift + k is one multiply-add
+// from it; the smallest key is the smallest distance and, on ties, the
+// smallest index (the entry point takes it where every key fits int32).
+template <bool PACKED>
+__global__ void __launch_bounds__(AM_THREADS, 4)
 q8_argmin_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ C,
                  int* __restrict__ out_v, int* __restrict__ out_i, int N,
-                 int K, int d) {
-    __shared__ int a_s[AM_ROWS][WC + 1];
-    __shared__ int c_s[WC][KT];
-    __shared__ int cn_s[KT];
+                 int K, int d, int split, int kc, int shift) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int ks = (d + 31) / 32;
+    const int st = 8 * ks + 4;
+    uint32_t* c_w = reinterpret_cast<uint32_t*>(smem);
+    int* cn_s = reinterpret_cast<int*>(smem + static_cast<size_t>(kc) * st * 4);
+    int* red_v = cn_s + kc;                 // [AM_WARPS][16]
+    int* red_i = red_v + AM_WARPS * 16;
 
-    const int t = threadIdx.x;
-    const int row0 = blockIdx.x * AM_ROWS;
-    const int row = row0 + t;
-    const int dw = (d + 3) / 4;
-    const int nchunks = (dw + WC - 1) / WC;
-    int an = 0;
-    int best = INT_MAX, best_i = 0;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int gid = lane >> 2, tig = lane & 3;
+    const int per_block = AM_WARPS / split;
+    const int wq = warp % split;
+    const int tiles = (N + 15) / 16;
+    const bool resident = kc >= K;
 
-    for (int k0 = 0; k0 < K; k0 += KT) {
-        const int kt = min(KT, K - k0);
-        int acc[KT];
+    // centroids [k0, k0 + kc) as padded words with their norms; INT_MAX
+    // norms past K, so no padding centroid is ever the nearest
+    auto stage = [&](int k0) {
+        for (int e = tid; e < kc; e += AM_THREADS) {
+            const int k = k0 + e;
+            const int8_t* c = C + static_cast<size_t>(k) * d;
+            int n = 0;
+#pragma unroll 8
+            for (int w = 0; w < 8 * ks; ++w) {
+                const uint32_t v = k < K ? load_word(c, 4 * w, d) : 0u;
+                c_w[e * st + w] = v;
+                n = __dp4a(static_cast<int>(v), static_cast<int>(v), n);
+            }
+            cn_s[e] = k >= K ? INT_MAX : PACKED ? (n << shift) + k : n;
+        }
+    };
+    if (resident) {
+        stage(0);
+        __syncthreads();
+    }
+    for (int t0 = blockIdx.x * per_block; t0 < tiles;
+         t0 += gridDim.x * per_block) {
+        const int tile = t0 + warp / split;
+        const int r = tile * 16 + gid;        // the thread's rows r, r + 8
+        const bool live = tile < tiles;
+        uint32_t a0[4];
+        int an[2] = {0, 0};
+        a_frag(a0, A, r, N, d, 0, tig);
+        for (int s = 0; s < ks; ++s) {
+            uint32_t a[4];
+            if (s == 0) {
 #pragma unroll
-        for (int kk = 0; kk < KT; ++kk) acc[kk] = 0;
-        int cn_part = 0;
-        for (int ch = 0; ch < nchunks; ++ch) {
-            const int w0 = ch * WC;
-            const int wc = min(WC, dw - w0);
-            __syncthreads();
-            if (nchunks > 1 || k0 == 0) {  // rows: once if d <= 4 * WC
-                for (int e = t; e < AM_ROWS * WC; e += AM_ROWS) {
-                    const int r = e / WC, w = e % WC;
-                    a_s[r][w] = (row0 + r < N && w < wc)
-                        ? row_word(A + (size_t)(row0 + r) * d, 4 * (w0 + w), d)
-                        : 0;
+                for (int j = 0; j < 4; ++j) a[j] = a0[j];
+            } else {
+                a_frag(a, A, r, N, d, s, tig);
+            }
+            an[0] = __dp4a(static_cast<int>(a[0]), static_cast<int>(a[0]),
+                           an[0]);
+            an[0] = __dp4a(static_cast<int>(a[2]), static_cast<int>(a[2]),
+                           an[0]);
+            an[1] = __dp4a(static_cast<int>(a[1]), static_cast<int>(a[1]),
+                           an[1]);
+            an[1] = __dp4a(static_cast<int>(a[3]), static_cast<int>(a[3]),
+                           an[1]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            an[h] += __shfl_xor_sync(bsel::FULL, an[h], 1);
+            an[h] += __shfl_xor_sync(bsel::FULL, an[h], 2);
+        }
+        // the running minimum of ||c||^2 - 2 a.c of rows r and r + 8 over
+        // the thread's columns, in ascending centroid order
+        int best[2] = {INT_MAX, INT_MAX}, best_i[2] = {0, 0};
+        for (int k0 = 0; k0 < K; k0 += kc) {
+            if (!resident) {
+                __syncthreads();   // the last chunk is consumed
+                stage(k0);
+                __syncthreads();
+            }
+            if (!live) continue;
+            const int groups = (min(kc, K - k0) + 31) / 32;
+            for (int g = wq; g < groups; g += split) {
+                int acc[4][4];
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) acc[j][e] = 0;
+                for (int s = 0; s < ks; ++s) {
+                    uint32_t a[4];
+                    if (s == 0) {
+#pragma unroll
+                        for (int j = 0; j < 4; ++j) a[j] = a0[j];
+                    } else {
+                        a_frag(a, A, r, N, d, s, tig);
+                    }
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        const uint32_t* p =
+                            c_w + (32 * g + 8 * j + gid) * st + 8 * s + tig;
+                        mma_s8(acc[j], a, p[0], p[4]);
+                    }
+                }
+                // columns 32 g + 8 j + 2 tig + e; rows r (acc e = 0, 1)
+                // and r + 8 (e = 2, 3)
+                int2 cn[4];
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    cn[j] = *reinterpret_cast<const int2*>(
+                        cn_s + 32 * g + 8 * j + 2 * tig);
+                if (PACKED) {
+                    const int mul = -(2 << shift);
+#pragma unroll
+                    for (int h = 0; h < 2; ++h)
+#pragma unroll
+                        for (int j = 0; j < 4; ++j)
+                            best[h] = min(best[h],
+                                          min(acc[j][2 * h] * mul + cn[j].x,
+                                              acc[j][2 * h + 1] * mul +
+                                                  cn[j].y));
+                    continue;
+                }
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    int v[8];
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        v[2 * j] = cn[j].x - 2 * acc[j][2 * h];
+                        v[2 * j + 1] = cn[j].y - 2 * acc[j][2 * h + 1];
+                    }
+                    int m = v[0];
+#pragma unroll
+                    for (int i = 1; i < 8; ++i) m = min(m, v[i]);
+                    if (m < best[h]) {   // rare past the first groups
+                        int at = 7;
+#pragma unroll
+                        for (int i = 6; i >= 0; --i)
+                            if (v[i] == m) at = i;
+                        best[h] = m;
+                        best_i[h] = k0 + 32 * g + 8 * (at >> 1) + 2 * tig +
+                                    (at & 1);
+                    }
                 }
             }
-            for (int e = t; e < KT * WC; e += AM_ROWS) {
-                const int kk = e % KT, w = e / KT;
-                c_s[w][kk] = (kk < kt && w < wc)
-                    ? row_word(C + (size_t)(k0 + kk) * d, 4 * (w0 + w), d) : 0;
-            }
-            __syncthreads();
-            if (k0 == 0) {
-                for (int w = 0; w < wc; ++w)
-                    an = __dp4a(a_s[t][w], a_s[t][w], an);
-            }
-            if (t < KT) {
-                for (int w = 0; w < wc; ++w)
-                    cn_part = __dp4a(c_s[w][t], c_s[w][t], cn_part);
-            }
-            for (int w = 0; w < wc; ++w) {
-                const int aw = a_s[t][w];
+        }
+        // the four lanes of a row: the smallest value, then the smallest
+        // index holding it; the split warps of a tile meet in red
 #pragma unroll
-                for (int kk = 0; kk < KT; ++kk)
-                    acc[kk] = __dp4a(aw, c_s[w][kk], acc[kk]);
+        for (int h = 0; h < 2; ++h) {
+            if (PACKED && best[h] != INT_MAX) {
+                best_i[h] = best[h] & ((1 << shift) - 1);
+                best[h] >>= shift;
+            }
+#pragma unroll
+            for (int o = 1; o <= 2; o <<= 1) {
+                const int v = __shfl_xor_sync(bsel::FULL, best[h], o);
+                const int i = __shfl_xor_sync(bsel::FULL, best_i[h], o);
+                if (v < best[h] || (v == best[h] && i < best_i[h])) {
+                    best[h] = v;
+                    best_i[h] = i;
+                }
+            }
+            if (tig == 0) {
+                red_v[warp * 16 + gid + 8 * h] =
+                    best[h] == INT_MAX ? INT_MAX : best[h] + an[h];
+                red_i[warp * 16 + gid + 8 * h] = best_i[h];
             }
         }
-        if (t < KT) cn_s[t] = cn_part;
         __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < KT; ++kk) {
-            const int dist = an - 2 * acc[kk] + cn_s[kk];
-            if (kk < kt && dist < best) {
-                best = dist;
-                best_i = k0 + kk;
+        if (tid < per_block * 16) {
+            const int tl = tid / 16, row = (t0 + tl) * 16 + tid % 16;
+            if (row < N) {
+                int v = INT_MAX, i = 0;
+                for (int w = tl * split; w < (tl + 1) * split; ++w) {
+                    const int wv = red_v[w * 16 + tid % 16];
+                    const int wi = red_i[w * 16 + tid % 16];
+                    if (wv < v || (wv == v && wi < i)) {
+                        v = wv;
+                        i = wi;
+                    }
+                }
+                out_v[row] = v;
+                out_i[row] = i;
             }
         }
-    }
-    if (row < N) {
-        out_v[row] = best;
-        out_i[row] = best_i;
+        __syncthreads();   // red is read before the next tiles write it
     }
 }
 
@@ -544,6 +714,7 @@ int q8_query_tile() { return QB; }
 int q8_tile_rows() { return RB; }
 int q8_bulk_max_d() { return Q8_BULK_MAX_D; }
 int q8_max_d() { return MAX_D; }
+int q8_argmin_resident_max() { return AM_RESIDENT_MAX; }
 
 // A (N, d), C (Q, d) int8 row-major; part_v/part_i scratch of
 // Q * n_splits * k; vals/idx (Q, k) int32.  bulk: 1 for the bulk route (A
@@ -588,13 +759,35 @@ int dist_matrix_q8(const int8_t* A, const int8_t* C, int* out, int N, int Q,
 }
 
 // A (N, d), C (K, d) int8 row-major -> out_v (N,), out_i (N,) int32.
+// split: warps a 16-row tile (1, 2, 4 or 8); kc: centroids staged at once,
+// a multiple of 32 whose words and norms fit AM_RESIDENT_MAX bytes (all
+// of them resident where kc >= K); grid: the persistent blocks.
 int distance_argmin_q8(const int8_t* A, const int8_t* C, int* out_v,
-                       int* out_i, int N, int K, int d, void* stream) {
-    if (N < 1 || K < 1 || d < 1 || d > MAX_D)
+                       int* out_i, int N, int K, int d, int split, int kc,
+                       int grid, void* stream) {
+    if (N < 1 || K < 1 || d < 1 || d > MAX_D || grid < 1 ||
+        (split != 1 && split != 2 && split != 4 && split != AM_WARPS) ||
+        kc < 32 || kc % 32 ||
+        static_cast<long long>(kc) * am_record(d) > AM_RESIDENT_MAX)
         return (int)cudaErrorInvalidValue;
+    int shift = 0;   // bits of a centroid index
+    while ((1LL << shift) < K) ++shift;
+    // |(||c||^2 - 2 a.c)| <= 3 d 127^2
+    const bool packed = ((3LL * d * 127 * 127 + 1) << shift) <= INT_MAX;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    q8_argmin_kernel<<<(N + AM_ROWS - 1) / AM_ROWS, AM_ROWS, 0, s>>>(
-        A, C, out_v, out_i, N, K, d);
+    const size_t bytes = static_cast<size_t>(kc) * am_record(d) +
+                         2 * AM_WARPS * 16 * sizeof(int);
+    auto* kernel = packed ? q8_argmin_kernel<true> : q8_argmin_kernel<false>;
+    static size_t allowed[2] = {48 * 1024, 48 * 1024};
+    if (bytes > allowed[packed]) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(bytes));
+        if (err != cudaSuccess) return static_cast<int>(err);
+        allowed[packed] = bytes;
+    }
+    kernel<<<grid, AM_THREADS, bytes, s>>>(A, C, out_v, out_i, N, K, d, split,
+                                           kc, shift);
     return (int)cudaGetLastError();
 }
 

@@ -18,8 +18,9 @@ mask ragged edges themselves, so none of that module's padding to block
 multiples (or the GNB padding correction) is needed.
 
 B9 (``gnb_scores``, one query) is B3 launched at B = 1, as ROADMAP B9
-plans; it keeps its own count.  B1, B2, B4, B5, B6, B8, B10 and B11 also
-count their launches per route (``ROUTE_LAUNCHES`` in their modules), so
+plans; it keeps its own count.  B1, B2, B3 (B9's launches among them),
+B4, B5, B6, B7, B8, B10 and B11 also count their launches per route
+(``ROUTE_LAUNCHES`` in their modules; B7's ``ARGMIN_ROUTE_LAUNCHES``), so
 a run can show which kernel design served it.
 
 The int8 tier's B6 (``distance_topk_q8``) and B7 (``distance_argmin_q8``)
@@ -41,6 +42,7 @@ from repro_torch.kernels import distance_argmin as _da
 from repro_torch.kernels import distance_topk as _dt
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gemm as _gemm
+from repro_torch.kernels import gnb_score as _gs
 from repro_torch.kernels import pairwise_sq_dist as _pd
 from repro_torch.kernels import quantized as _q
 from repro_torch.kernels import topk_select as _ts
@@ -63,15 +65,17 @@ _INT32 = (torch.int32,)
 
 def reset_launches() -> None:
     """Set every count to 0: ``LAUNCHES`` and the per-route counts of B1,
-    B2, B4, B5, B6, B8, B10 and B11 (``ROUTE_LAUNCHES`` of
-    ``kernels/distance_topk.py``, ``kernels/distance_argmin.py``,
-    ``kernels/pairwise_sq_dist.py``, ``kernels/topk_select.py``,
-    ``kernels/quantized.py``, ``kernels/ann.py``, ``kernels/gemm.py`` and
-    ``kernels/flash_attention.py``)."""
+    B2, B3 (with B9), B4, B5, B6, B7, B8, B10 and B11 (``ROUTE_LAUNCHES``
+    of ``kernels/distance_topk.py``, ``kernels/distance_argmin.py``,
+    ``kernels/gnb_score.py``, ``kernels/pairwise_sq_dist.py``,
+    ``kernels/topk_select.py``, ``kernels/quantized.py`` (B6; B7's are
+    ``ARGMIN_ROUTE_LAUNCHES`` there), ``kernels/ann.py``,
+    ``kernels/gemm.py`` and ``kernels/flash_attention.py``)."""
     for counts in (LAUNCHES, _dt.ROUTE_LAUNCHES, _da.ROUTE_LAUNCHES,
-                   _pd.ROUTE_LAUNCHES, _ts.ROUTE_LAUNCHES, _q.ROUTE_LAUNCHES,
-                   _ann.ROUTE_LAUNCHES, _gemm.ROUTE_LAUNCHES,
-                   _fa.ROUTE_LAUNCHES):
+                   _gs.ROUTE_LAUNCHES, _pd.ROUTE_LAUNCHES,
+                   _ts.ROUTE_LAUNCHES, _q.ROUTE_LAUNCHES,
+                   _q.ARGMIN_ROUTE_LAUNCHES, _ann.ROUTE_LAUNCHES,
+                   _gemm.ROUTE_LAUNCHES, _fa.ROUTE_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -168,7 +172,6 @@ def gnb_scores_batch(X: torch.Tensor, mu: torch.Tensor, var: torch.Tensor,
                          f"log_prior {tuple(log_prior.shape)}")
     if dev.type == "cpu":
         return ref.gnb_scores_batch(X, mu, var, log_prior)
-    from repro_torch.kernels import gnb_score as _gs
     out = _gs.launch_scores_batch(X.float(), mu.float(), var.float(),
                                   log_prior.float())
     LAUNCHES["gnb_scores_batch"] += 1
@@ -227,7 +230,6 @@ def gnb_scores(x: torch.Tensor, mu: torch.Tensor, var: torch.Tensor,
                          f"log_prior {tuple(log_prior.shape)}")
     if dev.type == "cpu":
         return ref.gnb_scores(x, mu, var, log_prior)
-    from repro_torch.kernels import gnb_score as _gs
     out = _gs.launch_scores_batch(x.float()[None], mu.float(), var.float(),
                                   log_prior.float())[0]
     LAUNCHES["gnb_scores"] += 1

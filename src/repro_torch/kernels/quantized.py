@@ -11,7 +11,10 @@ has already checked, allocate outputs and scratch with ``torch.empty``,
 and launch on the current stream without synchronising.  B6 plans its
 splits as B1 does and stages rows by B1's alignment rule
 (``distance_topk.route``, here with ``BULK_MAX_D``); ``ROUTE_LAUNCHES``
-counts its routes.
+counts its routes.  B7 keeps its centroids in shared memory (route
+``resident``) or streams them in chunks where they do not fit
+(``stream``; ``argmin_chunk``), counted in ``ARGMIN_ROUTE_LAUNCHES``;
+``argmin_plan`` picks the warps a row tile and the grid.
 """
 from __future__ import annotations
 
@@ -97,6 +100,13 @@ _fns = {}
 # since the last ``ops.reset_launches``
 ROUTE_LAUNCHES: Dict[str, int] = {"bulk": 0, "plain": 0}
 
+ARGMIN_RESIDENT_MAX = 57344   # B7: bytes of staged centroid words and norms
+ARGMIN_WARPS = 8              # B7: warps of a block
+ARGMIN_GROUP = 32             # B7: centroids a warp takes at once
+ARGMIN_BLOCKS_PER_SM = 4      # B7: persistent blocks an SM
+# B7's launches per route since the last ``ops.reset_launches``
+ARGMIN_ROUTE_LAUNCHES: Dict[str, int] = {"resident": 0, "stream": 0}
+
 
 def _fn(name: str, argtypes):
     if name not in _fns:
@@ -104,7 +114,8 @@ def _fn(name: str, argtypes):
                             ("q8_query_tile", QUERY_TILE),
                             ("q8_tile_rows", TILE_ROWS),
                             ("q8_bulk_max_d", BULK_MAX_D),
-                            ("q8_max_d", _MAX_D)):
+                            ("q8_max_d", _MAX_D),
+                            ("q8_argmin_resident_max", ARGMIN_RESIDENT_MAX)):
             got = _build.bind(_STEM, const, [])()
             if got != want:
                 raise RuntimeError(f"{const}() = {got} in the built "
@@ -155,16 +166,50 @@ def launch_dist(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def argmin_chunk(K: int, d: int) -> int:
+    """B7: centroids staged at once, a multiple of ``ARGMIN_GROUP``: all of
+    them where their padded words (8 per 32 features, 4 more) and norms
+    fit ``ARGMIN_RESIDENT_MAX`` bytes, else the most groups that do."""
+    record = (8 * -(-d // 32) + 4) * 4 + 4
+    padded = -(-K // ARGMIN_GROUP) * ARGMIN_GROUP
+    if padded * record <= ARGMIN_RESIDENT_MAX:
+        return padded
+    return ARGMIN_RESIDENT_MAX // record // ARGMIN_GROUP * ARGMIN_GROUP
+
+
+def argmin_route(K: int, d: int) -> str:
+    return "resident" if argmin_chunk(K, d) >= K else "stream"
+
+
+def argmin_plan(N: int, K: int, d: int, sms: int) -> Tuple[int, int, int]:
+    """B7: (warps a 16-row tile, centroids a chunk, blocks).  A tile takes
+    the most warps, a power of two up to ``ARGMIN_WARPS`` and at most one
+    a centroid group of a chunk, that keep the blocks to one an SM; blocks
+    are persistent, at most ``ARGMIN_BLOCKS_PER_SM`` an SM."""
+    kc = argmin_chunk(K, d)
+    tiles = -(-N // 16)
+    groups = -(-min(kc, K) // ARGMIN_GROUP)
+    split = 1
+    while split * 2 <= min(ARGMIN_WARPS, groups) and \
+            -(-tiles * split * 2 // ARGMIN_WARPS) <= sms:
+        split *= 2
+    return split, kc, min(-(-tiles * split // ARGMIN_WARPS),
+                          ARGMIN_BLOCKS_PER_SM * sms)
+
+
 def launch_argmin(a: torch.Tensor, c: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B7: a (N, d), c (K, d) int8 on the card -> (lattice distance (N,)
     int32, nearest centroid (N,) int32), first index on ties."""
-    fn = _fn("distance_argmin_q8", [_P] * 4 + [_I] * 3 + [_P])
+    fn = _fn("distance_argmin_q8", [_P] * 4 + [_I] * 6 + [_P])
     N, d = a.shape
     K = c.shape[0]
+    split, kc, grid = argmin_plan(N, K, d, sm_count(a.device))
+    way = argmin_route(K, d)
     vals = torch.empty((N,), dtype=torch.int32, device=a.device)
     idx = torch.empty((N,), dtype=torch.int32, device=a.device)
     err = fn(a.data_ptr(), c.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-             N, K, d, _stream())
-    _build.check(_STEM, err, f"distance_argmin_q8 N={N} K={K} d={d}")
+             N, K, d, split, kc, grid, _stream())
+    _build.check(_STEM, err, f"distance_argmin_q8 N={N} K={K} d={d} {way}")
+    ARGMIN_ROUTE_LAUNCHES[way] += 1
     return vals, idx
