@@ -16,13 +16,17 @@
 //
 // The design.
 //  * The terms that do not depend on the query, -1/2 sum_f (log var +
-//    log 2 pi) + log_prior, are one constant a class: gnb_class_const takes
-//    them once a call (a block a class), so no block takes a logarithm.
-//    The scores kernel then sums (x - mu)^2 / var alone and writes
-//    -1/2 sum + constant.  Each term rounds as the plain version's
-//    (x - mu, its square, the IEEE-rounded division: no fast math, no
-//    reciprocal); only the order of the sum differs, which the plain
-//    version's tolerance covers.
+//    log 2 pi) + log_prior, are one constant a class, summed while the
+//    block stages var and kept in shared memory: one logf a (class,
+//    feature) a block, where the tile kernel took them in every chunk of
+//    every block.  A second kernel taking them once a call was measured
+//    (H100): 0.0020 ms of device time and ~11 us of host time a call,
+//    which made a GNB classify from the card ~20% slower, host-bound as it
+//    is; in the block they cost under 0.001 ms.  The scores kernel sums
+//    (x - mu)^2 / var and writes -1/2 sum + constant.  Each term rounds as
+//    the plain version's (x - mu, its square, the IEEE-rounded division:
+//    no fast math, no reciprocal); only the order of the sum differs,
+//    which the plain version's tolerance covers.
 //  * A warp or more a query (``split``, by the wrapper's plan): lane l of
 //    warp w takes the features 32 j + l of the 32-feature stripes
 //    j = w % split, + split, .. and keeps a running sum for every class of
@@ -47,9 +51,6 @@
 //    device memory (a group of 16 classes or fewer reads it once).
 //  * Blocks are persistent (at most two an SM): a block walks its query
 //    groups, so the resident pairs are staged once a block.
-//  * Measured on an H100 (launch/gnb_breakdown.py --new): of ~0.0135 ms a
-//    GNB bucket, ~0.004 is the divisions, ~0.002 the constants' launch,
-//    ~0.007 the launches, staging and stores without any term.
 #include <cuda_runtime.h>
 
 namespace {
@@ -58,30 +59,8 @@ constexpr int WARPS = 16;               // warps of a scores block
 constexpr int THREADS = WARPS * 32;
 constexpr int CG = 16;                  // classes of a group: a lane's sums
 constexpr int RESIDENT_MAX = 98304;     // bytes of staged (mu, var) pairs
-constexpr int CONST_THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2PI = 1.8378770664093453f;
-
-// cst[c] = -1/2 sum_f (log var[c, f] + log 2 pi) + log_prior[c]
-__global__ void __launch_bounds__(CONST_THREADS)
-gnb_class_const(const float* __restrict__ var,
-                const float* __restrict__ log_prior, float* __restrict__ cst,
-                int C, int d) {
-    __shared__ float part[CONST_THREADS / 32];
-    const int c = blockIdx.x;
-    float s = 0.f;
-    for (int f = threadIdx.x; f < d; f += CONST_THREADS)
-        s += logf(var[static_cast<size_t>(c) * d + f]) + LOG2PI;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
-    if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = s;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        float t = 0.f;
-        for (int w = 0; w < CONST_THREADS / 32; ++w) t += part[w];
-        cst[c] = -0.5f * t + log_prior[c];
-    }
-}
 
 // the classes a group holds where C classes split into the fewest groups
 // of at most CG, as evenly as they go
@@ -93,27 +72,31 @@ __host__ __device__ inline int group_size(int C) {
 // Block: WARPS / split queries, split warps each; see the notes above.
 // NC: the classes of a group (group_size(C)); a group's slots past C hold
 // (mu, var) = (0, 1) and are never written.  Shared memory: the (mu, var)
-// pairs [NC][chunk], then the warps' sums [WARPS][NC].
+// pairs [NC][chunk], the warps' sums [WARPS][NC], the group's constants
+// [NC].
 template <int NC>
 __global__ void __launch_bounds__(THREADS)
 gnb_scores_kernel(const float* __restrict__ X, const float* __restrict__ mu,
                   const float* __restrict__ var,
-                  const float* __restrict__ cst, float* __restrict__ out,
-                  int B, int C, int d, int split, int chunk) {
+                  const float* __restrict__ log_prior,
+                  float* __restrict__ out, int B, int C, int d, int split,
+                  int chunk) {
     extern __shared__ __align__(16) unsigned char smem[];
     float2* mv = reinterpret_cast<float2*>(smem);
     float* red = reinterpret_cast<float*>(
         smem + static_cast<size_t>(NC) * chunk * sizeof(float2));
+    float* cst = red + WARPS * NC;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int per_block = WARPS / split;
     const int wq = warp % split;
     const bool resident = C <= NC && chunk >= d;
 
-    // the pairs of classes [g0, g0 + NC), features [f0, f0 + fc): a
+    // the pairs of classes [g0, g0 + NC), features [f0, f0 + fc), and the
+    // thread's part of each class's sum of log var + log 2 pi over them: a
     // feature's loads of every class are issued unconditionally (a slot
     // past C loads the last class again), so all are in flight before its
     // stores
-    auto stage = [&](int g0, int f0, int fc) {
+    auto stage = [&](int g0, int f0, int fc, float (&lv)[NC]) {
         for (int f = tid; f < fc; f += THREADS) {
             float2 v[NC];
 #pragma unroll
@@ -125,26 +108,50 @@ gnb_scores_kernel(const float* __restrict__ X, const float* __restrict__ mu,
                     : make_float2(0.f, 1.f);
             }
 #pragma unroll
-            for (int c = 0; c < NC; ++c) mv[c * chunk + f] = v[c];
+            for (int c = 0; c < NC; ++c) {
+                mv[c * chunk + f] = v[c];
+                lv[c] += logf(v[c].y) + LOG2PI;
+            }
         }
     };
-    if (resident) {
-        stage(0, 0, d);
+    // the block's sum of the threads' values of each class, through red
+    auto block_sums = [&](float (&x)[NC]) {
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1)
+                x[c] += __shfl_xor_sync(FULL, x[c], o);
+            if (lane == c) red[warp * NC + c] = x[c];
+        }
         __syncthreads();
+    };
+    // the group's constants -1/2 sum_f (log var + log 2 pi) + log prior,
+    // each summed over the block's warps in one order
+    auto constants = [&](int g0, float (&lv)[NC]) {
+        block_sums(lv);
+        if (tid < NC && g0 + tid < C) {
+            float t = 0.f;
+            for (int w = 0; w < WARPS; ++w) t += red[w * NC + tid];
+            cst[tid] = -0.5f * t + log_prior[g0 + tid];
+        }
+        __syncthreads();
+    };
+    if (resident) {
+        float lv[NC] = {};
+        stage(0, 0, d, lv);
+        constants(0, lv);   // its barriers also publish the staged pairs
     }
     for (int q0 = blockIdx.x * per_block; q0 < B;
          q0 += gridDim.x * per_block) {
         const int b = q0 + warp / split;
         const float* x = X + static_cast<size_t>(min(b, B - 1)) * d;
         for (int g0 = 0; g0 < C; g0 += NC) {
-            float acc[NC];
-#pragma unroll
-            for (int c = 0; c < NC; ++c) acc[c] = 0.f;
+            float acc[NC] = {}, lv[NC] = {};
             for (int f0 = 0; f0 < d; f0 += chunk) {
                 const int fc = min(chunk, d - f0);
                 if (!resident) {
                     __syncthreads();   // the last chunk is consumed
-                    stage(g0, f0, fc);
+                    stage(g0, f0, fc, lv);
                     __syncthreads();
                 }
                 if (b >= B) continue;
@@ -164,15 +171,9 @@ gnb_scores_kernel(const float* __restrict__ X, const float* __restrict__ mu,
                     for (int c = 0; c < NC; ++c) acc[c] += num[c] / den[c];
                 }
             }
-            // every lane ends with the warp's sums; lane c keeps class c's
-#pragma unroll
-            for (int c = 0; c < NC; ++c) {
-#pragma unroll
-                for (int o = 16; o > 0; o >>= 1)
-                    acc[c] += __shfl_xor_sync(FULL, acc[c], o);
-                if (lane == c) red[warp * NC + c] = acc[c];
-            }
-            __syncthreads();
+            if (!resident) constants(g0, lv);
+            // the warps' sums of each query, then the scores
+            block_sums(acc);
             if (tid < per_block * NC) {
                 const int q = tid / NC, c = tid % NC;
                 if (q0 + q < B && g0 + c < C) {
@@ -180,23 +181,24 @@ gnb_scores_kernel(const float* __restrict__ X, const float* __restrict__ mu,
                     for (int w = 0; w < split; ++w)
                         s += red[(q * split + w) * NC + c];
                     out[static_cast<size_t>(q0 + q) * C + g0 + c] =
-                        fmaf(-0.5f, s, cst[g0 + c]);
+                        fmaf(-0.5f, s, cst[c]);
                 }
             }
-            __syncthreads();   // red is read before the next group writes it
+            __syncthreads();   // red and cst are read before they are reused
         }
     }
 }
 
 template <int NC>
 cudaError_t launch_scores(const float* X, const float* mu, const float* var,
-                          const float* cst, float* out, int B, int C, int d,
-                          int split, int chunk, int grid, cudaStream_t s) {
+                          const float* log_prior, float* out, int B, int C,
+                          int d, int split, int chunk, int grid,
+                          cudaStream_t s) {
     if (NC != group_size(C))
-        return launch_scores<NC - 1>(X, mu, var, cst, out, B, C, d, split,
-                                     chunk, grid, s);
+        return launch_scores<NC - 1>(X, mu, var, log_prior, out, B, C, d,
+                                     split, chunk, grid, s);
     const size_t bytes = static_cast<size_t>(NC) * chunk * sizeof(float2) +
-                         WARPS * NC * sizeof(float);
+                         (WARPS + 1) * NC * sizeof(float);
     static size_t allowed = 48 * 1024;
     if (bytes > allowed) {
         const cudaError_t err = cudaFuncSetAttribute(
@@ -206,8 +208,8 @@ cudaError_t launch_scores(const float* X, const float* mu, const float* var,
         if (err != cudaSuccess) return err;
         allowed = bytes;
     }
-    gnb_scores_kernel<NC><<<grid, THREADS, bytes, s>>>(X, mu, var, cst, out,
-                                                       B, C, d, split, chunk);
+    gnb_scores_kernel<NC><<<grid, THREADS, bytes, s>>>(
+        X, mu, var, log_prior, out, B, C, d, split, chunk);
     return cudaGetLastError();
 }
 
@@ -226,14 +228,13 @@ int gnb_resident_max() { return RESIDENT_MAX; }
 int gnb_class_group() { return CG; }
 int gnb_warps() { return WARPS; }
 
-// X (B, d), mu/var (C, d), log_prior (C,) fp32 row-major -> out (B, C);
-// cst: scratch of C floats.  split: warps a query (a divisor of WARPS);
-// chunk: features of mu/var staged at once (d where a group's pairs fit
-// RESIDENT_MAX bytes); grid: the persistent blocks.  Two launches: the
-// class constants, then the scores.  Returns the first CUDA error.
+// X (B, d), mu/var (C, d), log_prior (C,) fp32 row-major -> out (B, C).
+// split: warps a query (a divisor of WARPS); chunk: features of mu/var
+// staged at once (d where a group's pairs fit RESIDENT_MAX bytes); grid:
+// the persistent blocks.  Returns the first CUDA error.
 int gnb_scores_batch_f32(const float* X, const float* mu, const float* var,
-                         const float* log_prior, float* cst, float* out,
-                         int B, int C, int d, int split, int chunk, int grid,
+                         const float* log_prior, float* out, int B, int C,
+                         int d, int split, int chunk, int grid,
                          void* stream) {
     const int fc = chunk < d ? chunk : d;
     if (B < 1 || C < 1 || d < 1 || grid < 1 || split < 1 ||
@@ -241,13 +242,9 @@ int gnb_scores_batch_f32(const float* X, const float* mu, const float* var,
         static_cast<size_t>(group_size(C)) * fc * sizeof(float2) >
             RESIDENT_MAX)
         return static_cast<int>(cudaErrorInvalidValue);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    gnb_class_const<<<C, CONST_THREADS, 0, s>>>(var, log_prior, cst, C, d);
-    cudaError_t err = cudaGetLastError();
-    if (err == cudaSuccess)
-        err = launch_scores<CG>(X, mu, var, cst, out, B, C, d, split, fc,
-                                grid, s);
-    return static_cast<int>(err);
+    return static_cast<int>(launch_scores<CG>(
+        X, mu, var, log_prior, out, B, C, d, split, fc, grid,
+        static_cast<cudaStream_t>(stream)));
 }
 
 const char* cuda_error_string(int err) {

@@ -19,6 +19,7 @@ counts its routes.  B7 keeps its centroids in shared memory (route
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -177,10 +178,12 @@ def argmin_chunk(K: int, d: int) -> int:
     return ARGMIN_RESIDENT_MAX // record // ARGMIN_GROUP * ARGMIN_GROUP
 
 
+@functools.lru_cache(maxsize=256)
 def argmin_route(K: int, d: int) -> str:
     return "resident" if argmin_chunk(K, d) >= K else "stream"
 
 
+@functools.lru_cache(maxsize=256)   # a wrapper call's host time counts
 def argmin_plan(N: int, K: int, d: int, sms: int) -> Tuple[int, int, int]:
     """B7: (warps a 16-row tile, centroids a chunk, blocks).  A tile takes
     the most warps, a power of two up to ``ARGMIN_WARPS`` and at most one

@@ -39,11 +39,9 @@ of the last 4096.
 ``--new`` variants (``gnb_scores_kernel<10>`` of this checkout):
   base        the source as it is;
   no_div      each term multiplies by var where it divided;
-  no_const    the per-class constants' kernel is not launched (the scores
-              read whatever the scratch holds);
-  no_reduce   the lanes' sums are not reduced across lanes or warps;
-  stage_only  no query is scored: the constants, the staging of mu and
-              var, the reduction and the stores alone.
+  no_logf     the class constants' log var terms are not taken;
+  stage_only  no query is scored: the staging of mu and var, the class
+              constants, the reduction and the stores alone.
 ``--new`` B7 variants (``q8_argmin_kernel``):
   base        the source as it is;
   no_select   the packed keys are neither formed nor compared (the dot
@@ -91,9 +89,7 @@ OLD_VARIANTS = dict(
 NEW_VARIANTS = dict(
     base=[],
     no_div=[("acc[c] += num[c] / den[c];", "acc[c] += num[c] * den[c];")],
-    no_const=[("gnb_class_const<<<C, CONST_THREADS, 0, s>>>("
-               "var, log_prior, cst, C, d);", "")],
-    no_reduce=[("acc[c] += __shfl_xor_sync(FULL, acc[c], o);", "")],
+    no_logf=[("lv[c] += logf(v[c].y) + LOG2PI;", "")],
     stage_only=[("if (b >= B) continue;", "continue;")],
 )
 NEW_B7_VARIANTS = dict(
@@ -173,9 +169,8 @@ def main(argv=None) -> int:
         if new:
             from repro_torch.kernels import gnb_score as gs
             split, chunk, grid = gs.plan(BUCKET, C, D, sms)
-            cst = torch.empty((C,), device=dev)
-            fn.argtypes = [P] * 6 + [I] * 6 + [P]
-            ptrs = (Xb, mu, var, lp, cst, out)
+            fn.argtypes = [P] * 5 + [I] * 6 + [P]
+            ptrs = (Xb, mu, var, lp, out)
             tail = (BUCKET, C, D, split, chunk, grid)
         else:
             fn.argtypes = [P] * 5 + [I] * 3 + [P]

@@ -18,18 +18,25 @@ compare them.  The shapes, from the data of ``chip_smoke.py``:
   B7 fit     the first 262,144 of 266,240 seeded 256-class rows (d = 21,
              seed 1) against their first 256 rows, quantized on the
              centroids' lattice as the int8 K-Means arm does;
-  B7 serve   1024 of the last 4096 rows: one K-Means int8 bucket.
+  B7 serve   1024 of the last 4096 rows: one K-Means int8 bucket;
+  host       B3 and B7 at one query (one class, one centroid, one
+             feature): the device does next to nothing, so a loop of
+             calls times the wrapper's host cost a call.
 
 Each kernel is timed twice: by CUDA events over a loop of calls
-(``events_ms``, the mean of 200 calls; B7 at the fit: 20), which
+(``events_ms``, the mean of 200 calls; B7 at the fit: 20; the host
+shapes 1000), which
 includes the host's time to issue each call where that is longer than
 the device's, and by ``lm_kernel_times.device_ms`` (the replay of 20
 calls captured as a CUDA graph, timed by CUDA events, per call: device
 time alone; run this file as a script so that its directory is on the
 path).  Host clock: ``classify`` of 4096 queries in 1024-query buckets
-after ``warmup_buckets``, five calls a reading, three readings, queries
+after ``warmup_buckets``, 20 calls a reading, five readings, queries
 from host memory and from the card, for GNB, GMM at d = 784 (B3 and a
-``logsumexp``) and K-Means served through the int8 tier (B7).  Where the
+``logsumexp``) and K-Means served through the int8 tier (B7); then, under
+``torch.profiler``, the device time of a ``classify`` from the card (its
+kernels and copies, summed over 10 calls) and the time a launch of its
+three costliest kernels.  Where the
 checkout counts B3's or B7's routes (``ROUTE_LAUNCHES`` of
 ``kernels/gnb_score.py``, ``ARGMIN_ROUTE_LAUNCHES`` of
 ``kernels/quantized.py``), the counts of the timed calls are printed
@@ -45,6 +52,8 @@ from pathlib import Path
 GNB_ROWS, GNB_D, GNB_C = 60_000, 784, 10
 KM_ROWS, KM_D, KM_K = 1 << 18, 21, 256
 N_QUERIES, BUCKET = 4096, 1024
+QPS_RUNS = (20, 5)   # classify calls a reading, readings
+PROFILED = 10        # classify calls under the profiler
 
 
 def main(argv=None) -> int:
@@ -92,11 +101,15 @@ def main(argv=None) -> int:
     scale = qk.feature_scales(A[:KM_K].abs().amax(0))
     A8, C8 = qk.quantize_rows(A, scale), qk.quantize_rows(A[:KM_K], scale)
     Aq8 = qk.quantize_rows(on_card(Xk[KM_ROWS:KM_ROWS + BUCKET]), scale)
+    one = [t[:1, :1].contiguous() for t in (Xb, mu, var)] + [lp[:1]]
+    one8 = [t[:1, :1].contiguous() for t in (Aq8, C8)]
     calls = {"b3_bucket": (lambda: ops.gnb_scores_batch(Xb, mu, var, lp),
                            200),
              "b9": (lambda: ops.gnb_scores(x1, mu, var, lp), 200),
              "b7_fit": (lambda: ops.distance_argmin_q8(A8, C8), 20),
-             "b7_serve": (lambda: ops.distance_argmin_q8(Aq8, C8), 200)}
+             "b7_serve": (lambda: ops.distance_argmin_q8(Aq8, C8), 200),
+             "b3_host": (lambda: ops.gnb_scores_batch(*one), 1000),
+             "b7_host": (lambda: ops.distance_argmin_q8(*one8), 1000)}
     s3 = ops.gnb_scores_batch(Xb, mu, var, lp)
     s9 = ops.gnb_scores(x1, mu, var, lp)
     v7, i7 = ops.distance_argmin_q8(Aq8, C8)
@@ -114,34 +127,55 @@ def main(argv=None) -> int:
     timed_routes = {name: dict(r) for name, r in routes.items()}
     del A, A8
 
-    qps = {}
+    engines = {}
     Xq = Xg[GNB_ROWS:]
     for algo in ("gnb", "gmm"):
         est = est_mod.make_fitted(algo, Xg[:GNB_ROWS], yg[:GNB_ROWS],
                                   n_groups=GNB_C, device=dev)
-        engine = NonNeuralServeEngine(est, max_batch=BUCKET, device=dev)
-        engine.warmup_buckets(GNB_D)
-        engine.classify(Xq)
-        qps[algo] = dict(host=served_qps(torch, engine, Xq),
-                         card=served_qps(torch, engine, on_card(Xq)))
-        del engine, est
+        engines[algo] = (NonNeuralServeEngine(est, max_batch=BUCKET,
+                                              device=dev), Xq, GNB_D)
     km = est_mod.make_fitted("kmeans", Xk[:KM_ROWS], None, n_groups=KM_K,
                              device=dev)
-    engine = NonNeuralServeEngine(km, max_batch=BUCKET, device=dev,
-                                  policy="int8")
-    engine.warmup_buckets(KM_D)
-    Xkq = Xk[KM_ROWS:]
-    engine.classify(Xkq)
+    engines["kmeans_int8"] = (NonNeuralServeEngine(
+        km, max_batch=BUCKET, device=dev, policy="int8"), Xk[KM_ROWS:], KM_D)
+    qps = {}
+    for algo, (engine, queries, d) in engines.items():
+        engine.warmup_buckets(d)
+        engine.classify(queries)
+        qps[algo] = dict(host=served_qps(torch, engine, queries, *QPS_RUNS),
+                         card=served_qps(torch, engine, on_card(queries),
+                                         *QPS_RUNS))
     ops.reset_launches()
-    engine.classify(Xkq)
+    engines["kmeans_int8"][0].classify(Xk[KM_ROWS:])
     torch.cuda.synchronize()
     b7_launches = ops.LAUNCHES["distance_argmin_q8"]
-    qps["kmeans_int8"] = dict(host=served_qps(torch, engine, Xkq),
-                              card=served_qps(torch, engine, on_card(Xkq)))
+    # last, as a process that has run the profiler launches more slowly:
+    # the device time of a classify from the card, from the profiler's
+    # kernels and copies, and each kernel's time a launch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    device_per_classify = {}
+    for algo, (engine, queries, _) in engines.items():
+        queries = on_card(queries)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILED):
+                engine.classify(queries)
+            torch.cuda.synchronize()
+        rows = [(e.key, e.count,
+                 getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0)))
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        device_per_classify[algo] = dict(
+            ms=sum(us for _, _, us in rows) / PROFILED / 1e3,
+            top={key[:80]: dict(launches=n / PROFILED, us=us / n)
+                 for key, n, us in sorted(rows, key=lambda r: -r[2])[:3]})
     print(json.dumps(dict(
         src=str(Path(args.src).resolve()), card=card(),
         torch=torch.__version__, reps=REPS, ms=times, routes=timed_routes,
-        kmeans_int8_b7_launches_per_classify=b7_launches, qps=qps)))
+        kmeans_int8_b7_launches_per_classify=b7_launches, qps=qps,
+        device_per_classify=device_per_classify)))
     return 0
 
 

@@ -110,15 +110,16 @@ def test_gnb_plan(B, C, d, sms, want):
 @pytest.mark.parametrize("B,C,d", [(1024, 10, 784), (1, 10, 784),
                                    (31, 33, 785), (3, 17, 1)])
 def test_gnb_launch_arguments(monkeypatch, B, C, d):
-    """The launcher hands the C function the plan, C floats of constants'
-    scratch and a (B, C) output, and counts the launch per route."""
+    """The launcher hands the C function the plan and a (B, C) output, and
+    counts the launch per route."""
     calls, shapes = _recorder(monkeypatch, tgs)
     tops.reset_launches()
     X, mu, var, lp = _t(*_gnb_inputs(0, B, d, C))
     out = tgs.launch_scores_batch(X, mu, var, lp)
     (_, args), = calls
-    assert args[6:12] == (B, C, d) + tgs.plan(B, C, d, 132)
-    assert shapes == [(C,), (B, C)] and tuple(out.shape) == (B, C)
+    assert args[5:11] == (B, C, d) + tgs.plan(B, C, d, 132)
+    assert shapes == [(B, C)] and tuple(out.shape) == (B, C)
+    assert args[:5] == tuple(t.data_ptr() for t in (X, mu, var, lp, out))
     way = tgs.route(C, d)
     assert tgs.ROUTE_LAUNCHES == {"resident": int(way == "resident"),
                                   "stream": int(way == "stream")}
@@ -135,7 +136,7 @@ def test_gnb_scores_launches_b3_at_one_query(monkeypatch):
     X, mu, var, lp = _t(*_gnb_inputs(1, 1, 784, 10))
     assert tuple(tops.gnb_scores(X[0], mu, var, lp).shape) == (10,)
     (_, args), = calls
-    assert args[6:12] == (1, 10, 784, 16, 784, 1)
+    assert args[5:11] == (1, 10, 784, 16, 784, 1)
     assert tops.LAUNCHES["gnb_scores"] == 1
     assert tops.LAUNCHES["gnb_scores_batch"] == 0
     assert tgs.ROUTE_LAUNCHES == {"resident": 1, "stream": 0}
@@ -221,6 +222,8 @@ def test_argmin_q8_launch_arguments(monkeypatch, N, K, d):
     assert args[4:10] == (N, K, d) + tqk.argmin_plan(N, K, d, 132)
     assert shapes == [(N,), (N,)]
     assert vals.dtype == idx.dtype == torch.int32
+    assert tuple(vals.shape) == tuple(idx.shape) == (N,)
+    assert args[2:4] == (vals.data_ptr(), idx.data_ptr())
     way = tqk.argmin_route(K, d)
     assert tqk.ARGMIN_ROUTE_LAUNCHES == {"resident": int(way == "resident"),
                                          "stream": int(way == "stream")}
