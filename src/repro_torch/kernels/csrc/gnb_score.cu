@@ -22,7 +22,7 @@
 //    every block.  A second kernel taking them once a call was measured
 //    (H100): 0.0020 ms of device time and ~11 us of host time a call,
 //    which made a GNB classify from the card ~20% slower, host-bound as it
-//    is; in the block they cost under 0.001 ms.  The scores kernel sums
+//    is; in the block they cost 0.0012-0.0014 ms.  The scores kernel sums
 //    (x - mu)^2 / var and writes -1/2 sum + constant.  Each term rounds as
 //    the plain version's (x - mu, its square, the IEEE-rounded division:
 //    no fast math, no reciprocal); only the order of the sum differs,

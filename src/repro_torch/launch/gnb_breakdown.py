@@ -9,10 +9,10 @@ the (32 query x 8 class) tile kernel ``gnb_batch_kernel``, which stages
 64-feature chunks of X, mu and var and takes ``logf`` of var in every
 block.  With ``--new``, this checkout's B3 (a warp or more a query,
 every class of a group in registers) and B7 (``q8_argmin_kernel`` of
-``quantized.cu``: resident centroids, mma.sync dot products).  The script copies the sources,
-cuts each into variants by replacing whole statements
-(``kernel_cuts.cut``: it stops if a statement is not found, so it
-refuses any other design), builds every variant with nvcc for sm_90a
+``quantized.cu``: resident centroids, mma.sync dot products).  The
+script copies the sources, cuts each into variants by replacing whole
+statements (``kernel_cuts.cut``: it stops if a statement is not found,
+so it refuses any other design), builds every variant with nvcc for sm_90a
 into ``kernels/build/breakdown/`` of this checkout, all at once, and
 times each through its C entry point by CUDA events over 200 calls
 (B7 at the fit shape: 20) after two warm calls, and by the replay of a
