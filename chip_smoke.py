@@ -88,7 +88,20 @@ the CUDA toolkit.  In order it
    stream after every layer to the plain route's, within twice the plain
    route's distance from an fp32 route (``lm_layers``).  B10 and B11 are
    also timed at each path shape by a CUDA graph of the calls
-   (``device_ms``), beside the CUDA-event time of a loop of calls.
+   (``device_ms``), beside the CUDA-event time of a loop of calls;
+5. replays a seeded Poisson request stream (``STREAM``: 256 arrivals a
+   tick for 64 ticks, a coalescing window of 4 ticks, a deadline of 8)
+   through ``RequestScheduler`` on the fitted kNN (B1) and GNB (B3)
+   estimators, every bucket warmed first, and once more on kNN with an
+   LRU cache over 1024 distinct rows (``stream_path``): each request's
+   prediction equals one ``classify`` of the same queries but at fp32
+   near-ties, no bucket runs that was not warmed before the stream, a
+   cache hit's answer equals the served one; prints the ``[stream]``
+   SLO lines, the bucket histogram, the straggler events and req/s;
+6. trains LR and SVM (300 full-batch steps) on the GNB path's rows on
+   the card and serves the queries through Fig. 4's two-phase decision
+   (``linear_path``): accuracy above 0.95, no kernel launched, classes
+   equal to the CPU computation on the same weights but at near-ties.
 
 The comparison rule: integer outputs (B5's int32 mode, B6, B7, B8 and
 the int8 and ANN paths' neighbours, assignments and votes) match
@@ -170,6 +183,18 @@ LM_ATOL, LM_RTOL = 2.0 ** -3, 2.0 ** -6
 # bf16 rounding noise that the fp32 route measures; a wrong tile of one
 # head in one layer moves it past that noise at that layer.
 LAYER_FACTOR = 2.0
+
+# slice 10: a Poisson request stream (the JAX CLI's --stream model) through
+# RequestScheduler on the fitted kNN (B1) and GNB (B3) engines, cycling
+# N_QUERIES queries: 256 arrivals a tick fill a 1024 bucket in the
+# coalescing window, about 16,400 requests in all; a third run on kNN
+# repeats 1024 distinct rows through an LRU of 4096, so cached answers
+# are served.  Then LR and SVM (paper §4.2) trained on the GNB data with
+# the JAX package's defaults (300 full-batch steps) and served on
+# N_QUERIES queries
+STREAM = dict(rate=256, ticks=64, max_wait=4, deadline=8, cache_size=4096,
+              cache_rows=1024)
+LINEAR_STEPS = 300
 
 # NVIDIA data-sheet peaks by H100 variant, at the full power limit: fp32
 # outside the tensor cores (FLOP/s), device-memory rate (bytes/s), the
@@ -679,6 +704,176 @@ def lm_path(torch, ops, dev, cfg):
                 decisions=Bt * (new + 1), near=near, differ=differ,
                 worst=worst, first=res.tokens[0, :8].tolist(),
                 launches=launches, routes=routes, layers=layers)
+
+
+def stream_path(torch, ops, dev, est, kr, queries, helpers,
+                cache_size: int = 0) -> int:
+    """Serve ``est`` through ``RequestScheduler``: warm every bucket of a
+    ``NonNeuralServeEngine``, replay the seeded Poisson trace ``STREAM``
+    over ``queries`` (cycled), with every launch count set to 0 just
+    before the warmup and read just after the replay, and check it:
+    launches only of ``kr``'s kernel and only into buckets warmed before
+    the stream, every request served, each prediction equal to one
+    ``classify`` of the same queries but at fp32 near-ties, a cache hit's
+    answer equal bit for bit to the one served for its row.  Prints the
+    ``[stream]`` lines; returns the kernel's launches."""
+    import numpy as np
+
+    from repro_torch.serving import (NonNeuralServeEngine, RequestScheduler,
+                                     poisson_trace, replay_trace)
+    algo = est.algorithm
+    counts = poisson_trace(STREAM["rate"], STREAM["ticks"], seed=SEED)
+    engine = NonNeuralServeEngine(est, max_batch=MAX_BATCH, device=dev)
+    ops.reset_launches()
+    engine.warmup_buckets(queries.shape[1])
+    sched = RequestScheduler(engine, max_wait=STREAM["max_wait"],
+                             cache_size=cache_size)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = replay_trace(sched, queries, counts, deadline=STREAM["deadline"])
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    st = sched.stats
+    n_launch = launches[kr["name"]]
+    what = f"stream {algo}" + (f" cache={cache_size}" if cache_size else "")
+    check(set(engine.bucket_launches) <= sched.warmed,
+          f"{what}: buckets {sorted(engine.bucket_launches)} not all "
+          f"warmed before the stream {sorted(sched.warmed)}")
+    check(n_launch == len(engine.warmed) + st.launches and
+          sum(launches.values()) == n_launch,
+          f"{what}: launches {launches} for {len(engine.warmed)} warmed "
+          f"buckets and {st.launches} drains")
+    check(len(ids) == int(counts.sum()) == st.completed and
+          sched.pending == 0 and st.shed == 0,
+          f"{what}: {len(ids)} requests, {st.completed} completed, "
+          f"{st.shed} shed")
+    # one classify of the same queries, after the counted run
+    rows = queries[np.arange(len(ids)) % len(queries)]
+    one = engine.classify(rows)
+    one_cls, one_aux = one.classes.cpu().numpy(), one.aux.cpu().numpy()
+    res = [sched.results[i] for i in ids]
+    got_cls = np.array([r.prediction for r in res])
+    got_aux = np.stack([r.aux for r in res])
+    odd = got_cls != one_cls
+    if algo == "knn":
+        on_card, pair_dist = helpers["on_card"], helpers["pair_dist"]
+        got_t, one_t, Q = on_card(got_aux), on_card(one_aux), on_card(rows)
+        A = engine.estimator.params.A
+        dk, scale = pair_dist(A[got_t.long()], Q)
+        dp, _ = pair_dist(A[one_t.long()], Q)
+        n_near = helpers["compare_ranked"](
+            what, got_t, one_t, helpers["near"](dk, dp, scale), False)
+        check(bool((got_aux != one_aux).any(1)[odd].all()),
+              f"{what}: a class differs from one classify without a "
+              "near-tie")
+    else:
+        check(np.allclose(got_aux, one_aux, **TOL),
+              f"{what}: scores differ from one classify by "
+              f"{float(np.abs(got_aux - one_aux).max())}")
+        top2 = -np.sort(-one_aux, axis=1)[:, :2]
+        tie = np.isclose(top2[:, 0], top2[:, 1], **TOL)
+        check(bool(tie[odd].all()), f"{what}: a class differs from one "
+              "classify without a near-tie")
+        n_near = int(odd.sum())
+    # a hit's answer is the served answer of its row, bit for bit
+    served = {}
+    for i, r in zip(ids, res):
+        row = i % len(queries)
+        if r.cache_hit:
+            p, a = served[row]
+            check(r.prediction == p and np.array_equal(r.aux, a),
+                  f"{what}: request {i} hit an answer unlike the one served "
+                  "for its row")
+        else:
+            served.setdefault(row, (r.prediction, r.aux))
+    check((st.cache_hits > 0) == bool(cache_size),
+          f"{what}: {st.cache_hits} cache hits")
+    s = st.summary()
+    events = {}
+    for e in sched.events:
+        events[e.kind] = events.get(e.kind, 0) + 1
+    print(f"[stream] {algo}: rate={STREAM['rate']} ticks={STREAM['ticks']} "
+          f"max_wait={STREAM['max_wait']} deadline={STREAM['deadline']} "
+          f"cache={cache_size} over {len(queries)} distinct queries")
+    host = wall - float(np.sum(st.batch_times))
+    print(f"[stream] {algo}: served {len(ids)} requests in {wall:.3f}s wall "
+          f"({len(ids) / wall:.1f} req/s; {host:.3f}s of it outside the "
+          f"launches, {1e6 * host / len(ids):.2f} us a request; "
+          f"{s['launches']} launches, "
+          f"buckets={dict(sorted(st.bucket_launches.items()))}, straggler "
+          f"events={sum(events.values())} {events}); {kr['name']} "
+          f"launches={n_launch} ({len(engine.warmed)} warmup buckets + "
+          f"{st.launches} drains)")
+    print(f"[stream] {algo}: latency ticks p50={s['p50']:.0f} "
+          f"p95={s['p95']:.0f} p99={s['p99']:.0f}  throughput="
+          f"{s['throughput']:.2f} req/tick  occupancy={s['occupancy']:.4f}  "
+          f"hit_rate={s['hit_rate']:.4f}  deadline_miss="
+          f"{s['deadline_miss_rate']:.4f}; mean launch (copy in, "
+          f"classify, synchronize) "
+          f"{1e3 * float(np.mean(st.batch_times)):.4f} ms; equal to one "
+          f"classify of the same {len(ids)} queries but near_ties={n_near}"
+          + (f"; {st.cache_hits} hits equal to their rows' served answers"
+             if cache_size else ""))
+    return n_launch
+
+
+def linear_path(torch, ops, dev, data, n_class: int) -> None:
+    """The paper's GEMM-based pair on ``data`` (train rows, labels,
+    queries, labels): ``train_lr``/``train_svm`` with the JAX package's
+    defaults on the card, then Fig. 4's two-phase decision on the
+    queries; accuracy above 0.95, no kernel launched, and classes equal
+    to the port's CPU computation on the same weights except where its
+    top two scores are a near-tie (within 1e-5 + 1e-5·(|W|·|x| + |b|))."""
+    from repro_torch.core import gemm_based as gb
+    from repro_torch.core.distribution import two_phase_matvec
+    Xtr, ytr, Xq, yq = data
+    Xq_card = torch.from_numpy(Xq).to(dev)
+    Xc = torch.from_numpy(Xq)
+    for algo, train, predict in (("lr", gb.train_lr, gb.lr_predict_batch),
+                                 ("svm", gb.train_svm,
+                                  gb.svm_predict_batch)):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = train(Xtr, ytr, n_class, steps=LINEAR_STEPS, device=dev)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        cls = predict(model, Xq)
+        torch.cuda.synchronize()
+        check(not any(ops.LAUNCHES.values()),
+              f"{algo}: kernels ran on a path that has none: {ops.LAUNCHES}")
+        check(bool(torch.isfinite(model.W).all()) and
+              bool(torch.isfinite(model.b).all()),
+              f"{algo}: trained weights are not finite")
+        acc = float((cls.cpu().numpy() == yq).mean())
+        check(acc > 0.95, f"{algo}: accuracy {acc} on the held-out queries")
+
+        def timed(queries, reps=10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                predict(model, queries)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / reps * 1e3
+
+        host_ms, card_ms = timed(Xq), timed(Xq_card)
+        W, b = model.W.cpu(), model.b.cpu()
+        odd = (cls.cpu() != predict(gb.LinearModel(W=W, b=b), Xc)).numpy()
+        top2 = two_phase_matvec(W, Xc, b).topk(2, dim=1).values
+        scale = (Xc.abs() @ W.abs().T + b.abs()).amax(1)
+        tie = ((top2[:, 0] - top2[:, 1]).abs() <=
+               TOL["atol"] + TOL["rtol"] * scale).numpy()
+        check(bool(tie[odd].all()), f"{algo}: a class differs from the CPU "
+              "computation on the same weights without a near-tie")
+        print(f"[path] {algo}: train {LINEAR_STEPS} full-batch steps on "
+              f"{len(Xtr)} x {Xtr.shape[1]}, {n_class} classes, in "
+              f"{train_s:.3f}s ({1e3 * train_s / LINEAR_STEPS:.3f} ms a "
+              f"step, the rows' host-to-card copy included); predict "
+              f"{len(Xq)} queries at {len(Xq) / host_ms * 1e3:.1f} q/s "
+              f"({host_ms:.4f} ms from host memory, {card_ms:.4f} ms from "
+              f"the card); acc={acc:.4f}; no kernel on this path "
+              f"(launches all 0); classes equal to the CPU computation on "
+              f"the same weights but {int(odd.sum())} at near-ties")
 
 
 def main() -> int:
@@ -2187,6 +2382,7 @@ def main() -> int:
         report(f"{label} int8", [], run, f"{msg}; affine scores over int8 "
                "features" if algo != "rf" else f"{msg}; int8 thresholds")
         del run
+    streamed = {algo: fitted[algo] for algo in ("knn", "gnb")}
     del fitted
 
     # ------------------------------------------------ 5. IVF-PQ ANN
@@ -2382,6 +2578,24 @@ def main() -> int:
           f"layer {lm_cfg.n_layers - 1} {lay['last'][0]:.4g} against "
           f"{lay['last'][1]:.4g} (‖fp32 state‖ {lay['scale']:.4g})")
     del run
+
+    # ------------------------------------------------ 7. request streams
+    # the fitted kNN and GNB estimators behind RequestScheduler (one
+    # warmed engine each, launch counts read around warmup and replay)
+    helpers = dict(on_card=on_card, pair_dist=pair_dist, near=near,
+                   compare_ranked=compare_ranked)
+    knn_q = knn_data[2]
+    for algo, key, queries, cache in (
+            ("knn", "B1", knn_q, 0), ("gnb", "B3", gnb_data[2], 0),
+            ("knn", "B1", knn_q[:STREAM["cache_rows"]],
+             STREAM["cache_size"])):
+        kernels[key]["launches"] += stream_path(
+            torch, ops, dev, streamed[algo], kernels[key], queries, helpers,
+            cache_size=cache)
+    del streamed
+
+    # ------------------------------------------------ 8. LR and SVM
+    linear_path(torch, ops, dev, gnb_data, GNB["classes"])
 
     # ------------------------------------------------ summary lines
     kernels = dict(sorted(kernels.items(), key=lambda kv: int(kv[0][1:])))

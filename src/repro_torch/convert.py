@@ -10,6 +10,9 @@ The field names say which form they are.  The result is the port's
 NamedTuple of tensors on ``device``; hand it to the estimator's
 ``from_params`` to serve it.
 
+``linear_from_numpy`` carries an LR or SVM ``LinearModel`` (``W``
+(C, d), ``b`` (C,)) across for ``core.gemm_based``.
+
 ``lm_params_from_numpy`` carries a dense LM's params tree across (the
 reference's ``init_params`` tree with numpy leaves) for
 ``serving.ServeEngine``.
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch.core import quantization as _q
 from repro_torch.core.ann import ANNParams
+from repro_torch.core.gemm_based import LinearModel
 from repro_torch.core.gmm import GMMState
 from repro_torch.core.gnb import GNBModel
 from repro_torch.core.kmeans import KMeansState
@@ -68,6 +72,24 @@ def params_from_numpy(algorithm: str, leaves: Any, *,
         value = fields[name]
         out[name] = int(value) if name == "n_class" else _leaf(value, dev)
     return cls(**out)
+
+
+def linear_from_numpy(leaves: Any, *,
+                      device: DeviceLike = None) -> LinearModel:
+    """``leaves``: an LR or SVM model of the reference (``W`` (C, d) and
+    ``b`` (C,), numpy-convertible, a NamedTuple or a mapping).  Returns
+    the port's ``LinearModel`` on ``device`` as float32."""
+    fields: Mapping[str, Any] = leaves._asdict() \
+        if hasattr(leaves, "_asdict") else dict(leaves)
+    missing = set(LinearModel._fields) - set(fields)
+    if missing:
+        raise KeyError(f"linear model lacks {sorted(missing)}")
+    W, b = (np.asarray(fields[f], np.float32) for f in LinearModel._fields)
+    if W.ndim != 2 or b.shape != (W.shape[0],):
+        raise ValueError(f"W {W.shape} and b {b.shape}: (C, d) and (C,) "
+                         "expected")
+    dev = resolve_device(device)
+    return LinearModel(W=_leaf(W, dev), b=_leaf(b, dev))
 
 
 def _lm_leaf(value: Any, device: torch.device) -> torch.Tensor:

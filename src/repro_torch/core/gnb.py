@@ -72,6 +72,13 @@ def gnb_decision(model: GNBModel, x: torch.Tensor, n_cores: int = 8):
     return torch.argmax(y).to(torch.int32), y
 
 
+def gnb_predict_batch(model: GNBModel, X: torch.Tensor,
+                      n_cores: int = 8) -> torch.Tensor:
+    """The Fig. 5 pipeline for each query of X (B, d) -> classes (B,)
+    int32 (one ``gnb_decision`` a query)."""
+    return torch.stack([gnb_decision(model, x, n_cores)[0] for x in X])
+
+
 def gnb_classify_batch(model: GNBModel, X: torch.Tensor, *, policy=None,
                        path: str | None = None):
     """X (B, d) through the registry (its ``blocked`` arm is the CUDA

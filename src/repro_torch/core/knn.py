@@ -5,7 +5,8 @@ into e (N,).  OP2: per-core Selection Sort top-k on its chunk.  OP3: the
 master merges the c*k local candidates and votes.
 
 Two paths, as in the JAX package's ``core/knn.py``:
-  * ``knn_classify`` — the literal Fig. 6 pipeline, one query per call;
+  * ``knn_classify`` — the literal Fig. 6 pipeline, one query per call
+    (``knn_predict_batch`` runs it for each query of a batch);
   * ``knn_classify_batch`` — the serving path: Q queries per call through
     the dispatch registry, whose ``fused`` arm is the CUDA kernel B1.
 Both break distance ties to the smallest row and vote ties to the lowest
@@ -18,7 +19,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.distribution import pad_to_multiple, split_chunks
-from repro_torch.core.topk import selection_topk_smallest
+from repro_torch.core.topk import local_global_topk_smallest
 from repro_torch.kernels import dispatch
 
 _INF = float("inf")
@@ -55,25 +56,22 @@ def knn_classify(model: KNNModel, x: torch.Tensor, k: int,
     neighbour indices (k,) int32)."""
     Ap, N = pad_to_multiple(model.A, n_cores, axis=0)
     chunks = split_chunks(Ap, n_cores, axis=0)            # (c, N/c, d)
-    chunk_len = Ap.shape[0] // n_cores
 
     # OP1 — per-core distances over its row chunk; padded rows masked
-    e = torch.stack([sq_distances(ch, x) for ch in chunks])
-    flat_idx = torch.arange(Ap.shape[0], device=e.device).reshape(
-        n_cores, chunk_len)
-    e = torch.where(flat_idx < N, e, _INF)
+    e = torch.cat([sq_distances(ch, x) for ch in chunks])
+    e = torch.where(torch.arange(e.shape[0], device=e.device) < N, e, _INF)
 
-    # OP2 — local Selection Sort per core
-    local = [selection_topk_smallest(e[c], k) for c in range(n_cores)]
-    lv = torch.stack([v for v, _ in local])
-    li = torch.stack([i for _, i in local])
-    li_global = li + (torch.arange(n_cores, device=e.device,
-                                   dtype=torch.int32) * chunk_len)[:, None]
-
-    # OP3 — master: Selection Sort over the c*k candidates, then vote
-    _, gi = selection_topk_smallest(lv.reshape(-1), k)
-    nbr_idx = li_global.reshape(-1)[gi.long()]
+    # OP2 — local Selection Sort per core; OP3 — the master merges the
+    # c*k candidates, then votes
+    _, nbr_idx = local_global_topk_smallest(e, k, n_cores)
     return _vote(model.labels, nbr_idx[None], model.n_class)[0], nbr_idx
+
+
+def knn_predict_batch(model: KNNModel, X: torch.Tensor, k: int,
+                      n_cores: int = 8) -> torch.Tensor:
+    """The Fig. 6 pipeline for each query of X (Q, d) -> classes (Q,)
+    int32 (one ``knn_classify`` a query)."""
+    return torch.stack([knn_classify(model, x, k, n_cores)[0] for x in X])
 
 
 def knn_classify_batch(model: KNNModel, X: torch.Tensor, k: int, *,

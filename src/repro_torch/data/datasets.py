@@ -1,10 +1,14 @@
-"""Synthetic classification blobs, numpy only.
+"""Synthetic datasets standing in for the paper's corpora, numpy only.
 
-A copy of ``class_blobs`` / ``class_blobs_stream`` of the JAX package's
-``data/datasets.py``: the same numpy Generator calls in the same order, so
-one seed gives the same bytes in both packages (the parity tests hand the
-same arrays to both).  The port keeps its own copy because that module's
-package imports JAX.
+A copy of the JAX package's ``data/datasets.py`` generators: the same
+numpy Generator calls in the same order, so one seed gives the same bytes
+in both packages (the parity tests hand the same arrays to both).  The
+port keeps its own copy because that module's package imports JAX.
+
+  - class_blobs:  well-separated Gaussian blobs, the serving paths' data
+  - mnist_like:   (N, 784) in [0,1], 10 classes: GEMM-based + GNB
+  - asd_like:     (N, 21) mixed-scale features, 2-3 classes: kNN / k-Means
+  - digits_like:  (N, 64) in [0,16], 10 classes: RF
 """
 from __future__ import annotations
 
@@ -16,6 +20,13 @@ import numpy as np
 # noise is ~11 MB of transient, so million-row reference sets never hold
 # an (N, d) fp64 intermediate.
 _CHUNK = 1 << 16
+
+
+def _blobs(rng, n: int, d: int, n_class: int, spread: float, scale: float):
+    centers = rng.normal(size=(n_class, d)) * spread
+    y = rng.integers(0, n_class, size=n)
+    X = centers[y] + rng.normal(size=(n, d)) * scale
+    return X.astype(np.float32), y.astype(np.int32)
 
 
 def _separated_centers(rng, n_class: int, d: int, spread: float,
@@ -71,3 +82,27 @@ def class_blobs_stream(n: int, d: int = 21, n_class: int = 3, seed: int = 0,
     call byte for byte."""
     yield from _blob_stream(np.random.default_rng(seed), n, d, n_class,
                             spread, 1.0, chunk)
+
+
+def mnist_like(n: int = 2000, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """MNIST's shape: 784 features squashed into [0, 1], 10 classes."""
+    rng = np.random.default_rng(seed)
+    X, y = _blobs(rng, n, 784, 10, spread=0.8, scale=0.35)
+    X = 1.0 / (1.0 + np.exp(-X))          # squash into [0,1] like pixels
+    return X.astype(np.float32), y
+
+
+def asd_like(n: int = 1000, n_class: int = 2, seed: int = 1):
+    """The ASD screening set's shape: 21 features, the first 8 integer."""
+    rng = np.random.default_rng(seed)
+    X, y = _blobs(rng, n, 21, n_class, spread=2.0, scale=1.0)
+    X[:, :8] = np.round(X[:, :8])
+    return X.astype(np.float32), y
+
+
+def digits_like(n: int = 1797, seed: int = 2):
+    """scikit-learn digits' shape: 64 features in [0, 16], 10 classes."""
+    rng = np.random.default_rng(seed)
+    X, y = _blobs(rng, n, 64, 10, spread=2.5, scale=1.2)
+    X = np.clip((X - X.min()) / (X.max() - X.min()) * 16.0, 0, 16)
+    return X.astype(np.float32), y

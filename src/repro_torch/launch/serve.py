@@ -15,11 +15,19 @@ through the bucketed engine (``--batch`` is the largest bucket).
   PYTHONPATH=src python -m repro_torch.launch.serve --algo knn \
       --batch 64 --requests 256 --policy fp32
 
+Request streaming: ``--stream`` replays a seeded Poisson trace through
+the micro-batching ``RequestScheduler`` after warming every bucket, and
+prints the SLO line (p50/p95/p99 in drain ticks, occupancy, hit-rate).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --algo gnb --batch 16 \
+      --stream --rate 4 --ticks 40 --cache-size 64 --deadline 8
+
 Runs on the card; ``--device cpu`` runs the kernels' plain versions on the
 CPU instead (with ``--smoke`` for the LM: the full width does not fit a
 CPU run).  The counterpart of the JAX package's ``launch/serve.py``
-(``serve_nonneural`` and ``serve_lm``; its streaming, tenant, mesh and
-autotune flags wait for ROADMAP A11-A15).
+(``serve_nonneural``, ``serve_stream`` and ``serve_lm``); its tenant
+(ROADMAP A12), degrade and chaos (A13), autotune (A14) and mesh (A15)
+flags wait for their items.
 """
 from __future__ import annotations
 
@@ -60,6 +68,8 @@ def serve_nonneural(args) -> ClassifyResult:
         r = engine.quant_report
         print(f"[quant] params {r['bytes_fp32']}B fp32 -> "
               f"{r['bytes_int8']}B int8")
+    if args.stream:
+        return serve_stream(args, engine, Q)
     engine.warmup(Q)
     t0 = time.perf_counter()
     result = engine.classify(Q)
@@ -75,6 +85,49 @@ def serve_nonneural(args) -> ClassifyResult:
           f"({args.requests / dt:.0f} q/s, {result.launches} launches, "
           f"buckets={engine.bucket_launches}) acc={acc:.3f}")
     return result
+
+
+def serve_stream(args, engine, Q):
+    """--stream: replay a seeded Poisson arrival trace through the
+    micro-batching ``RequestScheduler`` and report the SLO accounting
+    (time is drain ticks, so the replay is deterministic for a given
+    --seed).  Asserts that no bucket was first run mid-stream."""
+    from collections import Counter
+
+    from repro_torch.serving import (RequestScheduler, poisson_trace,
+                                     replay_trace)
+
+    engine.warmup_buckets(Q.shape[1])
+    sched = RequestScheduler(engine, max_wait=args.max_wait,
+                             cache_size=args.cache_size,
+                             max_queue=args.max_queue)
+    counts = poisson_trace(args.rate, args.ticks, seed=args.seed)
+    t0 = time.perf_counter()
+    ids = replay_trace(sched, Q, counts, deadline=args.deadline)
+    dt = time.perf_counter() - t0
+    s = sched.stats.summary()
+    print(f"[stream] algo={args.algo} policy={args.policy} "
+          f"rate={args.rate} ticks={args.ticks} max_wait={args.max_wait} "
+          f"cache={args.cache_size}")
+    n_strag = sum(e.kind.startswith("straggler_") for e in sched.events)
+    print(f"[stream] served {len(ids)} requests in {dt:.3f}s wall "
+          f"({s['launches']} launches, buckets={engine.bucket_launches}, "
+          f"straggler events={n_strag})")
+    print(f"[stream] latency ticks p50={s['p50']:.0f} p95={s['p95']:.0f} "
+          f"p99={s['p99']:.0f}  throughput={s['throughput']:.2f} req/tick  "
+          f"occupancy={s['occupancy']:.2f}  hit_rate={s['hit_rate']:.2f}  "
+          f"deadline_miss={s['deadline_miss_rate']:.2f}")
+    if sched.stats.shed:
+        print(f"[robust] shed={s['shed']} ({dict(sched.stats.shed_reasons)})"
+              f"  shed_rate={s['shed_rate']:.3f}  "
+              f"miss+shed={s['miss_plus_shed_rate']:.3f}")
+    kinds = Counter(e.kind for e in sched.events)
+    if kinds:
+        print("[robust] events: "
+              + ", ".join(f"{k}={n}" for k, n in sorted(kinds.items())))
+    assert set(engine.bucket_launches) <= sched.warmed, \
+        "stream ran a bucket that was not warmed before it"
+    return sched.stats
 
 
 def serve_lm(args) -> GenerationResult:
@@ -156,9 +209,28 @@ def main(argv=None):
     ap.add_argument("--refine", type=int, default=0,
                     help="--algo ann: exact re-rank of the ADC top-R "
                          "survivors (0 = pure ADC ranking)")
+    ap.add_argument("--stream", action="store_true",
+                    help="replay a Poisson request stream through the "
+                         "micro-batching RequestScheduler instead of one "
+                         "pre-formed batch (Non-Neural algos only)")
+    ap.add_argument("--rate", type=float, default=4.0,
+                    help="--stream mean arrivals per drain tick")
+    ap.add_argument("--ticks", type=int, default=64,
+                    help="--stream trace length in drain ticks")
+    ap.add_argument("--max-wait", type=int, default=4,
+                    help="--stream coalescing window in drain ticks")
+    ap.add_argument("--cache-size", type=int, default=0,
+                    help="--stream LRU result cache entries (0 = off)")
+    ap.add_argument("--deadline", type=int, default=None,
+                    help="--stream per-request SLO in drain ticks")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="--stream admission-control bound: submits "
+                         "beyond this many queued requests shed with "
+                         "reason=queue_full (default unbounded)")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the training and query blobs (--algo "
-                         "lm: of the weights and prompts)")
+                    help="seed of the training and query blobs and of "
+                         "the --stream arrival trace (--algo lm: of the "
+                         "weights and prompts)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; without a card the run "
                          "fails unless cpu is named")

@@ -20,6 +20,7 @@ M = batch; attention over the cache in torch ops), greedy or sampled.
 """
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -49,6 +50,13 @@ class ClassifyResult:
                 f"ClassifyResult.neighbors is kNN-only; this result came "
                 f"from {self.algorithm!r}, whose aux is its own evidence")
         return self.aux
+
+
+# tells two engines apart for result-cache keys even when they wrap the
+# same estimator: serving/scheduler.py folds the fingerprint into its keys,
+# so the same query bytes against different engines or policies never
+# cross-hit
+_ENGINE_SEQ = itertools.count()
 
 
 class NonNeuralServeEngine:
@@ -90,6 +98,8 @@ class NonNeuralServeEngine:
         self.bucket_launches: Dict[int, int] = {}
         self.warmed: set = set()     # bucket sizes already run once
         self._fn = estimator.predict_batch_fn()
+        self.cache_fingerprint = (self.algorithm, str(policy),
+                                  next(_ENGINE_SEQ))
 
     def _bucket(self, b: int) -> int:
         size = 1

@@ -23,7 +23,9 @@ want = {"repro_torch.launch.serve", "repro_torch.core.gmm",
         "repro_torch.core.quantization", "repro_torch.core.ann",
         "repro_torch.serving.quant", "repro_torch.models.transformer",
         "repro_torch.kernels.gemm", "repro_torch.kernels.flash_attention",
-        "repro_torch.configs.registry"}
+        "repro_torch.configs.registry", "repro_torch.serving.scheduler",
+        "repro_torch.serving.degrade", "repro_torch.runtime.events",
+        "repro_torch.runtime.straggler", "repro_torch.core.gemm_based"}
 assert want <= set(names), sorted(want - set(names))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
