@@ -101,7 +101,21 @@ the CUDA toolkit.  In order it
 6. trains LR and SVM (300 full-batch steps) on the GNB path's rows on
    the card and serves the queries through Fig. 4's two-phase decision
    (``linear_path``): accuracy above 0.95, no kernel launched, classes
-   equal to the CPU computation on the same weights but at near-ties.
+   equal to the CPU computation on the same weights but at near-ties;
+7. serves multi-tenant fleets (``TENANTS``: 1,024 kNN tenants of 4,096
+   rows at d = 21, 256 K-Means tenants at K = 8, 256 GNB tenants at
+   d = 784 and 64 GMM tenants on their moments) from a ``ModelStore`` on
+   the card through ``classify_group`` (``tenants_path``): one grouped
+   launch of B1, B2 or B3 a (group, bucket) cell, each lane bit-equal to
+   the per-tenant loop, equal to the grouped plain version but at
+   near-ties, timed against the loop and, at the group shape, against
+   one tenant's launch and the bound; the kNN fleet at half its resident
+   bytes (evictions, admissions serving their dequantized lanes, a
+   hot-swap, a NaN update refused and its breaker open), a seeded
+   cross-tenant Poisson stream through the store-mode scheduler, and a
+   chaos plan replayed twice.  B1, B2 and B3 are also held, grouped on
+   every route, bit-equal lane by lane to their one-tenant launches
+   (``tenant_kernel_edges``).
 
 The comparison rule: integer outputs (B5's int32 mode, B6, B7, B8 and
 the int8 and ANN paths' neighbours, assignments and votes) match
@@ -194,6 +208,16 @@ LAYER_FACTOR = 2.0
 # N_QUERIES queries
 STREAM = dict(rate=256, ticks=64, max_wait=4, deadline=8, cache_size=4096,
               cache_rows=1024)
+# slice 11: multi-tenant fleets at the paper's widths (kNN and K-Means at
+# asd_like's d = 21, GNB at mnist_like's d = 784), served in groups of 64
+# tenants through buckets of up to 16 rows (ROWS); the kNN fleet's A has
+# 86,016 >= 2^16 elements a tenant (352 MB fp32 in all); a cross-tenant
+# Poisson stream (TENANT_STREAM) over it, tenants drawn by seed
+TENANTS = dict(knn=dict(G=1024, n=4096, d=21, classes=3, k=4),
+               kmeans=dict(G=256, n=4096, d=21, K=8),
+               gnb=dict(G=256, n=512, d=784, classes=10),
+               group=64, rows=16, resident_frac=0.5)
+TENANT_STREAM = dict(rate=256, ticks=64, max_wait=4, deadline=8)
 LINEAR_STEPS = 300
 
 # NVIDIA data-sheet peaks by H100 variant, at the full power limit: fp32
@@ -815,6 +839,559 @@ def stream_path(torch, ops, dev, est, kr, queries, helpers,
           + (f"; {st.cache_hits} hits equal to their rows' served answers"
              if cache_size else ""))
     return n_launch
+
+
+def tenants_path(torch, ops, ref, dev, peaks, kernels,
+                 helpers) -> None:
+    """Multi-tenant serving at the paper's widths (``TENANTS``): seeded
+    fleets of same-shape per-tenant fits in a ``ModelStore`` on the card,
+    served by ``NonNeuralServeEngine.classify_group``, one grouped launch
+    of B1 (kNN), B2 (K-Means) or B3 (GNB, GMM at d = 784) a (group,
+    bucket) cell.  For each fleet one call of ``GROUP`` tenants x ``ROWS``
+    rows: one launch of its kernel (launch and route counts read around
+    the call), each lane bit-equal to the per-tenant loop on the same
+    stacked lanes, and equal to the grouped plain version (``path="ref"``)
+    but at fp32 near-ties.  Then the kNN fleet under a resident budget
+    (evictions, admissions that serve their dequantized lanes, a hot-swap
+    that misses the stacked-group cache, a NaN update refused and its
+    tenant's breaker open), a seeded cross-tenant Poisson stream through
+    the store-mode scheduler (each prediction equal to the one-shot
+    grouped answer, only warmed cells), and a chaos replay run twice
+    (identical results and events).  Adds the path's launches to
+    ``kernels``."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.core import estimator as est_mod
+    from repro_torch.core.gmm import GMMState
+    from repro_torch.data.datasets import class_blobs
+    from repro_torch.kernels import distance_argmin as kda
+    from repro_torch.kernels import distance_topk as kdt
+    from repro_torch.kernels import gnb_score as kgs
+    from repro_torch.launch.lm_kernel_times import device_ms
+    from repro_torch.runtime.chaos import (ChaosInjector, ChaosPlan,
+                                           _poison_first_leaf)
+    from repro_torch.serving import (BreakerConfig, DegradePolicy,
+                                     ModelStore, PoisonedParamsError,
+                                     RequestScheduler, poisson_trace,
+                                     replay_trace)
+    from repro_torch.serving import quant as squant
+
+    on_card, pair_dist, near = (helpers[k] for k in
+                                ("on_card", "pair_dist", "near"))
+    Gg, R = TENANTS["group"], TENANTS["rows"]
+    card = smi()
+    keys = {"knn": ("B1", "distance_topk", kdt.ROUTE_LAUNCHES),
+            "kmeans": ("B2", "distance_argmin", kda.ROUTE_LAUNCHES),
+            "gnb": ("B3", "gnb_scores_batch", kgs.ROUTE_LAUNCHES),
+            "gmm": ("B3", "gnb_scores_batch", kgs.ROUTE_LAUNCHES)}
+
+    def count(name):
+        """Add the run's launches of ``name`` (and its grouped ones) to
+        its kernel's counts."""
+        kr = kernels[next(k for k, n, _ in keys.values() if n == name)]
+        kr["launches"] += ops.LAUNCHES[name]
+        kr["grouped"] = kr.get("grouped", 0) + ops.GROUP_LAUNCHES[name]
+
+    def fleet(algo, cfg, seed, **kw):
+        """G tenants cut from one seeded blob draw (tenant t: rows
+        t (n + ROWS) .., the last ROWS its queries), fitted on the card
+        and registered; returns (store, queries (G, ROWS, d), fits)."""
+        groups = cfg.get("classes", cfg.get("K"))
+        X, y = class_blobs(n=cfg["G"] * (cfg["n"] + R), d=cfg["d"],
+                           n_class=groups, seed=seed)
+        X = X.reshape(cfg["G"], cfg["n"] + R, cfg["d"])
+        y = y.reshape(cfg["G"], cfg["n"] + R)
+        store, fits = ModelStore(device=dev), []
+        for t in range(cfg["G"]):
+            fits.append(est_mod.make_fitted(
+                algo, X[t, :cfg["n"]], y[t, :cfg["n"]], n_groups=groups,
+                device=dev, **kw))
+            store.register(t, fits[-1])
+        return store, np.ascontiguousarray(X[:, cfg["n"]:]), fits
+
+    def host_ms(fn, reps):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(out))
+
+    def against_plain(algo, stacked, Qt, res, store):
+        """The grouped plain version (path="ref") on the same lanes: exact
+        but at fp32 near-ties, whose count it returns."""
+        pest = copy.copy(store.template)
+        pest.path = "ref"
+        pcls, paux = pest.predict_batch_group_fn()(stacked, Qt)
+        odd = res.classes != pcls
+        if algo == "knn":
+            n_near = 0
+            for t in range(Qt.shape[0]):
+                A = stacked.A[t]
+                dk, scale = pair_dist(A[res.aux[t].long()], Qt[t])
+                dp, _ = pair_dist(A[paux[t].long()], Qt[t])
+                agree = near(dk, dp, scale)
+                differ = res.aux[t] != paux[t]
+                check(bool((~differ | agree).all()), f"tenants knn lane {t}: "
+                      "a neighbour differs from the plain version's "
+                      "without a near-tie")
+                n_near += int(differ.sum())
+            check(bool((res.aux != paux).any(2)[odd].all()),
+                  "tenants knn: a class differs without a neighbour "
+                  "near-tie")
+            return n_near
+        if algo == "kmeans":
+            c = stacked.centroids
+            scale = (Qt * Qt).sum(2) + torch.gather((c * c).sum(2), 1,
+                                                    res.classes.long())
+            check(near(res.aux, paux, scale).all().item(),
+                  "tenants kmeans: distances differ from the plain "
+                  "version's")
+            pd = torch.gather(
+                (Qt[:, :, None] - c[:, None]).pow(2).sum(3), 2,
+                res.classes.long()[..., None])[..., 0]
+            check(bool(near(pd, paux, scale)[odd].all()),
+                  "tenants kmeans: an assignment differs without a "
+                  "near-tie")
+            return int(odd.sum())
+        if algo == "gnb":
+            check(bool(torch.isclose(res.aux, paux, **TOL).all()),
+                  "tenants gnb: scores differ from the plain version's by "
+                  f"{float((res.aux - paux).abs().max())}")
+            scale = paux.abs()
+        else:
+            inv = 1.0 / stacked.var
+            scale = (Qt * Qt) @ (0.5 * inv).transpose(1, 2) + \
+                Qt.abs() @ (stacked.mu * inv).abs().transpose(1, 2) + \
+                0.5 * (stacked.mu ** 2 * inv + torch.log(stacked.var).abs()
+                       + math.log(2 * math.pi)).sum(2)[:, None]
+            check(bool(((res.aux - paux).abs() <= TOL["atol"] + TOL["rtol"]
+                        * scale).all()), "tenants gmm: log-responsibilities "
+                  "differ from the plain version's")
+        top2 = paux.topk(2, dim=2)
+        tie = (top2.values[..., 0] - top2.values[..., 1]).abs() <= \
+            TOL["atol"] + TOL["rtol"] * scale.gather(
+                2, top2.indices[..., :1])[..., 0]
+        check(bool(tie[odd].all()), f"tenants {algo}: a class differs from "
+              "the plain version's without a near-tie")
+        return int(odd.sum())
+
+    t_phase = time.perf_counter()
+    fleets = {}
+    t0 = time.perf_counter()
+    fleets["knn"] = fleet("knn", TENANTS["knn"], SEED + 11,
+                          k=TENANTS["knn"]["k"])
+    fleets["kmeans"] = fleet("kmeans", TENANTS["kmeans"], SEED + 12)
+    fleets["gnb"] = fleet("gnb", TENANTS["gnb"], SEED + 13)
+    # GMM tenants at the GNB fleet's widths: the mixture of its first
+    # GROUP tenants' class moments (components = classes), the GMM-wide
+    # path's B3 arm with log_pi as the prior
+    gstore = ModelStore(device=dev)
+    for t, g in enumerate(fleets["gnb"][2][:Gg]):
+        p = g.params
+        gstore.register(t, est_mod.GMMEstimator.from_params(GMMState(
+            mu=p.mu, var=p.var, log_pi=p.log_prior,
+            log_lik=torch.zeros((), device=dev),
+            n_iter=torch.zeros((), dtype=torch.int32, device=dev)),
+            device=dev))
+    fleets["gmm"] = (gstore, fleets["gnb"][1][:Gg], None)
+    torch.cuda.synchronize()
+    print(f"[tenants] fleets fitted and registered in "
+          f"{time.perf_counter() - t0:.2f}s: " + ", ".join(
+              f"{a} G={len(st)} resident {st.stats()['resident_bytes']}B "
+              f"(int8 at rest {sum(sl.at_rest_bytes for sl in st._slots.values())}B)"
+              for a, (st, _, _) in fleets.items()))
+
+    engines = {}
+    for algo, (store, Q, _) in fleets.items():
+        key, kname, routes = keys[algo]
+        d = Q.shape[2]
+        engine = store.make_engine(max_batch=R, max_group=Gg)
+        engines[algo] = engine
+        ids = list(range(Gg))
+        stacked, _ = store.group(ids)
+        n_cells = engine.warmup_groups(stacked, d)
+        Qt = on_card(Q[:Gg])
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        res = engine.classify_group(stacked, Qt)
+        torch.cuda.synchronize()
+        launches, grouped = dict(ops.LAUNCHES), dict(ops.GROUP_LAUNCHES)
+        way = [r for r, n in routes.items() if n]
+        count(kname)
+        check(launches[kname] == 1 and grouped[kname] == 1 and
+              sum(launches.values()) == 1 and res.launches == 1 and
+              engine.group_launches == {(Gg, R): 1} and len(way) == 1,
+              f"tenants {algo}: launches {launches}, grouped {grouped}, "
+              f"cells {engine.group_launches}, routes {dict(routes)}")
+        cells = dict(engine.group_launches)
+        fn = store.template.predict_batch_fn()
+        lanes = [est_mod.unstack_params(stacked, t) for t in ids]
+        outs = [fn(lanes[t], Qt[t]) for t in ids]
+        torch.cuda.synchronize()
+        for t in ids:
+            check(torch.equal(res.classes[t], outs[t][0]) and
+                  torch.equal(res.aux[t], outs[t][1]),
+                  f"tenants {algo}: lane {t} is not bit-equal to its "
+                  "one-tenant call")
+        n_near = against_plain(algo, stacked, Qt, res, store)
+        group_ms = host_ms(lambda: engine.classify_group(stacked, Qt), 5)
+        loop_ms = host_ms(lambda: [fn(lanes[t], Qt[t]) for t in ids], 3)
+        nq = Gg * R
+        print(f"[tenants] {algo}: {Gg} tenants x {R} rows (d={d}) in one "
+              f"{key} {kname} launch ({way[0]} route; {n_cells} warmed "
+              f"cells), lanes bit-equal to the per-tenant loop, equal to "
+              f"the grouped plain version but {n_near} at near-ties; "
+              f"grouped {group_ms:.4f} ms ({1e3 * group_ms / nq:.3f} us a "
+              f"query) vs per-tenant loop {loop_ms:.4f} ms "
+              f"({1e3 * loop_ms / nq:.3f} us a query), host clock; "
+              f"launches a cell {cells}; resident "
+              f"{store.stats()['resident_bytes']}B; {card}")
+
+    # the grouped kernels at the group shape: device time and bound
+    (kst, kQ, _), (mst, mQ, _), (gst, gQ, _) = (
+        fleets["knn"], fleets["kmeans"], fleets["gnb"])
+    ka, _ = kst.group(list(range(Gg)))
+    ma, _ = mst.group(list(range(Gg)))
+    ga, _ = gst.group(list(range(Gg)))
+    kq, mq, gq = on_card(kQ[:Gg]), on_card(mQ[:Gg]), on_card(gQ[:Gg])
+    kk = TENANTS["knn"]["k"]
+    Nn, d1 = ka.A.shape[1:]
+    Km, dg, Cg = ma.centroids.shape[1], gq.shape[2], ga.mu.shape[1]
+    # (grouped kernel, one tenant's launch, grouped plain version, one
+    # PyTorch call of the same function or None, operations, bytes)
+    cases = {
+        "B1": (lambda: ops.distance_topk_group(ka.A, kq, kk),
+               lambda: ops.distance_topk(ka.A[0], kq[0], kk),
+               lambda: ref.distance_topk_group(ka.A, kq, kk),
+               lambda: torch.cdist(kq, ka.A).topk(kk, largest=False),
+               Gg * Nn * R * (2 * d1 + 1),
+               4 * Gg * (Nn + R) * d1 + 8 * Gg * R * kk),
+        "B2": (lambda: ops.distance_argmin_group(mq, ma.centroids),
+               lambda: ops.distance_argmin(mq[0], ma.centroids[0]),
+               lambda: ref.distance_argmin_group(mq, ma.centroids),
+               lambda: torch.cdist(mq, ma.centroids).argmin(2),
+               Gg * R * Km * (2 * d1 + 1),
+               4 * Gg * (R + Km) * d1 + 8 * Gg * R),
+        "B3": (lambda: ops.gnb_scores_batch_group(gq, ga.mu, ga.var,
+                                                  ga.log_prior),
+               lambda: ops.gnb_scores_batch(gq[0], ga.mu[0], ga.var[0],
+                                            ga.log_prior[0]),
+               lambda: ref.gnb_scores_batch_group(gq, ga.mu, ga.var,
+                                                  ga.log_prior),
+               None, 5 * Gg * R * Cg * dg,
+               4 * Gg * (R * dg + 2 * Cg * dg + Cg + R * Cg))}
+    for key, (grp, one, plain, lib, n_ops, n_bytes) in cases.items():
+        row = dict(ms=device_ms(grp, 50), one_ms=device_ms(one, 50),
+                   events_ms=cuda_ms(torch, grp, 50),
+                   plain_ms=cuda_ms(torch, plain, 10),
+                   library_ms=None if lib is None else cuda_ms(torch, lib,
+                                                               10))
+        row["bound_ms"], row["bound_by"] = bound_ms(n_ops, n_bytes, peaks)
+        kernels[key]["group"] = row
+        lib_s = "none" if lib is None else f"{row['library_ms']:.4f} ms"
+        print(f"[tenants/time] {key} {kernels[key]['name']} at G={Gg} x "
+              f"{R} rows: grouped {row['ms']:.4f} ms device (graph replay; "
+              f"events {row['events_ms']:.4f} ms), one tenant "
+              f"{row['one_ms']:.4f} ms device ({row['ms'] / row['one_ms']:.2f}"
+              f"x for {Gg}x the work), plain {row['plain_ms']:.4f} ms, "
+              f"library {lib_s}, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}); {card}")
+    del ka, ma, ga, kq, mq, gq
+
+    # the cost of a stacked-group cache miss against a hit, 64 kNN tenants
+    other = list(range(Gg, 2 * Gg))
+    miss_ms = host_ms(lambda: (kst._group_cache.clear(), kst.group(other)),
+                      3)
+    hit_ms = host_ms(lambda: kst.group(other), 3)
+    print(f"[tenants] knn group() of {Gg} tenants: miss (torch.stack of "
+          f"{Gg * Nn * d1 * 4 + Gg * Nn * 4}B on the card) {miss_ms:.4f} "
+          f"ms, hit {hit_ms:.4f} ms, host clock")
+
+    # a cross-tenant Poisson stream through the store-mode scheduler
+    st = TENANT_STREAM
+    G = len(kst)
+    engine = engines["knn"]
+    counts = poisson_trace(st["rate"], st["ticks"], seed=SEED)
+    total = int(counts.sum())
+    mids = np.random.default_rng(SEED).integers(0, G, size=total).tolist()
+    flat = kQ.reshape(-1, kQ.shape[2])
+    sched = RequestScheduler(engine, store=kst, max_wait=st["max_wait"])
+    misses0 = kst.group_misses
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = replay_trace(sched, flat, counts, deadline=st["deadline"],
+                        model_ids=mids)
+    wall = time.perf_counter() - t0
+    n_miss = kst.group_misses - misses0
+    count("distance_topk")
+    n_launch = ops.LAUNCHES["distance_topk"]
+    ss = sched.stats
+    check(len(rids) == total == ss.completed and sched.pending == 0 and
+          n_launch == ss.launches == ops.GROUP_LAUNCHES["distance_topk"] and
+          sum(ops.LAUNCHES.values()) == n_launch,
+          f"tenant stream: {len(rids)} requests, {ss.completed} completed, "
+          f"{ss.launches} drains, launches {ops.LAUNCHES}")
+    check(set(engine.group_launches) <= sched.warmed_groups,
+          f"tenant stream ran cells {sorted(engine.group_launches)} not "
+          f"warmed before it {sorted(sched.warmed_groups)}")
+    # the one-shot grouped answer of every request, GROUP at a time
+    one_cls = np.empty(total, np.int64)
+    one_aux = np.empty((total, kk), np.int64)
+    for lo in range(0, total, Gg):
+        sel = list(range(lo, min(total, lo + Gg)))
+        stacked, _ = kst.group([mids[i] for i in sel])
+        r = engine.classify_group(stacked, on_card(
+            flat[[i % len(flat) for i in sel]][:, None]))
+        one_cls[sel] = r.classes[:, 0].cpu().numpy()
+        one_aux[sel] = r.aux[:, 0].cpu().numpy()
+    got_cls = np.array([int(sched.results[i].prediction) for i in rids])
+    got_aux = np.stack([sched.results[i].aux for i in rids])
+    check(np.array_equal(got_cls, one_cls) and
+          np.array_equal(got_aux, one_aux),
+          f"tenant stream: {int((got_cls != one_cls).sum())} predictions "
+          "differ from the one-shot grouped answer")
+    s = ss.summary()
+    host = wall - float(np.sum(ss.batch_times))
+    print(f"[tenants/stream] knn: {G} tenants drawn uniformly (seed "
+          f"{SEED}), rate={st['rate']} ticks={st['ticks']} "
+          f"max_wait={st['max_wait']} deadline={st['deadline']}, "
+          f"{R}-row buckets, group <= {Gg}: served {total} requests in "
+          f"{wall:.3f}s wall ({total / wall:.1f} req/s; {host:.3f}s of it "
+          f"outside the launches, {1e6 * host / total:.2f} us a request); "
+          f"{ss.launches} grouped launches, {n_miss} "
+          f"stacked-group cache misses, cells "
+          f"{dict(sorted(engine.group_launches.items()))}")
+    print(f"[tenants/stream] knn: latency ticks p50={s['p50']:.0f} "
+          f"p95={s['p95']:.0f} p99={s['p99']:.0f} throughput="
+          f"{s['throughput']:.2f} req/tick occupancy={s['occupancy']:.4f} "
+          f"deadline_miss={s['deadline_miss_rate']:.4f}; mean launch "
+          f"(group, copy in, classify_group, synchronize) "
+          f"{1e3 * float(np.mean(ss.batch_times)):.4f} ms; every "
+          f"prediction equal to the one-shot grouped answer; {card}")
+    del sched
+
+    # the kNN fleet under a resident budget: evict, admit, hot-swap, NaN
+    full = kst.stats()["resident_bytes"]
+    ev0, adm0 = kst.evictions, kst.admissions
+    kst.set_budget(int(full * TENANTS["resident_frac"]))
+    stt = kst.stats()
+    check(kst.evictions > ev0 and stt["n_resident"] < len(kst),
+          f"budget: no eviction ({stt})")
+    cold = [m for m in kst.model_ids if m not in set(kst.resident_ids)][:Gg]
+    stacked, _ = kst.group(cold)
+    check(kst.admissions - adm0 == len(cold) == Gg,
+          f"budget: {kst.admissions - adm0} admissions for {len(cold)}")
+    Qc = on_card(kQ[cold])
+    res = engine.classify_group(stacked, Qc)
+    fn = kst.template.predict_batch_fn()
+    for gi, m in enumerate(cold):
+        deq = squant.dequantize_params(kst._slots[m].qparams,
+                                       dtype=torch.float32)
+        lane = est_mod.unstack_params(stacked, gi)
+        check(torch.equal(lane.A, deq.A) and
+              torch.equal(lane.labels, deq.labels),
+              f"budget: tenant {m}'s admitted lane is not its dequantized "
+              "at-rest payload")
+        cls, aux = fn(deq, Qc[gi])
+        check(torch.equal(res.classes[gi], cls) and
+              torch.equal(res.aux[gi], aux),
+              f"budget: tenant {m} does not serve its dequantized lane's "
+              "answers")
+    misses = kst.group_misses
+    kst.group(cold)
+    check(kst.group_misses == misses, "budget: a repeated group missed")
+    gen = kst.update(cold[0], fleets["knn"][2][cold[1]])
+    kst.group(cold)
+    check(gen == 1 and kst.group_misses == misses + 1,
+          f"hot-swap: generation {gen}, misses {kst.group_misses - misses}")
+    bad = copy.copy(kst.template)
+    bad._params = _poison_first_leaf(kst.params_of(cold[2])[1])
+    try:
+        kst.update(cold[2], bad)
+        check(False, "a NaN update was published")
+    except PoisonedParamsError as e:
+        leaf = e.leaf_path
+    guard = RequestScheduler(engine, store=kst,
+                             breaker=BreakerConfig(fail_threshold=1))
+    guard.record_failure(cold[2], reason="nan_rejected")
+    rid = guard.submit(kQ[cold[2], 0], model_id=cold[2])
+    check(guard.results[rid].shed and
+          guard.results[rid].reason == "breaker_open" and
+          kst.generation(cold[2]) == 0 and kst.poisoned_rejections == 1,
+          "NaN update: its tenant still takes requests")
+    stt = kst.stats()
+    print(f"[tenants] knn at resident-frac {TENANTS['resident_frac']}: "
+          f"{stt['n_resident']}/{stt['n_models']} resident "
+          f"({stt['resident_bytes']}B of {full}B fp32; at rest "
+          f"{stt['at_rest_bytes']}B int8), {kst.evictions - ev0} evictions, "
+          f"{kst.admissions - adm0} admissions; {Gg} admitted tenants serve "
+          f"their dequantized lanes' answers; update -> generation {gen}, "
+          f"the stacked-group cache missed; a NaN update refused "
+          f"(PoisonedParamsError at {leaf}) and its tenant's submits shed "
+          f"breaker_open")
+    del fleets["knn"], kst, stacked, res, engines["knn"]
+
+    # a chaos replay of the "storm" plan over the K-Means fleet, twice
+    mfits = fleets["kmeans"][2]
+
+    def chaos_run():
+        store = ModelStore(device=dev)
+        for t, est in enumerate(mfits):
+            store.register(t, est)
+        eng = store.make_engine(max_batch=R, max_group=Gg)
+        eng.warmup_groups(store.group(list(range(Gg)))[0], mQ.shape[2])
+        sched = RequestScheduler(eng, store=store, max_wait=st["max_wait"],
+                                 shed_expired=True, breaker=BreakerConfig(),
+                                 degrade=DegradePolicy(
+                                     None, deadline=st["deadline"]))
+        plan = ChaosPlan.preset("storm", seed=SEED, ticks=24,
+                                n_tenants=len(store))
+        cnt = poisson_trace(64, 24, seed=SEED)
+        who = np.random.default_rng(SEED + 1).integers(
+            0, len(store), size=int(cnt.sum()) + 200).tolist()
+        ids = replay_trace(sched, mQ.reshape(-1, mQ.shape[2]), cnt,
+                           deadline=st["deadline"], model_ids=who,
+                           chaos=ChaosInjector(plan, store=store))
+        keys_ = [(i, r.shed, r.reason, None if r.prediction is None
+                  else int(r.prediction), r.tier, r.bucket, r.queue_time,
+                  r.batch_time) for i, r in
+                 ((i, sched.results[i]) for i in ids)]
+        return keys_, list(sched.events), sched, store
+
+    ops.reset_launches()
+    k1, e1, s1, store1 = chaos_run()
+    count("distance_argmin")
+    ops.reset_launches()
+    k2, e2, _, _ = chaos_run()
+    check(k1 == k2 and e1 == e2, "chaos: two replays of one plan differ")
+    kinds = {}
+    for e in e1:
+        kinds[e.kind] = kinds.get(e.kind, 0) + 1
+    check(kinds.get("chaos_eviction_storm", 0) > 0 and
+          kinds.get("nan_rejected", 0) == kinds.get("chaos_nan", 0),
+          f"chaos: events {kinds}")
+    print(f"[tenants/chaos] kmeans storm plan (seed {SEED}, 24 ticks) over "
+          f"{len(store1)} tenants, run twice: identical RequestResult and "
+          f"event streams ({len(k1)} requests, shed "
+          f"{dict(s1.stats.shed_reasons)}, evictions {store1.evictions}, "
+          f"events {kinds})")
+    print(f"[tenants] phase in {time.perf_counter() - t_phase:.2f}s; {card}")
+
+
+def tenant_kernel_edges(torch, ops, ref, dev, gen) -> int:
+    """B1, B2 and B3 over model groups (a tenant axis, one launch): each
+    lane bit-equal to the one-tenant launch on its operands, and the group
+    against the grouped plain version (integer data: exact; normal data:
+    values to ``TOL`` scaled as the one-tenant edges scale them), on every
+    route, with tenant bases off 16 bytes (N d not a multiple of 4) and
+    d past the bulk route.  Returns the number of cases."""
+    from repro_torch.kernels import distance_argmin as kda
+    from repro_torch.kernels import distance_topk as kdt
+    from repro_torch.kernels import gnb_score as kgs
+
+    def rand(shape, ints):
+        if ints:
+            return torch.randint(-2, 3, shape, generator=gen).float().to(dev)
+        return torch.randn(shape, generator=gen).to(dev)
+
+    def lanes_equal(got, one, what):
+        for t, (a, b) in enumerate(zip(got, one)):
+            check(torch.equal(a, b), f"{what}: lane {t} differs from its "
+                  f"one-tenant launch in {int((a != b).sum())} places")
+
+    def scaled(got, want, scale, what):
+        check(bool(((got - want).abs() <= TOL["atol"] + TOL["rtol"] * scale)
+                   .all()), f"{what}: values differ from the grouped plain "
+              f"version by {float((got - want).abs().max())}")
+
+    n = 0
+    for G, N, d, Q, k, ints, way in [(5, 4096, 21, 16, 4, False, "bulk"),
+                                     (3, 37, 5, 7, 4, True, "plain"),
+                                     (3, 4099, 21, 130, 32, False, "plain"),
+                                     (4, 300, 40, 33, 8, True, "plain"),
+                                     (2, 1000, 21, 129, 32, True, "bulk")]:
+        A, C = rand((G, N, d), ints), rand((G, Q, d), ints)
+        what = f"B1 group G={G} N={N} d={d} Q={Q} k={k}"
+        check(kdt.route(A) == way, f"{what}: route {kdt.route(A)}")
+        before = dict(kdt.ROUTE_LAUNCHES)
+        gv, gi = ops.distance_topk_group(A, C, k)
+        check(kdt.ROUTE_LAUNCHES[way] == before[way] + 1,
+              f"{what}: not one launch on {way}")
+        one = [ops.distance_topk(A[t], C[t], k) for t in range(G)]
+        pv, pi = ref.distance_topk_group(A, C, k)
+        torch.cuda.synchronize()
+        lanes_equal(gv, [o[0] for o in one], what + " values")
+        lanes_equal(gi, [o[1] for o in one], what + " indices")
+        an = (A * A).sum(-1)
+        cn = (C * C).sum(-1)
+        scale = torch.gather(an, 1, gi.reshape(G, -1).long()).reshape(
+            gi.shape) + cn[..., None]
+        scaled(gv, pv, scale, what)
+        if ints:
+            check(torch.equal(gi, pi), f"{what}: indices differ from the "
+                  "grouped plain version on integer data")
+        print(f"[edge] {what} {way}: lanes bit-equal to one-tenant "
+              f"launches, max_abs_err={float((gv - pv).abs().max()):.3g}")
+        n += 1
+    for G, N, K, d, ints, way in [(8, 16, 8, 21, False, "narrow"),
+                                  (3, 4096, 256, 21, False, "bulk"),
+                                  (3, 4099, 8, 21, True, "plain"),
+                                  (4, 100, 16, 1, False, "rows"),
+                                  (2, 500, 1000, 21, True, "stream"),
+                                  (2, 3001, 64, 40, False, "plain")]:
+        A, Cc = rand((G, N, d), ints), rand((G, K, d), ints)
+        what = f"B2 group G={G} N={N} K={K} d={d}"
+        check(kda.route(A, Cc) == way, f"{what}: route {kda.route(A, Cc)}")
+        before = dict(kda.ROUTE_LAUNCHES)
+        gv, gi = ops.distance_argmin_group(A, Cc)
+        check(kda.ROUTE_LAUNCHES[way] == before[way] + 1,
+              f"{what}: not one launch on {way}")
+        one = [ops.distance_argmin(A[t], Cc[t]) for t in range(G)]
+        pv, pi = ref.distance_argmin_group(A, Cc)
+        torch.cuda.synchronize()
+        lanes_equal(gv, [o[0] for o in one], what + " values")
+        lanes_equal(gi, [o[1] for o in one], what + " indices")
+        scale = (A * A).sum(-1) + torch.gather(
+            (Cc * Cc).sum(-1), 1, gi.long())
+        scaled(gv, pv, scale, what)
+        if ints:
+            check(torch.equal(gi, pi), f"{what}: ids differ from the "
+                  "grouped plain version on integer data")
+        print(f"[edge] {what} {way}: lanes bit-equal to one-tenant "
+              f"launches, max_abs_err={float((gv - pv).abs().max()):.3g}")
+        n += 1
+    for G, B, C, d, way in [(4, 16, 10, 784, "resident"),
+                            (3, 33, 17, 100, "stream"),
+                            (5, 1, 3, 64, "resident"),
+                            (2, 5, 12, 2100, "stream")]:
+        X = torch.randn((G, B, d), generator=gen).to(dev)
+        mu = torch.randn((G, C, d), generator=gen).to(dev)
+        var = (torch.rand((G, C, d), generator=gen) + 0.25).to(dev)
+        lp = torch.log_softmax(torch.randn((G, C), generator=gen), 1).to(dev)
+        what = f"B3 group G={G} B={B} C={C} d={d}"
+        check(kgs.route(C, d) == way, f"{what}: route {kgs.route(C, d)}")
+        before = dict(kgs.ROUTE_LAUNCHES)
+        gs = ops.gnb_scores_batch_group(X, mu, var, lp)
+        check(kgs.ROUTE_LAUNCHES[way] == before[way] + 1,
+              f"{what}: not one launch on {way}")
+        one = [ops.gnb_scores_batch(X[t], mu[t], var[t], lp[t])
+               for t in range(G)]
+        ps = ref.gnb_scores_batch_group(X, mu, var, lp)
+        torch.cuda.synchronize()
+        lanes_equal(gs, one, what)
+        check(bool(torch.isclose(gs, ps, **TOL).all()), f"{what}: scores "
+              f"differ from the grouped plain version by "
+              f"{float((gs - ps).abs().max())}")
+        print(f"[edge] {what} {way}: lanes bit-equal to one-tenant "
+              f"launches, max_abs_err={float((gs - ps).abs().max()):.3g}")
+        n += 1
+    return n
 
 
 def linear_path(torch, ops, dev, data, n_class: int) -> None:
@@ -1612,6 +2189,7 @@ def main() -> int:
     lm_cfg = get_config(LM["arch"])
     lm_gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     edges += lm_kernel_edges(torch, ops, ref, dev, lm_gen, lm_cfg)
+    edges += tenant_kernel_edges(torch, ops, ref, dev, gen)
     print(f"[edge] {edges} ragged and tied cases agree with the plain "
           "versions")
 
@@ -2597,14 +3175,20 @@ def main() -> int:
     # ------------------------------------------------ 8. LR and SVM
     linear_path(torch, ops, dev, gnb_data, GNB["classes"])
 
+    # ------------------------------------------------ 9. tenants
+    torch.cuda.empty_cache()
+    tenants_path(torch, ops, ref, dev, peaks, kernels, helpers)
+
     # ------------------------------------------------ summary lines
     kernels = dict(sorted(kernels.items(), key=lambda kv: int(kv[0][1:])))
     kr = kernels["B8"]
     print(f"[time] B8 {kr['name']}: kernel {kr['ms']:.4f} ms, plain "
           f"{kr['plain_ms']:.4f} ms, library {kr['library_ms']:.4f} ms, "
           f"bound {kr['bound_ms']:.4f} ms ({kr['bound_by']})")
-    print("kernels: " + " ".join(f"{key}={kr['name']}:{kr['launches']}"
-                                 for key, kr in kernels.items()))
+    print("kernels: " + " ".join(
+        f"{key}={kr['name']}:{kr['launches']}"
+        + (f"({kr['grouped']} grouped)" if kr.get("grouped") else "")
+        for key, kr in kernels.items()))
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

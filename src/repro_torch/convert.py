@@ -10,6 +10,11 @@ The field names say which form they are.  The result is the port's
 NamedTuple of tensors on ``device``; hand it to the estimator's
 ``from_params`` to serve it.
 
+``group_from_numpy`` carries a stacked model group across (the
+reference's ``stack_params`` output, every tensor leaf with a leading
+tenant axis, ``n_class`` static), for ``ModelStore``-style grouped
+serving.
+
 ``linear_from_numpy`` carries an LR or SVM ``LinearModel`` (``W``
 (C, d), ``b`` (C,)) across for ``core.gemm_based``.
 
@@ -72,6 +77,23 @@ def params_from_numpy(algorithm: str, leaves: Any, *,
         value = fields[name]
         out[name] = int(value) if name == "n_class" else _leaf(value, dev)
     return cls(**out)
+
+
+def group_from_numpy(algorithm: str, leaves: Any, *,
+                     device: DeviceLike = None) -> NamedTuple:
+    """``leaves``: a stacked model group of the reference (its
+    ``core.estimator.stack_params``), numpy-convertible, every tensor
+    leaf with one leading tenant axis.  Returns the port's stacked params
+    of the same form on ``device``, as ``core.estimator.stack_params``
+    builds them; a leaf whose tenant axis differs raises."""
+    group = params_from_numpy(algorithm, leaves, device=device)
+    sizes = {name: v.shape[0] if v.ndim else None
+             for name, v in zip(group._fields, group)
+             if isinstance(v, torch.Tensor)}
+    if None in sizes.values() or len(set(sizes.values())) != 1:
+        raise ValueError(f"{algorithm} group leaves have tenant axes "
+                         f"{sizes}; one leading axis expected")
+    return group
 
 
 def linear_from_numpy(leaves: Any, *,

@@ -17,6 +17,15 @@ int8 kernels directly, as the reference's does; ``path="ref"`` (or
 ``REPRO_BACKEND=ref``) runs their plain versions instead.  An estimator
 lives on one device: the card unless ``device="cpu"`` is named
 (``repro_torch.device.resolve_device``).
+
+Multi-tenant serving (``serving/model_store.py``): params NamedTuples
+whose tensor leaves have the same shapes across same-config fits (RF after
+``random_forest.pad_nodes``) stack leaf-wise along a leading tenant axis
+(``stack_params``), and ``predict_batch_group_fn()`` serves such a group,
+``(stacked, Xg (G, B, d)) -> (preds (G, B), aux (G, B, ...))``, through
+the dispatch registry's grouped arm (``dispatch.grouped``): B1, B2 and B3
+with a tenant axis, one launch for the group, each lane bit-equal to the
+one-tenant call.
 """
 from __future__ import annotations
 
@@ -38,6 +47,77 @@ from repro_torch.kernels import ops as _ops
 from repro_torch.kernels import quantized as _qk
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.dispatch import PrecisionPolicy
+
+
+# ---------------------------------------------------------------------------
+# Model-group stacking (multi-tenant serving, serving/model_store.py)
+# ---------------------------------------------------------------------------
+#
+# The one place the tensor-versus-static distinction lives: a tensor leaf
+# stacks, anything else (``n_class``) must be equal across the group and
+# passes through.  Leaf paths are named as the JAX package names them
+# (``.A``, ``.n_class``), so the errors read the same.
+
+
+def _is_array_leaf(leaf) -> bool:
+    return isinstance(leaf, torch.Tensor)
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def group_axes(params) -> Any:
+    """The tenant axis of each leaf of a (stacked or template) params
+    NamedTuple: 0 on tensor leaves, None on static metadata."""
+    return type(params)(*(0 if _is_array_leaf(v) else None for v in params))
+
+
+def stack_params(params_list) -> NamedTuple:
+    """Stack G same-shape params NamedTuples along a new leading axis.
+
+    Static (non-tensor) leaves must be equal across the group: they are
+    configuration like ``n_class``.  A type, shape or dtype mismatch
+    raises with the leaf's path and the model's index in the group (the
+    error a ``ModelStore`` registration surfaces)."""
+    if not params_list:
+        raise ValueError("stack_params needs at least one model")
+    ref = params_list[0]
+    for g, p in enumerate(params_list[1:], start=1):
+        if type(p) is not type(ref):
+            raise ValueError(f"model {g} has params {type(p).__name__}, "
+                             f"expected {type(ref).__name__}")
+        for name, leaf0, leaf in zip(ref._fields, ref, p):
+            path = f".{name}"
+            if _is_array_leaf(leaf0) != _is_array_leaf(leaf):
+                raise ValueError(f"model {g} leaf {path}: array/static "
+                                 f"mismatch vs model 0")
+            if _is_array_leaf(leaf0):
+                if leaf0.shape != leaf.shape or leaf0.dtype != leaf.dtype:
+                    raise ValueError(
+                        f"model {g} leaf {path}: {tuple(leaf.shape)}/"
+                        f"{_dtype_name(leaf.dtype)} vs model 0's "
+                        f"{tuple(leaf0.shape)}/{_dtype_name(leaf0.dtype)} — "
+                        f"same-shape fits only (RF forests must be "
+                        f"pad_nodes-normalized to one node capacity)")
+                if leaf0.device != leaf.device:
+                    raise ValueError(
+                        f"model {g} leaf {path}: on {leaf.device}, model 0's "
+                        f"on {leaf0.device} — one group lives on one device")
+            elif leaf0 != leaf:
+                raise ValueError(
+                    f"model {g} static leaf {path}: {leaf!r} != model 0's "
+                    f"{leaf0!r} — static config must match across a group")
+    return type(ref)(*(
+        torch.stack(leaves) if _is_array_leaf(leaves[0]) else leaves[0]
+        for leaves in zip(*params_list)))
+
+
+def unstack_params(stacked, i: int) -> NamedTuple:
+    """Tenant ``i``'s params sliced back out of a stacked group (the
+    inverse of ``stack_params`` a lane): views of the stacked tensors."""
+    return type(stacked)(*(v[i] if _is_array_leaf(v) else v
+                           for v in stacked))
 
 
 def _q8(path: Optional[str]):
@@ -153,6 +233,16 @@ class _EstimatorBase:
 
     def predict_batch_fn(self) -> Callable:
         raise NotImplementedError
+
+    def predict_batch_group_fn(self) -> Callable:
+        """``(stacked params, Xg (G, B, d)) -> (preds (G, B), aux (G, B,
+        ...))``: the multi-tenant grouped launch, built by the dispatch
+        registry's grouped arm for this algorithm with this estimator's
+        static configuration (``dispatch.grouped``); each lane equal to
+        ``predict_batch_fn`` on that tenant's params.  Raises KeyError for
+        an algorithm with no grouped arm (ANN overrides with the
+        reason)."""
+        return dispatch.grouped(self.algorithm)(self)
 
     def serve_cost_shape(self) -> Dict[str, int]:
         raise NotImplementedError
@@ -618,6 +708,14 @@ class ANNKNNEstimator(_EstimatorBase):
                                            path=path)
 
         return fn
+
+    def predict_batch_group_fn(self) -> Callable:
+        raise NotImplementedError(
+            "ANN has no grouped (multi-tenant) serving arm: the IVF "
+            "inverted-list capacities and PQ code shapes are data-"
+            "dependent per fit, so independently-fitted indexes do not "
+            "stack into one leading axis (DESIGN.md §11) — register ANN "
+            "tenants in their own single-model engines")
 
     def serve_cost_shape(self) -> Dict[str, int]:
         C, cap = self.params.cell_ids.shape

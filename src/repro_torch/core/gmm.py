@@ -68,6 +68,26 @@ def gmm_e_step(A, mu, var, log_pi, n_cores: int = 8):
     return lr, torch.mean(ln)
 
 
+def gmm_e_step_group(A, mu, var, log_pi, n_cores: int = 8):
+    """``gmm_e_step`` over a model group: rows A (G, N, d) of each tenant
+    against its mu/var (G, k, d) and log_pi (G, k), the same chunk layout
+    and operations with the tenant axis in front.  Returns
+    (log_resp (G, N, k), mean log-likelihood (G,))."""
+    G, N, d = A.shape
+    Ap, _ = pad_to_multiple(A, n_cores, axis=1)
+    chunks = Ap.reshape(G, n_cores, -1, d)               # (G, c, L, d)
+    inv = 1.0 / var                                      # (G, k, d)
+    quad = (chunks * chunks) @ (-0.5 * inv).transpose(1, 2)[:, None]
+    lin = chunks @ (mu * inv).transpose(1, 2)[:, None]
+    const = -0.5 * torch.sum(mu * mu * inv + torch.log(var) + _LOG2PI,
+                             dim=2)                      # (G, k)
+    joint = quad + lin + const[:, None, None] + log_pi[:, None, None]
+    norm = torch.logsumexp(joint, dim=3, keepdim=True)
+    lr = (joint - norm).reshape(G, -1, mu.shape[1])[:, :N]
+    ln = norm.reshape(G, -1)[:, :N]
+    return lr, torch.mean(ln, dim=1)
+
+
 def gmm_m_step(A, log_resp, var_floor: float = 1e-6, n_cores: int = 8):
     """Soft-count local accumulate + global combine (Fig. 7 OP3/OP4)."""
     Ap, N = pad_to_multiple(A, n_cores, axis=0)

@@ -50,6 +50,21 @@ def _vote(labels: torch.Tensor, nbr_idx: torch.Tensor,
     return torch.argmax(votes, dim=1).to(torch.int32)
 
 
+def vote_group(labels: torch.Tensor, nbr_idx: torch.Tensor,
+               n_class: int) -> torch.Tensor:
+    """``_vote`` over a model group: labels (G, N), neighbour indices
+    (G, Q, k) -> classes (G, Q) int32, each tenant voting with its own
+    labels."""
+    G, Q, k = nbr_idx.shape
+    nbr_labels = torch.gather(labels, 1, nbr_idx.reshape(G, Q * k).long()
+                              ).reshape(G, Q, k).long()
+    votes = torch.zeros((G, Q, n_class), dtype=torch.int32,
+                        device=nbr_idx.device)
+    votes.scatter_add_(2, nbr_labels, torch.ones_like(nbr_labels,
+                                                      dtype=torch.int32))
+    return torch.argmax(votes, dim=2).to(torch.int32)
+
+
 def knn_classify(model: KNNModel, x: torch.Tensor, k: int,
                  n_cores: int = 8):
     """The Fig. 6 pipeline for one query x (d,).  Returns (class (),

@@ -85,6 +85,67 @@ def forest_classify_batch(forest: Forest, X: torch.Tensor, *,
     return torch.argmax(votes, dim=1).to(torch.int32), votes
 
 
+def pad_nodes(forest: Forest, capacity: int) -> Forest:
+    """Pad the node axis (M, the last) to ``capacity`` with never-visited
+    leaf nodes (feature -1, threshold 0, children 0): node 0 is always a
+    real root and no real node links past M, so a traversal never reaches
+    the padding.  How independently trained forests with different node
+    counts land on one shape, so that a model group stacks
+    (``serving/model_store.py``).  Works on a stacked group's (G, T, M)
+    arrays too."""
+    M = forest.feature.shape[-1]
+    pad = capacity - M
+    if pad < 0:
+        raise ValueError(f"pad_nodes: capacity {capacity} < {M} nodes")
+    if pad == 0:
+        return forest
+
+    def pf(a, value):
+        return torch.nn.functional.pad(a, (0, pad), value=value)
+
+    return forest._replace(feature=pf(forest.feature, -1),
+                           threshold=pf(forest.threshold, 0.0),
+                           left=pf(forest.left, 0),
+                           right=pf(forest.right, 0))
+
+
+def forest_classify_batch_group(forest: Forest, X: torch.Tensor, *,
+                                depth: Optional[int] = None):
+    """``forest_classify_batch`` over a model group: stacked forests
+    (arrays (G, T, M)) and queries X (G, B, d) -> (classes (G, B) int32,
+    votes (G, B, n_class) int32), every tenant's trees on its own queries
+    in one pass of gathers.  ``depth``: the deepest tenant's; by default
+    worked out from the stacked arrays (one host read).  Steps past a
+    tenant's own depth leave its leaves where they are, so the votes are
+    each tenant's own."""
+    G, T, M = forest.feature.shape
+    if depth is None:
+        depth = forest_depth(Forest(
+            feature=forest.feature.reshape(G * T, M),
+            threshold=forest.threshold.reshape(G * T, M),
+            left=forest.left.reshape(G * T, M),
+            right=forest.right.reshape(G * T, M), n_class=forest.n_class))
+    B = X.shape[1]
+    dev = X.device
+    feature = forest.feature.reshape(-1).long()
+    threshold = forest.threshold.reshape(-1)
+    left = forest.left.reshape(-1).long()
+    right = forest.right.reshape(-1).long()
+    base = (torch.arange(G * T, device=dev) * M).reshape(G, 1, T)
+    node = base.expand(G, B, T).clone()                      # (G, B, T)
+    for _ in range(depth):
+        f = feature[node]
+        x = torch.gather(X, 2, f.clamp(min=0))
+        step = torch.where(x <= threshold[node], left[node], right[node])
+        node = torch.where(f >= 0, base + step, node)
+    leaf_class = -feature[node] - 1                          # (G, B, T)
+    votes = torch.zeros((G, B, forest.n_class), dtype=torch.int32,
+                        device=dev)
+    votes.scatter_add_(2, leaf_class, torch.ones_like(leaf_class,
+                                                      dtype=torch.int32))
+    return torch.argmax(votes, dim=2).to(torch.int32), votes
+
+
 # ---------------------------------------------------------------------------
 # Training: from-scratch CART (numpy, offline — like the paper's sklearn)
 # ---------------------------------------------------------------------------

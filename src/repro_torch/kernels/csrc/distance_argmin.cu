@@ -64,6 +64,17 @@
 //              group reduce by two shuffles, and 128 rows make a block, so
 //              65,536 rows fill the card with 16 warps an SM.  No padding
 //              feature is staged.  The operation order is the tiles'.
+//  * Tenants (the grouped launch of a multi-tenant model group): G
+//    same-shape tenants, rows A (G, N, d) against centroids C (G, K, d),
+//    run as one launch on every route, the tenant on blockIdx.y; a block
+//    offsets A, C and the outputs to its tenant, stages that tenant's
+//    centroids, and is otherwise the G = 1 block.  Each tenant takes the
+//    operation order its own G = 1 launch takes (B4's rule, decided from
+//    its own base), so a lane is bit-equal to that launch.  The bulk route
+//    needs every tenant's base 16-byte aligned (N d a multiple of 4 or
+//    G = 1).  The tenant code is a template parameter: a G = 1 launch
+//    runs each kernel without it, as before the axis was added (at the
+//    K-Means fit shape the offsets cost the plain kernel a spill).
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -160,14 +171,30 @@ __device__ __forceinline__ void take_min(float& v, int& i, float w, int j) {
     }
 }
 
+// A grouped launch's tenant blockIdx.y: its operands, and the operation
+// order of its rows, B4's bulk order where B4 would take its bulk route
+// for them (base 16-byte aligned, d <= BULK_MAX_D), the plain order
+// otherwise.  A G = 1 launch (TENANTS false) keeps its arguments.
+#define TENANT_OPERANDS(N, K, d)                                        \
+    if (TENANTS) {                                                      \
+        const size_t g_ = blockIdx.y;                                   \
+        A += g_ * (N) * (d);                                            \
+        C += g_ * (K) * (d);                                            \
+        out_v += g_ * (N);                                              \
+        out_i += g_ * (N);                                              \
+        bulk_order = (d) <= BULK_MAX_D &&                               \
+                     reinterpret_cast<uintptr_t>(A) % 16 == 0;          \
+    }
+
 // Persistent blocks walk the 128-row tiles t = blockIdx.x, + gridDim.x, ..;
 // the block's i-th tile lands in ring stage i % STAGES (bulk route).
-template <bool RING>
+template <bool RING, bool TENANTS>
 __global__ void __launch_bounds__(THREADS, 2)
 argmin_wide(const float* __restrict__ A, const float* __restrict__ C,
             float* __restrict__ out_v, int* __restrict__ out_i, int N, int K,
             int d, int resident, int bulk_order) {
     extern __shared__ __align__(128) unsigned char smem[];
+    TENANT_OPERANDS(N, K, d)
     const Layout lay = layout(RING ? BULK : resident ? PLAIN : STREAM, K, d);
     float* stage = reinterpret_cast<float*>(smem);
     float* c_t = reinterpret_cast<float*>(smem + lay.c_t);
@@ -340,11 +367,13 @@ argmin_wide(const float* __restrict__ A, const float* __restrict__ C,
 
 // Block b: rows 8 b .. 8 b + 7, warp w the row 8 b + w; lane l the
 // centroid groups g = l, l + 32, .. (tile g / 16, slots of tq = g % 16).
+template <bool TENANTS>
 __global__ void __launch_bounds__(THREADS)
 argmin_narrow(const float* __restrict__ A, const float* __restrict__ C,
               float* __restrict__ out_v, int* __restrict__ out_i, int N,
               int K, int d, int bulk_order) {
     extern __shared__ __align__(128) unsigned char smem[];
+    TENANT_OPERANDS(N, K, d)
     const Layout lay = layout(NARROW, K, d);
     float* a_s = reinterpret_cast<float*>(smem);
     float* c_t = reinterpret_cast<float*>(smem + lay.c_t);
@@ -414,12 +443,13 @@ argmin_narrow(const float* __restrict__ A, const float* __restrict__ C,
 // + KS, .. (ascending), each from a record in shared memory (-2 c, then
 // ||c||^2); the KS threads of a row group (adjacent lanes) then reduce by
 // shuffles, the smallest value and then the smallest index holding it.
-template <int D>
+template <int D, bool TENANTS>
 __global__ void __launch_bounds__(ROWS_THREADS)
 argmin_rows(const float* __restrict__ A, const float* __restrict__ C,
             float* __restrict__ out_v, int* __restrict__ out_i, int N, int K,
             int bulk_order) {
     extern __shared__ __align__(128) unsigned char smem[];
+    TENANT_OPERANDS(N, K, D)
     float* rec = reinterpret_cast<float*>(smem);
     for (int q = threadIdx.x; q < K; q += ROWS_THREADS) {
         // ||c||^2 as dtile::query_norms sums it: the even features' and
@@ -505,6 +535,49 @@ cudaError_t allow(Kernel kernel, size_t bytes, size_t& allowed) {
     return err;
 }
 
+// one launch of ``route``'s kernel, with (TENANTS) or without the tenant
+// axis; the kernels' dynamic shared-memory allowances are kept apart
+template <bool TENANTS>
+cudaError_t launch_route(const float* A, const float* C, float* out_v,
+                         int* out_i, int N, int K, int d, int route, int grid,
+                         int G, bool resident, int bulk_order, size_t bytes,
+                         cudaStream_t s) {
+    const dim3 blocks(grid, G);
+    cudaError_t err;
+    if (route == ROWS) {
+        static size_t allowed[ROWS_MAX_D] = {48 * 1024, 48 * 1024, 48 * 1024,
+                                             48 * 1024};
+        auto* kernel = d == 1 ? argmin_rows<1, TENANTS>
+                     : d == 2 ? argmin_rows<2, TENANTS>
+                     : d == 3 ? argmin_rows<3, TENANTS>
+                              : argmin_rows<4, TENANTS>;
+        err = allow(kernel, bytes, allowed[d - 1]);
+        if (err != cudaSuccess) return err;
+        kernel<<<blocks, ROWS_THREADS, bytes, s>>>(A, C, out_v, out_i, N, K,
+                                                   bulk_order);
+    } else if (route == NARROW) {
+        static size_t allowed = 48 * 1024;
+        err = allow(argmin_narrow<TENANTS>, bytes, allowed);
+        if (err != cudaSuccess) return err;
+        argmin_narrow<TENANTS><<<blocks, THREADS, bytes, s>>>(
+            A, C, out_v, out_i, N, K, d, bulk_order);
+    } else if (route == BULK) {
+        static size_t allowed = 48 * 1024;
+        err = allow(argmin_wide<true, TENANTS>, bytes, allowed);
+        if (err != cudaSuccess) return err;
+        argmin_wide<true, TENANTS><<<blocks, THREADS, bytes, s>>>(
+            A, C, out_v, out_i, N, K, d, 1, 1);
+    } else {
+        static size_t allowed = 48 * 1024;
+        err = allow(argmin_wide<false, TENANTS>, bytes, allowed);
+        if (err != cudaSuccess) return err;
+        argmin_wide<false, TENANTS><<<blocks, THREADS, bytes, s>>>(
+            A, C, out_v, out_i, N, K, d, static_cast<int>(resident),
+            bulk_order);
+    }
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -515,23 +588,27 @@ int distance_argmin_narrow_rows() { return NARROW_ROWS; }
 int distance_argmin_rows_max_d() { return ROWS_MAX_D; }
 int distance_argmin_rows_block() { return ROWS_THREADS / KS * RPT; }
 
-// A (N, d), C (K, d) fp32 row-major -> out_v (N,) f32, out_i (N,) int32.
-// route: 0 bulk (A 16-byte aligned, d <= BULK_MAX_D, centroids resident),
+// A (G, N, d), C (G, K, d) fp32 row-major, G tenants (G = 1: one model)
+// -> out_v (G, N) f32, out_i (G, N) int32.
+// route: 0 bulk (every tenant's A 16-byte aligned, d <= BULK_MAX_D,
+// centroids resident),
 // 1 plain (centroids resident), 2 stream (centroids not resident: K d past
 // RESIDENT_MAX bytes), 3 narrow (centroids resident), 4 rows (d <=
 // ROWS_MAX_D, centroids resident); grid: the persistent blocks of bulk,
 // plain and stream (at most the 128-row tiles), ceil(N / NARROW_ROWS) for
-// narrow, ceil(N / (ROWS_THREADS / KS RPT)) for rows.  Returns the first
-// CUDA error.
+// narrow, ceil(N / (ROWS_THREADS / KS RPT)) for rows; a tenant's blocks.
+// Returns the first CUDA error.
 int distance_argmin_f32(const float* A, const float* C, float* out_v,
                         int* out_i, int N, int K, int d, int route, int grid,
-                        void* stream) {
-    const bool aligned = reinterpret_cast<uintptr_t>(A) % 16 == 0;
+                        int G, void* stream) {
+    const bool aligned = reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
+        (G == 1 || (static_cast<long long>(N) * d) % 4 == 0);
     const bool resident = resident_bytes(K, d) <= RESIDENT_MAX;
     const int row_tiles = (N + RB - 1) / RB;
     const int per_block = route == NARROW ? NARROW_ROWS
                         : route == ROWS ? ROWS_THREADS / KS * RPT : 0;
-    if (N < 1 || K < 1 || d < 1 || grid < 1 || route < BULK ||
+    if (N < 1 || K < 1 || d < 1 || grid < 1 || G < 1 || G > 65535 ||
+        route < BULK ||
         route > ROWS || (route == STREAM) == resident ||
         (route == BULK && (d > BULK_MAX_D || !aligned)) ||
         (route == ROWS && d > ROWS_MAX_D) ||
@@ -541,37 +618,11 @@ int distance_argmin_f32(const float* A, const float* C, float* out_v,
     const int bulk_order = d <= BULK_MAX_D && aligned;
     const size_t bytes = layout(route, K, d).total;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err;
-    if (route == ROWS) {
-        static size_t allowed[ROWS_MAX_D] = {48 * 1024, 48 * 1024, 48 * 1024,
-                                             48 * 1024};
-        auto* kernel = d == 1 ? argmin_rows<1> : d == 2 ? argmin_rows<2>
-                     : d == 3 ? argmin_rows<3> : argmin_rows<4>;
-        err = allow(kernel, bytes, allowed[d - 1]);
-        if (err != cudaSuccess) return static_cast<int>(err);
-        kernel<<<grid, ROWS_THREADS, bytes, s>>>(A, C, out_v, out_i, N, K,
-                                                 bulk_order);
-    } else if (route == NARROW) {
-        static size_t allowed = 48 * 1024;
-        err = allow(argmin_narrow, bytes, allowed);
-        if (err != cudaSuccess) return static_cast<int>(err);
-        argmin_narrow<<<grid, THREADS, bytes, s>>>(A, C, out_v, out_i, N, K,
-                                                   d, bulk_order);
-    } else if (route == BULK) {
-        static size_t allowed = 48 * 1024;
-        err = allow(argmin_wide<true>, bytes, allowed);
-        if (err != cudaSuccess) return static_cast<int>(err);
-        argmin_wide<true><<<grid, THREADS, bytes, s>>>(
-            A, C, out_v, out_i, N, K, d, 1, 1);
-    } else {
-        static size_t allowed = 48 * 1024;
-        err = allow(argmin_wide<false>, bytes, allowed);
-        if (err != cudaSuccess) return static_cast<int>(err);
-        argmin_wide<false><<<grid, THREADS, bytes, s>>>(
-            A, C, out_v, out_i, N, K, d, static_cast<int>(resident),
-            bulk_order);
-    }
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(G > 1
+        ? launch_route<true>(A, C, out_v, out_i, N, K, d, route, grid, G,
+                             resident, bulk_order, bytes, s)
+        : launch_route<false>(A, C, out_v, out_i, N, K, d, route, grid, G,
+                              resident, bulk_order, bytes, s));
 }
 
 const char* cuda_error_string(int err) {

@@ -64,6 +64,21 @@
 //    chunks of each tile with element loads into one buffer, between
 //    barriers, and adds the row norms after the last chunk.  Both routes
 //    share the arithmetic and the selection.
+//  * Tenants (the grouped launch of a multi-tenant model group): G
+//    same-shape tenants, A (G, N, d) against queries (G, Q, d), run as one
+//    launch with the tenant on blockIdx.z; a block offsets A, C and its
+//    split lists to its tenant and is otherwise the G = 1 block, and the
+//    merge kernel takes the G Q queries as one run of lists.  A tenant's
+//    values come from the same operations in the same order as its own
+//    G = 1 launch, and the (value, row) order of the selection does not
+//    depend on the splits, so a lane is bit-equal to that launch.  The bulk
+//    route needs every tenant's base 16-byte aligned (N d a multiple of 4
+//    or G = 1); else the plain route runs, and on it a tenant whose base is
+//    aligned with d <= BULK_MAX_D (where its own launch takes the bulk
+//    route) sums in the bulk route's order: its norms before the dot
+//    products, the distance from ||a||^2 + ||c||^2.  The tenant code is a
+//    template parameter: a G = 1 launch runs the kernel without it, as
+//    before the axis was added.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -113,13 +128,25 @@ __host__ __device__ inline F32Layout f32_layout(bool bulk, int d, int k) {
     return L;
 }
 
-template <bool BULK>
+template <bool BULK, bool TENANTS>
 __global__ void __launch_bounds__(THREADS, 2)
 topk_partial_kernel(const float* __restrict__ A, const float* __restrict__ C,
                     float* __restrict__ part_v, int* __restrict__ part_i,
                     int N, int Q, int d, int k, int rows_per_split) {
     extern __shared__ __align__(128) unsigned char smem[];
     const F32Layout lay = f32_layout(BULK, d, k);
+    if (TENANTS) {   // the tenant's operands
+        const size_t g = blockIdx.z;
+        A += g * N * d;
+        C += g * Q * d;
+        part_v += g * Q * gridDim.x * k;
+        part_i += g * Q * gridDim.x * k;
+    }
+    // the plain route in the bulk route's order: a tenant of a grouped
+    // launch whose own launch would take the bulk route (never at G = 1,
+    // whose plain route is for unaligned rows or d > BULK_MAX_D)
+    const bool bulk_order = TENANTS && !BULK && d <= BULK_MAX_D &&
+                            reinterpret_cast<uintptr_t>(A) % 16 == 0;
     float* stage = reinterpret_cast<float*>(smem);
     float* c_t = reinterpret_cast<float*>(smem + lay.c_t);
     float* cn_s = reinterpret_cast<float*>(smem + lay.cn);
@@ -189,6 +216,19 @@ topk_partial_kernel(const float* __restrict__ A, const float* __restrict__ C,
                 for (int ri = 0; ri < TR; ++ri)
                     acc[qi][ri] = an_s[tr + 16 * ri] + cn_s[dtile::slot(tq, qi)];
             dtile::dots<false>(a_s, d, c_t, d, tq, tr, acc);
+        } else if (bulk_order) {   // one chunk: d <= BULK_MAX_D = DC
+            dtile::stage_rows(stage, A, row0, rows, d, 0, d);
+            __syncthreads();
+            float s = dtile::half_norm(stage, PSTRIDE, 1, d);
+            s += __shfl_xor_sync(bsel::FULL, s, 1);
+            if ((tid & 1) == 0) an_s[tid >> 1] = s;
+            __syncthreads();
+#pragma unroll
+            for (int qi = 0; qi < TQ; ++qi)
+#pragma unroll
+                for (int ri = 0; ri < TR; ++ri)
+                    acc[qi][ri] = an_s[tr + 16 * ri] + cn_s[dtile::slot(tq, qi)];
+            dtile::dots<false>(stage, PSTRIDE, c_t, d, tq, tr, acc);
         } else {
 #pragma unroll
             for (int qi = 0; qi < TQ; ++qi)
@@ -256,24 +296,37 @@ topk_partial_kernel(const float* __restrict__ A, const float* __restrict__ C,
     bsel::write_lists(L, part_v, part_i, q0, Q, split, gridDim.x);
 }
 
-template <bool BULK>
-cudaError_t launch_partial(const float* A, const float* C, float* part_v,
-                           int* part_i, int N, int Q, int d, int k,
-                           int n_splits, int rows_per_split, cudaStream_t s) {
+template <bool BULK, bool TENANTS>
+cudaError_t launch_partial_t(const float* A, const float* C,
+                             float* part_v, int* part_i, int N, int Q, int d,
+                             int k, int n_splits, int rows_per_split, int G,
+                             cudaStream_t s) {
     const size_t bytes = f32_layout(BULK, d, k).total;
     static size_t allowed = 48 * 1024;   // the dynamic size allowed so far
     if (bytes > allowed) {
         const cudaError_t err = cudaFuncSetAttribute(
-            topk_partial_kernel<BULK>,
+            topk_partial_kernel<BULK, TENANTS>,
             cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(bytes));
         if (err != cudaSuccess) return err;
         allowed = bytes;
     }
-    const dim3 grid(n_splits, (Q + QB - 1) / QB);
-    topk_partial_kernel<BULK><<<grid, THREADS, bytes, s>>>(
+    const dim3 grid(n_splits, (Q + QB - 1) / QB, G);
+    topk_partial_kernel<BULK, TENANTS><<<grid, THREADS, bytes, s>>>(
         A, C, part_v, part_i, N, Q, d, k, rows_per_split);
     return cudaGetLastError();
+}
+
+template <bool BULK>
+cudaError_t launch_partial(const float* A, const float* C, float* part_v,
+                           int* part_i, int N, int Q, int d, int k,
+                           int n_splits, int rows_per_split, int G,
+                           cudaStream_t s) {
+    return G > 1
+        ? launch_partial_t<BULK, true>(A, C, part_v, part_i, N, Q, d, k,
+                                       n_splits, rows_per_split, G, s)
+        : launch_partial_t<BULK, false>(A, C, part_v, part_i, N, Q, d, k,
+                                        n_splits, rows_per_split, G, s);
 }
 
 }  // namespace
@@ -285,32 +338,38 @@ int distance_topk_query_tile() { return QB; }
 int distance_topk_tile_rows() { return RB; }
 int distance_topk_bulk_max_d() { return BULK_MAX_D; }
 
-// A (N, d), C (Q, d) fp32 row-major; part_v/part_i scratch of
-// Q * n_splits * k; vals/idx (Q, k).  bulk: 1 for the bulk route (A 16-byte
-// aligned, d <= BULK_MAX_D), 0 for the plain route.  The splits must cover
-// N with none empty, in multiples of 32 rows.  Returns the first CUDA error.
+// A (G, N, d), C (G, Q, d) fp32 row-major, G tenants (G = 1: one model);
+// part_v/part_i scratch of G * Q * n_splits * k; vals/idx (G, Q, k).  bulk:
+// 1 for the bulk route (every tenant's A 16-byte aligned, d <= BULK_MAX_D),
+// 0 for the plain route.  The splits must cover N with none empty, in
+// multiples of 32 rows.  Returns the first CUDA error.
 int distance_topk_f32(const float* A, const float* C, float* part_v,
                       int* part_i, float* vals, int* idx, int N, int Q, int d,
                       int k, int n_splits, int rows_per_split, int bulk,
-                      void* stream) {
+                      int G, void* stream) {
     if (k < 1 || k > TOPK_K_MAX || Q < 1 || N < 1 || d < 1 || n_splits < 1 ||
+        G < 1 || G > 65535 ||
         rows_per_split < 1 || rows_per_split % 32 ||
         static_cast<long long>(n_splits - 1) * rows_per_split >= N ||
         static_cast<long long>(n_splits) * rows_per_split < N ||
         (bulk && (d > BULK_MAX_D ||
-                  reinterpret_cast<uintptr_t>(A) % 16 != 0)))
+                  reinterpret_cast<uintptr_t>(A) % 16 != 0 ||
+                  (G > 1 && (static_cast<long long>(N) * d) % 4 != 0))))
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err = bulk
         ? launch_partial<true>(A, C, part_v, part_i, N, Q, d, k, n_splits,
-                               rows_per_split, s)
+                               rows_per_split, G, s)
         : launch_partial<false>(A, C, part_v, part_i, N, Q, d, k, n_splits,
-                                rows_per_split, s);
+                                rows_per_split, G, s);
     if (err != cudaSuccess) return static_cast<int>(err);
+    // the G tenants' Q queries are one run of G Q lists
     const int per_block = bsel::MERGE_THREADS / 32;
+    const long long GQ = static_cast<long long>(G) * Q;
     bsel::merge_splits_kernel<float>
-        <<<(Q + per_block - 1) / per_block, bsel::MERGE_THREADS, 0, s>>>(
-            part_v, part_i, vals, idx, Q, n_splits * k, k);
+        <<<static_cast<int>((GQ + per_block - 1) / per_block),
+           bsel::MERGE_THREADS, 0, s>>>(part_v, part_i, vals, idx,
+                                        static_cast<int>(GQ), n_splits * k, k);
     return static_cast<int>(cudaGetLastError());
 }
 

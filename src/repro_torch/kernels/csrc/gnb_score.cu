@@ -51,6 +51,16 @@
 //    device memory (a group of 16 classes or fewer reads it once).
 //  * Blocks are persistent (at most two an SM): a block walks its query
 //    groups, so the resident pairs are staged once a block.
+//  * Tenants (the grouped launch of a multi-tenant model group): G
+//    same-shape tenants, queries X (G, B, d) against (mu, var) (G, C, d)
+//    and log_prior (G, C), run as one launch on either route, the tenant on
+//    blockIdx.y; a block offsets its operands and output to its tenant,
+//    stages that tenant's pairs and sums its class constants, and is
+//    otherwise the G = 1 block.  With the G = 1 launch's warps a query
+//    (the wrapper plans the split from B, not G B) every sum runs in the
+//    same order, so a lane is bit-equal to that launch.  The tenant code
+//    is a template parameter: a G = 1 launch runs the kernel without it,
+//    as before the axis was added.
 #include <cuda_runtime.h>
 
 namespace {
@@ -74,7 +84,7 @@ __host__ __device__ inline int group_size(int C) {
 // (mu, var) = (0, 1) and are never written.  Shared memory: the (mu, var)
 // pairs [NC][chunk], the warps' sums [WARPS][NC], the group's constants
 // [NC].
-template <int NC>
+template <int NC, bool TENANTS>
 __global__ void __launch_bounds__(THREADS)
 gnb_scores_kernel(const float* __restrict__ X, const float* __restrict__ mu,
                   const float* __restrict__ var,
@@ -82,6 +92,14 @@ gnb_scores_kernel(const float* __restrict__ X, const float* __restrict__ mu,
                   float* __restrict__ out, int B, int C, int d, int split,
                   int chunk) {
     extern __shared__ __align__(16) unsigned char smem[];
+    if (TENANTS) {   // the tenant's operands
+        const size_t g = blockIdx.y;
+        X += g * B * d;
+        mu += g * C * d;
+        var += g * C * d;
+        log_prior += g * C;
+        out += g * B * C;
+    }
     float2* mv = reinterpret_cast<float2*>(smem);
     float* red = reinterpret_cast<float*>(
         smem + static_cast<size_t>(NC) * chunk * sizeof(float2));
@@ -192,23 +210,24 @@ gnb_scores_kernel(const float* __restrict__ X, const float* __restrict__ mu,
 template <int NC>
 cudaError_t launch_scores(const float* X, const float* mu, const float* var,
                           const float* log_prior, float* out, int B, int C,
-                          int d, int split, int chunk, int grid,
+                          int d, int split, int chunk, int grid, int G,
                           cudaStream_t s) {
     if (NC != group_size(C))
         return launch_scores<NC - 1>(X, mu, var, log_prior, out, B, C, d,
-                                     split, chunk, grid, s);
+                                     split, chunk, grid, G, s);
     const size_t bytes = static_cast<size_t>(NC) * chunk * sizeof(float2) +
                          (WARPS + 1) * NC * sizeof(float);
-    static size_t allowed = 48 * 1024;
-    if (bytes > allowed) {
+    static size_t allowed[2] = {48 * 1024, 48 * 1024};
+    auto* kernel = G > 1 ? gnb_scores_kernel<NC, true>
+                         : gnb_scores_kernel<NC, false>;
+    if (bytes > allowed[G > 1]) {
         const cudaError_t err = cudaFuncSetAttribute(
-            gnb_scores_kernel<NC>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize,
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(bytes));
         if (err != cudaSuccess) return err;
-        allowed = bytes;
+        allowed[G > 1] = bytes;
     }
-    gnb_scores_kernel<NC><<<grid, THREADS, bytes, s>>>(
+    kernel<<<dim3(grid, G), THREADS, bytes, s>>>(
         X, mu, var, log_prior, out, B, C, d, split, chunk);
     return cudaGetLastError();
 }
@@ -216,7 +235,7 @@ cudaError_t launch_scores(const float* X, const float* mu, const float* var,
 template <>
 cudaError_t launch_scores<0>(const float*, const float*, const float*,
                              const float*, float*, int, int, int, int, int,
-                             int, cudaStream_t) {
+                             int, int, cudaStream_t) {
     return cudaErrorInvalidValue;
 }
 
@@ -228,22 +247,24 @@ int gnb_resident_max() { return RESIDENT_MAX; }
 int gnb_class_group() { return CG; }
 int gnb_warps() { return WARPS; }
 
-// X (B, d), mu/var (C, d), log_prior (C,) fp32 row-major -> out (B, C).
-// split: warps a query (a divisor of WARPS); chunk: features of mu/var
-// staged at once (d where a group's pairs fit RESIDENT_MAX bytes); grid:
-// the persistent blocks.  Returns the first CUDA error.
+// X (G, B, d), mu/var (G, C, d), log_prior (G, C) fp32 row-major, G
+// tenants (G = 1: one model) -> out (G, B, C).  split: warps a query (a
+// divisor of WARPS); chunk: features of mu/var staged at once (d where a
+// group's pairs fit RESIDENT_MAX bytes); grid: a tenant's persistent
+// blocks.  Returns the first CUDA error.
 int gnb_scores_batch_f32(const float* X, const float* mu, const float* var,
                          const float* log_prior, float* out, int B, int C,
-                         int d, int split, int chunk, int grid,
+                         int d, int split, int chunk, int grid, int G,
                          void* stream) {
     const int fc = chunk < d ? chunk : d;
-    if (B < 1 || C < 1 || d < 1 || grid < 1 || split < 1 ||
+    if (B < 1 || C < 1 || d < 1 || grid < 1 || split < 1 || G < 1 ||
+        G > 65535 ||
         split > WARPS || WARPS % split || chunk < 1 ||
         static_cast<size_t>(group_size(C)) * fc * sizeof(float2) >
             RESIDENT_MAX)
         return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(launch_scores<CG>(
-        X, mu, var, log_prior, out, B, C, d, split, fc, grid,
+        X, mu, var, log_prior, out, B, C, d, split, fc, grid, G,
         static_cast<cudaStream_t>(stream)));
 }
 

@@ -478,3 +478,273 @@ def adc_topk(qlut, codes, cand_ids, k: int, *,
     kp = resolve("ann", "adc_topk", path=path, policy=policy, Q=Q, L=L, m=m,
                  n_codes=qlut.shape[1] // max(m, 1), k=k)
     return kp.fn(qlut, codes, cand_ids, k)
+
+
+# ---------------------------------------------------------------------------
+# Grouped arm — one launch over a (G, ...) stacked model group
+# ---------------------------------------------------------------------------
+#
+# Multi-tenant serving (serving/model_store.py): G same-shape fitted models
+# stack along a leading axis (core.estimator.stack_params) and a whole
+# group serves as one launch.  The reference vmaps the estimator's batch fn
+# over the group, each lane running the registry-dispatched kernel
+# unchanged; vmap cannot batch a ctypes launch, so here the kernels of the
+# main path take the group themselves: B1 (kNN, k <= 32), B2 (K-Means) and
+# B3 (GNB at d >= 64 and GMM's blocked arm) have a tenant axis, one launch
+# for the group and each lane bit-equal to the one-tenant launch.  The
+# paths with no kernel (the RF traversal, the GMM chunked E-step, GNB's
+# plain version below d = 64) run their torch ops batched over the tenant
+# axis.  An arm that has no tenant axis (kNN's blocked B4 + B5 past k = 32,
+# the int8 tier's B6/B7 and affine scores, any ``quant`` arm) runs once a
+# tenant inside the one grouped call, as ``_per_tenant`` says, and counts
+# one launch a tenant.  The arm is registered per algorithm, so an
+# algorithm whose params cannot stack (ANN: ragged inverted lists) refuses
+# instead.
+
+_GROUPED: Dict[str, Callable] = {}
+
+
+def register_grouped(algorithm: str):
+    def deco(fn):
+        _GROUPED[algorithm] = fn
+        return fn
+
+    return deco
+
+
+def grouped(algorithm: str) -> Callable:
+    """The grouped-launch builder for ``algorithm``: called as
+    ``grouped(alg)(estimator)`` it returns ``(stacked_params, Xg (G, B, d))
+    -> (preds (G, B), aux (G, B, ...))`` with the estimator's static
+    configuration (k, policy, path, n_class) closed over.  Raises KeyError
+    for an algorithm with no grouped arm."""
+    if algorithm not in _GROUPED:
+        raise KeyError(f"no grouped serving arm for {algorithm!r}; "
+                       f"known: {sorted(_GROUPED)}")
+    return _GROUPED[algorithm]
+
+
+def grouped_registered() -> Tuple[str, ...]:
+    """Algorithms with a grouped (multi-tenant) arm."""
+    return tuple(sorted(_GROUPED))
+
+
+def _per_tenant(fn: Callable, *group):
+    """``fn`` once a tenant over the leading axis of the ``group`` tensors
+    (other arguments pass as they are), its outputs stacked: the grouped
+    form of an arm that has no tenant axis."""
+    G = next(a.shape[0] for a in group if isinstance(a, torch.Tensor))
+    outs = [fn(*(a[t] if isinstance(a, torch.Tensor) else a
+                 for a in group)) for t in range(G)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(parts) for parts in zip(*outs))
+    return torch.stack(outs)
+
+
+def _gmm_blocked_group(mu, var, log_pi, X, *, n_cores=8):
+    joint = ops.gnb_scores_batch_group(X, mu, var, log_pi)
+    norm = torch.logsumexp(joint, dim=2, keepdim=True)
+    return joint - norm, torch.mean(norm[..., 0], dim=1)
+
+
+def _gmm_ref_group(mu, var, log_pi, X, *, n_cores=8):
+    from repro_torch.core.gmm import gmm_e_step_group
+    return gmm_e_step_group(X, mu, var, log_pi, n_cores)
+
+
+def _rf_ref_group(forest, X, *, depth=None):
+    from repro_torch.core.random_forest import forest_classify_batch_group
+    return forest_classify_batch_group(forest, X, depth=depth)
+
+
+# (algorithm, op, arm) -> that arm over a group in one call
+_GROUP_ARMS: Dict[Tuple[str, str, str], Callable] = {
+    ("knn", "distance_topk", "fused"): ops.distance_topk_group,
+    ("knn", "distance_topk", "ref"): ref.distance_topk_group,
+    ("kmeans", "distance_argmin", "fused"): ops.distance_argmin_group,
+    ("kmeans", "distance_argmin", "ref"): ref.distance_argmin_group,
+    ("gnb", "scores", "blocked"): ops.gnb_scores_batch_group,
+    ("gnb", "scores", "ref"): ref.gnb_scores_batch_group,
+    ("gmm", "responsibilities", "blocked"): _gmm_blocked_group,
+    ("gmm", "responsibilities", "ref"): _gmm_ref_group,
+    ("rf", "forest_votes", "ref"): _rf_ref_group,
+}
+
+
+def group_arm(kp: KernelPath) -> Optional[Callable]:
+    """The grouped form of a resolved arm, or None where the arm has no
+    tenant axis (it then runs once a tenant)."""
+    return _GROUP_ARMS.get((kp.algorithm, kp.op, kp.name))
+
+
+def distance_topk_group(a, c, k: int, *,
+                        policy: Optional[PrecisionPolicy] = None,
+                        path: Optional[str] = None):
+    """A (G, N, d) data, C (G, Q, d) queries -> (values (G, Q, k), indices
+    (G, Q, k)), the arm ``distance_topk`` resolves for one tenant."""
+    if policy is not None:
+        a, c = policy.cast(a), policy.cast(c)
+    G, N, d = a.shape
+    kp = resolve("knn", "distance_topk", path=path, policy=policy,
+                 N=N, d=d, Q=c.shape[1], k=k)
+    arm = group_arm(kp)
+    if arm is not None:
+        return arm(a, c, k)
+    return _per_tenant(kp.fn, a, c, k)
+
+
+def distance_argmin_group(a, c, *, policy: Optional[PrecisionPolicy] = None,
+                          path: Optional[str] = None):
+    """A (G, N, d), centroids (G, K, d) -> (min sq-dist (G, N), nearest id
+    (G, N))."""
+    if policy is not None:
+        a, c = policy.cast(a), policy.cast(c)
+    G, N, d = a.shape
+    kp = resolve("kmeans", "distance_argmin", path=path, policy=policy,
+                 N=N, d=d, K=c.shape[1])
+    arm = group_arm(kp)
+    if arm is not None:
+        return arm(a, c)
+    return _per_tenant(kp.fn, a, c)
+
+
+def gnb_scores_group(X, mu, var, log_prior, *,
+                     policy: Optional[PrecisionPolicy] = None,
+                     path: Optional[str] = None):
+    """X (G, B, d) queries -> (G, B, C) joint log-likelihood."""
+    if policy is not None:
+        X, mu, var = policy.cast(X), policy.cast(mu), policy.cast(var)
+    G, B, d = X.shape
+    kp = resolve("gnb", "scores", path=path, policy=policy,
+                 B=B, d=d, C=mu.shape[1])
+    arm = group_arm(kp)
+    if arm is not None:
+        return arm(X, mu, var, log_prior)
+    return _per_tenant(kp.fn, X, mu, var, log_prior)
+
+
+def gmm_responsibilities_group(mu, var, log_pi, X, *,
+                               policy: Optional[PrecisionPolicy] = None,
+                               path: Optional[str] = None,
+                               n_cores: int = 8):
+    """X (G, B, d) -> (log-responsibilities (G, B, k), mean
+    log-likelihood (G,))."""
+    if policy is not None:
+        mu, var, X = policy.cast(mu), policy.cast(var), policy.cast(X)
+    kp = resolve("gmm", "responsibilities", path=path, policy=policy,
+                 B=X.shape[1], d=X.shape[2], k=mu.shape[1])
+    arm = group_arm(kp)
+    if arm is not None:
+        return arm(mu, var, log_pi, X, n_cores=n_cores)
+    return _per_tenant(lambda m, v, lp, x: kp.fn(m, v, lp, x,
+                                                 n_cores=n_cores),
+                       mu, var, log_pi, X)
+
+
+def forest_votes_group(forest, X, *,
+                       policy: Optional[PrecisionPolicy] = None,
+                       path: Optional[str] = None,
+                       depth: Optional[int] = None):
+    """Stacked forests (arrays (G, T, M)) + X (G, B, d) -> (classes (G, B)
+    int32, votes (G, B, n_class) int32)."""
+    if policy is not None:
+        X = policy.cast(X)
+    kp = resolve("rf", "forest_votes", path=path, policy=policy)
+    arm = group_arm(kp)
+    if arm is not None:
+        return arm(forest, X, depth=depth)
+    from repro_torch.core.estimator import unstack_params
+    outs = [kp.fn(unstack_params(forest, t), X[t])
+            for t in range(X.shape[0])]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def _loop_group(est) -> Callable:
+    """The grouped call of an estimator whose hot path has no tenant axis
+    (its int8 lattice form): ``predict_batch_fn`` once a tenant."""
+    from repro_torch.core.estimator import unstack_params
+    fn = est.predict_batch_fn()
+
+    def group_fn(stacked, Xg):
+        outs = [fn(unstack_params(stacked, t), Xg[t])
+                for t in range(Xg.shape[0])]
+        return tuple(torch.stack(parts) for parts in zip(*outs))
+
+    return group_fn
+
+
+@register_grouped("knn")
+def _knn_grouped(est) -> Callable:
+    if est.quantized:
+        return _loop_group(est)
+    from repro_torch.core.knn import vote_group
+    k, policy, path = est.k, est.policy, est.path
+    n_class = est.params.n_class
+
+    def fn(stacked, Xg):
+        Xg = policy.cast(Xg) if policy else Xg
+        _, nbr = distance_topk_group(stacked.A, Xg, k, policy=policy,
+                                     path=path)
+        return vote_group(stacked.labels, nbr, n_class), nbr
+
+    return fn
+
+
+@register_grouped("kmeans")
+def _kmeans_grouped(est) -> Callable:
+    if est.quantized:
+        return _loop_group(est)
+    policy, path = est.policy, est.path
+
+    def fn(stacked, Xg):
+        Xg = policy.cast(Xg) if policy else Xg
+        dist, ids = distance_argmin_group(Xg, stacked.centroids,
+                                          policy=policy, path=path)
+        return ids, dist
+
+    return fn
+
+
+@register_grouped("gnb")
+def _gnb_grouped(est) -> Callable:
+    if est.quantized:
+        return _loop_group(est)
+    policy, path = est.policy, est.path
+
+    def fn(stacked, Xg):
+        Xg = policy.cast(Xg) if policy else Xg
+        scores = gnb_scores_group(Xg, stacked.mu, stacked.var,
+                                  stacked.log_prior, policy=policy,
+                                  path=path)
+        return torch.argmax(scores, dim=2).to(torch.int32), scores
+
+    return fn
+
+
+@register_grouped("gmm")
+def _gmm_grouped(est) -> Callable:
+    if est.quantized:
+        return _loop_group(est)
+    policy, path, n_cores = est.policy, est.path, est.n_cores
+
+    def fn(stacked, Xg):
+        Xg = policy.cast(Xg) if policy else Xg
+        lr, _ = gmm_responsibilities_group(
+            stacked.mu, stacked.var, stacked.log_pi, Xg, policy=policy,
+            path=path, n_cores=n_cores)
+        return torch.argmax(lr, dim=2).to(torch.int32), lr
+
+    return fn
+
+
+@register_grouped("rf")            # after pad_nodes normalization
+def _rf_grouped(est) -> Callable:
+    if est.quantized:
+        return _loop_group(est)
+    policy, path = est.policy, est.path
+
+    def fn(stacked, Xg):
+        Xg = policy.cast(Xg) if policy else Xg
+        return forest_votes_group(stacked, Xg, policy=policy, path=path)
+
+    return fn

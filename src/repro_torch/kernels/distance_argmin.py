@@ -14,6 +14,12 @@ own rows), ``narrow`` for few rows (N <= ``NARROW_MAX_ROWS``: eight rows
 a block), ``bulk`` for rows whose base is 16-byte aligned and d <=
 ``BULK_MAX_D`` (B1's rule: 1-D bulk asynchronous copies of whole row
 tiles), ``plain`` otherwise (element loads).  ``plan`` sizes the grid.
+
+A grouped launch (a multi-tenant model group) takes G same-shape tenants
+at once on every route: rows (G, N, d) against centroids (G, K, d), the
+tenant on the grid's second axis, one launch for the group, each lane
+bit-equal to the G = 1 launch on that tenant's operands.  Its bulk route
+needs every tenant's rows 16-byte aligned.
 """
 from __future__ import annotations
 
@@ -56,7 +62,7 @@ def _fn():
                 raise RuntimeError(f"{const}() = {got} in the built "
                                    f"library, the wrapper expects {want}")
         _fns["argmin"] = _build.bind(_STEM, "distance_argmin_f32",
-                                     [_P] * 4 + [_I] * 5 + [_P])
+                                     [_P] * 4 + [_I] * 6 + [_P])
     return _fns["argmin"]
 
 
@@ -71,42 +77,49 @@ def resident(K: int, d: int) -> bool:
 
 
 def route(a: torch.Tensor, c: torch.Tensor) -> str:
-    """The route of rows a (N, d) against centroids c (K, d)."""
-    (N, d), K = a.shape, c.shape[0]
+    """The route of rows a (N, d) against centroids c (K, d), or of a
+    group's a (G, N, d) against c (G, K, d)."""
+    (N, d), K = a.shape[-2:], c.shape[-2]
     if not resident(K, d):
         return "stream"
     if d <= ROWS_MAX_D:
         return "rows"
     if N <= NARROW_MAX_ROWS:
         return "narrow"
-    return "bulk" if d <= BULK_MAX_D and a.data_ptr() % ALIGN == 0 \
-        else "plain"
+    aligned = a.data_ptr() % ALIGN == 0 and \
+        (a.ndim == 2 or a.shape[0] == 1 or N * d * 4 % ALIGN == 0)
+    return "bulk" if d <= BULK_MAX_D and aligned else "plain"
 
 
-def plan(N: int, K: int, sms: int, way: str) -> int:
-    """The grid: one block for every ``NARROW_ROWS`` rows on the narrow
+def plan(N: int, K: int, sms: int, way: str, groups: int = 1) -> int:
+    """A tenant's blocks: one for every ``NARROW_ROWS`` rows on the narrow
     route, every ``ROWS_BLOCK`` rows on the rows route; else persistent
     blocks that walk the 128-row tiles, about ``BLOCKS_PER_SM`` on each of
-    ``sms`` SMs and at most one a tile."""
+    ``sms`` SMs for all ``groups`` tenants together and at most one a
+    tile."""
     if way in ("narrow", "rows"):
         return -(-N // (NARROW_ROWS if way == "narrow" else ROWS_BLOCK))
-    return min(-(-N // TILE), BLOCKS_PER_SM * sms)
+    return min(-(-N // TILE), max(1, -(-BLOCKS_PER_SM * sms // groups)))
 
 
 def launch(a: torch.Tensor, c: torch.Tensor
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B2: a (N, d), c (K, d) fp32 on the card -> (min sq-dist (N,) f32,
     nearest id (N,) int32), first index on ties, centroid 0 at +inf for a
-    row with no number distance."""
+    row with no number distance; or a group's a (G, N, d), c (G, K, d) ->
+    (G, N) each, one launch."""
     fn = _fn()
-    N, d = a.shape
-    K = c.shape[0]
+    N, d = a.shape[-2:]
+    K = c.shape[-2]
+    G = a.shape[0] if a.ndim == 3 else 1
     way = route(a, c)
-    grid = plan(N, K, sm_count(a.device), way)
-    vals = torch.empty((N,), dtype=torch.float32, device=a.device)
-    idx = torch.empty((N,), dtype=torch.int32, device=a.device)
+    grid = plan(N, K, sm_count(a.device), way, G)
+    lead = a.shape[:-1]
+    vals = torch.empty(lead, dtype=torch.float32, device=a.device)
+    idx = torch.empty(lead, dtype=torch.int32, device=a.device)
     err = fn(a.data_ptr(), c.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-             N, K, d, ROUTES.index(way), grid, _stream())
-    _build.check(_STEM, err, f"distance_argmin N={N} K={K} d={d} {way}")
+             N, K, d, ROUTES.index(way), grid, G, _stream())
+    _build.check(_STEM, err, f"distance_argmin G={G} N={N} K={K} d={d} "
+                 f"{way}")
     ROUTE_LAUNCHES[way] += 1
     return vals, idx

@@ -12,6 +12,14 @@ its (mu, var) pairs fit ``RESIDENT_MAX`` bytes of shared memory (staged
 once a block), ``stream`` otherwise (chunks of ``chunk(C, d)`` features
 of each class group, ``group_size(C)`` classes, staged in turn).
 ``plan`` picks the warps a query and the grid.
+
+A grouped launch (a multi-tenant model group) takes G same-shape tenants
+at once on either route: queries (G, B, d) against (mu, var) (G, C, d) and
+log priors (G, C), the tenant on the grid's second axis, one launch for
+the group.  It keeps the G = 1 launch's warps a query (``plan`` of B), so
+each lane is bit-equal to the G = 1 launch on that tenant's operands; the
+blocks a tenant shrink so that the group stays about ``BLOCKS_PER_SM`` an
+SM.
 """
 from __future__ import annotations
 
@@ -48,7 +56,7 @@ def _fn():
                 raise RuntimeError(f"{const}() = {got} in the built "
                                    f"library, the wrapper expects {want}")
         _fns["scores"] = _build.bind(_STEM, "gnb_scores_batch_f32",
-                                     [_P] * 5 + [_I] * 6 + [_P])
+                                     [_P] * 5 + [_I] * 7 + [_P])
     return _fns["scores"]
 
 
@@ -99,16 +107,23 @@ def launch_scores_batch(X: torch.Tensor, mu: torch.Tensor,
                         var: torch.Tensor, log_prior: torch.Tensor
                         ) -> torch.Tensor:
     """B3: X (B, d), mu/var (C, d), log_prior (C,) fp32 on the card ->
-    (B, C) joint log-likelihood."""
+    (B, C) joint log-likelihood; or a group's X (G, B, d), mu/var
+    (G, C, d), log_prior (G, C) -> (G, B, C), one launch."""
     fn = _fn()
-    B, d = X.shape
-    C = mu.shape[0]
-    split, f, grid = plan(B, C, d, sm_count(X.device))
+    B, d = X.shape[-2:]
+    C = mu.shape[-2]
+    G = X.shape[0] if X.ndim == 3 else 1
+    sms = sm_count(X.device)
+    split, f, grid = plan(B, C, d, sms)
+    if G > 1:
+        grid = min(grid, max(1, -(-BLOCKS_PER_SM * sms // G)))
     way = route(C, d)
-    out = torch.empty((B, C), dtype=torch.float32, device=X.device)
+    out = torch.empty(X.shape[:-1] + (C,), dtype=torch.float32,
+                      device=X.device)
     err = fn(X.data_ptr(), mu.data_ptr(), var.data_ptr(),
              log_prior.data_ptr(), out.data_ptr(), B, C, d, split, f, grid,
-             _stream())
-    _build.check(_STEM, err, f"gnb_scores_batch B={B} C={C} d={d} {way}")
+             G, _stream())
+    _build.check(_STEM, err, f"gnb_scores_batch G={G} B={B} C={C} d={d} "
+                 f"{way}")
     ROUTE_LAUNCHES[way] += 1
     return out

@@ -30,6 +30,13 @@ selects in one launch.  B6 past B1's list length and B8 past its own
 write an int32 matrix in chunks of queries and hand it to B5 in its
 int32 key mode: a call then counts its matrix launches under its own
 name and its selections under ``topk_smallest``.
+
+B1, B2 and B3 also take a multi-tenant model group in one launch
+(``distance_topk_group``, ``distance_argmin_group``,
+``gnb_scores_batch_group``: G same-shape tenants on a leading axis, each
+lane bit-equal to the one-tenant launch on its operands).  A grouped
+launch counts once in ``LAUNCHES`` under the kernel's name and once in
+``GROUP_LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -58,20 +65,26 @@ LAUNCHES: Dict[str, int] = {"distance_topk": 0, "distance_argmin": 0,
                             "adc_topk": 0, "matmul": 0,
                             "flash_attention": 0}
 
+# the grouped launches among them (B1, B2, B3 with a tenant axis)
+GROUP_LAUNCHES: Dict[str, int] = {"distance_topk": 0, "distance_argmin": 0,
+                                  "gnb_scores_batch": 0}
+
 _FLOATS = (torch.float32, torch.bfloat16)
 _INT8 = (torch.int8,)
 _INT32 = (torch.int32,)
 
 
 def reset_launches() -> None:
-    """Set every count to 0: ``LAUNCHES`` and the per-route counts of B1,
+    """Set every count to 0: ``LAUNCHES``, ``GROUP_LAUNCHES`` and the
+    per-route counts of B1,
     B2, B3 (with B9), B4, B5, B6, B7, B8, B10 and B11 (``ROUTE_LAUNCHES``
     of ``kernels/distance_topk.py``, ``kernels/distance_argmin.py``,
     ``kernels/gnb_score.py``, ``kernels/pairwise_sq_dist.py``,
     ``kernels/topk_select.py``, ``kernels/quantized.py`` (B6; B7's are
     ``ARGMIN_ROUTE_LAUNCHES`` there), ``kernels/ann.py``,
     ``kernels/gemm.py`` and ``kernels/flash_attention.py``)."""
-    for counts in (LAUNCHES, _dt.ROUTE_LAUNCHES, _da.ROUTE_LAUNCHES,
+    for counts in (LAUNCHES, GROUP_LAUNCHES, _dt.ROUTE_LAUNCHES,
+                   _da.ROUTE_LAUNCHES,
                    _gs.ROUTE_LAUNCHES, _pd.ROUTE_LAUNCHES,
                    _ts.ROUTE_LAUNCHES, _q.ROUTE_LAUNCHES,
                    _q.ARGMIN_ROUTE_LAUNCHES, _ann.ROUTE_LAUNCHES,
@@ -175,6 +188,79 @@ def gnb_scores_batch(X: torch.Tensor, mu: torch.Tensor, var: torch.Tensor,
     out = _gs.launch_scores_batch(X.float(), mu.float(), var.float(),
                                   log_prior.float())
     LAUNCHES["gnb_scores_batch"] += 1
+    return out
+
+
+def _groups(op: str, *tensors: torch.Tensor) -> int:
+    """The common tenant count G of a group's operands (their leading
+    axis), at least one."""
+    G = tensors[0].shape[0]
+    if G < 1 or any(t.shape[0] != G for t in tensors):
+        raise ValueError(f"{op}: the operands' tenant axes "
+                         f"{[tuple(t.shape) for t in tensors]} differ or "
+                         "are empty")
+    return G
+
+
+def distance_topk_group(a: torch.Tensor, c: torch.Tensor, k: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B1 over a model group: A (G, N, d) data rows, C (G, Q, d) queries ->
+    each tenant's k nearest rows per query, (values (G, Q, k) f32, row
+    indices (G, Q, k) int32), one launch.  k is at most ``TOPK_K_MAX``."""
+    dev = _check("distance_topk_group", a=(a, 3), c=(c, 3))
+    _groups("distance_topk_group", a, c)
+    N, d = a.shape[1:]
+    if c.shape[2] != d or c.shape[1] < 1:
+        raise ValueError(f"distance_topk_group: a is {tuple(a.shape)}, c "
+                         f"is {tuple(c.shape)}")
+    if not 1 <= k <= min(N, TOPK_K_MAX):
+        raise ValueError(f"distance_topk_group: k={k} outside [1, min(N={N},"
+                         f" {TOPK_K_MAX})]")
+    if dev.type == "cpu":
+        return ref.distance_topk_group(a, c, k)
+    out = _dt.launch_topk(a.float(), c.float(), k)
+    LAUNCHES["distance_topk"] += 1
+    GROUP_LAUNCHES["distance_topk"] += 1
+    return out
+
+
+def distance_argmin_group(a: torch.Tensor, c: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B2 over a model group: A (G, N, d), centroids C (G, K, d) -> (min
+    sq-dist (G, N) f32, nearest id (G, N) int32), one launch."""
+    dev = _check("distance_argmin_group", a=(a, 3), c=(c, 3))
+    _groups("distance_argmin_group", a, c)
+    if c.shape[2] != a.shape[2] or a.shape[1] < 1 or c.shape[1] < 1:
+        raise ValueError(f"distance_argmin_group: a is {tuple(a.shape)}, c "
+                         f"is {tuple(c.shape)}")
+    if dev.type == "cpu":
+        return ref.distance_argmin_group(a, c)
+    out = _da.launch(a.float(), c.float())
+    LAUNCHES["distance_argmin"] += 1
+    GROUP_LAUNCHES["distance_argmin"] += 1
+    return out
+
+
+def gnb_scores_batch_group(X: torch.Tensor, mu: torch.Tensor,
+                           var: torch.Tensor, log_prior: torch.Tensor
+                           ) -> torch.Tensor:
+    """B3 over a model group: X (G, B, d), mu/var (G, C, d), log_prior
+    (G, C) -> (G, B, C) joint log-likelihood, one launch."""
+    dev = _check("gnb_scores_batch_group", X=(X, 3), mu=(mu, 3),
+                 var=(var, 3), log_prior=(log_prior, 2))
+    _groups("gnb_scores_batch_group", X, mu, var, log_prior)
+    C, d = mu.shape[1:]
+    if X.shape[2] != d or var.shape != mu.shape or \
+            log_prior.shape[1] != C or X.shape[1] < 1:
+        raise ValueError(f"gnb_scores_batch_group: X {tuple(X.shape)}, mu "
+                         f"{tuple(mu.shape)}, var {tuple(var.shape)}, "
+                         f"log_prior {tuple(log_prior.shape)}")
+    if dev.type == "cpu":
+        return ref.gnb_scores_batch_group(X, mu, var, log_prior)
+    out = _gs.launch_scores_batch(X.float(), mu.float(), var.float(),
+                                  log_prior.float())
+    LAUNCHES["gnb_scores_batch"] += 1
+    GROUP_LAUNCHES["gnb_scores_batch"] += 1
     return out
 
 

@@ -89,6 +89,51 @@ def gnb_scores_batch(X: torch.Tensor, mu: torch.Tensor, var: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Grouped (multi-tenant) versions of B1, B2 and B3: G same-shape tenants
+# along a leading axis, the arithmetic of the functions above batched over
+# it term for term
+# ---------------------------------------------------------------------------
+
+
+def pairwise_sq_dist_group(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """(G, N, d), (G, K, d) -> (G, N, K) squared distances as
+    ``‖a‖² − 2a·c + ‖c‖²``, tenant by tenant."""
+    a = a.to(torch.float32)
+    c = c.to(torch.float32)
+    an = torch.sum(a * a, dim=2, keepdim=True)
+    cn = torch.sum(c * c, dim=2)[:, None, :]
+    cross = a @ c.transpose(1, 2)
+    return an - 2.0 * cross + cn
+
+
+def distance_topk_group(a: torch.Tensor, c: torch.Tensor, k: int):
+    """(G, N, d) data, (G, Q, d) queries -> each tenant's k nearest rows
+    per query, (values (G, Q, k) f32, row indices (G, Q, k) int32)."""
+    e = pairwise_sq_dist_group(a, c)              # (G, N, Q)
+    return topk_smallest_stable(e.transpose(1, 2), k, dim=2)
+
+
+def distance_argmin_group(a: torch.Tensor, c: torch.Tensor):
+    """(G, N, d), (G, K, d) -> (min sq-dist (G, N) f32, nearest id (G, N)
+    int32), ``distance_argmin``'s rules tenant by tenant."""
+    e = pairwise_sq_dist_group(a, c)              # (G, N, K)
+    e = torch.where(torch.isnan(e), torch.full_like(e, float("inf")), e)
+    idx = torch.argmin(e, dim=2)
+    return e.gather(2, idx[..., None])[..., 0], idx.to(torch.int32)
+
+
+def gnb_scores_batch_group(X: torch.Tensor, mu: torch.Tensor,
+                           var: torch.Tensor,
+                           log_prior: torch.Tensor) -> torch.Tensor:
+    """(G, B, d), (G, C, d), (G, C, d), (G, C) -> (G, B, C) joint
+    log-likelihood, tenant by tenant."""
+    X, mu, var = (t.to(torch.float32) for t in (X, mu, var))
+    t = -0.5 * ((X[:, :, None, :] - mu[:, None]) ** 2 / var[:, None]
+                + torch.log(var)[:, None] + _LOG2PI)
+    return torch.sum(t, dim=3) + log_prior.to(torch.float32)[:, None, :]
+
+
+# ---------------------------------------------------------------------------
 # int8 lattice (B6, B7) and IVF-PQ ADC (B8)
 # ---------------------------------------------------------------------------
 

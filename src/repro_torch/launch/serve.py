@@ -22,12 +22,26 @@ prints the SLO line (p50/p95/p99 in drain ticks, occupancy, hit-rate).
   PYTHONPATH=src python -m repro_torch.launch.serve --algo gnb --batch 16 \
       --stream --rate 4 --ticks 40 --cache-size 64 --deadline 8
 
+Multi-tenant: ``--tenants G`` fits G same-shape per-tenant estimators,
+parks them in a ``ModelStore`` (``--resident-frac`` of their fp32 bytes
+resident, the rest int8 at rest) and serves them through one grouped
+launch a (group, bucket) cell (B1, B2, B3 with a tenant axis); with
+``--stream`` a seeded cross-tenant Poisson trace goes through the
+store-mode scheduler, and ``--degrade`` splits the group launch and arms
+per-tenant circuit breakers.  ``--chaos PLAN`` (a preset of
+``runtime.chaos.PRESETS`` or a plan's JSON file) injects faults into a
+stream on the plan's virtual clock.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --algo knn \
+      --tenants 8 --batch 16 --resident-frac 0.5 --stream --chaos storm
+
 Runs on the card; ``--device cpu`` runs the kernels' plain versions on the
 CPU instead (with ``--smoke`` for the LM: the full width does not fit a
 CPU run).  The counterpart of the JAX package's ``launch/serve.py``
-(``serve_nonneural``, ``serve_stream`` and ``serve_lm``); its tenant
-(ROADMAP A12), degrade and chaos (A13), autotune (A14) and mesh (A15)
-flags wait for their items.
+(``serve_nonneural``, ``serve_stream``, ``serve_tenants``,
+``serve_tenant_stream`` and ``serve_lm``); the single-model ``--degrade``
+ladder (``build_ladder``, ROADMAP A13), autotune (A14) and mesh (A15)
+wait for their items.
 """
 from __future__ import annotations
 
@@ -87,23 +101,195 @@ def serve_nonneural(args) -> ClassifyResult:
     return result
 
 
+def serve_tenants(args):
+    """--tenants G: fit G same-shape per-tenant estimators on seeded blobs
+    (tenant t from seed t), park them in a ``ModelStore`` (capped to
+    --resident-frac of their fp32 bytes, the rest int8 at rest) and serve
+    one (G, --batch) request through ONE grouped launch instead of G;
+    checks each lane against the per-tenant loop on the same stacked
+    lanes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.estimator import make_fitted, unstack_params
+    from repro_torch.data.datasets import class_blobs
+    from repro_torch.device import device_name, resolve_device
+    from repro_torch.serving import ModelStore
+
+    if args.algo == "ann":
+        raise SystemExit("--tenants: ann has no grouped serving arm "
+                         "(ragged IVF/PQ shapes, DESIGN.md §11)")
+    device = resolve_device(args.device)
+    G, d, n_class = args.tenants, args.dim, args.classes
+    store = ModelStore(device=device)
+    for t in range(G):
+        X, y = class_blobs(n=args.train_size, d=d, n_class=n_class, seed=t)
+        store.register(t, make_fitted(args.algo, X, y, n_groups=n_class,
+                                      device=device))
+    full = store.stats()["resident_bytes"]
+    if args.resident_frac < 1.0:
+        store.set_budget(int(full * args.resident_frac))
+    st = store.stats()
+    budget = f"{st['budget_bytes']}B" if st["budget_bytes"] is not None \
+        else "unbounded"
+    print(f"[tenants] algo={args.algo} G={G} device={device_name(device)} "
+          f"resident {st['n_resident']}/{st['n_models']} "
+          f"({st['resident_frac']:.2f} of models, budget={budget} of "
+          f"{full}B fp32, {st['at_rest_bytes']}B int8 at rest)")
+
+    engine = store.make_engine(max_batch=args.batch, max_group=G)
+    Q = np.stack([class_blobs(n=args.batch, d=d, n_class=n_class,
+                              seed=1000 + t)[0] for t in range(G)])
+    if args.stream:
+        return serve_tenant_stream(args, store, engine, Q)
+
+    ids = list(range(G))
+    stacked, _gens = store.group(ids)
+    engine.warmup_groups(stacked, d, g_sizes=[engine._group_bucket(G)],
+                         b_sizes=[engine._bucket(args.batch)])
+    t0 = time.perf_counter()
+    res = engine.classify_group(stacked, Q)
+    engine._sync()
+    dt_group = time.perf_counter() - t0
+
+    fn = store.template.predict_batch_fn()
+    Qt = [torch.from_numpy(Q[t]).to(device) for t in ids]
+    lanes = [unstack_params(stacked, t) for t in ids]
+    outs = [fn(lanes[t], Qt[t]) for t in ids]
+    engine._sync()
+    t0 = time.perf_counter()
+    outs = [fn(lanes[t], Qt[t]) for t in ids]
+    engine._sync()
+    dt_loop = time.perf_counter() - t0
+    # against the same stacked lanes: under a budget, params_of() would
+    # churn tenants through the lossy int8 round trip
+    for t in ids:
+        assert torch.equal(res.classes[t], outs[t][0]), t
+    nq = G * args.batch
+    print(f"[tenants] grouped {nq} queries ({G}x{args.batch}) in "
+          f"{dt_group * 1e3:.2f}ms ({dt_group / nq * 1e6:.1f} us/q) vs "
+          f"per-model loop {dt_loop * 1e3:.2f}ms "
+          f"({dt_loop / nq * 1e6:.1f} us/q); "
+          f"launches={dict(engine.group_launches)}; grouped classes "
+          f"equal to the loop's")
+    return res
+
+
+def _chaos_injector(args, store=None, n_tenants: int = 0):
+    """--chaos PLAN: a named preset (``runtime.chaos.PRESETS``) seeded
+    with --seed, or the path of a ``ChaosPlan`` JSON file."""
+    if not args.chaos:
+        return None
+    from repro_torch.runtime.chaos import PRESETS, ChaosInjector, ChaosPlan
+    if args.chaos in PRESETS:
+        plan = ChaosPlan.preset(args.chaos, seed=args.seed,
+                                ticks=args.ticks, n_tenants=n_tenants)
+    else:
+        with open(args.chaos) as f:
+            plan = ChaosPlan.from_json(f.read())
+    print(f"[chaos] plan={args.chaos} seed={plan.seed} "
+          f"stragglers={len(plan.straggler_ticks)} "
+          f"nan={len(plan.nan_events)} storms={len(plan.storm_ticks)} "
+          f"bursts={len(plan.burst)}")
+    return ChaosInjector(plan, store=store)
+
+
+def _print_robustness(sched) -> None:
+    from collections import Counter
+    s = sched.stats.summary()
+    if sched.stats.shed or sched.stats.downshifts or sched.stats.upshifts:
+        print(f"[robust] shed={s['shed']} ({dict(sched.stats.shed_reasons)})"
+              f"  shed_rate={s['shed_rate']:.3f}  "
+              f"miss+shed={s['miss_plus_shed_rate']:.3f}  "
+              f"downshifts={s['downshifts']} "
+              f"upshifts={sched.stats.upshifts}  "
+              f"tiers={dict(sched.stats.tier_launches)}")
+    kinds = Counter(e.kind for e in sched.events)
+    if kinds:
+        print("[robust] events: "
+              + ", ".join(f"{k}={n}" for k, n in sorted(kinds.items())))
+
+
+def serve_tenant_stream(args, store, engine, Q):
+    """--tenants --stream: cross-tenant Poisson arrivals coalesced by the
+    store-mode ``RequestScheduler`` into grouped (model group x bucket)
+    launches; per-tenant SLO rows.  Asserts that no cell was first run
+    mid-stream."""
+    import numpy as np
+
+    from repro_torch.serving import (BreakerConfig, DegradePolicy,
+                                     RequestScheduler, poisson_trace,
+                                     replay_trace)
+
+    G, d = Q.shape[0], Q.shape[2]
+    ids = list(range(G))
+    stacked, _gens = store.group(ids)
+    engine.warmup_groups(stacked, d)
+    degrade = breaker = None
+    if args.degrade:
+        degrade = DegradePolicy(None, deadline=args.deadline)
+        breaker = BreakerConfig()
+    sched = RequestScheduler(engine, max_wait=args.max_wait,
+                             cache_size=args.cache_size, store=store,
+                             max_queue=args.max_queue,
+                             shed_expired=args.degrade, degrade=degrade,
+                             breaker=breaker)
+    chaos = _chaos_injector(args, store=store, n_tenants=G)
+    counts = poisson_trace(args.rate, args.ticks, seed=args.seed)
+    flat = np.asarray(Q).reshape(-1, d)
+    t0 = time.perf_counter()
+    rids = replay_trace(sched, flat, counts, deadline=args.deadline,
+                        model_ids=ids, chaos=chaos)
+    dt = time.perf_counter() - t0
+    s = sched.stats.summary()
+    print(f"[tenants/stream] algo={args.algo} G={G} rate={args.rate} "
+          f"ticks={args.ticks} max_wait={args.max_wait} "
+          f"cache={args.cache_size}")
+    print(f"[tenants/stream] served {len(rids)} requests in {dt:.3f}s wall "
+          f"({s['launches']} grouped launches, cells="
+          f"{dict(engine.group_launches)})")
+    print(f"[tenants/stream] latency ticks p50={s['p50']:.0f} "
+          f"p95={s['p95']:.0f} p99={s['p99']:.0f}  "
+          f"throughput={s['throughput']:.2f} req/tick  "
+          f"occupancy={s['occupancy']:.2f}  hit_rate={s['hit_rate']:.2f}  "
+          f"deadline_miss={s['deadline_miss_rate']:.2f}")
+    hdr = (f"{'tenant':>6} {'served':>6} {'p50':>5} {'p95':>5} "
+           f"{'occupancy':>9} {'hit_rate':>8}")
+    print(hdr)
+    print("-" * len(hdr))
+    for mid in sorted(sched.tenant_stats):
+        ts = sched.tenant_stats[mid].summary()
+        print(f"{mid:>6} {ts['served']:>6} {ts['p50']:>5.0f} "
+              f"{ts['p95']:>5.0f} {ts['occupancy']:>9.2f} "
+              f"{ts['hit_rate']:>8.2f}")
+    _print_robustness(sched)
+    assert set(engine.group_launches) <= sched.warmed_groups, \
+        "stream ran a (group, bucket) cell that was not warmed before it"
+    return sched.stats
+
+
 def serve_stream(args, engine, Q):
     """--stream: replay a seeded Poisson arrival trace through the
     micro-batching ``RequestScheduler`` and report the SLO accounting
     (time is drain ticks, so the replay is deterministic for a given
     --seed).  Asserts that no bucket was first run mid-stream."""
-    from collections import Counter
-
     from repro_torch.serving import (RequestScheduler, poisson_trace,
                                      replay_trace)
 
+    if args.degrade:
+        raise NotImplementedError(
+            "--degrade on a single-model stream needs the brownout ladder "
+            "(build_ladder, ann_sibling), which is not ported yet "
+            "(ROADMAP A13); --tenants streams take --degrade")
     engine.warmup_buckets(Q.shape[1])
     sched = RequestScheduler(engine, max_wait=args.max_wait,
                              cache_size=args.cache_size,
                              max_queue=args.max_queue)
+    chaos = _chaos_injector(args)
     counts = poisson_trace(args.rate, args.ticks, seed=args.seed)
     t0 = time.perf_counter()
-    ids = replay_trace(sched, Q, counts, deadline=args.deadline)
+    ids = replay_trace(sched, Q, counts, deadline=args.deadline,
+                       chaos=chaos)
     dt = time.perf_counter() - t0
     s = sched.stats.summary()
     print(f"[stream] algo={args.algo} policy={args.policy} "
@@ -117,14 +303,7 @@ def serve_stream(args, engine, Q):
           f"p99={s['p99']:.0f}  throughput={s['throughput']:.2f} req/tick  "
           f"occupancy={s['occupancy']:.2f}  hit_rate={s['hit_rate']:.2f}  "
           f"deadline_miss={s['deadline_miss_rate']:.2f}")
-    if sched.stats.shed:
-        print(f"[robust] shed={s['shed']} ({dict(sched.stats.shed_reasons)})"
-              f"  shed_rate={s['shed_rate']:.3f}  "
-              f"miss+shed={s['miss_plus_shed_rate']:.3f}")
-    kinds = Counter(e.kind for e in sched.events)
-    if kinds:
-        print("[robust] events: "
-              + ", ".join(f"{k}={n}" for k, n in sorted(kinds.items())))
+    _print_robustness(sched)
     assert set(engine.bucket_launches) <= sched.warmed, \
         "stream ran a bucket that was not warmed before it"
     return sched.stats
@@ -231,12 +410,34 @@ def main(argv=None):
                     help="seed of the training and query blobs and of "
                          "the --stream arrival trace (--algo lm: of the "
                          "weights and prompts)")
+    ap.add_argument("--degrade", action="store_true",
+                    help="--tenants --stream: deadline-enforced shedding, "
+                         "the group launch split under pressure "
+                         "(DegradePolicy(None)) and per-tenant circuit "
+                         "breakers; a single-model stream's brownout "
+                         "ladder waits for ROADMAP A13")
+    ap.add_argument("--chaos", default=None, metavar="PLAN",
+                    help="--stream deterministic fault injection: a "
+                         "preset name (burst, straggler, storm, mixed) "
+                         "seeded with --seed, or the path of a ChaosPlan "
+                         "JSON (runtime/chaos.py)")
+    ap.add_argument("--tenants", type=int, default=1,
+                    help="serve G same-shape per-tenant fits from a "
+                         "ModelStore through grouped launches (Non-Neural "
+                         "algos except ann)")
+    ap.add_argument("--resident-frac", type=float, default=1.0,
+                    help="--tenants: fraction of the total fp32 param "
+                         "bytes kept resident; the least recently used "
+                         "rest is held int8 at rest and dequantized on "
+                         "admission")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; without a card the run "
                          "fails unless cpu is named")
     args = ap.parse_args(argv)
     if args.algo == "lm":
         return serve_lm(args)
+    if args.tenants > 1:
+        return serve_tenants(args)
     return serve_nonneural(args)
 
 

@@ -1,2 +1,3 @@
-"""Runtime layer of the port: the typed event vocabulary and straggler
-detection the serving scheduler reports through."""
+"""Runtime layer of the port: the typed event vocabulary, straggler
+detection the serving scheduler reports through, and deterministic fault
+injection (``chaos``)."""

@@ -1,16 +1,20 @@
-"""Serving engines of the port, the request-stream scheduler and its
-degradation policy."""
+"""Serving engines of the port, the request-stream scheduler, its
+degradation policy, the multi-tenant model store and the int8 codec."""
 from repro_torch.serving.degrade import (BreakerConfig, CircuitBreaker,
                                          DegradePolicy, DegradeTier)
 from repro_torch.serving.engine import (ClassifyResult, GenerationResult,
-                                        KNNServeEngine, NonNeuralServeEngine,
-                                        ServeEngine)
+                                        GroupClassifyResult, KNNServeEngine,
+                                        NonNeuralServeEngine, ServeEngine)
+from repro_torch.serving.model_store import (ModelStore, PoisonedParamsError,
+                                             validate_finite)
 from repro_torch.serving.scheduler import (RequestResult, RequestScheduler,
                                            ServingStats, poisson_trace,
                                            replay_trace)
+from repro_torch.serving import quant  # noqa: E402
 
 __all__ = ["BreakerConfig", "CircuitBreaker", "ClassifyResult",
            "DegradePolicy", "DegradeTier", "GenerationResult",
-           "KNNServeEngine", "NonNeuralServeEngine", "RequestResult",
+           "GroupClassifyResult", "KNNServeEngine", "ModelStore",
+           "NonNeuralServeEngine", "PoisonedParamsError", "RequestResult",
            "RequestScheduler", "ServeEngine", "ServingStats",
-           "poisson_trace", "replay_trace"]
+           "poisson_trace", "quant", "replay_trace", "validate_finite"]

@@ -13,6 +13,14 @@ CUDA kernels (built at first use), so warmup touches every bucket shape
 before any timed call.  ``bucket_launches`` counts production launches
 per bucket and never warmup.
 
+Multi-tenant serving (``serving/model_store.py``): ``classify_group``
+serves a stacked model group's (G, B, d) queries in one launch a (group
+bucket, query bucket) cell, G padded to a power of two by repeating the
+last tenant, through the estimator's grouped arm
+(``predict_batch_group_fn``: B1, B2 and B3 with a tenant axis);
+``warmup_groups`` runs every cell a tenant stream can reach, and
+``group_launches`` counts production launches a cell.
+
 ``ServeEngine`` is the LM engine (dense family): ``generate`` runs the
 prompt through ``prefill`` (B10 for every projection and the unembedding,
 B11 for causal attention), then one ``decode_step`` per new token (B10 at
@@ -22,7 +30,7 @@ from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +60,17 @@ class ClassifyResult:
         return self.aux
 
 
+@dataclass
+class GroupClassifyResult:
+    """One grouped (multi-tenant) call: per-tenant rows of predictions and
+    evidence, sliced back to the caller's (G, B) from the padded (group
+    bucket, bucket) launch shape."""
+    classes: torch.Tensor      # (G, B) int32 prediction per tenant x query
+    aux: torch.Tensor          # (G, B, ...) per-tenant algorithm evidence
+    launches: int              # grouped launches used
+    algorithm: str = "knn"
+
+
 # tells two engines apart for result-cache keys even when they wrap the
 # same estimator: serving/scheduler.py folds the fingerprint into its keys,
 # so the same query bytes against different engines or policies never
@@ -66,7 +85,7 @@ class NonNeuralServeEngine:
     def __init__(self, estimator, *, max_batch: int = 1024,
                  device: DeviceLike = None, policy: Optional[str] = None,
                  mesh=None, sharded: bool = False,
-                 strategy: Optional[str] = None):
+                 strategy: Optional[str] = None, max_group: int = 64):
         if mesh is not None or sharded or strategy not in (None, "single"):
             raise NotImplementedError(
                 "sharded serving is not ported yet (ROADMAP A15)")
@@ -100,6 +119,11 @@ class NonNeuralServeEngine:
         self._fn = estimator.predict_batch_fn()
         self.cache_fingerprint = (self.algorithm, str(policy),
                                   next(_ENGINE_SEQ))
+        # grouped (multi-tenant) state
+        self.max_group = int(max_group)
+        self.warmed_groups: Set[Tuple[int, int]] = set()   # (g, b) run once
+        self.group_launches: Dict[Tuple[int, int], int] = {}
+        self._gfn = None
 
     def _bucket(self, b: int) -> int:
         size = 1
@@ -190,6 +214,132 @@ class NonNeuralServeEngine:
         return ClassifyResult(classes=torch.cat(classes),
                               aux=torch.cat(auxes), launches=launches,
                               algorithm=self.algorithm)
+
+    # ------------------------------------------------ grouped (multi-tenant)
+
+    def _group_bucket(self, g: int) -> int:
+        """The power-of-two group bucket covering ``g`` tenants, so at most
+        log2(max_group) x log2(max_batch) grouped cells exist."""
+        size = 1
+        while size < g:
+            size *= 2
+        return size
+
+    def group_fn(self):
+        """The grouped launch: the estimator's grouped arm
+        (``predict_batch_group_fn``), built once."""
+        if self._gfn is None:
+            self._gfn = self.estimator.predict_batch_group_fn()
+        return self._gfn
+
+    @staticmethod
+    def _group_resize(stacked, g: int):
+        """Slice, or pad by repeating the last tenant, a stacked params
+        NamedTuple to exactly ``g`` lanes; padding lanes compute throwaway
+        predictions that are sliced off."""
+        def one(leaf):
+            if not isinstance(leaf, torch.Tensor):
+                return leaf
+            have = leaf.shape[0]
+            if have == g:
+                return leaf
+            if have > g:
+                return leaf[:g]
+            return torch.cat([leaf, leaf[-1:].expand(
+                (g - have,) + tuple(leaf.shape[1:]))])
+
+        return type(stacked)(*(one(v) for v in stacked))
+
+    def classify_group(self, stacked_params, Xg) -> GroupClassifyResult:
+        """One multi-tenant call: stacked params (G, ...) and queries
+        (G, B, d) -> per-tenant (G, B) predictions, each lane equal to
+        ``classify`` with that tenant's params.  G pads to its power-of-two
+        group bucket (repeating the last tenant), B to its query bucket;
+        B past ``max_batch`` splits along the queries and G past the
+        ``max_group`` bucket along the tenants, one launch a piece.
+        Asynchronous on the card: the result is ready after a
+        synchronize."""
+        Xg = self._as_queries(Xg)
+        if Xg.ndim != 3:
+            raise ValueError(f"Xg must be (G, B, d), got {tuple(Xg.shape)}")
+        G, B = Xg.shape[0], Xg.shape[1]
+        top = self._group_bucket(self.max_group)
+        if G > top:
+            parts = [self.classify_group(
+                _slice_lanes(stacked_params, lo, lo + top), Xg[lo: lo + top])
+                for lo in range(0, G, top)]
+            return GroupClassifyResult(
+                classes=torch.cat([r.classes for r in parts]),
+                aux=torch.cat([r.aux for r in parts]),
+                launches=sum(r.launches for r in parts),
+                algorithm=self.algorithm)
+        gb = self._group_bucket(G)
+        if gb > G:
+            Xg = torch.cat([Xg, Xg.new_zeros((gb - G,) + Xg.shape[1:])])
+        stacked = self._group_resize(stacked_params, gb)
+        fn = self.group_fn()
+        classes, auxes, launches = [], [], 0
+        for lo in range(0, B, self.max_batch):
+            chunk = Xg[:, lo: lo + self.max_batch]
+            bucket = self._bucket(chunk.shape[1])
+            pad = bucket - chunk.shape[1]
+            if pad:
+                chunk = F.pad(chunk, (0, 0, 0, pad))
+            cls, aux = fn(stacked, chunk.contiguous())
+            if pad:
+                cls, aux = cls[:, : bucket - pad], aux[:, : bucket - pad]
+            classes.append(cls)
+            auxes.append(aux)
+            self.group_launches[(gb, bucket)] = \
+                self.group_launches.get((gb, bucket), 0) + 1
+            self.warmed_groups.add((gb, bucket))
+            launches += 1
+        cls = classes[0] if launches == 1 else torch.cat(classes, dim=1)
+        aux = auxes[0] if launches == 1 else torch.cat(auxes, dim=1)
+        if gb > G:
+            cls, aux = cls[:G], aux[:G]
+        return GroupClassifyResult(classes=cls, aux=aux, launches=launches,
+                                   algorithm=self.algorithm)
+
+    def warmup_groups(self, stacked_params, d: int, *, g_sizes=None,
+                      b_sizes=None, dtype=torch.float32) -> int:
+        """Run every (group bucket, bucket) cell a tenant stream can route
+        to, the grouped counterpart of ``warmup_buckets`` (the scheduler
+        coalesces only into ``warmed_groups``).  ``g_sizes``/``b_sizes``
+        restrict the lattice.  Warmup never lands in ``group_launches``.
+        Returns the number of cells."""
+        fn = self.group_fn()
+        if g_sizes is None:
+            gs, g = set(), 1
+            top = self._group_bucket(self.max_group)
+            while g <= top:
+                gs.add(g)
+                g *= 2
+        else:
+            gs = {self._group_bucket(g) for g in g_sizes}
+        if b_sizes is None:
+            bs, b = set(), 1
+            while b < 2 * self.max_batch:
+                bs.add(self._bucket(b))
+                b *= 2
+        else:
+            bs = {self._bucket(b) for b in b_sizes}
+        n = 0
+        for g in sorted(gs):
+            stacked = self._group_resize(stacked_params, g)
+            for b in sorted(bs):
+                fn(stacked, torch.zeros((g, b, d), dtype=dtype,
+                                        device=self.device))
+                self._sync()
+                self.warmed_groups.add((g, b))
+                n += 1
+        return n
+
+
+def _slice_lanes(stacked, lo: int, hi: int):
+    """Lanes [lo, hi) of a stacked params NamedTuple."""
+    return type(stacked)(*(v[lo:hi] if isinstance(v, torch.Tensor) else v
+                           for v in stacked))
 
 
 class KNNServeEngine(NonNeuralServeEngine):

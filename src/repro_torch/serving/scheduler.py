@@ -1,7 +1,7 @@
 """Request-stream scheduler with SLO accounting for NonNeuralServeEngine.
 
-Counterpart of the JAX package's ``serving/scheduler.py`` in its
-single-model mode.  Many logical clients ``submit()`` single queries (or
+Counterpart of the JAX package's ``serving/scheduler.py``.  Many logical
+clients ``submit()`` single queries (or
 small batches); a ``drain()`` step coalesces the queue into the smallest
 power-of-two bucket the engine has ALREADY warmed that holds it (never a
 new one, so no kernel build or first load lands mid-stream), runs one
@@ -25,9 +25,12 @@ arrivals with ``reason="queue_full"``), deadline-enforced shedding
 already miss their deadline, ``reason="expired"``) and brownout
 (``degrade=DegradePolicy(tiers)``: under pressure the drain reroutes
 through cheaper warmed tiers of the same model, each with a larger
-per-drain budget; their answers are never cached).  Shed requests
-complete at once with ``prediction=None`` and never enter the latency
-percentiles.
+per-drain budget; their answers are never cached; in store mode
+``DegradePolicy(None)`` splits the grouped launch instead).  Per-tenant
+circuit breakers (``breaker=``, store mode) shed a tenant whose updates
+keep failing the model store's health check (``reason="breaker_open"``).
+Shed requests complete at once with ``prediction=None`` and never enter
+the latency percentiles.
 
 Results reach the host once per drain: one device-to-host copy of the
 bucket's classes and one of its aux, whose rows the scatter and the LRU
@@ -35,9 +38,14 @@ cache hold as numpy (cached rows are copies).  Queries stay numpy float32
 until the drain stacks them, so the cache key of a query, its fp32 bytes,
 is the one the JAX package computes.
 
-Not here: the multi-tenant mode (``store=``, ``breaker=``, routing by
-``model_id``, per-tenant circuit breakers and grouped launches, ROADMAP
-A12).
+Store mode (``store=`` a ``serving.model_store.ModelStore``): requests
+carry a ``model_id``, and one drain coalesces them across tenants into a
+single (model group x bucket) grouped launch (``engine.classify_group``:
+B1, B2 and B3 with a tenant axis), with per-tenant ``ServingStats`` in
+``tenant_stats``.  Its two clock reads sit around the launch and its
+synchronize, as the single-model drain's do, so a virtual clock (the
+chaos harness's) sees two reads a launch in either mode.  Padded lanes
+and padded rows never reach the result scatter or ``tenant_stats``.
 """
 from __future__ import annotations
 
@@ -50,11 +58,11 @@ import numpy as np
 
 from repro_torch.runtime.events import Event, event, straggler_event
 from repro_torch.runtime.straggler import StepTimer
-from repro_torch.serving.degrade import DegradePolicy
+from repro_torch.serving.degrade import (BreakerConfig, CircuitBreaker,
+                                         DegradePolicy)
 from repro_torch.serving.engine import NonNeuralServeEngine
 
-#: shed reasons a RequestResult may carry ("breaker_open" comes with the
-#: multi-tenant mode, ROADMAP A12)
+#: shed reasons a RequestResult may carry
 SHED_REASONS = ("queue_full", "expired", "breaker_open")
 
 
@@ -83,7 +91,8 @@ class _Pending:
     x: np.ndarray              # (d,) float32 query row
     submit_tick: int
     deadline: Optional[int]    # relative ticks, None = no SLO
-    cache_key: Optional[Any]   # (engine fingerprint, dtype, bytes)
+    cache_key: Optional[Any]   # (engine/tenant fingerprint, dtype, bytes)
+    model_id: Any = None       # tenant routing key (store mode)
 
 
 class _TierState(NamedTuple):
@@ -239,12 +248,23 @@ class RequestScheduler:
         queue already fills ``max_batch``), otherwise it keeps coalescing.
       * ``max_batch``: cap on requests per launch (default: the engine's).
       * ``cache_size``: optional LRU result cache keyed on (engine
-        fingerprint, query dtype, query bytes), 0 = off.
+        fingerprint, or ("tenant", model_id, generation) in store mode,
+        query dtype, query bytes), 0 = off; a tenant's hot-swap bumps its
+        generation and so invalidates its entries.
+      * ``store``: a ``serving.model_store.ModelStore``; the scheduler
+        routes ``submit(x, model_id=...)`` and drains grouped launches
+        across tenants, with per-tenant ``tenant_stats``.
       * ``max_queue``: admission-control bound (None = unbounded).
       * ``shed_expired``: drop queued requests that would already miss
         their deadline before spending a launch slot on them.
       * ``degrade``: a ``serving.degrade.DegradePolicy`` over a ladder of
-        warmed tiers whose tier 0 is this engine.
+        warmed tiers whose tier 0 is this engine, or (store mode)
+        ``DegradePolicy(None)``, which splits the group launch.
+      * ``breaker``: a ``serving.degrade.BreakerConfig`` enabling
+        per-tenant circuit breakers (store mode): repeated failures
+        (expiry sheds, ``record_failure`` health rejections) open a
+        tenant's breaker and its submits shed with
+        ``reason="breaker_open"`` until a half-open probe is served.
       * ``timer``, ``host``: the ``StepTimer`` each drain's ``batch_time``
         feeds, and the host id it is recorded under.
       * ``clock``: the wall-clock source for ``batch_time`` (default
@@ -252,9 +272,10 @@ class RequestScheduler:
         verdicts, and so the whole RequestResult stream, replay exactly.
 
     The engine must be warmed first (``engine.warmup_buckets(d)`` or
-    ``engine.warmup(X)``): drains coalesce ONLY into buckets warmed before
-    the scheduler was built, so ``bucket_launches ⊆ warmed`` holds for a
-    whole stream, per tier under brownout.
+    ``engine.warmup(X)``; store mode: ``engine.warmup_groups``): drains
+    coalesce ONLY into buckets (cells) warmed before the scheduler was
+    built, so ``bucket_launches ⊆ warmed`` (``group_launches ⊆
+    warmed_groups``) holds for a whole stream, per tier under brownout.
     """
 
     def __init__(self, engine: NonNeuralServeEngine, *, max_wait: int = 4,
@@ -263,15 +284,18 @@ class RequestScheduler:
                  store=None, max_queue: Optional[int] = None,
                  shed_expired: bool = False,
                  degrade: Optional[DegradePolicy] = None,
-                 breaker=None,
+                 breaker: Optional[BreakerConfig] = None,
                  clock: Optional[Callable[[], float]] = None):
-        if store is not None or breaker is not None:
-            raise NotImplementedError(
-                "multi-tenant scheduling (store=, breaker=) is not ported "
-                "yet (ROADMAP A12)")
-        assert engine.warmed, \
-            "warm the engine first (engine.warmup_buckets(d)): the " \
-            "scheduler only coalesces into already-warmed buckets"
+        self.store = store
+        if store is None:
+            assert engine.warmed, \
+                "warm the engine first (engine.warmup_buckets(d)): the " \
+                "scheduler only coalesces into already-warmed buckets"
+        else:
+            assert engine.warmed_groups, \
+                "warm the grouped cells first (engine.warmup_groups): " \
+                "tenant drains only coalesce into already-warmed " \
+                "(group, bucket) cells"
         self.engine = engine
         self.max_wait = int(max_wait)
         self.max_batch = min(int(max_batch or engine.max_batch),
@@ -280,7 +304,13 @@ class RequestScheduler:
         # `bucket_launches ⊆ engine.warmed` afterwards would prove nothing
         self.warmed = frozenset(b for b in engine.warmed
                                 if b <= self.max_batch)
-        assert self.warmed, (engine.warmed, self.max_batch)
+        self.warmed_groups = frozenset(
+            (g, b) for g, b in engine.warmed_groups if b <= self.max_batch)
+        if store is None:
+            assert self.warmed, (engine.warmed, self.max_batch)
+        else:
+            assert self.warmed_groups, (engine.warmed_groups,
+                                        self.max_batch)
         self.cache_size = int(cache_size)
         self._cache: "OrderedDict[Any, Any]" = OrderedDict()
         self.timer = timer or StepTimer()
@@ -288,17 +318,22 @@ class RequestScheduler:
         self.tick = 0
         self.queue: Deque[_Pending] = deque()
         self.stats = ServingStats()
+        self.tenant_stats: Dict[Any, ServingStats] = {}
         self.results: Dict[int, RequestResult] = {}
         self.events: List[Event] = []   # typed runtime/events.py stream
         self._next_id = 0
         self.max_queue = int(max_queue) if max_queue is not None else None
         self.shed_expired = bool(shed_expired)
         self.clock = clock if clock is not None else time.perf_counter
+        self.breaker_config = breaker
+        self.breakers: Dict[Any, CircuitBreaker] = {}
         self.degrade = degrade
         self._tiers: Optional[List[_TierState]] = None
+        self._last_evictions = store.evictions if store is not None else 0
         if degrade is not None and degrade.tiers is not None:
-            # DegradePolicy(None) splits grouped launches (ROADMAP A12):
-            # here it only observes, and every drain stays on tier 0
+            assert store is None, \
+                "store-mode degradation splits the group launch: build " \
+                "the policy with DegradePolicy(tiers=None)"
             assert degrade.tiers[0].engine is engine, \
                 "tier 0 of the ladder must be the scheduler's own engine"
             self._tiers = []
@@ -326,30 +361,75 @@ class RequestScheduler:
     def pending(self) -> int:
         return len(self.queue)
 
-    def _cache_key(self, row: np.ndarray) -> Optional[tuple]:
+    def _cache_key(self, row: np.ndarray,
+                   model_id=None) -> Optional[tuple]:
         """Result-cache key: the engine fingerprint (algorithm, policy,
-        engine identity) with the query's dtype and bytes, so the same
-        bytes against another engine or policy never cross-hit."""
+        engine identity), or in store mode ("tenant", model_id,
+        generation), with the query's dtype and bytes, so the same bytes
+        against another engine, policy or tenant never cross-hit and a
+        tenant's hot-swap invalidates its entries."""
         if not self.cache_size:
             return None
-        return (self.engine.cache_fingerprint, row.dtype.str, row.tobytes())
+        if model_id is None:
+            fp = self.engine.cache_fingerprint
+        else:
+            fp = ("tenant", model_id, self.store.generation(model_id))
+        return (fp, row.dtype.str, row.tobytes())
 
-    def _record_shed(self, rid: int, reason: str,
-                     queue_time: int) -> RequestResult:
+    def _tenant_stats(self, model_id) -> ServingStats:
+        st = self.tenant_stats.get(model_id)
+        if st is None:
+            st = self.tenant_stats[model_id] = ServingStats()
+        return st
+
+    def _record_shed(self, rid: int, reason: str, queue_time: int,
+                     model_id=None) -> RequestResult:
         res = RequestResult(request_id=rid, prediction=None, aux=None,
                             queue_time=queue_time, batch_time=0.0,
                             bucket=0, deadline_missed=False, shed=True,
                             reason=reason)
         self.results[rid] = res
         self.stats.observe(res)
-        self.events.append(event("shed", self.tick, "scheduler",
-                                 reason=reason, request=rid))
+        detail = {"reason": reason, "request": rid}
+        if model_id is not None:
+            self._tenant_stats(model_id).observe(res)
+            detail["model"] = str(model_id)
+        self.events.append(event("shed", self.tick, "scheduler", **detail))
         return res
 
-    def _submit_one(self, row: np.ndarray, deadline: Optional[int]) -> int:
+    def _breaker_failure(self, model_id, reason: str) -> None:
+        br = self.breakers.setdefault(
+            model_id, CircuitBreaker(self.breaker_config))
+        kind = br.failure(self.tick)
+        if kind:
+            self.events.append(event(kind, self.tick, "scheduler",
+                                     model=str(model_id), reason=reason))
+
+    def record_failure(self, model_id, *, reason: str = "health") -> None:
+        """Report an out-of-band tenant failure into its circuit breaker,
+        such as a ``ModelStore.update`` refused by the health check
+        (``PoisonedParamsError``).  Enough consecutive failures open the
+        breaker, and that tenant's submits shed until a probe is
+        served."""
+        if self.breaker_config is None or model_id is None:
+            return
+        self._breaker_failure(model_id, reason)
+
+    def _submit_one(self, row: np.ndarray, deadline: Optional[int],
+                    model_id=None) -> int:
         rid = self._next_id
         self._next_id += 1
-        key = self._cache_key(row)
+        if model_id is not None and self.breaker_config is not None:
+            br = self.breakers.get(model_id)
+            if br is not None:
+                allowed, kind = br.allow(self.tick)
+                if kind:
+                    self.events.append(event(kind, self.tick, "scheduler",
+                                             model=str(model_id)))
+                if not allowed:
+                    self._record_shed(rid, "breaker_open", 0, model_id)
+                    return rid
+        key = self._cache_key(row, model_id)
         if key is not None and key in self._cache:
             self._cache.move_to_end(key)
             pred, aux = self._cache[key]
@@ -358,26 +438,40 @@ class RequestScheduler:
                                 deadline_missed=False, cache_hit=True)
             self.results[rid] = res
             self.stats.observe(res)
+            if model_id is not None:
+                self._tenant_stats(model_id).observe(res)
             return rid
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
-            self._record_shed(rid, "queue_full", 0)
+            self._record_shed(rid, "queue_full", 0, model_id)
             return rid
         self.queue.append(_Pending(request_id=rid, x=row,
                                    submit_tick=self.tick,
-                                   deadline=deadline, cache_key=key))
+                                   deadline=deadline, cache_key=key,
+                                   model_id=model_id))
         return rid
 
-    def submit(self, x, deadline: Optional[int] = None):
+    def submit(self, x, deadline: Optional[int] = None, model_id=None):
         """Enqueue one query (``(d,)`` -> request id) or a small batch
         (``(B, d)`` -> list of ids).  ``deadline`` is an SLO in drain
         ticks relative to now; a request completing later than that is
-        counted as a deadline miss (it is still served).  The result for
-        a returned id may already be a shed (admission control): check
-        ``results[rid].shed``."""
+        counted as a deadline miss (it is still served).  ``model_id``
+        routes to one of a store-mode scheduler's tenants.  The result
+        for a returned id may already be a shed (admission control, an
+        open breaker): check ``results[rid].shed``."""
+        if self.store is not None:
+            if model_id is None:
+                raise ValueError("tenant scheduler: submit(x, model_id=...) "
+                                 "— every request routes to one tenant")
+            if model_id not in self.store:
+                raise KeyError(f"model {model_id!r} is not registered in "
+                               f"the store")
+        elif model_id is not None:
+            raise ValueError("model_id routing needs a store= scheduler "
+                             "(RequestScheduler(engine, store=...))")
         x = np.asarray(x, np.float32)
         if x.ndim == 1:
-            return self._submit_one(x, deadline)
-        return [self._submit_one(row, deadline) for row in x]
+            return self._submit_one(x, deadline, model_id)
+        return [self._submit_one(row, deadline, model_id) for row in x]
 
     # ------------------------------------------------------------- drain
 
@@ -390,7 +484,7 @@ class RequestScheduler:
         return covering[0] if covering else warmed[-1]
 
     def _current_tier(self) -> _TierState:
-        if self._tiers is not None:
+        if self._tiers is not None and self.degrade is not None:
             return self._tiers[self.degrade.level]
         return self._tier0
 
@@ -407,7 +501,11 @@ class RequestScheduler:
             if p.deadline is not None \
                     and self.tick - p.submit_tick > p.deadline:
                 out.append(self._record_shed(
-                    p.request_id, "expired", self.tick - p.submit_tick))
+                    p.request_id, "expired", self.tick - p.submit_tick,
+                    p.model_id))
+                if p.model_id is not None \
+                        and self.breaker_config is not None:
+                    self._breaker_failure(p.model_id, "expired")
             else:
                 kept.append(p)
         self.queue = kept
@@ -416,15 +514,22 @@ class RequestScheduler:
     def _observe_degrade(self, *, straggler: bool, sheds: int) -> None:
         """One brownout control step per drain: pressure is queue depth
         over what the CURRENT tier can clear within the coalescing window
-        (and over ``max_queue`` when bounded)."""
+        (and over ``max_queue`` when bounded); thrash is the store's
+        eviction count since the last drain."""
         if self.degrade is None:
             return
         cap = self._current_tier().capacity
         pressure = len(self.queue) / max(1.0, cap * max(1, self.max_wait))
         if self.max_queue:
             pressure = max(pressure, len(self.queue) / self.max_queue)
+        evictions = 0
+        if self.store is not None:
+            now = self.store.evictions
+            evictions = now - self._last_evictions
+            self._last_evictions = now
         for e in self.degrade.observe(self.tick, pressure=pressure,
-                                      straggler=straggler, sheds=sheds):
+                                      straggler=straggler, sheds=sheds,
+                                      evictions=evictions):
             self.events.append(e)
             self.stats.observe_shift(e.kind == "degrade_down")
 
@@ -439,7 +544,10 @@ class RequestScheduler:
         """One scheduler tick: shed expired work, coalesce + launch on
         the CURRENT brownout tier if the window expired (or ``force``),
         else keep coalescing.  Returns completed requests (served AND
-        shed)."""
+        shed).  Store-mode schedulers coalesce ACROSS tenants into one
+        (model group x bucket) grouped launch instead."""
+        if self.store is not None:
+            return self._drain_grouped(force)
         self.tick += 1
         self.stats.observe_tick()
         out: List[RequestResult] = list(self._shed_expired_now())
@@ -497,6 +605,120 @@ class RequestScheduler:
         self._observe_degrade(straggler=straggling, sheds=sheds_now)
         return out
 
+    def _drain_grouped(self, force: bool) -> List[RequestResult]:
+        """Multi-tenant drain: walk the queue in order, bucketing requests
+        by tenant (at most the largest warmed group of tenants, at most the
+        largest warmed bucket of rows a tenant; the overflow waits for the
+        next drain), snapshot the model group from the store (an update
+        racing this drain lands wholly before the snapshot or wholly
+        after), and run ONE grouped (model group x bucket) launch.  Under
+        degradation the group bucket is split (``gmax >> level``): a
+        smaller pin set a launch relieves a thrashing store."""
+        self.tick += 1
+        self.stats.observe_tick()
+        for st in self.tenant_stats.values():
+            st.observe_tick()
+        out: List[RequestResult] = list(self._shed_expired_now())
+        sheds_now = len(out)
+        ready = self.queue and (
+            force
+            or len(self.queue) >= self.max_batch
+            or self.tick - self.queue[0].submit_tick >= self.max_wait)
+        if not ready:
+            self._observe_degrade(straggler=False, sheds=sheds_now)
+            return out
+        gmax = max(g for g, _ in self.warmed_groups)
+        if self.degrade is not None:
+            gmax = max(1, gmax >> self.degrade.group_shift)
+        bmax = max(b for _, b in self.warmed_groups)
+        budget = min(len(self.queue), self.max_batch)
+        taken_by: "OrderedDict[Any, List[_Pending]]" = OrderedDict()
+        deferred: List[_Pending] = []
+        count = 0
+        while self.queue and count < budget:
+            p = self.queue.popleft()
+            rows = taken_by.get(p.model_id)
+            if rows is None:
+                if len(taken_by) >= gmax:
+                    deferred.append(p)
+                    continue
+                rows = taken_by[p.model_id] = []
+            if len(rows) >= bmax:
+                deferred.append(p)
+                continue
+            rows.append(p)
+            count += 1
+        # deferred requests are older than everything still queued: back
+        # to the front, their order kept
+        self.queue.extendleft(reversed(deferred))
+        ids = list(taken_by)
+        g = len(ids)
+        gb = min(gg for gg, _ in self.warmed_groups if gg >= g)
+        maxc = max(len(rows) for rows in taken_by.values())
+        covering = sorted(b for gg, b in self.warmed_groups
+                          if gg == gb and b >= maxc)
+        bucket = covering[0] if covering else \
+            max(b for gg, b in self.warmed_groups if gg == gb)
+        # pad the group by repeating tenant 0: the same warmed cell, and
+        # the padded lanes' all-zero rows are never scattered
+        padded_ids = ids + [ids[0]] * (gb - g)
+        stacked, _gens = self.store.group(padded_ids)
+        d = taken_by[ids[0]][0].x.shape[0]
+        Xg = np.zeros((gb, bucket, d), np.float32)
+        for gi, mid in enumerate(ids):
+            for bi, p in enumerate(taken_by[mid]):
+                Xg[gi, bi] = p.x
+        t0 = self.clock()
+        res = self.engine.classify_group(stacked, Xg)
+        self.engine._sync()              # classify_group is asynchronous on
+        batch_time = self.clock() - t0   # the card: time the work
+
+        verdict = self.timer.record(self.host, batch_time)
+        straggling = self._note_verdict(verdict)
+        # occupancy is valid rows over the launch's whole footprint (group
+        # lanes x bucket rows)
+        tname = self.degrade.tier_name() if self.degrade is not None \
+            else None
+        self.stats.observe_launch(gb * bucket, count, batch_time,
+                                  tier=tname)
+
+        classes = res.classes.cpu().numpy()   # one copy of each per drain
+        aux = res.aux.cpu().numpy()
+        for gi, mid in enumerate(ids):
+            rows = taken_by[mid]
+            tstats = self._tenant_stats(mid)
+            tstats.observe_launch(bucket, len(rows), batch_time)
+            br = self.breakers.get(mid) \
+                if self.breaker_config is not None else None
+            for bi, p in enumerate(rows):
+                queue_time = self.tick - p.submit_tick
+                missed = p.deadline is not None and queue_time > p.deadline
+                r = RequestResult(request_id=p.request_id,
+                                  prediction=classes[gi, bi],
+                                  aux=aux[gi, bi], queue_time=queue_time,
+                                  batch_time=batch_time, bucket=bucket,
+                                  deadline_missed=missed,
+                                  tier=tname or "full")
+                self.results[p.request_id] = r
+                self.stats.observe(r)
+                tstats.observe(r)
+                if self.degrade is not None:
+                    self.degrade.note_latency(queue_time)
+                if br is not None:
+                    kind = br.success(self.tick)
+                    if kind:
+                        self.events.append(event(
+                            kind, self.tick, "scheduler", model=str(mid)))
+                if p.cache_key is not None:
+                    self._cache[p.cache_key] = (classes[gi, bi].copy(),
+                                                aux[gi, bi].copy())
+                    self._cache.move_to_end(p.cache_key)
+                    while len(self._cache) > self.cache_size:
+                        self._cache.popitem(last=False)
+                out.append(r)
+        self._observe_degrade(straggler=straggling, sheds=sheds_now)
+        return out
+
     def flush(self) -> List[RequestResult]:
         """Drain until the queue is empty (end-of-trace)."""
         out: List[RequestResult] = []
@@ -517,13 +739,15 @@ def poisson_trace(rate: float, ticks: int, seed: int = 0) -> np.ndarray:
 
 def replay_trace(scheduler: RequestScheduler, queries: np.ndarray,
                  counts, *, deadline: Optional[int] = None,
-                 chaos=None) -> List[int]:
+                 model_ids=None, chaos=None) -> List[int]:
     """Open-loop replay: at each tick submit ``counts[t]`` queries (cycling
     the rows of ``queries``) then drain once; flush the tail at the end.
-    ``chaos`` is a fault injector with ``attach(scheduler)``,
-    ``extra_arrivals(tick)`` and ``apply(scheduler, tick)`` (the JAX
-    package's ``runtime.chaos.ChaosInjector`` interface; the port's comes
-    with ROADMAP A13).  Returns the request ids in submission order."""
+    ``model_ids`` (store-mode schedulers) cycles tenants round-robin over
+    the arrivals.  ``chaos`` (a ``runtime.chaos.ChaosInjector``) attaches
+    a virtual clock and injects the plan's faults (bursts, stragglers,
+    NaN-poisoned updates, eviction storms) at their ticks, so the whole
+    replay is reproducible.  Returns the request ids in submission
+    order."""
     queries = np.asarray(queries, np.float32)
     if chaos is not None:
         chaos.attach(scheduler)
@@ -535,8 +759,9 @@ def replay_trace(scheduler: RequestScheduler, queries: np.ndarray,
             c += chaos.extra_arrivals(t)
             chaos.apply(scheduler, t)
         for _ in range(c):
+            mid = model_ids[i % len(model_ids)] if model_ids else None
             ids.append(scheduler.submit(queries[i % len(queries)],
-                                        deadline=deadline))
+                                        deadline=deadline, model_id=mid))
             i += 1
         scheduler.drain()
     scheduler.flush()

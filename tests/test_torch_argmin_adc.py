@@ -128,7 +128,7 @@ def test_argmin_launch_arguments(monkeypatch, N, d, K, view):
     assert args[:4] == (a.data_ptr(), c.data_ptr(), vals.data_ptr(),
                         idx.data_ptr())
     assert args[4:] == (N, K, d, tda.ROUTES.index(way),
-                        tda.plan(N, K, 132, way), 0)
+                        tda.plan(N, K, 132, way), 1, 0)
     assert shapes == [(N,), (N,)]
     assert vals.dtype == torch.float32 and idx.dtype == torch.int32
     assert tda.ROUTE_LAUNCHES == {r: int(r == way) for r in tda.ROUTES}

@@ -363,12 +363,18 @@ def test_step_timer_matches_jax(hosts):
 # ----------------------------------------------------------------- errors
 
 def test_multi_tenant_mode_raises(blobs):
+    """Store mode (ROADMAP A12, ported) refuses an engine whose grouped
+    cells were never warmed, and a single-model scheduler refuses tenant
+    routing, as the JAX package's do."""
     X, y = blobs
-    _, teng = _engines("gnb", X, y)
-    with pytest.raises(NotImplementedError, match="A12"):
+    jeng, teng = _engines("gnb", X, y)
+    with pytest.raises(AssertionError, match="warmup_groups"):
         RequestScheduler(teng, store=object())
-    with pytest.raises(NotImplementedError, match="A12"):
-        RequestScheduler(teng, breaker=object())
+    with pytest.raises(AssertionError, match="warmup_groups"):
+        JaxScheduler(jeng, store=object())
+    sched = RequestScheduler(teng, breaker=None)
+    with pytest.raises(ValueError, match="store="):
+        sched.submit(X[0], model_id=0)
 
 
 def test_unknown_event_kind_raises():
