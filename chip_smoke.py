@@ -115,7 +115,22 @@ the CUDA toolkit.  In order it
    cross-tenant Poisson stream through the store-mode scheduler, and a
    chaos plan replayed twice.  B1, B2 and B3 are also held, grouped on
    every route, bit-equal lane by lane to their one-tenant launches
-   (``tenant_kernel_edges``).
+   (``tenant_kernel_edges``);
+8. tunes the fitted kNN (k = 4 and k = 32), K-Means and GNB engines at
+   warmup (``warmup_buckets(d, autotune=True)``: every registered arm but
+   ``quant`` a bucket, ``autotune_path``), printing each bucket's winner
+   against the static arm in µs, each winner no slower than it, a tuned
+   classify equal to the untuned engine's but at fp32 near-ties;
+9. fits a calibration from the kNN k = 32 timings (``calibrate_path``),
+   installs it with ``dispatch.set_cost_model`` and checks that the
+   selector then takes the arm measured fastest at bucket 1024, and that
+   a fresh engine launches its kernels; then clears it;
+10. measures the brownout rungs' capacity factors (int8 on kNN, K-Means
+   and GNB, IVF-PQ ANN on kNN at N = 2^20) and replays a seeded
+   overloading kNN stream down a ``build_ladder`` ladder with every rung
+   (``ladder_path``): downshifts, every tier inside its warmed buckets,
+   answers equal to each tier's one-shot classify, no degraded answer
+   cached, ANN labels agreeing with exact kNN on >= 0.95.
 
 The comparison rule: integer outputs (B5's int32 mode, B6, B7, B8 and
 the int8 and ANN paths' neighbours, assignments and votes) match
@@ -219,6 +234,19 @@ TENANTS = dict(knn=dict(G=1024, n=4096, d=21, classes=3, k=4),
                group=64, rows=16, resident_frac=0.5)
 TENANT_STREAM = dict(rate=256, ticks=64, max_wait=4, deadline=8)
 LINEAR_STEPS = 300
+# slice 12: autotune over the fitted kNN (k = 4 and k = 32, where blocked
+# B4 + B5 and fused B1 cross), K-Means and GNB estimators of the paths; the
+# brownout ladder's capacity factors up to FMAX x MAX_BATCH rows, then a
+# kNN stream of fresh seeded rows, each sent once, down a ladder built with
+# every rung, admission bounded at eight fp32 drains: 4 calm ticks, 32 at
+# twice a fp32 drain's 1024 requests, 32 light ones; then every 16th row
+# sent again, 256 a tick, through an LRU that holds every row (a row hits
+# if and only if tier 0 served it: degraded answers are never cached)
+AUTOTUNE = (("knn", 4), ("knn", 32), ("kmeans", None), ("gnb", None))
+LADDER = dict(fmax=8, reps=5, factors={"int8": 2, "ann": 4}, deadline=8,
+              max_wait=4, max_queue=8192,
+              trace=((256, 4), (2048, 32), (64, 32)), probe_every=16,
+              probe_rate=256)
 
 # NVIDIA data-sheet peaks by H100 variant, at the full power limit: fp32
 # outside the tensor cores (FLOP/s), device-memory rate (bytes/s), the
@@ -1452,6 +1480,434 @@ def linear_path(torch, ops, dev, data, n_class: int) -> None:
               f"(launches all 0); classes equal to the CPU computation on "
               f"the same weights but {int(odd.sum())} at near-ties")
 
+
+def _agree(torch, what, algo, est, res, want, Xq, helpers) -> int:
+    """Hold ``res`` (one engine's classify of ``Xq``) against ``want``
+    (another's, same estimator): kNN neighbours and K-Means assignments
+    equal but at fp32 near-ties of their distances, GNB scores to TOL and
+    classes equal but where ``want``'s top two are a near-tie; an int8
+    or ANN tier (integer work) bit for bit where ``exact`` rows are
+    given.  Returns the near-tie count."""
+    on_card, pair_dist = helpers["on_card"], helpers["pair_dist"]
+    near, compare_ranked = helpers["near"], helpers["compare_ranked"]
+    Q = on_card(Xq)
+    odd = res.classes != want.classes
+    if algo in ("knn", "ann"):
+        rows = est.params.refs if algo == "ann" else est.params.A
+        rows = rows.float()
+        dk, scale = pair_dist(rows[res.aux.long().clamp(min=0)], Q)
+        dp, _ = pair_dist(rows[want.aux.long().clamp(min=0)], Q)
+        tie = near(dk, dp, scale) & ((res.aux < 0) == (want.aux < 0))
+        n_near = compare_ranked(what, res.aux, want.aux, tie, False)
+        check(bool((res.aux != want.aux).any(1)[odd].all()),
+              f"{what}: a class differs without a neighbour near-tie")
+        return n_near
+    if algo == "kmeans":
+        cen = est.params.centroids
+        dk, scale = (t[:, 0] for t in pair_dist(
+            cen[res.classes.long()][:, None], Q))
+        dp, _ = pair_dist(cen[want.classes.long()][:, None], Q)
+        n_near = compare_ranked(what, res.classes, want.classes,
+                                near(dk, dp[:, 0], scale), False)
+        check(bool(near(res.aux, want.aux, scale).all()),
+              f"{what}: assignment distances differ")
+        return n_near
+    check(torch.allclose(res.aux, want.aux, **TOL),
+          f"{what}: scores differ by {float((res.aux - want.aux).abs().max())}")
+    top2 = want.aux.topk(2, dim=1).values
+    tie = torch.isclose(top2[:, 0], top2[:, 1], **TOL)
+    check(bool(tie[odd].all()), f"{what}: a class differs without a "
+          "near-tie of the scores")
+    return int(odd.sum())
+
+
+def _count(kernels, launches, wanted, what) -> str:
+    """Add a phase's launches of each wanted kernel to its count in
+    ``kernels``, failing where one was never launched."""
+    out = []
+    for key in wanted:
+        name = kernels[key]["name"]
+        check(launches[name] > 0, f"{what}: kernel {key} {name} was never "
+              "launched in the phase")
+        kernels[key]["launches"] += launches[name]
+        out.append(f"{key}={launches[name]}")
+    return " ".join(out)
+
+
+def autotune_path(torch, ops, dev, fits, queries, kernels, helpers):
+    """Measured arm choice at warmup on the card: for each of
+    ``AUTOTUNE`` (kNN at k = 4 and 32, K-Means, GNB, the fitted estimators
+    of the paths at full width) one engine runs ``warmup_buckets(d,
+    autotune=True)`` (every registered arm but ``quant`` a bucket, the
+    least of 3 timed launches after a warm one) beside an untuned engine.
+    Checks: every bucket tuned, every winner no slower than its static
+    arm (x 1.001), ``bucket_launches ⊆ warmed`` after a tuned classify of
+    the queries, its classes equal the untuned engine's but at fp32
+    near-ties, and B1-B5 all launched in the phase (counts set to 0 just
+    before, read just after).  Prints every bucket's winner against the
+    static arm in µs; returns the kNN k = 32 engine."""
+    from repro_torch.core.estimator import KNNEstimator
+    from repro_torch.serving import NonNeuralServeEngine
+    t_phase = time.perf_counter()
+    ops.reset_launches()
+    out = None
+    for algo, k in AUTOTUNE:
+        est = fits[algo]
+        if k is not None and k != est.k:
+            est = KNNEstimator.from_params(est.params, k=k, device=dev)
+        what = f"{algo} k={k}" if k is not None else algo
+        Xq = queries[algo]
+        d = Xq.shape[1]
+        plain = NonNeuralServeEngine(est, max_batch=MAX_BATCH, device=dev)
+        plain.warmup_buckets(d)
+        eng = NonNeuralServeEngine(est, max_batch=MAX_BATCH, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = eng.warmup_buckets(d, autotune=True)
+        torch.cuda.synchronize()
+        tune_s = time.perf_counter() - t0
+        check(n == len(eng.tuned) == len(eng.warmed),
+              f"autotune {what}: {n} buckets warmed, {len(eng.tuned)} tuned")
+        arms = []
+        for b, arm in sorted(eng.tuned.items()):
+            check(arm.us <= arm.static_us * 1.001 and arm.bn is None and
+                  arm.strategy == "single",
+                  f"autotune {what}: bucket {b} {arm}")
+            path = arm.path or arm.static_path
+            each = ", ".join(f"{p or 'static'} {us:.1f}"
+                             for _, p, _, us in arm.candidates)
+            arms.append(f"{b}: {path}{'*' if arm.differs else ''} "
+                        f"{arm.us:.1f} (static {arm.static_path} "
+                        f"{arm.static_us:.1f}"
+                        + ("; ref wins" if path == "ref" else "")
+                        + f"; {each})")
+        res, want = eng.classify(Xq), plain.classify(Xq)
+        torch.cuda.synchronize()
+        check(set(eng.bucket_launches) <= eng.warmed,
+              f"autotune {what}: buckets {sorted(eng.bucket_launches)} not "
+              f"all warmed {sorted(eng.warmed)}")
+        n_near = _agree(torch, f"autotune {what}", algo, est, res, want, Xq,
+                        helpers)
+        print(f"[autotune] {what}: {n} buckets tuned in {tune_s:.2f}s, "
+              f"winner against the static arm in us a launch "
+              f"(* = differs; then every arm timed): {' | '.join(arms)}; "
+              f"a tuned classify of "
+              f"{len(Xq)} equals the untuned engine's but "
+              f"{n_near} near-ties")
+        if (algo, k) == ("knn", 32):
+            out = eng
+    launches = dict(ops.LAUNCHES)
+    counts = _count(kernels, launches, ("B1", "B2", "B3", "B4", "B5"),
+                    "autotune")
+    print(f"[autotune] phase in {time.perf_counter() - t_phase:.2f}s; "
+          f"launches {counts}")
+    return out
+
+
+def calibrate_path(torch, ops, dev, eng, Xq, kernels) -> None:
+    """The calibrated selector on the card's own numbers: the kNN k = 32
+    engine's autotune timings become calibration rows (µs a query, the
+    estimator's ``serve_cost_shape()``, the bucket, the arm), go through
+    ``fit_calibration`` and ``CostModel.from_calibration``, and the model
+    is installed with ``set_cost_model``.  Checks that ``resolve`` at
+    every tuned bucket then takes the arm measured fastest there (1024
+    among them), that a fresh untuned engine launches those arms' kernels
+    (B1, or B4 and B5) for a classify of the queries (buckets of 1024)
+    and of their first 100 (a bucket of 128), and that clearing the model
+    restores the static selector."""
+    from repro_torch.core import calibrate, precision
+    from repro_torch.kernels import dispatch
+    from repro_torch.serving import NonNeuralServeEngine
+    t_phase = time.perf_counter()
+    est = eng.estimator
+    shape = est.serve_cost_shape()
+    rows, fastest = [], {}
+    for b, arm in sorted(eng.tuned.items()):
+        for _, p, _, us in arm.candidates:
+            path = p or arm.static_path
+            rows.append({"tier": precision.tier_for("fp32", path=path),
+                         "algorithm": "knn", "op": dispatch.HOT_OPS["knn"],
+                         "bucket": b, "path": path, "measured_us": us / b,
+                         "shape": shape})
+        fastest[b] = min(arm.candidates, key=lambda c: c[3])[1] or \
+            arm.static_path
+    fit = calibrate.fit_calibration(rows)
+    cm = precision.CostModel.from_calibration(fit)
+    kw = dict(N=shape["N"], d=shape["d"])
+
+    def arm_at(q, k=shape["k"]):
+        return dispatch.resolve("knn", "distance_topk", Q=q, k=k, **kw).name
+
+    static = {b: arm_at(b) for b in fastest}
+    dispatch.set_cost_model(cm)
+    try:
+        got = {b: arm_at(b) for b in fastest}
+        got4 = {b: arm_at(b, 4) for b in fastest}
+        check(got == fastest,
+              f"calibrate: resolve takes {got}, the measured fastest are "
+              f"{fastest}")
+        fresh = NonNeuralServeEngine(est, max_batch=MAX_BATCH, device=dev)
+        fresh.warmup_buckets(shape["d"])
+        torch.cuda.synchronize()
+        launches = {}
+        for rows_q in (Xq, Xq[:100]):
+            ops.reset_launches()
+            res = fresh.classify(rows_q)
+            torch.cuda.synchronize()
+            b = fresh._bucket(len(rows_q))
+            launches[b] = (res.launches, dict(ops.LAUNCHES))
+    finally:
+        dispatch.set_cost_model(None)
+    for b, (n_b, ln) in launches.items():
+        want = {"fused": (n_b, 0), "blocked": (0, n_b),
+                "ref": (0, 0)}[fastest[b]]
+        check((ln["distance_topk"], ln["pairwise_sq_dist"]) == want and
+              ln["pairwise_sq_dist"] == ln["topk_smallest"],
+              f"calibrate: {n_b} buckets of {b} under the model launched "
+              f"{ln}, expected B1/B4 {want}")
+        for key, name in (("B1", "distance_topk"),
+                          ("B4", "pairwise_sq_dist"),
+                          ("B5", "topk_smallest")):
+            kernels[key]["launches"] += ln[name]
+    check({b: arm_at(b) for b in fastest} == static,
+          "calibrate: clearing the model did not restore the selector")
+    tiers = "; ".join(f"{t} median |rel err| {s['median_abs_rel_err']:.3f} "
+                      f"over {s['n']} rows" for t, s in
+                      fit["summary"]["tiers"].items())
+    flips = {b: a for b, a in got.items() if a != static[b]}
+    print(f"[calibrate] {len(rows)} rows from the knn k={shape['k']} "
+          f"autotune timings (N={shape['N']}, d={shape['d']}); {tiers}; "
+          f"us_per_cycle {fit['summary']['us_per_cycle']:.4e}; calibrated "
+          f"resolve takes the measured fastest arm at every bucket, "
+          f"{got[MAX_BATCH]} at {MAX_BATCH}, flipping the static selector "
+          f"at {flips or 'none'}; at k=4 the same buckets resolve to "
+          f"{got4} (the model keys on (algorithm, bucket)); a fresh "
+          f"engine's classify launched "
+          + "; ".join(f"{n} buckets of {b}: B1 {ln['distance_topk']}, B4 "
+                      f"{ln['pairwise_sq_dist']}, B5 {ln['topk_smallest']}"
+                      for b, (n, ln) in launches.items())
+          + f"; model cleared, static selector again; phase in "
+          f"{time.perf_counter() - t_phase:.2f}s")
+
+
+def _median_ms(torch, fn, reps: int) -> float:
+    """Median host time (ms) of ``reps`` calls of ``fn``, each ended by a
+    synchronize."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(sorted(times)[reps // 2])
+
+
+def ladder_path(torch, ops, dev, fits, queries, kernels, helpers) -> None:
+    """The brownout ladder on the card, in two parts, with the launch
+    counts set to 0 before (a) and read after (b)'s replay.
+
+    (a) Each rung's capacity factor at the paths' shapes (int8 on kNN,
+    K-Means and GNB, ANN on kNN at N = 2^20): the largest power of two f
+    up to ``LADDER["fmax"]`` for which one ``classify`` of f x 1024 rows
+    (from host memory) through the rung takes no longer than one of 1024
+    through tier 0, the median of ``LADDER["reps"]`` host-clock timings of
+    each; printed beside ``CAPACITY_FACTORS``.
+
+    (b) A seeded Poisson trace of fresh rows above one fp32 drain's
+    capacity through the kNN scheduler with ``DegradePolicy(build_ladder(
+    engine, d, capacity_factors=LADDER["factors"]), deadline)``, so that
+    every rung exists, then a probe sending every 16th row again through
+    an LRU that holds every row.  Checks: a downshift; every tier's
+    ``bucket_launches ⊆`` its ``warmed``; every answer equal to that tier
+    engine's one-shot ``classify`` of the same rows (the int8 tier bit for
+    bit, fp32 and ANN but at near-ties of their exact distances); a probe
+    row hits the cache if and only if tier 0 served it, with that answer
+    bit for bit (no degraded answer cached); the ANN tier's labels
+    agreeing with exact kNN on >= 0.95 of the queries; B1, B2, B6, B7 and
+    B8 all launched in the phase."""
+    import numpy as np
+
+    from repro_torch.data.datasets import class_blobs
+    from repro_torch.serving import (ClassifyResult, DegradePolicy,
+                                     NonNeuralServeEngine, RequestScheduler,
+                                     build_ladder, poisson_trace,
+                                     replay_trace)
+    from repro_torch.serving import degrade as deg
+    t_phase = time.perf_counter()
+    card = smi()
+    reps, fmax = LADDER["reps"], LADDER["fmax"]
+    ops.reset_launches()
+
+    # (a) capacity factors
+    def factor(tier0, rung, rows):
+        tier0.warmup(rows[:MAX_BATCH])
+        base = _median_ms(torch, lambda: tier0.classify(rows[:MAX_BATCH]),
+                          reps)
+        best, readings, f = 1, [], 1
+        while f <= fmax:
+            chunk = rows[:f * MAX_BATCH]
+            rung.warmup(chunk)
+            ms = _median_ms(torch, lambda: rung.classify(chunk), reps)
+            readings.append(f"{f * MAX_BATCH}: {ms:.4f} ms ({ms / base:.3f}"
+                            f"x)")
+            if ms <= base:
+                best = f
+            f *= 2
+        return best, base, readings
+
+    measured = {}
+    for algo in ("knn", "kmeans", "gnb"):
+        rows = np.concatenate([queries[algo]] * (
+            -(-fmax * MAX_BATCH // len(queries[algo]))))
+        tier0 = NonNeuralServeEngine(fits[algo], max_batch=MAX_BATCH,
+                                     device=dev)
+        rungs = [("int8", tier0.sibling(policy="int8",
+                                        max_batch=fmax * MAX_BATCH))]
+        if algo == "knn":
+            t0 = time.perf_counter()
+            ann = deg.ann_sibling(tier0, max_batch=fmax * MAX_BATCH)
+            torch.cuda.synchronize()
+            s = ann.estimator.serve_cost_shape()
+            print(f"[ladder] ann rung of knn: IVF-PQ fit from params.A in "
+                  f"{time.perf_counter() - t0:.2f}s: {s['C']} cells, nprobe "
+                  f"{ann.estimator.nprobe}, pq_m {s['m']}, refine "
+                  f"{ann.estimator.refine}, L = {s['L']} candidates a "
+                  f"query, so {fmax * MAX_BATCH * s['L'] * s['m'] / 2**20:.0f}"
+                  f" MiB of candidate codes (and "
+                  f"{fmax * MAX_BATCH * s['L'] * 8 / 2**20:.0f} MiB of int64 "
+                  f"ids) at {fmax * MAX_BATCH} rows")
+            rungs.append(("ann", ann))
+        for rung, eng in rungs:
+            f, base, readings = factor(tier0, eng, rows)
+            measured[(rung, algo)] = f
+            table = deg.CAPACITY_FACTORS.get((rung, algo))
+            print(f"[ladder] capacity {rung} {algo}: x{f} (tier 0, "
+                  f"{MAX_BATCH} rows: {base:.4f} ms; the rung at "
+                  f"{'; '.join(readings)}; median of {reps}, host clock, "
+                  f"rows from host memory); CAPACITY_FACTORS holds "
+                  f"x{table}")
+        del tier0, rungs
+    torch.cuda.empty_cache()
+
+    # (b) a replay down the ladder: fresh rows once each, then a probe
+    # sending every 16th of them again
+    Xq = queries["knn"]
+    d = Xq.shape[1]
+    eng = NonNeuralServeEngine(fits["knn"], max_batch=MAX_BATCH, device=dev)
+    eng.warmup_buckets(d)
+    tiers = build_ladder(eng, d, capacity_factors=LADDER["factors"])
+    check([(t.name, t.capacity_factor) for t in tiers] ==
+          [("full", 1)] + list(LADDER["factors"].items()),
+          f"ladder: built {[(t.name, t.capacity_factor) for t in tiers]}")
+    counts = np.concatenate([poisson_trace(r, t, seed=SEED + i) for i, (r, t)
+                             in enumerate(LADDER["trace"])])
+    n1 = int(counts.sum())
+    fresh = class_blobs(n=n1, d=d, n_class=int(fits["knn"].params.n_class),
+                        seed=SEED + 5)[0]
+    probe = np.arange(0, n1, LADDER["probe_every"])
+    rate = LADDER["probe_rate"]
+    counts = np.concatenate([counts, np.full(len(probe) // rate, rate),
+                             [len(probe) % rate]]).astype(np.int64)
+    rows_sent = np.concatenate([fresh, fresh[probe]])
+    pol = DegradePolicy(tiers, deadline=LADDER["deadline"])
+    sched = RequestScheduler(eng, max_wait=LADDER["max_wait"],
+                             cache_size=len(rows_sent),
+                             max_queue=LADDER["max_queue"],
+                             shed_expired=True, degrade=pol)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = replay_trace(sched, rows_sent, counts, deadline=LADDER["deadline"])
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    st = sched.stats
+    check(st.downshifts >= 1, f"ladder: no downshift ({st.summary()})")
+    check(len(ids) == int(counts.sum()) == len(rows_sent) == st.finished,
+          f"ladder: {len(ids)} requests, {st.finished} finished")
+    for t in tiers:
+        check(set(t.engine.bucket_launches) <= t.engine.warmed and
+              set(st.tier_bucket_launches.get(t.name, {})) <=
+              sched.tier_warmed[t.name],
+              f"ladder: tier {t.name} ran buckets "
+              f"{sorted(t.engine.bucket_launches)} outside "
+              f"{sorted(t.engine.warmed)}")
+    # every answer against its tier engine's one-shot classify
+    res = [sched.results[i] for i in ids]
+    by_tier = {}
+    for j, r in enumerate(res):
+        if not r.shed and not r.cache_hit:
+            by_tier.setdefault(r.tier, []).append(j)
+    near_ties = {}
+    for t in tiers:
+        got_ids = by_tier.get(t.name, [])
+        if not got_ids:
+            continue
+        rows = rows_sent[got_ids]
+        one = t.engine.classify(rows)
+        got = ClassifyResult(
+            classes=torch.tensor([res[i].prediction for i in got_ids],
+                                 dtype=one.classes.dtype, device=dev),
+            aux=torch.from_numpy(np.stack([res[i].aux for i in got_ids]))
+            .to(dev), launches=0, algorithm=t.engine.algorithm)
+        if t.name == "int8":
+            check(torch.equal(got.classes, one.classes) and
+                  torch.equal(got.aux, one.aux),
+                  "ladder: an int8-tier answer differs from that engine's "
+                  "one-shot classify")
+            near_ties[t.name] = 0
+        else:
+            near_ties[t.name] = _agree(
+                torch, f"ladder tier {t.name}", t.engine.algorithm,
+                t.engine.estimator, got, one, rows, helpers)
+    # no degraded answer is cached: a probe row hits if and only if tier 0
+    # served it in the first pass, and then with that answer bit for bit
+    check(not any(r.cache_hit for r in res[:n1]),
+          "ladder: a first-pass row hit the cache")
+    hits = miss_degraded = 0
+    for j, r in zip(probe, res[n1:]):
+        first = res[j]
+        at_full = not first.shed and first.tier == "full"
+        check(r.cache_hit == at_full,
+              f"ladder: probe of row {j} (first served "
+              f"{'shed' if first.shed else first.tier}) "
+              f"{'hit' if r.cache_hit else 'missed'} the cache")
+        if at_full:
+            hits += 1
+            check(r.prediction == first.prediction and
+                  np.array_equal(r.aux, first.aux),
+                  f"ladder: probe of row {j} hit an answer unlike tier 0's")
+        elif not first.shed:
+            miss_degraded += 1
+    check(miss_degraded > 0, "ladder: no probe row was first served by a "
+          "degraded tier")
+    ann_tier = next(t for t in tiers if t.name == "ann")
+    exact = eng.classify(Xq).classes
+    agree = float((ann_tier.engine.classify(Xq).classes == exact)
+                  .float().mean())
+    check(agree >= 0.95, f"ladder: the ANN tier agrees with exact kNN on "
+          f"{agree} of the labels")
+    counted = _count(kernels, launches, ("B1", "B2", "B6", "B7", "B8"),
+                     "ladder")
+    s = st.summary()
+    print(f"[ladder] stream knn: trace {LADDER['trace']} (rate, ticks) of "
+          f"{n1} fresh rows, then every {LADDER['probe_every']}th again at "
+          f"{rate} a tick; {len(ids)} requests in {wall:.3f}s "
+          f"({len(ids) / wall:.1f} "
+          f"req/s); ladder "
+          + " -> ".join(f"{t.name} (x{t.capacity_factor})" for t in tiers)
+          + f"; downshifts {st.downshifts}, upshifts {st.upshifts}; served "
+          f"by tier {dict(st.tier_served)}; shed {st.shed} "
+          f"{dict(st.shed_reasons)}; probe of {len(probe)} rows: {hits} "
+          f"hits, each a tier-0 answer of the first pass, {miss_degraded} "
+          f"misses of rows a degraded tier served; p50 {s['p50']:.0f} p95 "
+          f"{s['p95']:.0f} ticks, "
+          f"deadline misses {s['deadline_miss_rate']:.4f}; answers equal "
+          f"to each tier's one-shot classify but near-ties {near_ties}; "
+          f"ANN labels agree with exact kNN on {agree:.4f}")
+    print(f"[ladder] measured factors {{"
+          + ", ".join(f"{k}: {v}" for k, v in measured.items())
+          + f"}}; launches {counted}; phase in "
+          f"{time.perf_counter() - t_phase:.2f}s; {card}")
 
 def main() -> int:
     import torch
@@ -2961,7 +3417,8 @@ def main() -> int:
                "features" if algo != "rf" else f"{msg}; int8 thresholds")
         del run
     streamed = {algo: fitted[algo] for algo in ("knn", "gnb")}
-    del fitted
+    # served again by the autotune and ladder phases
+    fitted = {algo: fitted[algo] for algo in ("knn", "kmeans", "gnb")}
 
     # ------------------------------------------------ 5. IVF-PQ ANN
     from repro_torch.core.ann import build_query_luts
@@ -3178,6 +3635,21 @@ def main() -> int:
     # ------------------------------------------------ 9. tenants
     torch.cuda.empty_cache()
     tenants_path(torch, ops, ref, dev, peaks, kernels, helpers)
+
+    # ------------------------------------------------ 10. autotune
+    torch.cuda.empty_cache()
+    queries = {"knn": knn_data[2], "kmeans": km_data[2],
+               "gnb": gnb_data[2]}
+    knn32 = autotune_path(torch, ops, dev, fitted, queries, kernels, helpers)
+
+    # ------------------------------------------------ 11. calibrate
+    calibrate_path(torch, ops, dev, knn32, queries["knn"], kernels)
+    del knn32
+
+    # ------------------------------------------------ 12. the ladder
+    torch.cuda.empty_cache()
+    ladder_path(torch, ops, dev, fitted, queries, kernels, helpers)
+    del fitted
 
     # ------------------------------------------------ summary lines
     kernels = dict(sorted(kernels.items(), key=lambda kv: int(kv[0][1:])))

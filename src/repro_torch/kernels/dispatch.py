@@ -20,24 +20,43 @@ Each ``(algorithm, op)`` registers executable arms:
                 ``REPRO_BACKEND=quant`` does.
 
 Precedence in ``resolve``: explicit ``path=`` > ``REPRO_BACKEND`` (when the
-op has that arm) > the op's shape selector.  With a card, kNN resolves to
-``fused`` or ``blocked`` for every k and ANN to ``fused``, never to
-``ref``.
+op has that arm) > a calibrated cost model's measured-fastest fp32 arm near
+the batch bucket (never ``quant``, never under the int8 policy) > the op's
+shape selector.  With a card and no calibration, kNN resolves to ``fused``
+or ``blocked`` for every k and ANN to ``fused``, never to ``ref``.
+
+``PrecisionPolicy`` carries the paper's FP-backend axis (§3.4, Figs. 9–11)
+as a compute dtype plus an analytic cost backend (the libgcc / rvfplib /
+fpu / int8 / cortex-m4 cycles-per-op vectors of ``core.precision``), so a
+caller can cost a call under each backend (``estimated_cycles``).  The
+process-wide ``CostModel`` (``set_cost_model``, or ``REPRO_CALIBRATION``
+naming a calibration file, loaded once at first use) is analytic, and
+then inert in ``resolve``, until a calibrated one is installed.
 """
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core import precision
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import quantized as qk
 
 ENV_VAR = "REPRO_BACKEND"
 # the reference's arm names, in its order
 PATH_NAMES = ("fused", "blocked", "ref", "quant")
+
+
+
+# algorithm -> census key in core.precision.PAPER_CENSUSES ("ann" maps to
+# the paper's kNN census: the probe+ADC structure has no paper analogue,
+# and serve-side costing uses precision.serve_census("ann") instead)
+_CENSUS_KEY = {"knn": "knn", "kmeans": "kmeans_iter", "gnb": "gnb",
+               "gmm": "gmm_iter", "rf": "rf", "lr": "lr", "svm": "svm",
+               "ann": "knn"}
 
 # algorithm -> its serve-time hot op in the registry
 HOT_OPS = {"knn": "distance_topk", "kmeans": "distance_argmin",
@@ -67,21 +86,36 @@ def hot_shape_kw(algorithm: str, cost_shape: Dict[str, int],
     raise KeyError(f"no hot op for {algorithm!r}; known: {sorted(HOT_OPS)}")
 
 
+def _bucket_hint(shape_kw: Dict[str, int]) -> Optional[int]:
+    """Batch-size hint from resolve()'s shape kwargs: the query-count axis
+    under each op's naming (kNN/ANN ``Q``, GNB/GMM ``B``, K-Means ``N``)."""
+    for key in ("Q", "B", "N"):
+        if key in shape_kw:
+            return int(shape_kw[key])
+    return None
+
+
 # ---------------------------------------------------------------------------
-# PrecisionPolicy — the paper's FP-backend axis (§3.4) as a compute dtype
+# PrecisionPolicy — the paper's FP-backend axis (§3.4) as a value
 # ---------------------------------------------------------------------------
 
 
 @dataclass(frozen=True)
 class PrecisionPolicy:
-    """The dtype estimators cast float inputs and params to: fp32 (the
-    paper's FPU-native arm) or bf16 (reduced precision); the fp kernels
-    compute in fp32 either way.  ``int8`` is the quantized tier: inputs
-    stay fp32 at the API and the estimators rewrite their fitted params
-    onto the int8 lattice (``core/quantization.py``)."""
+    """Compute dtype + analytic cost backend.
+
+    ``dtype`` is what estimators cast float inputs and params to: fp32
+    (the paper's FPU-native arm) or bf16 (reduced precision); the fp
+    kernels compute in fp32 either way.  ``int8`` is the quantized tier:
+    inputs stay fp32 at the API and the estimators rewrite their fitted
+    params onto the int8 lattice (``core/quantization.py``).
+    ``cost_backend`` names a cycles-per-op vector in
+    ``core.precision.BACKENDS`` for the analytic soft-float costing (the
+    card has no FP-emulation mode to measure)."""
 
     name: str
     dtype: torch.dtype
+    cost_backend: str = "fpu"
 
     @property
     def quantized(self) -> bool:
@@ -93,21 +127,49 @@ class PrecisionPolicy:
             return x.to(self.dtype)
         return x
 
+    def with_cost_backend(self, backend: str) -> "PrecisionPolicy":
+        if backend not in precision.BACKENDS:
+            raise KeyError(f"unknown cost backend {backend!r}; known: "
+                           f"{sorted(precision.BACKENDS)}")
+        return replace(self, cost_backend=backend,
+                       name=f"{self.name.split('@')[0]}@{backend}")
+
+    def estimated_cycles(self, algorithm: str,
+                         section: str = "total") -> float:
+        """Analytic per-inference cycle cost of ``algorithm`` under this
+        policy's cost backend (census x cycles-per-op, paper §5.2)."""
+        key = _CENSUS_KEY.get(algorithm)
+        if key is None or key not in precision.PAPER_CENSUSES:
+            raise ValueError(
+                f"no census for algorithm {algorithm!r} — known: "
+                f"{sorted(_CENSUS_KEY)}; add a census_* entry to "
+                "core/precision.py and map it in dispatch._CENSUS_KEY "
+                "before costing it")
+        census = precision.PAPER_CENSUSES[key]
+        backend = precision.BACKENDS[self.cost_backend]
+        return precision.predicted_cycles(census, backend, section)
+
 
 POLICIES: Dict[str, PrecisionPolicy] = {
-    "fp32": PrecisionPolicy("fp32", torch.float32),
-    "bf16": PrecisionPolicy("bf16", torch.bfloat16),
+    "fp32": PrecisionPolicy("fp32", torch.float32, "fpu"),
+    "bf16": PrecisionPolicy("bf16", torch.bfloat16, "fpu"),
     # float inputs pass through: the lattice step happens in the quant arms
-    # and the quantized estimators, not as a cast
-    "int8": PrecisionPolicy("int8", torch.float32),
+    # and the quantized estimators, not as a cast; costed with the int8
+    # SIMD backend (core/precision.py)
+    "int8": PrecisionPolicy("int8", torch.float32, "int8"),
 }
 DEFAULT_POLICY = POLICIES["fp32"]
 
 
 def get_policy(name: str) -> PrecisionPolicy:
-    if name not in POLICIES:
-        raise KeyError(f"unknown policy {name!r}; known: {sorted(POLICIES)}")
-    return POLICIES[name]
+    """``"fp32"``, ``"bf16"``, ``"int8"``, or ``"<dtype>@<cost_backend>"``
+    (``"fp32@rvfplib"``)."""
+    base, _, backend = name.partition("@")
+    if base not in POLICIES:
+        raise KeyError(f"unknown policy {name!r}; known: {sorted(POLICIES)}"
+                       " or <policy>@<cost backend>")
+    policy = POLICIES[base]
+    return policy.with_cost_backend(backend) if backend else policy
 
 
 # ---------------------------------------------------------------------------
@@ -168,11 +230,63 @@ def requested(path: Optional[str]) -> Optional[str]:
     return path if path is not None else env_override()
 
 
+# ---------------------------------------------------------------------------
+# Active cost model — analytic by default, calibrated when installed
+# ---------------------------------------------------------------------------
+#
+# One process-wide CostModel (core/precision.py) that the path selection
+# in resolve consults.  ``REPRO_CALIBRATION=<file>`` installs a calibrated
+# model at first use; ``set_cost_model`` installs one programmatically
+# (serve --calibration, chip_smoke.py's calibrate phase, tests).  The
+# analytic model is inert in ``resolve`` (``preferred_path`` returns None
+# without measured rows), so uncalibrated selection is the shape
+# selectors' alone.
+
+CALIBRATION_ENV_VAR = "REPRO_CALIBRATION"
+_COST_MODEL = None
+_ENV_CALIBRATION_LOADED = False
+
+
+def set_cost_model(model) -> None:
+    """Install (or with None, clear) the process-wide CostModel."""
+    global _COST_MODEL, _ENV_CALIBRATION_LOADED
+    _COST_MODEL = model
+    _ENV_CALIBRATION_LOADED = model is not None
+
+
+def active_cost_model():
+    """The installed CostModel, loading ``REPRO_CALIBRATION`` once if set;
+    falls back to the shared analytic model."""
+    global _COST_MODEL, _ENV_CALIBRATION_LOADED
+    if _COST_MODEL is None and not _ENV_CALIBRATION_LOADED:
+        _ENV_CALIBRATION_LOADED = True
+        src = os.environ.get(CALIBRATION_ENV_VAR, "").strip()
+        if src:
+            _COST_MODEL = precision.CostModel.from_calibration(src)
+    if _COST_MODEL is None:
+        _COST_MODEL = precision.CostModel.analytic()
+    return _COST_MODEL
+
+
+def arm_fits(algorithm: str, op: str, path: str, **shape_kw) -> bool:
+    """Whether an arm takes these shapes at all: B1 keeps at most
+    ``ops.TOPK_K_MAX`` neighbours, so fused kNN refuses a longer k.  A
+    calibrated preference and the autotuner never route to an arm that
+    refuses the shape; an explicit ``path=`` still reaches it, and
+    raises."""
+    if (algorithm, op, path) == ("knn", "distance_topk", "fused"):
+        return shape_kw.get("k", 1) <= ops.TOPK_K_MAX
+    return True
+
+
 def resolve(algorithm: str, op: str, *, path: Optional[str] = None,
-            policy: Optional[PrecisionPolicy] = None,
+            policy: Optional[PrecisionPolicy] = None, cost_model=None,
             **shape_kw) -> KernelPath:
     """Pick the executable arm for ``(algorithm, op)`` at these shapes:
-    explicit ``path=`` > ``REPRO_BACKEND`` > the op's selector."""
+    explicit ``path=`` > ``REPRO_BACKEND`` (when the op has that arm) > a
+    calibrated cost model's measured-fastest fp32 arm near this batch
+    bucket (``cost_model``, else the active one) > the op's selector.
+    The lossy ``quant`` arm is never picked implicitly, measured or not."""
     key = (algorithm, op)
     if key not in _PATHS:
         raise KeyError(f"no kernel registered for {key}; "
@@ -183,7 +297,16 @@ def resolve(algorithm: str, op: str, *, path: Optional[str] = None,
     chosen = requested(path)
     if chosen not in paths:
         # REPRO_BACKEND names an arm this op lacks, or nothing is asked
-        chosen = _SELECTORS[key](policy=policy or DEFAULT_POLICY, **shape_kw)
+        chosen = None
+        cm = cost_model if cost_model is not None else active_cost_model()
+        if cm.calibrated and not (policy is not None and policy.quantized):
+            pref = cm.preferred_path(algorithm, bucket=_bucket_hint(shape_kw))
+            if pref in paths and pref != "quant" and \
+                    arm_fits(algorithm, op, pref, **shape_kw):
+                chosen = pref
+        if chosen is None:
+            chosen = _SELECTORS[key](policy=policy or DEFAULT_POLICY,
+                                     **shape_kw)
     return KernelPath(algorithm, op, chosen, paths[chosen])
 
 

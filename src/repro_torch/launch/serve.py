@@ -35,13 +35,24 @@ stream on the plan's virtual clock.
   PYTHONPATH=src python -m repro_torch.launch.serve --algo knn \
       --tenants 8 --batch 16 --resident-frac 0.5 --stream --chaos storm
 
+A single-model ``--stream --degrade`` builds the brownout ladder of the
+engine (``build_ladder``: int8 and, for kNN, ANN siblings whose measured
+capacity gain is above 1) and sheds expired requests.  ``--autotune``
+times every registered arm a bucket at warmup and routes each bucket
+through the fastest; ``--calibration PATH`` installs a calibrated cost
+model (a file holding ``{"entries": [...]}`` of ``core.calibrate`` fits)
+for the path selector.  ``--policy`` takes ``<dtype>@<cost backend>``
+(``fp32@rvfplib``) too.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --algo knn \
+      --batch 64 --stream --rate 96 --ticks 64 --deadline 4 --degrade
+
 Runs on the card; ``--device cpu`` runs the kernels' plain versions on the
 CPU instead (with ``--smoke`` for the LM: the full width does not fit a
 CPU run).  The counterpart of the JAX package's ``launch/serve.py``
 (``serve_nonneural``, ``serve_stream``, ``serve_tenants``,
-``serve_tenant_stream`` and ``serve_lm``); the single-model ``--degrade``
-ladder (``build_ladder``, ROADMAP A13), autotune (A14) and mesh (A15)
-wait for their items.
+``serve_tenant_stream`` and ``serve_lm``); ``--mesh`` and ``--strategy``
+wait for the sharded layer (ROADMAP A15).
 """
 from __future__ import annotations
 
@@ -84,7 +95,14 @@ def serve_nonneural(args) -> ClassifyResult:
               f"{r['bytes_int8']}B int8")
     if args.stream:
         return serve_stream(args, engine, Q)
-    engine.warmup(Q)
+    engine.warmup(Q, autotune=args.autotune)
+    if args.autotune and engine.tuned:
+        arms = ", ".join(
+            f"{b}->{a.strategy}/{a.path or a.static_path}"
+            f" ({a.us:.0f}us vs static {a.static_us:.0f}us)"
+            + ("*" if a.differs else "")
+            for b, a in sorted(engine.tuned.items()))
+        print(f"[autotune] tuned arms (* = differs from static): {arms}")
     t0 = time.perf_counter()
     result = engine.classify(Q)
     engine._sync()
@@ -273,18 +291,28 @@ def serve_stream(args, engine, Q):
     micro-batching ``RequestScheduler`` and report the SLO accounting
     (time is drain ticks, so the replay is deterministic for a given
     --seed).  Asserts that no bucket was first run mid-stream."""
-    from repro_torch.serving import (RequestScheduler, poisson_trace,
+    from repro_torch.serving import (DegradePolicy, RequestScheduler,
+                                     build_ladder, poisson_trace,
                                      replay_trace)
 
+    engine.warmup_buckets(Q.shape[1], autotune=args.autotune)
+    if args.autotune and engine.tuned:
+        arms = ", ".join(
+            f"{b}->{a.strategy}/{a.path or a.static_path}"
+            + ("*" if a.differs else "")
+            for b, a in sorted(engine.tuned.items()))
+        print(f"[autotune] tuned arms (* = differs from static): {arms}")
+    degrade = None
     if args.degrade:
-        raise NotImplementedError(
-            "--degrade on a single-model stream needs the brownout ladder "
-            "(build_ladder, ann_sibling), which is not ported yet "
-            "(ROADMAP A13); --tenants streams take --degrade")
-    engine.warmup_buckets(Q.shape[1])
+        tiers = build_ladder(engine, Q.shape[1])
+        degrade = DegradePolicy(tiers, deadline=args.deadline)
+        print("[degrade] ladder: "
+              + " -> ".join(f"{t.name} (x{t.capacity_factor})"
+                            for t in tiers))
     sched = RequestScheduler(engine, max_wait=args.max_wait,
                              cache_size=args.cache_size,
-                             max_queue=args.max_queue)
+                             max_queue=args.max_queue,
+                             shed_expired=args.degrade, degrade=degrade)
     chaos = _chaos_injector(args)
     counts = poisson_trace(args.rate, args.ticks, seed=args.seed)
     t0 = time.perf_counter()
@@ -375,8 +403,20 @@ def main(argv=None):
     ap.add_argument("--dim", type=int, default=21)
     ap.add_argument("--classes", type=int, default=3)
     ap.add_argument("--policy", default="fp32",
-                    choices=["fp32", "bf16", "int8"],
-                    help="int8 serves the estimator's int8 lattice form")
+                    help="fp32, bf16, int8 (serves the estimator's int8 "
+                         "lattice form), or <dtype>@<cost backend> (e.g. "
+                         "fp32@libgcc; backends: libgcc, rvfplib, fpu, "
+                         "int8, cortex-m4)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="time every registered arm of the hot op a "
+                         "warmed bucket and route its launches through "
+                         "the fastest instead of the static selector "
+                         "(paper §5.2 profile-then-optimize)")
+    ap.add_argument("--calibration", default=None, metavar="PATH",
+                    help="a calibration file ({\"entries\": [...]} of "
+                         "core.calibrate fits) to load into the cost "
+                         "model, so that the path selector takes the "
+                         "measured-fastest arm (also REPRO_CALIBRATION)")
     ap.add_argument("--nprobe", type=int, default=4,
                     help="--algo ann: IVF cells probed per query (more = "
                          "higher recall, more ADC work)")
@@ -411,11 +451,13 @@ def main(argv=None):
                          "the --stream arrival trace (--algo lm: of the "
                          "weights and prompts)")
     ap.add_argument("--degrade", action="store_true",
-                    help="--tenants --stream: deadline-enforced shedding, "
-                         "the group launch split under pressure "
-                         "(DegradePolicy(None)) and per-tenant circuit "
-                         "breakers; a single-model stream's brownout "
-                         "ladder waits for ROADMAP A13")
+                    help="--stream graceful degradation: deadline-"
+                         "enforced shedding plus the brownout ladder (int8 "
+                         "and, for knn, ANN siblings of the same model "
+                         "whose measured capacity gain is above 1); "
+                         "--tenants streams split the group launch under "
+                         "pressure (DegradePolicy(None)) and arm "
+                         "per-tenant circuit breakers instead")
     ap.add_argument("--chaos", default=None, metavar="PLAN",
                     help="--stream deterministic fault injection: a "
                          "preset name (burst, straggler, storm, mixed) "
@@ -434,6 +476,12 @@ def main(argv=None):
                     help="cuda (default) or cpu; without a card the run "
                          "fails unless cpu is named")
     args = ap.parse_args(argv)
+    from repro_torch.kernels import dispatch
+    dispatch.get_policy(args.policy)      # an unknown name fails here
+    if args.calibration:
+        from repro_torch.core.precision import CostModel
+        dispatch.set_cost_model(CostModel.from_calibration(args.calibration))
+        print(f"[calibrate] cost model loaded from {args.calibration}")
     if args.algo == "lm":
         return serve_lm(args)
     if args.tenants > 1:

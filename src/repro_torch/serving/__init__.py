@@ -1,10 +1,13 @@
 """Serving engines of the port, the request-stream scheduler, its
-degradation policy, the multi-tenant model store and the int8 codec."""
+brownout ladder and degradation policy, the multi-tenant model store and
+the int8 codec."""
 from repro_torch.serving.degrade import (BreakerConfig, CircuitBreaker,
-                                         DegradePolicy, DegradeTier)
+                                         DegradePolicy, DegradeTier,
+                                         build_ladder)
 from repro_torch.serving.engine import (ClassifyResult, GenerationResult,
                                         GroupClassifyResult, KNNServeEngine,
-                                        NonNeuralServeEngine, ServeEngine)
+                                        NonNeuralServeEngine, ServeEngine,
+                                        TunedArm)
 from repro_torch.serving.model_store import (ModelStore, PoisonedParamsError,
                                              validate_finite)
 from repro_torch.serving.scheduler import (RequestResult, RequestScheduler,
@@ -17,4 +20,5 @@ __all__ = ["BreakerConfig", "CircuitBreaker", "ClassifyResult",
            "GroupClassifyResult", "KNNServeEngine", "ModelStore",
            "NonNeuralServeEngine", "PoisonedParamsError", "RequestResult",
            "RequestScheduler", "ServeEngine", "ServingStats",
-           "poisson_trace", "quant", "replay_trace", "validate_finite"]
+           "TunedArm", "build_ladder", "poisson_trace", "quant",
+           "replay_trace", "validate_finite"]

@@ -1,7 +1,6 @@
-"""Brownout degradation policy and per-tenant circuit breakers.
+"""Brownout degradation ladder, policy and per-tenant circuit breakers.
 
-The policy part of the JAX package's ``serving/degrade.py``: plain Python,
-so the port keeps its own copy.
+The port's copy of the JAX package's ``serving/degrade.py``.
 
 ``DegradePolicy`` is a hysteretic controller observed once per drain.
 Single-model mode takes a ladder of ``DegradeTier``s, each a warmed
@@ -18,11 +17,17 @@ AND a ``cooldown`` since the last shift, one level at a time.
 after ``cooldown`` ticks one half-open probe is admitted, and a served
 probe closes it.
 
-Not here (ROADMAP A13): the measured capacity factors, ``ann_sibling``
-and ``build_ladder`` that build a ladder from one engine.  The JAX
-package's factors (``CAPACITY_FACTORS``) come from CPU runs and the H100
-rates contradict them, so the port's come from its own benchmarks.  A
-ladder of hand-built ``DegradeTier``s works today.
+``build_ladder`` builds the single-model ladder from one engine: tier 0
+is the engine, then an int8 sibling (``engine.sibling(policy="int8")``)
+and, for exact kNN, an IVF-PQ sibling over the same reference rows
+(``ann_sibling``), every tier warmed over its whole bucket lattice up
+front.  A rung's ``capacity_factor`` is measured on the card, per (rung,
+algorithm) (``CAPACITY_FACTORS``): the largest power of two ``f`` for
+which one ``classify`` of ``f · max_batch`` rows through the rung takes
+no longer than one of ``max_batch`` rows through tier 0.  A rung whose
+factor is 1 gains no capacity, and the default ladder leaves it out; a
+caller's rung-keyed ``capacity_factors`` overrides the table for every
+algorithm and builds the rung.
 """
 from __future__ import annotations
 
@@ -112,6 +117,89 @@ class DegradeTier(NamedTuple):
     name: str                 # "full" | "int8" | "ann" | ...
     engine: object            # NonNeuralServeEngine
     capacity_factor: int = 1  # requests-per-drain multiplier vs tier 0
+
+
+# (rung, algorithm) -> capacity factor, measured by chip_smoke.py's
+# [ladder] phase (median of 5 host-clock timings of each classify, rows
+# from host memory) at the paths' shapes: kNN N = 2^20, d = 21, k = 4;
+# K-Means 262,144 x 21, K = 256; GNB 60,000 x 784, 10 classes; max_batch
+# 1024.  Card: NVIDIA H100 80GB HBM3, power limit 700.00 W.  Time of the
+# rung against tier 0's 1024 rows, three runs:
+#   int8 kNN     1024 rows 0.552-0.609x, 2048 rows 1.419-1.839x -> 1
+#   int8 K-Means 1024 rows 1.609-2.035x                          -> 1
+#   int8 GNB     1024 rows 0.952-1.320x, 2048 rows 1.373-1.979x -> 1
+#   ANN (64 cells, nprobe 4, refine 32) 1024 rows 2.480-2.609x  -> 1
+# An algorithm or rung missing here has no measured gain and is not built
+# by default.
+CAPACITY_FACTORS = {("int8", "knn"): 1, ("int8", "kmeans"): 1,
+                    ("int8", "gnb"): 1, ("ann", "knn"): 1}
+RUNGS = ("int8", "ann")
+
+
+def ann_sibling(engine, *, nprobe: int = 4, refine: Optional[int] = None,
+                max_batch: Optional[int] = None):
+    """An IVF-PQ ANN engine over the SAME reference rows an exact-kNN
+    engine serves, on its device: the bottom brownout rung.  The index is
+    fit from the fitted params (``A``/``labels``), so no training data is
+    supplied again; ``refine`` defaults to 8k (an exact re-rank of the ADC
+    survivors keeps label agreement with exact kNN high)."""
+    from repro_torch.core.estimator import ANNKNNEstimator
+
+    est = engine.estimator
+    if est.algorithm != "knn" or est.quantized:
+        raise ValueError(
+            f"ann_sibling needs an unquantized exact-kNN engine (the ANN "
+            f"index is fit from params.A/labels); got "
+            f"{est.algorithm!r}" + (" (int8)" if est.quantized else ""))
+    ann = ANNKNNEstimator(k=est.k, n_class=int(est.params.n_class),
+                          nprobe=nprobe,
+                          refine=8 * est.k if refine is None else refine,
+                          device=engine.device)
+    ann.fit(est.params.A, est.params.labels)
+    return engine.sibling(estimator=ann, max_batch=max_batch
+                          or engine.max_batch)
+
+
+def build_ladder(engine, d: int, *, rungs: Sequence[str] = RUNGS,
+                 capacity_factors=None, nprobe: int = 4,
+                 refine: Optional[int] = None) -> List[DegradeTier]:
+    """The brownout ladder for one engine: tier 0 is the engine itself,
+    then one tier per applicable rung (``int8`` for any unquantized
+    estimator but ANN; ``ann`` for exact kNN only) whose capacity factor
+    is above 1: the measured ``CAPACITY_FACTORS`` entry for the engine's
+    algorithm, or the caller's ``capacity_factors[rung]``, which builds
+    the rung whatever its value.  EVERY tier is warmed over its whole
+    bucket lattice here, up front: the scheduler coalesces only into
+    warmed buckets, so a downshift is never what loads a bucket
+    (``bucket_launches ⊆ warmed`` holds per tier)."""
+    asked = dict(capacity_factors or {})
+    tiers = [DegradeTier("full", engine, 1)]
+    est = engine.estimator
+    for rung in rungs:
+        if rung not in RUNGS:
+            raise ValueError(f"unknown brownout rung {rung!r} "
+                             f"(known: {', '.join(RUNGS)})")
+        if rung == "int8" and (est.quantized or est.algorithm == "ann"):
+            continue        # already the int8 form; PQ codes ARE int8
+        if rung == "ann" and (est.algorithm != "knn" or est.quantized):
+            continue
+        if rung in asked:
+            f = int(asked[rung])
+        else:
+            f = int(CAPACITY_FACTORS.get((rung, est.algorithm), 1))
+            if f <= 1:
+                continue    # no measured capacity gain: not worth a rung
+        if rung == "int8":
+            sib = engine.sibling(policy="int8",
+                                 max_batch=engine.max_batch * f)
+        else:
+            sib = ann_sibling(engine, nprobe=nprobe, refine=refine,
+                              max_batch=engine.max_batch * f)
+        tiers.append(DegradeTier(rung, sib, f))
+    for tier in tiers:
+        if not tier.engine.warmed:
+            tier.engine.warmup_buckets(d)
+    return tiers
 
 
 # ----------------------------------------------------------------- policy

@@ -13,6 +13,20 @@ CUDA kernels (built at first use), so warmup touches every bucket shape
 before any timed call.  ``bucket_launches`` counts production launches
 per bucket and never warmup.
 
+Autotune (the paper's profile-then-optimize, §5.2, at warmup time):
+``warmup(X, autotune=True)`` and ``warmup_buckets(d, autotune=True)``
+time every registered arm of the estimator's hot op at each bucket
+(``_measure``: the least host time of 3 launches after a warm one, each
+between two synchronizes) and route the bucket's production launches
+through the fastest (``tuned``, a ``TunedArm`` a bucket).  The JAX
+package's candidates without its ``bn`` arms (a Pallas row-block size the
+CUDA kernels do not have) and with the one strategy ``single`` until the
+sharded layer exists; never ``quant``; an explicit ``path=``,
+``REPRO_BACKEND`` or the int8 policy collapses the path axis.
+
+``sibling`` builds an engine over a cheaper representation of the same
+fitted model, the brownout ladder's constructor (``serving/degrade.py``).
+
 Multi-tenant serving (``serving/model_store.py``): ``classify_group``
 serves a stacked model group's (G, B, d) queries in one launch a (group
 bucket, query bucket) cell, G padded to a power of two by repeating the
@@ -28,9 +42,11 @@ M = batch; attention over the cache in torch ops), greedy or sampled.
 """
 from __future__ import annotations
 
+import copy as _copy
 import itertools
-from dataclasses import dataclass
-from typing import Dict, Optional, Set, Tuple
+import time as _time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +56,7 @@ from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.core import knn as _knn
 from repro_torch.core.estimator import KNNEstimator
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import dispatch
 from repro_torch.models import transformer
 
 
@@ -76,6 +93,34 @@ class GroupClassifyResult:
 # so the same query bytes against different engines or policies never
 # cross-hit
 _ENGINE_SEQ = itertools.count()
+
+
+@dataclass
+class TunedArm:
+    """One bucket's autotune verdict: the measured-fastest registered arm
+    next to what the static selector would have run.
+
+    ``path=None`` means "the estimator's own" (registry default): the
+    winner may be the static choice, and routing through it is then a
+    no-op.  ``bn`` is always None here (the CUDA kernels have no row-block
+    knob); it stays for the JAX package's field order."""
+
+    strategy: str
+    path: Optional[str]
+    bn: Optional[int]
+    us: float                 # winning measured us per launch
+    static_strategy: str
+    static_path: str
+    static_us: float
+    # every (strategy, path, bn, us) measured, for reports and tests
+    candidates: List[Tuple] = field(default_factory=list)
+
+    @property
+    def differs(self) -> bool:
+        """Did measurement overturn the static selector?"""
+        return (self.strategy != self.static_strategy
+                or (self.path is not None and self.path != self.static_path)
+                or self.bn is not None)
 
 
 class NonNeuralServeEngine:
@@ -116,7 +161,11 @@ class NonNeuralServeEngine:
         self.max_batch = int(max_batch)
         self.bucket_launches: Dict[int, int] = {}
         self.warmed: set = set()     # bucket sizes already run once
-        self._fn = estimator.predict_batch_fn()
+        self._quantized = bool(estimator.quantized)
+        self._cost_shape = estimator.serve_cost_shape()
+        self.tuned: Dict[int, TunedArm] = {}   # bucket -> autotune verdict
+        self._fn = estimator.predict_batch_fn()      # the default arm
+        self._fns: Dict[str, object] = {}      # path -> its arm's fn
         self.cache_fingerprint = (self.algorithm, str(policy),
                                   next(_ENGINE_SEQ))
         # grouped (multi-tenant) state
@@ -125,11 +174,132 @@ class NonNeuralServeEngine:
         self.group_launches: Dict[Tuple[int, int], int] = {}
         self._gfn = None
 
+    def sibling(self, *, policy: Optional[str] = None, estimator=None,
+                max_batch: Optional[int] = None) -> "NonNeuralServeEngine":
+        """An engine over a cheaper representation of the SAME fitted
+        model, on this engine's device: ``policy="int8"`` serves the
+        estimator's ``quantized_copy``; ``estimator=`` substitutes another
+        arm (an ANN index over an exact kNN's reference set).  Siblings
+        share this engine's bucket geometry unless ``max_batch`` widens it
+        (a cheaper tier may take a larger per-drain budget)."""
+        est = self.estimator if estimator is None else estimator
+        return NonNeuralServeEngine(
+            est, max_batch=int(max_batch or self.max_batch),
+            device=self.device, policy=policy, max_group=self.max_group)
+
     def _bucket(self, b: int) -> int:
         size = 1
         while size < b:
             size *= 2
         return min(size, self.max_batch)
+
+    def _route(self, bucket: int) -> str:
+        """The partition strategy serving this bucket: one device."""
+        return "single"
+
+    def _fn_for(self, strategy: str, path: Optional[str] = None,
+                bn: Optional[int] = None):
+        """The executor of one (strategy, path, bn) arm.  ``path``
+        overrides the estimator's through a shallow copy whose
+        ``predict_batch_fn`` closes over it (cached per arm); None keeps
+        the estimator's own, ``_fn``."""
+        if strategy != "single" or bn is not None:
+            raise NotImplementedError(
+                f"arm {(strategy, path, bn)}: one device and no row-block "
+                "knob (the sharded strategies are ROADMAP A15)")
+        if path is None:
+            return self._fn
+        fn = self._fns.get(path)
+        if fn is None:
+            est = _copy.copy(self.estimator)
+            est.path = path
+            fn = self._fns[path] = est.predict_batch_fn()
+        return fn
+
+    def _choice(self, bucket: int) -> Tuple[str, Optional[str],
+                                            Optional[int]]:
+        """The (strategy, path, bn) arm serving this bucket: the autotuned
+        winner where ``warmup(autotune=True)`` measured one, else the
+        static route with the estimator's own path."""
+        arm = self.tuned.get(bucket)
+        if arm is not None:
+            return arm.strategy, arm.path, arm.bn
+        return self._route(bucket), None, None
+
+    # overridable seam: tests script timings through it to flip decisions
+    def _measure(self, fn, params, chunk, iters: int = 3) -> float:
+        """Least host time (us) of one launch over ``iters`` launches
+        after one warm launch, each between two synchronizes."""
+        fn(params, chunk)
+        self._sync()
+        best = float("inf")
+        for _ in range(iters):
+            t0 = _time.perf_counter()
+            fn(params, chunk)
+            self._sync()
+            best = min(best, _time.perf_counter() - t0)
+        return best * 1e6
+
+    def _static_arm(self, bucket: int) -> Tuple[str, str]:
+        """(strategy, path) the static selectors would run at this
+        bucket."""
+        strategy = self._route(bucket)
+        if self._quantized:
+            return strategy, "quant"
+        op = dispatch.HOT_OPS[self.algorithm]
+        kw = dispatch.hot_shape_kw(self.algorithm, self._cost_shape, bucket)
+        return strategy, dispatch.resolve(
+            self.algorithm, op, path=self.estimator.path,
+            policy=self.estimator.policy, **kw).name
+
+    def _autotune_candidates(self, bucket: int):
+        """Registered (strategy, path, bn) arms worth timing at this
+        bucket: the static arm first, then every registered path of the
+        hot op but ``quant``.  An explicit ``path=``, ``REPRO_BACKEND`` or
+        the int8 policy collapses the path axis to the static arm; every
+        candidate comes from the registry, so ``bucket_launches ⊆ warmed``
+        holds for whatever wins."""
+        algo, op = self.algorithm, dispatch.HOT_OPS[self.algorithm]
+        paths: List[Optional[str]] = [None]
+        if (self.estimator.path is None and not self._quantized
+                and dispatch.env_override() is None):
+            regd = dispatch.registered().get((algo, op), ())
+            paths = [p for p in regd if p != "quant"] or [None]
+        arms = [(self._route(bucket), None, None)]   # the static arm
+        for p in paths:
+            if (self._route(bucket), p, None) not in arms:
+                arms.append((self._route(bucket), p, None))
+        return arms
+
+    def _autotune_bucket(self, size: int, chunk) -> Optional[TunedArm]:
+        """Time every candidate arm for one bucket, record the winner in
+        ``self.tuned``, and route this bucket through it.  An arm that
+        refuses the bucket's shapes (``dispatch.arm_fits``: fused kNN past
+        B1's lists) is not timed."""
+        static_strategy, static_path = self._static_arm(size)
+        op = dispatch.HOT_OPS[self.algorithm]
+        kw = dispatch.hot_shape_kw(self.algorithm, self._cost_shape, size)
+        measured, static_us = [], None
+        for s, p, bn in self._autotune_candidates(size):
+            if p is not None and not dispatch.arm_fits(self.algorithm, op,
+                                                       p, **kw):
+                continue
+            us = self._measure(self._fn_for(s, p, bn), self.estimator.params,
+                               chunk)
+            measured.append((s, p, bn, us))
+            if (s == static_strategy and bn is None
+                    and (p is None or p == static_path)):
+                static_us = us if static_us is None else min(static_us, us)
+        if not measured:
+            return None
+        s, p, bn, us = min(measured, key=lambda m: m[3])
+        arm = TunedArm(strategy=s, path=p, bn=bn, us=us,
+                       static_strategy=static_strategy,
+                       static_path=static_path,
+                       static_us=static_us if static_us is not None else us,
+                       candidates=measured)
+        self.tuned[size] = arm
+        return arm
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -150,43 +320,47 @@ class NonNeuralServeEngine:
             aux=self.estimator.empty_aux(), launches=0,
             algorithm=self.algorithm)
 
-    def _warm_one(self, size: int, chunk: torch.Tensor) -> None:
-        """Run one bucket shape once; never counted in ``bucket_launches``."""
+    def _warm_one(self, size: int, chunk: torch.Tensor,
+                  autotune: bool = False) -> None:
+        """Run one bucket shape once (with ``autotune``, every candidate
+        arm through ``_measure``); never counted in ``bucket_launches``."""
         pad = size - chunk.shape[0]
         if pad:
             chunk = F.pad(chunk, (0, 0, 0, pad))
-        self._fn(self.estimator.params, chunk.contiguous())
+        chunk = chunk.contiguous()
+        if autotune and self._autotune_bucket(size, chunk) is not None:
+            self.warmed.add(size)
+            return
+        self._fn_for(*self._choice(size))(self.estimator.params, chunk)
         self._sync()
         self.warmed.add(size)
 
     def warmup(self, X, *, autotune: bool = False) -> int:
         """Run every bucket a ``classify(X)`` call would hit, including the
-        smaller trailing-chunk bucket.  Returns the number of buckets."""
-        if autotune:
-            raise NotImplementedError(
-                "autotuned warmup is not ported yet (ROADMAP A14)")
+        smaller trailing-chunk bucket.  Returns the number of buckets.
+        ``autotune=True`` times every candidate arm a bucket and routes
+        the bucket's launches through the fastest (``tuned``)."""
         X = self._as_queries(X)
         sizes = {self._bucket(min(self.max_batch, X.shape[0] - lo))
                  for lo in range(0, X.shape[0], self.max_batch)}
         for size in sorted(sizes):
-            self._warm_one(size, X[:size])
+            self._warm_one(size, X[:size], autotune=autotune)
         return len(sizes)
 
     def warmup_buckets(self, d: int, *, dtype=torch.float32,
                        autotune: bool = False) -> int:
         """Run EVERY bucket ``classify`` can route a (B, d) batch to, so the
         kernel libraries are built and loaded before the first timed call.
-        Returns the number of buckets."""
-        if autotune:
-            raise NotImplementedError(
-                "autotuned warmup is not ported yet (ROADMAP A14)")
+        Returns the number of buckets.  ``autotune=True`` as in
+        ``warmup``."""
         sizes, b = set(), 1
         while b < 2 * self.max_batch:
             sizes.add(self._bucket(b))
             b *= 2
         for size in sorted(sizes):
             self._warm_one(size, torch.zeros((size, d), dtype=dtype,
-                                             device=self.device))
+                                             device=self.device),
+                           autotune=autotune)
         return len(sizes)
 
     def classify(self, X) -> ClassifyResult:
@@ -204,7 +378,8 @@ class NonNeuralServeEngine:
             pad = bucket - chunk.shape[0]
             if pad:
                 chunk = F.pad(chunk, (0, 0, 0, pad))
-            cls, aux = self._fn(self.estimator.params, chunk.contiguous())
+            cls, aux = self._fn_for(*self._choice(bucket))(
+                self.estimator.params, chunk.contiguous())
             classes.append(cls[: bucket - pad])
             auxes.append(aux[: bucket - pad])
             self.bucket_launches[bucket] = \

@@ -9,9 +9,9 @@ stream (prediction, shed and reason, tier, bucket, queue time, deadline
 miss, and the virtual ``batch_time``) and the same typed event stream
 (kind, tick, source, detail), in single-model and store mode; and two
 port runs of one plan are identical.  The behaviours mirror
-``tests/test_chaos.py``; its brownout-ladder tests wait for
-``build_ladder`` (ROADMAP A13), and a hand-built int8 tier stands in for
-it here.
+``tests/test_chaos.py``; a hand-built int8 tier stands in for its
+``build_ladder`` here, and ``tests/test_torch_degrade.py`` replays its
+ladder test through both packages' ``build_ladder``.
 """
 import re
 

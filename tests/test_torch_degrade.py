@@ -1,22 +1,30 @@
 """The PyTorch port's degradation policy, circuit breaker and shed
 accounting against the JAX package's.
 
-Mirrors ``tests/test_degrade.py`` (its ``build_ladder``/``ann_sibling``
-tests wait for ROADMAP A13): the breaker and policy state machines give
-the same transitions and events as the JAX package's on the same inputs;
+Mirrors ``tests/test_degrade.py`` and the ladder test of
+``tests/test_chaos.py``: the breaker and policy state machines give the
+same transitions and events as the JAX package's on the same inputs;
 admission control, expiry shedding and the all-shed stats match request
 for request through both schedulers (the JAX engine, and the port's on
 ``device="cpu"`` over the same params carried across with
-``repro_torch.convert``); a ladder of hand-built ``DegradeTier``s (fp32
-and ``policy="int8"`` engines over one estimator) never caches a
-degraded answer.  Per request every field but ``batch_time`` is equal;
-float aux agrees to ``rtol = atol = 1e-5``, integer aux exactly.
+``repro_torch.convert``); a ladder, hand-built or from ``build_ladder``,
+never caches a degraded answer.  ``build_ladder`` and ``ann_sibling``
+run through both packages with the JAX package's factors passed in
+(``capacity_factors={"int8": 4, "ann": 8}``): the same rung names,
+factors, ``max_batch`` and warmed lattices, int8-tier classes and ANN
+neighbours bit-equal, and a replay of one trace (with and without a chaos
+plan) the same per-request tiers and answers; the port's default factors
+(measured on the card, per rung and algorithm) leave a factor-1 rung out.
+Per request every field but ``batch_time`` is equal; float aux agrees to
+``rtol = atol = 1e-5``, integer aux exactly.
 """
+import copy
 import itertools
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.core import estimator as jest
 from repro.serving import BreakerConfig as JaxBreakerConfig
@@ -25,7 +33,11 @@ from repro.serving import DegradePolicy as JaxPolicy
 from repro.serving import DegradeTier as JaxTier
 from repro.serving import NonNeuralServeEngine as JaxEngine
 from repro.serving import RequestScheduler as JaxScheduler
+from repro.serving import build_ladder as jax_build_ladder
 from repro.serving import replay_trace as jax_replay
+from repro.serving.degrade import ann_sibling as jax_ann_sibling
+from repro.runtime.chaos import ChaosInjector as JaxInjector
+from repro.runtime.chaos import ChaosPlan as JaxPlan
 from repro_torch import convert
 from repro_torch.core import estimator as port_est
 from repro_torch.data.datasets import class_blobs
@@ -33,7 +45,8 @@ from repro_torch.kernels import dispatch as tdispatch
 from repro_torch.serving import (BreakerConfig, CircuitBreaker,
                                  DegradePolicy, DegradeTier,
                                  NonNeuralServeEngine, RequestScheduler,
-                                 poisson_trace, replay_trace)
+                                 build_ladder, poisson_trace, replay_trace)
+from repro_torch.runtime.chaos import ChaosInjector, ChaosPlan
 from repro_torch.serving import degrade as tdegrade
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -65,8 +78,22 @@ def _fits(algo, X, y):
     return _FITS[algo]
 
 
-def _engines(algo, X, y, max_batch=8, policy=None):
-    jfit, tfit = _fits(algo, X, y)
+def _calibrated_fits(algo, X, y):
+    """``_fits``, with the port's estimator holding the JAX fit's
+    per-feature |X| maxima too, so both packages' int8 copies take the
+    same lattice (a ``from_params`` estimator otherwise bounds it from
+    its params)."""
+    key = algo + "+absmax"
+    if key not in _FITS:
+        jfit, tfit = _fits(algo, X, y)
+        tfit = copy.copy(tfit)
+        tfit._cal_absmax = torch.from_numpy(np.array(jfit._cal_absmax))
+        _FITS[key] = (jfit, tfit)
+    return _FITS[key]
+
+
+def _engines(algo, X, y, max_batch=8, policy=None, fits=_fits):
+    jfit, tfit = fits(algo, X, y)
     jeng = JaxEngine(jfit, max_batch=max_batch, policy=policy)
     teng = NonNeuralServeEngine(tfit, max_batch=max_batch, device="cpu",
                                 policy=policy)
@@ -191,12 +218,156 @@ def test_policy_levels_and_window():
 
 
 def test_ladder_helpers_wait_for_a13():
-    """The policy part only: the measured capacity factors and the
-    ladder builders come with ROADMAP A13."""
-    for name in ("CAPACITY_FACTORS", "build_ladder", "ann_sibling"):
-        assert not hasattr(tdegrade, name)
+    """The ladder builders are in (ROADMAP A13 is done): the capacity
+    factors are the port's own, per (rung, algorithm), powers of two of at
+    least 1, never the JAX package's rung-keyed CPU table; a ladder's tier
+    0 is still the undegraded engine."""
+    assert callable(tdegrade.build_ladder) and callable(tdegrade.ann_sibling)
+    assert tdegrade.RUNGS == ("int8", "ann")
+    assert tdegrade.CAPACITY_FACTORS
+    for (rung, algo), f in tdegrade.CAPACITY_FACTORS.items():
+        assert rung in tdegrade.RUNGS and algo in tdispatch.HOT_OPS
+        assert isinstance(f, int) and f >= 1 and f & (f - 1) == 0
+    assert set(tdegrade.CAPACITY_FACTORS) >= {
+        ("int8", "knn"), ("int8", "kmeans"), ("int8", "gnb"), ("ann", "knn")}
     with pytest.raises(AssertionError, match="tier 0"):
         DegradePolicy([DegradeTier("int8", object(), 4)])
+
+
+# ------------------------------------------------------------------ ladder
+
+JAX_FACTORS = {"int8": 4, "ann": 8}
+
+
+def _rungs(tiers):
+    return [(t.name, t.capacity_factor, t.engine.max_batch,
+             sorted(t.engine.warmed), dict(t.engine.bucket_launches))
+            for t in tiers]
+
+
+def test_build_ladder_knn_full_int8_ann(blobs):
+    X, y = blobs
+    jeng, teng = _engines("knn", X, y, fits=_calibrated_fits)
+    jt = jax_build_ladder(jeng, X.shape[1], capacity_factors=JAX_FACTORS)
+    tt = build_ladder(teng, X.shape[1], capacity_factors=JAX_FACTORS)
+    assert _rungs(tt) == _rungs(jt)
+    assert [t.name for t in tt] == ["full", "int8", "ann"]
+    assert tt[0].engine is teng and tt[0].capacity_factor == 1
+    assert [t.capacity_factor for t in tt] == [1, 4, 8]
+    assert tt[1].engine.estimator.quantized
+    assert not teng.estimator.quantized          # the caller's stays fp32
+    assert tt[2].engine.estimator.algorithm == "ann"
+    for t in tt:                                 # warmed up front
+        assert t.engine.warmed and t.engine.bucket_launches == {}
+        assert t.engine.device == teng.device
+    assert max(tt[1].engine.warmed) >= 8 * 4
+    # the int8 tier's classes and neighbours bit-equal across packages
+    for i in (1, 2):
+        got, want = tt[i].engine.classify(X[:37]), jt[i].engine.classify(
+            X[:37])
+        np.testing.assert_array_equal(got.classes.numpy(),
+                                      np.asarray(want.classes))
+        np.testing.assert_array_equal(got.aux.numpy(), np.asarray(want.aux))
+
+
+@pytest.mark.parametrize("algo", ["gnb", "kmeans", "gmm", "rf"])
+def test_build_ladder_non_knn_skips_ann(algo, blobs):
+    X, y = blobs
+    jeng, teng = _engines(algo, X, y, fits=_calibrated_fits)
+    jt = jax_build_ladder(jeng, X.shape[1], capacity_factors=JAX_FACTORS)
+    tt = build_ladder(teng, X.shape[1], capacity_factors=JAX_FACTORS)
+    assert [t.name for t in tt] == [t.name for t in jt] == ["full", "int8"]
+    assert _rungs(tt) == _rungs(jt)
+    got, want = tt[1].engine.classify(X[:19]), jt[1].engine.classify(X[:19])
+    np.testing.assert_array_equal(got.classes.numpy(),
+                                  np.asarray(want.classes))
+
+
+def test_build_ladder_rejects_unknown_rungs(blobs):
+    X, y = blobs
+    _, teng = _engines("gnb", X, y)
+    with pytest.raises(ValueError, match="unknown brownout rung"):
+        build_ladder(teng, X.shape[1], rungs=("int8", "fp16"))
+
+
+def test_default_factors_skip_factor_one_rungs(blobs, monkeypatch):
+    """A rung whose measured factor is 1 gains no capacity and is left
+    out; an algorithm with no measured factor too; a caller's factor
+    builds the rung whatever it is."""
+    X, y = blobs
+    _, teng = _engines("knn", X, y)
+    monkeypatch.setattr(tdegrade, "CAPACITY_FACTORS",
+                        {("int8", "knn"): 2, ("ann", "knn"): 1,
+                         ("int8", "gnb"): 1})
+    tt = build_ladder(teng, X.shape[1])
+    assert [(t.name, t.capacity_factor, t.engine.max_batch)
+            for t in tt] == [("full", 1, 8), ("int8", 2, 16)]
+    _, geng = _engines("gnb", X, y)
+    assert [t.name for t in build_ladder(geng, X.shape[1])] == ["full"]
+    _, meng = _engines("gmm", X, y)
+    assert [t.name for t in build_ladder(meng, X.shape[1])] == ["full"]
+    forced = build_ladder(geng, X.shape[1], capacity_factors={"int8": 1})
+    assert [(t.name, t.capacity_factor) for t in forced] == \
+        [("full", 1), ("int8", 1)]
+    both = build_ladder(teng, X.shape[1], capacity_factors={"ann": 4})
+    assert [(t.name, t.capacity_factor) for t in both] == \
+        [("full", 1), ("int8", 2), ("ann", 4)]
+    # the table the port ships: every factor-1 rung is absent by default
+    monkeypatch.undo()
+    for algo in ("knn", "kmeans", "gnb"):
+        _, eng = _engines(algo, X, y)
+        names = [t.name for t in build_ladder(eng, X.shape[1])]
+        for rung in tdegrade.RUNGS:
+            f = tdegrade.CAPACITY_FACTORS.get((rung, algo), 1)
+            assert (rung in names) == (f > 1), (algo, rung, f)
+
+
+def test_ann_sibling_rejects_non_knn(blobs):
+    X, y = blobs
+    jeng, teng = _engines("gnb", X, y)
+    with pytest.raises(ValueError, match="exact-kNN") as terr:
+        tdegrade.ann_sibling(teng)
+    with pytest.raises(ValueError, match="exact-kNN") as jerr:
+        jax_ann_sibling(jeng)
+    assert str(terr.value) == str(jerr.value)
+    _, q8 = _engines("knn", X, y, policy="int8")
+    with pytest.raises(ValueError, match="int8"):
+        tdegrade.ann_sibling(q8)
+
+
+def test_ann_sibling_label_agreement(blobs):
+    """The bottom rung serves the SAME reference rows: refined IVF-PQ
+    agrees with exact kNN on >= 95% of labels, and its index and answers
+    are the JAX package's."""
+    X, y = blobs
+    jeng, teng = _engines("knn", X, y, fits=_calibrated_fits)
+    sib, jsib = tdegrade.ann_sibling(teng), jax_ann_sibling(jeng)
+    assert sib.estimator.refine == jsib.estimator.refine == 8 * teng.\
+        estimator.k
+    assert sib.estimator.serve_cost_shape() == \
+        jsib.estimator.serve_cost_shape()
+    np.testing.assert_array_equal(sib.estimator.params.codes.numpy(),
+                                  np.asarray(jsib.estimator.params.codes))
+    exact, _ = teng.estimator.predict_batch(X[:64])
+    approx, nbr = sib.estimator.predict_batch(X[:64])
+    agree = float((exact == approx).float().mean())
+    assert agree >= 0.95, agree
+    jc, jn = jsib.estimator.predict_batch(X[:64])
+    np.testing.assert_array_equal(approx.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(nbr.numpy(), np.asarray(jn))
+    assert sib.max_batch == teng.max_batch
+    assert tdegrade.ann_sibling(teng, nprobe=2, refine=0,
+                                max_batch=32).max_batch == 32
+
+
+def test_sibling_shares_geometry_and_device(blobs):
+    X, y = blobs
+    _, teng = _engines("kmeans", X, y)
+    sib = teng.sibling(policy="int8")
+    assert sib.max_batch == teng.max_batch and sib.device == teng.device
+    assert sib.estimator.quantized and not teng.estimator.quantized
+    assert sib.cache_fingerprint != teng.cache_fingerprint
+    assert teng.sibling(max_batch=64).estimator is teng.estimator
 
 
 # ---------------------------------------------------- degraded-tier cache
@@ -218,6 +389,105 @@ def _pinned_tier_run(Scheduler, Policy, Tier, eng, eng8, X):
     assert r3.tier == "full" and not r3.cache_hit
     assert sched.results[sched.submit(X[0])].cache_hit   # tier 0 cached
     return sched
+
+
+@pytest.mark.parametrize("algo", ["gnb", "knn"])
+def test_built_ladder_results_never_cached(algo, blobs):
+    """The JAX test's form: the ladder from ``build_ladder``."""
+    X, y = blobs
+    jeng, teng = _engines(algo, X, y, fits=_calibrated_fits)
+    jt = jax_build_ladder(jeng, X.shape[1], capacity_factors=JAX_FACTORS)
+    tt = build_ladder(teng, X.shape[1], capacity_factors=JAX_FACTORS)
+    scheds = []
+    for Scheduler, Policy, eng, tiers in (
+            (JaxScheduler, JaxPolicy, jeng, jt),
+            (RequestScheduler, DegradePolicy, teng, tt)):
+        pol = Policy(tiers, hold=10**9)
+        sched = Scheduler(eng, max_wait=1, cache_size=8, degrade=pol)
+        pol.level = 1                               # pin the int8 tier
+        sched.submit(X[0])
+        (r,) = sched.drain(force=True)
+        assert r.tier == "int8" and not r.cache_hit
+        sched.submit(X[0])
+        (r2,) = sched.drain(force=True)
+        assert not r2.cache_hit
+        pol.level = 0
+        sched.submit(X[0])
+        (r3,) = sched.drain(force=True)
+        assert r3.tier == "full" and not r3.cache_hit
+        assert sched.results[sched.submit(X[0])].cache_hit
+        scheds.append(sched)
+    same_results(*scheds)
+
+
+def _ladder_stream(Scheduler, Policy, build, replay, eng, X, counts,
+                   **kw):
+    pol = Policy(build(eng, X.shape[1], capacity_factors=JAX_FACTORS),
+                 deadline=4, hold=3)
+    sched = Scheduler(eng, degrade=pol, clock=itertools.count().__next__,
+                      max_wait=2, max_queue=64, shed_expired=True)
+    replay(sched, X[:60], counts, deadline=4, **kw)
+    return sched
+
+
+def test_built_ladder_replay_matches_jax(blobs):
+    """An overloaded kNN stream down the whole ladder (fp32, int8 x4, ANN
+    x8): the same per-request tiers, sheds and answers in both packages
+    (int8 kNN and ANN are integer work, so neighbours are equal too)."""
+    X, y = blobs
+    jeng, teng = _engines("knn", X, y, max_batch=4,
+                          fits=_calibrated_fits)
+    counts = np.concatenate([poisson_trace(1.0, 8, seed=1),
+                             poisson_trace(40.0, 24, seed=2),
+                             poisson_trace(0.5, 40, seed=3)])
+    js = _ladder_stream(JaxScheduler, JaxPolicy, jax_build_ladder,
+                        jax_replay, jeng, X, counts)
+    ts = _ladder_stream(RequestScheduler, DegradePolicy, build_ladder,
+                        replay_trace, teng, X, counts)
+    same_results(js, ts)
+    st = ts.stats
+    assert st.downshifts >= 2 and st.upshifts >= 1
+    assert st.tier_served.get("ann", 0) > 0 and st.tier_served["full"] > 0
+    for tier, per in st.tier_bucket_launches.items():
+        assert set(per) <= ts.tier_warmed[tier], tier
+    for t in ts.degrade.tiers:
+        assert set(t.engine.bucket_launches) <= t.engine.warmed
+
+
+def test_chaos_ladder_replay_matches_jax(blobs):
+    """``tests/test_chaos.py``'s ladder replay through both packages: a
+    GNB ladder under the mixed plan, the same results, events and
+    per-tier launches, every tier inside its warmed buckets."""
+    X, y = blobs
+    out = []
+    for Scheduler, Policy, build, replay, Plan, Injector, eng in (
+            (JaxScheduler, JaxPolicy, jax_build_ladder, jax_replay, JaxPlan,
+             JaxInjector, None),
+            (RequestScheduler, DegradePolicy, build_ladder, replay_trace,
+             ChaosPlan, ChaosInjector, None)):
+        jeng, teng = _engines("gnb", X, y, fits=_calibrated_fits)
+        eng = jeng if Scheduler is JaxScheduler else teng
+        degrade = Policy(build(eng, X.shape[1],
+                               capacity_factors=JAX_FACTORS), deadline=4)
+        sched = Scheduler(eng, max_wait=2, max_queue=64, shed_expired=True,
+                          degrade=degrade)
+        plan = Plan.preset("mixed", seed=0, ticks=24)
+        ids = replay(sched, X[:40], poisson_trace(4.0, 24, seed=1),
+                     deadline=4, chaos=Injector(plan))
+        out.append((sched, ids))
+    (js, jids), (ts, tids) = out
+    assert jids == tids
+    same_results(js, ts)
+    assert [r.batch_time for r in ts.results.values()] == \
+        [r.batch_time for r in js.results.values()]
+    assert ts.stats.downshifts > 0
+    assert set(ts.stats.tier_bucket_launches) > {"full"}
+    assert ts.stats.tier_bucket_launches == js.stats.tier_bucket_launches
+    for tier, per in ts.stats.tier_bucket_launches.items():
+        assert set(per) <= set(ts.tier_warmed[tier]), tier
+    for t in ts.degrade.tiers:
+        assert t.engine.warmed >= set(
+            ts.stats.tier_bucket_launches.get(t.name, {}))
 
 
 @pytest.mark.parametrize("algo", ["gnb", "knn"])
@@ -334,3 +604,19 @@ def test_all_shed_window_stats_safe(blobs):
         assert s["miss_plus_shed_rate"] == 1.0
         assert sched.stats.finished == 4
     same_results(*scheds)
+
+
+def test_single_model_stream_degrade_cli(monkeypatch, capsys):
+    """``serve --stream --degrade`` builds the ladder of the engine (the
+    measured factors; here a table with an int8 gain), prints the JAX
+    CLI's ladder line and sheds expired requests."""
+    from repro_torch.launch import serve
+    monkeypatch.setattr(tdegrade, "CAPACITY_FACTORS",
+                        {("int8", "knn"): 2, ("ann", "knn"): 1})
+    serve.main(["--device", "cpu", "--algo", "knn", "--batch", "8",
+                "--train-size", "200", "--stream", "--rate", "24",
+                "--ticks", "30", "--deadline", "4", "--degrade"])
+    out = capsys.readouterr().out
+    assert "[degrade] ladder: full (x1) -> int8 (x2)" in out
+    assert "[stream] served" in out
+    assert "downshifts=" in out and "tiers={'full'" in out

@@ -26,7 +26,9 @@ want = {"repro_torch.launch.serve", "repro_torch.core.gmm",
         "repro_torch.configs.registry", "repro_torch.serving.scheduler",
         "repro_torch.serving.degrade", "repro_torch.runtime.events",
         "repro_torch.runtime.straggler", "repro_torch.core.gemm_based",
-        "repro_torch.serving.model_store", "repro_torch.runtime.chaos"}
+        "repro_torch.serving.model_store", "repro_torch.runtime.chaos",
+        "repro_torch.core.precision", "repro_torch.core.amdahl",
+        "repro_torch.core.calibrate"}
 assert want <= set(names), sorted(want - set(names))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))

@@ -160,9 +160,12 @@ def test_engine_rejects_unported_options():
                        est.quantized_copy().predict_batch(X[:5])[0])
     with pytest.raises(NotImplementedError, match="sharded"):
         NonNeuralServeEngine(est, device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="sharded"):
+        NonNeuralServeEngine(est, device="cpu", strategy="query")
+    # autotune is ported (tests/test_torch_autotune.py): one tuned bucket
     engine = NonNeuralServeEngine(est, device="cpu")
-    with pytest.raises(NotImplementedError, match="autotune"):
-        engine.warmup(X[:4], autotune=True)
+    assert engine.warmup(X[:4], autotune=True) == 1
+    assert set(engine.tuned) == engine.warmed == {4}
     with pytest.raises(ValueError, match="not fitted|fit the"):
         NonNeuralServeEngine(port_est.make_estimator("gnb", device="cpu"),
                              device="cpu")
