@@ -117,11 +117,14 @@ the CUDA toolkit.  In order it
    every route, bit-equal lane by lane to their one-tenant launches
    (``tenant_kernel_edges``);
 8. tunes the fitted kNN (k = 4 and k = 32), K-Means and GNB engines at
-   warmup (``warmup_buckets(d, autotune=True)``: every registered arm but
-   ``quant`` a bucket, ``autotune_path``), printing each bucket's winner
-   against the static arm in µs, each winner no slower than it, a tuned
-   classify equal to the untuned engine's but at fp32 near-ties;
-9. fits a calibration from the kNN k = 32 timings (``calibrate_path``),
+   warmup, on zeros (``warmup_buckets(d, autotune=True)``) and on the
+   paths' queries (``warmup(Xq[:b], autotune=True)`` a bucket): every
+   registered arm but ``quant`` and ``ref`` a bucket (``autotune_path``),
+   printing each bucket's winner against the static arm in µs, no winner
+   ``ref``, a tuned classify equal to the untuned engine's but at fp32
+   near-ties and no slower than it on the queries;
+9. fits a calibration from the kNN k = 32 timings on the queries
+   (``calibrate_path``),
    installs it with ``dispatch.set_cost_model`` and checks that the
    selector then takes the arm measured fastest at bucket 1024, and that
    a fresh engine launches its kernels; then clears it;
@@ -243,6 +246,10 @@ LINEAR_STEPS = 300
 # sent again, 256 a tick, through an LRU that holds every row (a row hits
 # if and only if tier 0 served it: degraded answers are never cached)
 AUTOTUNE = (("knn", 4), ("knn", 32), ("kmeans", None), ("gnb", None))
+# a tuned engine's classify against the untuned one's: median of TUNE_REPS
+# alternating turns, no slower than x TUNE_TOL + TUNE_SLACK_MS (the host
+# clock's spread at the host-bound K-Means and GNB buckets)
+TUNE_REPS, TUNE_TOL, TUNE_SLACK_MS = 7, 1.10, 0.05
 LADDER = dict(fmax=8, reps=5, factors={"int8": 2, "ann": 4}, deadline=8,
               max_wait=4, max_queue=8192,
               trace=((256, 4), (2048, 32), (64, 32)), probe_every=16,
@@ -1534,18 +1541,43 @@ def _count(kernels, launches, wanted, what) -> str:
     return " ".join(out)
 
 
+def _tuned_line(eng, real) -> list:
+    """One entry a bucket: the winner tuned on the path's queries (µs a
+    launch; * where it differs from the static arm; every arm timed),
+    then the winner tuned on zeros."""
+    arms = []
+    for b, arm in sorted(real.tuned.items()):
+        zero = eng.tuned[b]
+        each = ", ".join(f"{p or 'static'} {us:.1f}"
+                         for _, p, _, us in arm.candidates)
+        arms.append(f"{b}: {arm.path or arm.static_path}"
+                    f"{'*' if arm.differs else ''} {arm.us:.1f} (static "
+                    f"{arm.static_path} {arm.static_us:.1f}; {each}; zeros: "
+                    f"{zero.path or zero.static_path}"
+                    f"{'*' if zero.differs else ''} {zero.us:.1f})")
+    return arms
+
+
 def autotune_path(torch, ops, dev, fits, queries, kernels, helpers):
     """Measured arm choice at warmup on the card: for each of
     ``AUTOTUNE`` (kNN at k = 4 and 32, K-Means, GNB, the fitted estimators
     of the paths at full width) one engine runs ``warmup_buckets(d,
-    autotune=True)`` (every registered arm but ``quant`` a bucket, the
-    least of 3 timed launches after a warm one) beside an untuned engine.
-    Checks: every bucket tuned, every winner no slower than its static
-    arm (x 1.001), ``bucket_launches ⊆ warmed`` after a tuned classify of
-    the queries, its classes equal the untuned engine's but at fp32
-    near-ties, and B1-B5 all launched in the phase (counts set to 0 just
-    before, read just after).  Prints every bucket's winner against the
-    static arm in µs; returns the kNN k = 32 engine."""
+    autotune=True)`` (all-zero batches, as ``serve --stream --autotune``
+    does) and another ``warmup(Xq[:b], autotune=True)`` at every bucket b,
+    on the path's own queries: every registered arm that measurement may
+    take on the card (not ``quant``, not the plain ``ref``) a bucket, the
+    least of 3 timed launches after a warm one.  Checks: every bucket
+    tuned, no winner ``ref``, ``bucket_launches ⊆ warmed`` after a tuned
+    classify of the queries, its classes equal the untuned engine's but at
+    fp32 near-ties, and, where the query-tuned arm differs from the static
+    one (and for all 4096 queries), its classify no slower than the
+    untuned engine's: median of ``TUNE_REPS`` turns each, alternating, on
+    the card's queries, within x ``TUNE_TOL`` + ``TUNE_SLACK_MS`` (the
+    host clock's spread between launches).  B1-B5 all launched in the
+    phase (counts set to 0 just before, read just after).  Prints every
+    bucket's winner against the static arm in µs; returns the kNN
+    k = 32 engine tuned on the queries."""
+    import numpy as np
     from repro_torch.core.estimator import KNNEstimator
     from repro_torch.serving import NonNeuralServeEngine
     t_phase = time.perf_counter()
@@ -1556,46 +1588,68 @@ def autotune_path(torch, ops, dev, fits, queries, kernels, helpers):
         if k is not None and k != est.k:
             est = KNNEstimator.from_params(est.params, k=k, device=dev)
         what = f"{algo} k={k}" if k is not None else algo
-        Xq = queries[algo]
+        Xq = helpers["on_card"](queries[algo])
         d = Xq.shape[1]
         plain = NonNeuralServeEngine(est, max_batch=MAX_BATCH, device=dev)
         plain.warmup_buckets(d)
-        eng = NonNeuralServeEngine(est, max_batch=MAX_BATCH, device=dev)
+        zeros = NonNeuralServeEngine(est, max_batch=MAX_BATCH, device=dev)
+        real = NonNeuralServeEngine(est, max_batch=MAX_BATCH, device=dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        n = eng.warmup_buckets(d, autotune=True)
+        n = zeros.warmup_buckets(d, autotune=True)
         torch.cuda.synchronize()
-        tune_s = time.perf_counter() - t0
-        check(n == len(eng.tuned) == len(eng.warmed),
-              f"autotune {what}: {n} buckets warmed, {len(eng.tuned)} tuned")
-        arms = []
-        for b, arm in sorted(eng.tuned.items()):
-            check(arm.us <= arm.static_us * 1.001 and arm.bn is None and
-                  arm.strategy == "single",
-                  f"autotune {what}: bucket {b} {arm}")
-            path = arm.path or arm.static_path
-            each = ", ".join(f"{p or 'static'} {us:.1f}"
-                             for _, p, _, us in arm.candidates)
-            arms.append(f"{b}: {path}{'*' if arm.differs else ''} "
-                        f"{arm.us:.1f} (static {arm.static_path} "
-                        f"{arm.static_us:.1f}"
-                        + ("; ref wins" if path == "ref" else "")
-                        + f"; {each})")
-        res, want = eng.classify(Xq), plain.classify(Xq)
+        t1 = time.perf_counter()
+        for b in sorted(zeros.tuned):
+            real.warmup(Xq[:b], autotune=True)
         torch.cuda.synchronize()
-        check(set(eng.bucket_launches) <= eng.warmed,
-              f"autotune {what}: buckets {sorted(eng.bucket_launches)} not "
-              f"all warmed {sorted(eng.warmed)}")
-        n_near = _agree(torch, f"autotune {what}", algo, est, res, want, Xq,
-                        helpers)
-        print(f"[autotune] {what}: {n} buckets tuned in {tune_s:.2f}s, "
-              f"winner against the static arm in us a launch "
-              f"(* = differs; then every arm timed): {' | '.join(arms)}; "
-              f"a tuned classify of "
-              f"{len(Xq)} equals the untuned engine's but "
-              f"{n_near} near-ties")
+        t2 = time.perf_counter()
+        for eng in (zeros, real):
+            check(n == len(eng.tuned) == len(eng.warmed),
+                  f"autotune {what}: {n} buckets warmed, {len(eng.tuned)} "
+                  "tuned")
+            for b, arm in sorted(eng.tuned.items()):
+                check((arm.path or arm.static_path) != "ref" and
+                      all(c[1] != "ref" for c in arm.candidates) and
+                      arm.bn is None and arm.strategy == "single",
+                      f"autotune {what}: bucket {b} {arm}")
+        res, want = real.classify(Xq), plain.classify(Xq)
+        torch.cuda.synchronize()
+        check(set(real.bucket_launches) <= real.warmed,
+              f"autotune {what}: buckets {sorted(real.bucket_launches)} "
+              f"not all warmed {sorted(real.warmed)}")
+        n_near = _agree(torch, f"autotune {what}", algo, est, res, want,
+                        queries[algo], helpers)
+        # the tuned engine against the untuned one on the same queries
+        races = [(b, Xq[:b]) for b, arm in sorted(real.tuned.items())
+                 if arm.differs] + [(len(Xq), Xq)]
+        raced = []
+        for b, rows in races:
+            ms = {"tuned": [], "untuned": []}
+            for _ in range(TUNE_REPS):
+                for name, eng in (("tuned", real), ("untuned", plain)):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    eng.classify(rows)
+                    torch.cuda.synchronize()
+                    ms[name].append((time.perf_counter() - t) * 1e3)
+            tuned, untuned = (float(np.median(ms[x]))
+                              for x in ("tuned", "untuned"))
+            check(tuned <= untuned * TUNE_TOL + TUNE_SLACK_MS,
+                  f"autotune {what}: the tuned classify of {b} queries "
+                  f"took {tuned:.4f} ms against {untuned:.4f} untuned")
+            raced.append(f"{b}: {tuned:.4f} / {untuned:.4f}")
+        arms = " | ".join(_tuned_line(zeros, real))
+        print(f"[autotune] {what}: {n} buckets tuned on zeros in "
+              f"{t1 - t0:.2f}s and on the queries in {t2 - t1:.2f}s; "
+              f"winner tuned on the queries against the static arm in us "
+              f"a launch (* = differs; then every arm timed; then the "
+              f"winner tuned on zeros): {arms}; a tuned classify of "
+              f"{len(Xq)} equals the untuned engine's but {n_near} "
+              f"near-ties; tuned / untuned classify "
+              f"ms (median of {TUNE_REPS}, queries on the card) at "
+              f"{'; '.join(raced)}")
         if (algo, k) == ("knn", 32):
-            out = eng
+            out = real
     launches = dict(ops.LAUNCHES)
     counts = _count(kernels, launches, ("B1", "B2", "B3", "B4", "B5"),
                     "autotune")
@@ -1606,7 +1660,8 @@ def autotune_path(torch, ops, dev, fits, queries, kernels, helpers):
 
 def calibrate_path(torch, ops, dev, eng, Xq, kernels) -> None:
     """The calibrated selector on the card's own numbers: the kNN k = 32
-    engine's autotune timings become calibration rows (µs a query, the
+    engine's autotune timings on the path's queries become calibration
+    rows (µs a query, the
     estimator's ``serve_cost_shape()``, the bucket, the arm), go through
     ``fit_calibration`` and ``CostModel.from_calibration``, and the model
     is installed with ``set_cost_model``.  Checks that ``resolve`` at
@@ -1636,7 +1691,8 @@ def calibrate_path(torch, ops, dev, eng, Xq, kernels) -> None:
     kw = dict(N=shape["N"], d=shape["d"])
 
     def arm_at(q, k=shape["k"]):
-        return dispatch.resolve("knn", "distance_topk", Q=q, k=k, **kw).name
+        return dispatch.resolve("knn", "distance_topk", Q=q, k=k,
+                                device=dev, **kw).name
 
     static = {b: arm_at(b) for b in fastest}
     dispatch.set_cost_model(cm)
@@ -1659,8 +1715,7 @@ def calibrate_path(torch, ops, dev, eng, Xq, kernels) -> None:
     finally:
         dispatch.set_cost_model(None)
     for b, (n_b, ln) in launches.items():
-        want = {"fused": (n_b, 0), "blocked": (0, n_b),
-                "ref": (0, 0)}[fastest[b]]
+        want = {"fused": (n_b, 0), "blocked": (0, n_b)}[fastest[b]]
         check((ln["distance_topk"], ln["pairwise_sq_dist"]) == want and
               ln["pairwise_sq_dist"] == ln["topk_smallest"],
               f"calibrate: {n_b} buckets of {b} under the model launched "
@@ -1676,7 +1731,7 @@ def calibrate_path(torch, ops, dev, eng, Xq, kernels) -> None:
                       fit["summary"]["tiers"].items())
     flips = {b: a for b, a in got.items() if a != static[b]}
     print(f"[calibrate] {len(rows)} rows from the knn k={shape['k']} "
-          f"autotune timings (N={shape['N']}, d={shape['d']}); {tiers}; "
+          f"autotune timings on the queries (N={shape['N']}, d={shape['d']}); {tiers}; "
           f"us_per_cycle {fit['summary']['us_per_cycle']:.4e}; calibrated "
           f"resolve takes the measured fastest arm at every bucket, "
           f"{got[MAX_BATCH]} at {MAX_BATCH}, flipping the static selector "

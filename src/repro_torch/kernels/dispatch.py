@@ -21,9 +21,11 @@ Each ``(algorithm, op)`` registers executable arms:
 
 Precedence in ``resolve``: explicit ``path=`` > ``REPRO_BACKEND`` (when the
 op has that arm) > a calibrated cost model's measured-fastest fp32 arm near
-the batch bucket (never ``quant``, never under the int8 policy) > the op's
-shape selector.  With a card and no calibration, kNN resolves to ``fused``
-or ``blocked`` for every k and ANN to ``fused``, never to ``ref``.
+the batch bucket (never ``quant``, never under the int8 policy, and on a
+card never ``ref``) > the op's shape selector.  With a card, calibrated or
+not, kNN resolves to ``fused`` or ``blocked`` for every k and ANN to
+``fused``, never to ``ref``: only ``path="ref"`` or ``REPRO_BACKEND=ref``
+sends a call on the card to the plain version.
 
 ``PrecisionPolicy`` carries the paper's FP-backend axis (§3.4, Figs. 9–11)
 as a compute dtype plus an analytic cost backend (the libgcc / rvfplib /
@@ -279,14 +281,28 @@ def arm_fits(algorithm: str, op: str, path: str, **shape_kw) -> bool:
     return True
 
 
+def measured_arm_ok(path: str, device=None) -> bool:
+    """Whether a measurement (a calibrated preference, the autotuner) may
+    route calls on ``device`` to ``path``: never to the lossy ``quant``,
+    and on a card never to ``ref``, the plain version, however it timed.
+    On the CPU (and with no device named) ``ref`` is an arm like any
+    other, as in the JAX package."""
+    if path == "quant":
+        return False
+    return not (path == "ref" and device is not None
+                and torch.device(device).type == "cuda")
+
+
 def resolve(algorithm: str, op: str, *, path: Optional[str] = None,
             policy: Optional[PrecisionPolicy] = None, cost_model=None,
-            **shape_kw) -> KernelPath:
+            device=None, **shape_kw) -> KernelPath:
     """Pick the executable arm for ``(algorithm, op)`` at these shapes:
     explicit ``path=`` > ``REPRO_BACKEND`` (when the op has that arm) > a
     calibrated cost model's measured-fastest fp32 arm near this batch
     bucket (``cost_model``, else the active one) > the op's selector.
-    The lossy ``quant`` arm is never picked implicitly, measured or not."""
+    ``device`` is where the operands lie.  The lossy ``quant`` arm is
+    never picked implicitly, measured or not, nor ``ref`` on a card
+    (``measured_arm_ok``)."""
     key = (algorithm, op)
     if key not in _PATHS:
         raise KeyError(f"no kernel registered for {key}; "
@@ -301,7 +317,7 @@ def resolve(algorithm: str, op: str, *, path: Optional[str] = None,
         cm = cost_model if cost_model is not None else active_cost_model()
         if cm.calibrated and not (policy is not None and policy.quantized):
             pref = cm.preferred_path(algorithm, bucket=_bucket_hint(shape_kw))
-            if pref in paths and pref != "quant" and \
+            if pref in paths and measured_arm_ok(pref, device) and \
                     arm_fits(algorithm, op, pref, **shape_kw):
                 chosen = pref
         if chosen is None:
@@ -375,7 +391,7 @@ def distance_topk(a, c, k: int, *, policy: Optional[PrecisionPolicy] = None,
         a, c = policy.cast(a), policy.cast(c)
     N, d = a.shape
     kp = resolve("knn", "distance_topk", path=path, policy=policy,
-                 N=N, d=d, Q=c.shape[0], k=k)
+                 device=c.device, N=N, d=d, Q=c.shape[0], k=k)
     return kp.fn(a, c, k)
 
 
@@ -425,7 +441,7 @@ def distance_argmin(a, c, *, policy: Optional[PrecisionPolicy] = None,
         a, c = policy.cast(a), policy.cast(c)
     N, d = a.shape
     kp = resolve("kmeans", "distance_argmin", path=path, policy=policy,
-                 N=N, d=d, K=c.shape[0])
+                 device=a.device, N=N, d=d, K=c.shape[0])
     return kp.fn(a, c)
 
 
@@ -473,7 +489,7 @@ def gnb_scores(X, mu, var, log_prior, *,
         X, mu, var = policy.cast(X), policy.cast(mu), policy.cast(var)
     B, d = X.shape
     kp = resolve("gnb", "scores", path=path, policy=policy,
-                 B=B, d=d, C=mu.shape[0])
+                 device=X.device, B=B, d=d, C=mu.shape[0])
     return kp.fn(X, mu, var, log_prior)
 
 
@@ -522,7 +538,7 @@ def gmm_responsibilities(mu, var, log_pi, X, *,
     if policy is not None:
         mu, var, X = policy.cast(mu), policy.cast(var), policy.cast(X)
     kp = resolve("gmm", "responsibilities", path=path, policy=policy,
-                 B=X.shape[0], d=X.shape[1], k=mu.shape[0])
+                 device=X.device, B=X.shape[0], d=X.shape[1], k=mu.shape[0])
     return kp.fn(mu, var, log_pi, X, n_cores=n_cores)
 
 
@@ -565,7 +581,8 @@ def forest_votes(forest, X, *, policy: Optional[PrecisionPolicy] = None,
     caller has worked it out already."""
     if policy is not None:
         X = policy.cast(X)
-    kp = resolve("rf", "forest_votes", path=path, policy=policy)
+    kp = resolve("rf", "forest_votes", path=path, policy=policy,
+                 device=X.device)
     return kp.fn(forest, X, depth=depth)
 
 
@@ -598,7 +615,8 @@ def adc_topk(qlut, codes, cand_ids, k: int, *,
     int8 + ids (Q, L) -> (ADC distances (Q, k) int32, candidate positions
     (Q, k)).  Integer end to end: no policy cast."""
     Q, L, m = codes.shape
-    kp = resolve("ann", "adc_topk", path=path, policy=policy, Q=Q, L=L, m=m,
+    kp = resolve("ann", "adc_topk", path=path, policy=policy,
+                 device=qlut.device, Q=Q, L=L, m=m,
                  n_codes=qlut.shape[1] // max(m, 1), k=k)
     return kp.fn(qlut, codes, cand_ids, k)
 
@@ -709,7 +727,7 @@ def distance_topk_group(a, c, k: int, *,
         a, c = policy.cast(a), policy.cast(c)
     G, N, d = a.shape
     kp = resolve("knn", "distance_topk", path=path, policy=policy,
-                 N=N, d=d, Q=c.shape[1], k=k)
+                 device=c.device, N=N, d=d, Q=c.shape[1], k=k)
     arm = group_arm(kp)
     if arm is not None:
         return arm(a, c, k)
@@ -724,7 +742,7 @@ def distance_argmin_group(a, c, *, policy: Optional[PrecisionPolicy] = None,
         a, c = policy.cast(a), policy.cast(c)
     G, N, d = a.shape
     kp = resolve("kmeans", "distance_argmin", path=path, policy=policy,
-                 N=N, d=d, K=c.shape[1])
+                 device=a.device, N=N, d=d, K=c.shape[1])
     arm = group_arm(kp)
     if arm is not None:
         return arm(a, c)
@@ -739,7 +757,7 @@ def gnb_scores_group(X, mu, var, log_prior, *,
         X, mu, var = policy.cast(X), policy.cast(mu), policy.cast(var)
     G, B, d = X.shape
     kp = resolve("gnb", "scores", path=path, policy=policy,
-                 B=B, d=d, C=mu.shape[1])
+                 device=X.device, B=B, d=d, C=mu.shape[1])
     arm = group_arm(kp)
     if arm is not None:
         return arm(X, mu, var, log_prior)
@@ -755,7 +773,7 @@ def gmm_responsibilities_group(mu, var, log_pi, X, *,
     if policy is not None:
         mu, var, X = policy.cast(mu), policy.cast(var), policy.cast(X)
     kp = resolve("gmm", "responsibilities", path=path, policy=policy,
-                 B=X.shape[1], d=X.shape[2], k=mu.shape[1])
+                 device=X.device, B=X.shape[1], d=X.shape[2], k=mu.shape[1])
     arm = group_arm(kp)
     if arm is not None:
         return arm(mu, var, log_pi, X, n_cores=n_cores)
@@ -772,7 +790,8 @@ def forest_votes_group(forest, X, *,
     int32, votes (G, B, n_class) int32)."""
     if policy is not None:
         X = policy.cast(X)
-    kp = resolve("rf", "forest_votes", path=path, policy=policy)
+    kp = resolve("rf", "forest_votes", path=path, policy=policy,
+                 device=X.device)
     arm = group_arm(kp)
     if arm is not None:
         return arm(forest, X, depth=depth)

@@ -406,7 +406,8 @@ def main(argv=None):
                     help="fp32, bf16, int8 (serves the estimator's int8 "
                          "lattice form), or <dtype>@<cost backend> (e.g. "
                          "fp32@libgcc; backends: libgcc, rvfplib, fpu, "
-                         "int8, cortex-m4)")
+                         "int8, cortex-m4: an analytic costing only, the "
+                         "card computes as under <dtype>)")
     ap.add_argument("--autotune", action="store_true",
                     help="time every registered arm of the hot op a "
                          "warmed bucket and route its launches through "

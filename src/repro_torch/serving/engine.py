@@ -21,8 +21,10 @@ between two synchronizes) and route the bucket's production launches
 through the fastest (``tuned``, a ``TunedArm`` a bucket).  The JAX
 package's candidates without its ``bn`` arms (a Pallas row-block size the
 CUDA kernels do not have) and with the one strategy ``single`` until the
-sharded layer exists; never ``quant``; an explicit ``path=``,
-``REPRO_BACKEND`` or the int8 policy collapses the path axis.
+sharded layer exists; never ``quant``, and on a card never ``ref`` (the
+plain version serves no production launch there, however it times); an
+explicit ``path=``, ``REPRO_BACKEND`` or the int8 policy collapses the
+path axis.
 
 ``sibling`` builds an engine over a cheaper representation of the same
 fitted model, the brownout ladder's constructor (``serving/degrade.py``).
@@ -250,12 +252,14 @@ class NonNeuralServeEngine:
         kw = dispatch.hot_shape_kw(self.algorithm, self._cost_shape, bucket)
         return strategy, dispatch.resolve(
             self.algorithm, op, path=self.estimator.path,
-            policy=self.estimator.policy, **kw).name
+            policy=self.estimator.policy, device=self.device, **kw).name
 
     def _autotune_candidates(self, bucket: int):
         """Registered (strategy, path, bn) arms worth timing at this
         bucket: the static arm first, then every registered path of the
-        hot op but ``quant``.  An explicit ``path=``, ``REPRO_BACKEND`` or
+        hot op that measurement may route to on this engine's device
+        (``dispatch.measured_arm_ok``: never ``quant``, and ``ref`` only
+        on the CPU).  An explicit ``path=``, ``REPRO_BACKEND`` or
         the int8 policy collapses the path axis to the static arm; every
         candidate comes from the registry, so ``bucket_launches ⊆ warmed``
         holds for whatever wins."""
@@ -264,7 +268,8 @@ class NonNeuralServeEngine:
         if (self.estimator.path is None and not self._quantized
                 and dispatch.env_override() is None):
             regd = dispatch.registered().get((algo, op), ())
-            paths = [p for p in regd if p != "quant"] or [None]
+            paths = [p for p in regd
+                     if dispatch.measured_arm_ok(p, self.device)] or [None]
         arms = [(self._route(bucket), None, None)]   # the static arm
         for p in paths:
             if (self._route(bucket), p, None) not in arms:

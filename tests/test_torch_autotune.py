@@ -8,7 +8,10 @@ same winner ``(strategy, path)``.  The port's candidates are the JAX
 package's without its ``bn`` arms (a Pallas row-block size the CUDA
 kernels do not have); an explicit ``path=``, ``REPRO_BACKEND`` and the
 int8 policy collapse the path axis in both; ``bucket_launches ⊆ warmed``
-holds after autotuned serving, and the classes equal ``predict_batch``.
+holds after autotuned serving, and the tuned classify equals the JAX
+engine's (classes exactly, float aux at the fp32 bar) and the port's
+``predict_batch``.  On a card the port never times or routes to ``ref``
+(the JAX package's candidates keep it); on the CPU the lists agree.
 The JAX test's ``test_scripted_bn_winner`` has no counterpart.
 """
 import copy
@@ -98,10 +101,20 @@ def _winner(arm):
 
 
 def _classes_equal(teng, jeng, Q):
+    """The tuned classify against the JAX engine's: classes exactly,
+    integer aux exactly, float aux at the fp32 bar (rtol = 1e-5, atol
+    1e-5 scaled to the largest term)."""
     got = teng.classify(Q)
     want = jeng.classify(Q)
     np.testing.assert_array_equal(got.classes.numpy(),
                                   np.asarray(want.classes))
+    ga, wa = got.aux.numpy(), np.asarray(want.aux)
+    assert ga.shape == wa.shape
+    if np.issubdtype(wa.dtype, np.floating):
+        np.testing.assert_allclose(
+            ga, wa, rtol=1e-5, atol=1e-5 * max(1.0, float(np.abs(wa).max())))
+    else:
+        np.testing.assert_array_equal(ga, wa)
     tc, _ = teng.estimator.predict_batch(Q)
     assert torch.equal(got.classes, tc)
     assert set(teng.bucket_launches) <= teng.warmed
@@ -160,7 +173,8 @@ def test_candidates_are_jax_without_bn(algo, blobs):
 @pytest.mark.parametrize("algo", ALGOS)
 def test_scripted_winner_matches_jax(algo, blobs):
     """Each registered arm, scripted fastest, wins in both packages, and
-    the port's tuned classify equals the JAX package's."""
+    the port's tuned classify equals the JAX package's for every
+    algorithm."""
     X, y = blobs
     for want in tdispatch.registered()[(algo, tdispatch.HOT_OPS[algo])]:
         if want == "quant":
@@ -175,13 +189,7 @@ def test_scripted_winner_matches_jax(algo, blobs):
             assert _winner(teng.tuned[b]) == _winner(jeng.tuned[b]) == \
                 ("single", want)
             assert teng.tuned[b].static_path == jeng.tuned[b].static_path
-        if algo in ("knn", "ann", "gnb", "rf"):
-            _classes_equal(teng, jeng, X[:21])
-        else:
-            got = teng.classify(X[:21])
-            assert torch.equal(got.classes,
-                               teng.estimator.predict_batch(X[:21])[0])
-            assert set(teng.bucket_launches) <= teng.warmed
+        _classes_equal(teng, jeng, X[:21])
 
 
 def test_explicit_path_collapses_path_axis(blobs):
@@ -311,3 +319,21 @@ def test_serve_cli_autotune(capsys):
     out = capsys.readouterr().out
     assert "[autotune] tuned arms" in out and "1->single/" in out
     assert "[stream] served" in out
+
+
+@pytest.mark.parametrize("algo", ALGOS)
+def test_card_engine_never_times_ref(algo, blobs):
+    """On a card the candidates are the CPU list without ``ref``: the plain
+    version serves no production launch there.  The engine is built on the
+    CPU and only its device is switched: building the list touches no
+    tensor."""
+    X, y = blobs
+    _, teng = _engines(X, y, algo)
+    cpu = teng._autotune_candidates(8)
+    teng.device = torch.device("cuda")
+    card = teng._autotune_candidates(8)
+    assert card == [c for c in cpu if c[1] != "ref"]
+    assert card[0] == ("single", None, None)
+    regd = tdispatch.registered()[(algo, tdispatch.HOT_OPS[algo])]
+    if "ref" in regd:
+        assert ("single", "ref", None) in cpu

@@ -14,6 +14,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import calibrate as jcal
 from repro.core import precision as jprec
@@ -387,3 +388,28 @@ def test_serve_cli_loads_a_calibration(tmp_path, capsys):
     assert tdispatch.active_cost_model().calibrated
     assert tdispatch.resolve("knn", "distance_topk", N=120, d=21, Q=16,
                              k=4).name == "ref"
+
+
+def test_ref_preference_is_cpu_only():
+    """A calibration whose fastest arm is ``ref`` steers calls on the CPU
+    (as in the JAX package) but never calls on a card: there the shape
+    selector's kernel serves, and only an explicit ``path="ref"`` reaches
+    the plain version.  ``blocked`` preferences steer both."""
+    shape = dict(N=4096, d=32, Q=32, k=8)
+    cm = tprec.CostModel.from_calibration(_flip_model(ref_fast=True))
+    card = torch.device("cuda")
+    assert tdispatch.resolve("knn", "distance_topk", cost_model=cm,
+                             device="cpu", **shape).name == "ref"
+    assert tdispatch.resolve("knn", "distance_topk", cost_model=cm,
+                             device=card, **shape).name == "fused"
+    assert tdispatch.resolve("knn", "distance_topk", cost_model=cm,
+                             device=card, path="ref", **shape).name == "ref"
+    blocked = tprec.CostModel.from_calibration(
+        _flip_model(ref_fast=True, fast_path="blocked"))
+    assert tdispatch.resolve("knn", "distance_topk", cost_model=blocked,
+                             device=card, **shape).name == "blocked"
+    assert not tdispatch.measured_arm_ok("ref", card)
+    assert not tdispatch.measured_arm_ok("quant", "cpu")
+    assert tdispatch.measured_arm_ok("ref", "cpu")
+    assert tdispatch.measured_arm_ok("ref")
+    assert tdispatch.measured_arm_ok("blocked", card)
