@@ -134,6 +134,17 @@ the CUDA toolkit.  In order it
    (``ladder_path``): downshifts, every tier inside its warmed buckets,
    answers equal to each tier's one-shot classify, no degraded answer
    cached, ANN labels agreeing with exact kNN on >= 0.95.
+11. runs the sharded layer on the card (``sharded_path``): every path's
+   estimator (kNN at k = 4 and 64, K-Means, GNB, GMM wide, RF, ANN, and
+   the int8 kNN and K-Means tiers) over ``make_local_mesh(c, card)`` at
+   c = 8 and c = 3 shards: ``fit_sharded`` held against the one-device fit
+   (kNN and RF bit for bit, the others within 2e-4), then a full and a
+   ragged bucket through ``NonNeuralServeEngine(mesh=...)`` under each
+   registered strategy and ``auto``, each kernel of the path launched c
+   times a bucket, classes and neighbours equal to the one-device
+   engine's, int8 ``reference`` refused; the ms of a 1024 classify a
+   strategy at c = 1 and 8; autotune with the strategy axis at c = 8; a
+   request stream on the 3-shard mesh.
 
 The comparison rule: integer outputs (B5's int32 mode, B6, B7, B8 and
 the int8 and ANN paths' neighbours, assignments and votes) match
@@ -254,6 +265,29 @@ LADDER = dict(fmax=8, reps=5, factors={"int8": 2, "ann": 4}, deadline=8,
               max_wait=4, max_queue=8192,
               trace=((256, 4), (2048, 32), (64, 32)), probe_every=16,
               probe_rate=256)
+# slice 13: the sharded layer over make_local_mesh(c, card): every path's
+# estimator fitted with fit_sharded at c = 8 (a power of two: the butterfly
+# merge) and c = 3 (ragged: the gather merge, buckets rounded to 3) and
+# served under each registered strategy and auto, a full bucket and a
+# ragged one of RAGGED rows; autotune with the strategy axis at c = 8 on
+# TUNE_BUCKETS; a stream at c = 3 (256 arrivals a tick for 16 ticks)
+SHARDED = dict(meshes=(8, 3), ragged=37, tune_buckets=(8, 64, 1024),
+               time_reps=5, stream=dict(rate=256, ticks=16, max_wait=4))
+# (case, algorithm, launches a bucket a shard of each kernel); the int8
+# cases serve the one-device fits' quantized copies
+SHARDED_CASES = (("knn", "knn", {"B1": 1}),
+                 ("knn k=64", "knn", {"B4": 1, "B5": 1}),
+                 ("kmeans", "kmeans", {"B2": 1}),
+                 ("gnb", "gnb", {"B3": 1}),
+                 ("gmm wide", "gmm", {"B3": 1}),
+                 ("rf", "rf", {}),
+                 ("ann", "ann", {"B1": 1, "B8": 1}),
+                 ("knn int8", "knn", {"B6": 1}),
+                 ("kmeans int8", "kmeans", {"B7": 1}))
+# tests/test_mesh_parity.py's tolerances: the psum'd fits, and the float
+# aux of a model partition (or of another B3 plan)
+SHARD_FIT_TOL = dict(rtol=2e-4, atol=2e-4)
+SHARD_AUX_TOL = dict(rtol=1e-4, atol=1e-4)
 
 # NVIDIA data-sheet peaks by H100 variant, at the full power limit: fp32
 # outside the tensor cores (FLOP/s), device-memory rate (bytes/s), the
@@ -1964,6 +1998,325 @@ def ladder_path(torch, ops, dev, fits, queries, kernels, helpers) -> None:
           + f"}}; launches {counted}; phase in "
           f"{time.perf_counter() - t_phase:.2f}s; {card}")
 
+
+def _shard_fit_check(torch, what, algo, sh, one) -> str:
+    """A sharded fit's params against the one-device fit's: kNN (its rows
+    past the real ones the far padding) and RF bit for bit, K-Means, GNB,
+    GMM and ANN floats to ``SHARD_FIT_TOL`` (ANN's integer leaves
+    exactly); loop metadata aside."""
+    from repro_torch.core.cluster import _FAR
+    worst = 0.0
+    for name, got, want in zip(one.params._fields, sh.params, one.params):
+        if not isinstance(want, torch.Tensor):
+            check(got == want, f"{what}: fit_sharded {name} {got} != {want}")
+            continue
+        if name in ("shift", "n_iter", "log_lik"):
+            continue
+        if algo == "knn" and name == "A":
+            n = want.shape[0]
+            check(bool((got[n:] == _FAR).all()),
+                  f"{what}: the kNN residency rows are not the far rows")
+            got = got[:n]
+        check(got.shape == want.shape, f"{what}: fit_sharded {name} "
+              f"{tuple(got.shape)} against {tuple(want.shape)}")
+        if algo in ("knn", "rf") or not want.is_floating_point():
+            check(torch.equal(got, want), f"{what}: fit_sharded {name} "
+                  "differs from the one-device fit")
+        else:
+            check(torch.allclose(got, want, **SHARD_FIT_TOL),
+                  f"{what}: fit_sharded {name} differs from the one-device "
+                  f"fit by {float((got - want).abs().max())}")
+            worst = max(worst, float((got - want).abs().max()))
+    return "bit-equal" if algo in ("knn", "rf") else \
+        f"within {SHARD_FIT_TOL['rtol']} (max |diff| {worst:.3g})"
+
+
+def sharded_path(torch, ops, dev, fits, data, kernels, helpers, sms):
+    """The sharded layer (``core/cluster.py``) on the card: for each of
+    ``SHARDED_CASES`` and each shard count c of ``SHARDED["meshes"]``
+    (c = 8, a power of two, the butterfly merge; c = 3, ragged, the gather
+    merge and shard-multiple buckets), over ``make_local_mesh(c, card)``:
+
+    1. ``make_fitted(..., mesh=...)`` (``fit_sharded``) on the path's
+       training rows, its params held against the path's one-device fit
+       (``fits``): kNN and RF bit for bit, K-Means, GNB, GMM and ANN
+       within ``SHARD_FIT_TOL``; the K-Means fit's B2 launches are c a
+       Lloyd step.  The int8 cases serve the one-device fits' quantized
+       copies (``policy="int8"``: the tier fits on one device);
+    2. one ``classify`` of ``MAX_BATCH`` + ``SHARDED["ragged"]`` queries
+       (a full bucket and a ragged one) through
+       ``NonNeuralServeEngine(mesh=...)`` under each registered strategy
+       and ``auto`` (the int8 cases: ``query`` and ``auto``; their
+       ``reference`` must refuse), launch counts set to 0 just before and
+       read just after: each kernel of the case launched c times a bucket
+       under a sharded strategy (once a bucket ``auto`` sent to
+       ``single``), no other kernel; classes and neighbours equal to the
+       one-device engine's on the same estimator and queries, integer aux
+       bit for bit, float aux bit for bit under ``query`` where the
+       shard's kernel plan is the one-device bucket's (B3's plan splits a
+       query's features over warps by the batch) and within
+       ``SHARD_AUX_TOL`` otherwise (a model partition, or another B3
+       plan), as ``tests/test_mesh_parity.py`` allows;
+    3. at c = 8, the ms of one ``MAX_BATCH`` classify a strategy beside
+       the one-device engine's (c = 1): the median of
+       ``SHARDED["time_reps"]``, host clock, queries on the card
+       (information, not a claim);
+    4. at c = 8, autotune with the strategy axis on the path's queries
+       (``warmup(Xq[:b], autotune=True)`` at each of
+       ``SHARDED["tune_buckets"]``): the JAX package's candidates (the
+       static strategy and ``single`` with each path; a sharded strategy
+       with the estimator's own path, which the JAX list adds only where
+       the path axis is closed), never ``ref`` timed or chosen on the
+       card, ``bn`` None, the tuned classify's classes the one-device
+       engine's;
+    5. at c = 3, a seeded Poisson stream (``SHARDED["stream"]``) through
+       ``RequestScheduler`` on the sharded kNN engine (every bucket
+       warmed, up to 1026), each request's prediction the one-device
+       engine's, no bucket run that was not warmed before the stream.
+
+    B1-B8 each launched in the counted runs (their counts added to
+    ``kernels``); prints a ``[sharded]`` line a case and mesh, the
+    ``[sharded/time]``, ``[sharded/autotune]`` and ``[sharded/stream]``
+    lines and the card."""
+    import numpy as np
+    from repro_torch.core.estimator import KNNEstimator, make_fitted
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import gnb_score as kgs
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.serving import (NonNeuralServeEngine, RequestScheduler,
+                                     poisson_trace, replay_trace)
+    on_card = helpers["on_card"]
+    t_phase = time.perf_counter()
+    names = {key: kr["name"] for key, kr in kernels.items()
+             if key in ("B1", "B2", "B3", "B4", "B5", "B6", "B7", "B8")}
+    counted = dict.fromkeys(names.values(), 0)
+    fit_kw = {
+        "knn": dict(n_groups=KNN["classes"], k=KNN["k"]),
+        "kmeans": dict(n_groups=KMEANS["K"]),
+        "gnb": dict(n_groups=GNB["classes"]),
+        "gmm": dict(n_groups=GNB["classes"]),
+        "rf": dict(n_groups=KNN["classes"], n_trees=RF["trees"],
+                   max_depth=RF["depth"]),
+        "ann": dict(n_groups=ANN["classes"], k=ANN["k"],
+                    n_cells=ANN["cells"], nprobe=ANN["nprobe"],
+                    pq_m=ANN["pq_m"], n_codes=ANN["n_codes"],
+                    refine=ANN["refine"], train_iters=ANN["train_iters"])}
+    queries = {algo: on_card(d[2]) for algo, d in data.items()}
+    n_rows = MAX_BATCH + SHARDED["ragged"]
+
+    def counted_run(fn):
+        ops.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        ln = {name: ops.LAUNCHES[name] for name in counted}
+        for name, n in ln.items():
+            counted[name] += n
+        return out, ln
+
+    chunks = [min(MAX_BATCH, n_rows - lo)
+              for lo in range(0, n_rows, MAX_BATCH)]
+
+    def b3_plans_differ(eng, one, est, c):
+        """Whether a shard's B3 plan differs from the one-device bucket's
+        for some chunk of the counted run (then a score's feature sums
+        run in another order)."""
+        C, d = est.params.mu.shape
+        return any(kgs.plan(eng._bucket(n) // c, C, d, sms)
+                   != kgs.plan(one._bucket(n), C, d, sms) for n in chunks)
+
+    sharded_fits = {}
+    timing = {}
+    for c in SHARDED["meshes"]:
+        mesh = make_local_mesh(c, dev)
+        for what, algo, per in SHARDED_CASES:
+            int8 = what.endswith("int8")
+            Q = queries[algo][:n_rows]
+            fit_note = ""
+            if int8:
+                est = fits[algo]
+            elif what == "knn k=64":
+                est = KNNEstimator.from_params(sharded_fits[(c, "knn")].params,
+                                               k=KNN_BLOCKED_K, device=dev)
+            else:
+                Xtr, ytr = data[algo][:2]
+                ops.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                est = make_fitted(algo, Xtr, ytr, device=dev, mesh=mesh,
+                                  **fit_kw[algo])
+                torch.cuda.synchronize()
+                fit_s = time.perf_counter() - t0
+                check(est.mesh is mesh, f"{what} c={c}: fit_sharded kept "
+                      "no mesh")
+                sharded_fits[(c, algo)] = est
+                fit_note = (f"fit_sharded {fit_s:.2f}s, params "
+                            f"{_shard_fit_check(torch, f'{what} c={c}', algo, est, fits[algo])}")
+                if algo == "kmeans":
+                    steps = int(est.params.n_iter) + 1
+                    n_b2 = ops.LAUNCHES["distance_argmin"]
+                    check(n_b2 == c * steps, f"kmeans c={c}: fit_sharded "
+                          f"launched B2 {n_b2} times for {steps} steps")
+                    fit_note += f", B2 {n_b2} = {c} x {steps} Lloyd steps"
+            policy = "int8" if int8 else None
+            one = NonNeuralServeEngine(est, max_batch=MAX_BATCH, device=dev,
+                                       policy=policy)
+            one.warmup(Q)
+            want = one.classify(Q)
+            torch.cuda.synchronize()
+            regd = sorted(st for a, _, st in dispatch.sharded_registered()
+                          if a == algo)
+            if int8:
+                regd = [s for s in regd if s != "reference"]
+                try:
+                    NonNeuralServeEngine(est, max_batch=MAX_BATCH,
+                                         device=dev, mesh=mesh,
+                                         policy="int8", strategy="reference")
+                    refused = False
+                except NotImplementedError:
+                    refused = True
+                check(refused, f"{what} c={c}: int8 + reference served")
+            parts = []
+            for strat in regd + ["auto"]:
+                eng = NonNeuralServeEngine(
+                    est, max_batch=MAX_BATCH, device=dev, mesh=mesh,
+                    policy=policy, strategy=None if strat == "auto" else strat)
+                eng.warmup(Q)
+                warmed = set(eng.warmed)
+                res, ln = counted_run(lambda: eng.classify(Q))
+                tag = f"{what} c={c} {strat}"
+                buckets = sorted(eng.bucket_launches)
+                check(set(buckets) <= warmed and
+                      sum(eng.bucket_launches.values()) == len(chunks) and
+                      all(b % c == 0 for b in buckets),
+                      f"{tag}: buckets {eng.bucket_launches}, warmed "
+                      f"{sorted(warmed)}")
+                used = [eng.bucket_strategies[b] for b in buckets]
+                shards = sum(n * (1 if eng.bucket_strategies[b] == "single"
+                                  else c)
+                             for b, n in eng.bucket_launches.items())
+                for key, name in names.items():
+                    want_n = shards * per.get(key, 0)
+                    check(ln[name] == want_n, f"{tag}: {key} {name} "
+                          f"launched {ln[name]} times, {want_n} expected "
+                          f"({shards} shard launches over the buckets "
+                          f"{dict(zip(buckets, used))})")
+                check(torch.equal(res.classes, want.classes),
+                      f"{tag}: {int((res.classes != want.classes).sum())} "
+                      "classes differ from the one-device engine's")
+                exact = True
+                if res.aux.is_floating_point() and algo in ("kmeans", "gnb",
+                                                            "gmm"):
+                    exact = "reference" not in used and not (
+                        algo in ("gnb", "gmm") and "query" in used and
+                        b3_plans_differ(eng, one, est, c))
+                if exact:
+                    check(torch.equal(res.aux, want.aux), f"{tag}: aux not "
+                          "bit-equal to the one-device engine's")
+                    agree = "bit-equal"
+                else:
+                    diff = float((res.aux - want.aux).abs().max())
+                    check(torch.allclose(res.aux, want.aux, **SHARD_AUX_TOL),
+                          f"{tag}: aux differs by {diff}")
+                    agree = f"aux within 1e-4 ({diff:.3g})"
+                launched = " ".join(f"{k}={ln[names[k]]}" for k in per) \
+                    or "no kernel"
+                parts.append(f"{strat} {'/'.join(used)}: {launched}, "
+                             f"{agree}")
+                if c == 8:
+                    Q1 = queries[algo][:MAX_BATCH]
+                    if what not in timing:
+                        timing[what] = {"c=1": _median_ms(
+                            torch, lambda: one.classify(Q1),
+                            SHARDED["time_reps"])}
+                    timing[what][strat] = _median_ms(
+                        torch, lambda: eng.classify(Q1), SHARDED["time_reps"])
+            print(f"[sharded] {what} c={c}: {fit_note + '; ' if fit_note else ''}"
+                  f"{n_rows} queries in buckets {buckets}, classes equal to "
+                  f"the one-device engine's; " + "; ".join(parts))
+    card = smi()
+    for what, ms in timing.items():
+        print(f"[sharded/time] {what}: one {MAX_BATCH} classify, ms "
+              "(median, host clock, queries on the card): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+              + f"; {card}")
+
+    # autotune with the strategy axis at c = 8, on the paths' queries
+    mesh = make_local_mesh(8, dev)
+    tuned_lines = []
+    ops.reset_launches()
+    for algo in ("knn", "kmeans", "gnb", "gmm", "rf", "ann"):
+        est = sharded_fits[(8, algo)]
+        Xq = queries[algo]
+        eng = NonNeuralServeEngine(est, max_batch=MAX_BATCH, device=dev,
+                                   mesh=mesh)
+        one = NonNeuralServeEngine(est, max_batch=MAX_BATCH, device=dev)
+        for b in SHARDED["tune_buckets"]:
+            eng.warmup(Xq[:b], autotune=True)
+        arms = []
+        for b, arm in sorted(eng.tuned.items()):
+            check(arm.path != "ref" and arm.bn is None and
+                  all(cand[1] != "ref" for cand in arm.candidates),
+                  f"sharded autotune {algo}: bucket {b} {arm}")
+            strategies = sorted({cand[0] for cand in arm.candidates})
+            check({"single", arm.static_strategy} <= set(strategies),
+                  f"sharded autotune {algo}: bucket {b} timed only "
+                  f"{strategies}")
+            arms.append(f"{b}: {arm.strategy}/{arm.path or arm.static_path}"
+                        f"{'*' if arm.differs else ''} {arm.us:.1f} (static "
+                        f"{arm.static_strategy}/{arm.static_path} "
+                        f"{arm.static_us:.1f}; timed {strategies})")
+        Q = Xq[:n_rows]
+        res = eng.classify(Q)
+        check(set(eng.bucket_launches) <= eng.warmed and torch.equal(
+            res.classes, one.classify(Q).classes),
+            f"sharded autotune {algo}: tuned classify differs or ran an "
+            "unwarmed bucket")
+        tuned_lines.append(f"{algo} " + ", ".join(arms))
+    for name in counted:
+        counted[name] += ops.LAUNCHES[name]
+    print("[sharded/autotune] c=8, tuned on the queries, winner "
+          "strategy/path us a launch (* = differs from static): "
+          + " | ".join(tuned_lines))
+
+    # a request stream on the ragged mesh
+    est = sharded_fits[(3, "knn")]
+    Xq = queries["knn"]
+    eng = NonNeuralServeEngine(est, max_batch=MAX_BATCH, device=dev,
+                               mesh=make_local_mesh(3, dev))
+    one = NonNeuralServeEngine(est, max_batch=MAX_BATCH, device=dev)
+    n_warm = eng.warmup_buckets(Xq.shape[1])
+    check(eng.bucket_launches == {}, "sharded stream: warmup counted")
+    sched = RequestScheduler(eng, max_wait=SHARDED["stream"]["max_wait"])
+    counts = poisson_trace(SHARDED["stream"]["rate"],
+                           SHARDED["stream"]["ticks"], seed=SEED)
+    rows = Xq.cpu().numpy()
+    t0 = time.perf_counter()
+    (ids, _), ln = counted_run(lambda: (replay_trace(sched, rows, counts),
+                                        None))
+    wall = time.perf_counter() - t0
+    Qs = Xq[torch.as_tensor(np.arange(len(ids)) % len(rows))]
+    want = one.classify(Qs).classes.cpu().numpy()
+    got = np.array([int(sched.results[i].prediction) for i in ids])
+    check(np.array_equal(got, want), f"sharded stream: "
+          f"{int((got != want).sum())} predictions differ from the "
+          "one-device engine's")
+    check(set(eng.bucket_launches) <= sched.warmed,
+          f"sharded stream: buckets {sorted(eng.bucket_launches)} not all "
+          f"warmed {sorted(sched.warmed)}")
+    s = sched.stats.summary()
+    print(f"[sharded/stream] knn c=3: {len(ids)} requests in {wall:.3f}s "
+          f"({len(ids) / wall:.0f} req/s, host clock), {s['launches']} "
+          f"launches over buckets {dict(sorted(eng.bucket_launches.items()))}"
+          f" (routes {dict(sorted(eng.bucket_strategies.items()))}; "
+          f"{n_warm} buckets warmed, the top one "
+          f"{max(sched.warmed)}), B1 launches {ln['distance_topk']}; "
+          f"p50 {s['p50']:.0f} p95 {s['p95']:.0f} ticks; predictions equal "
+          "to the one-device engine's")
+    counts_line = _count(kernels, counted, tuple(names), "sharded")
+    print(f"[sharded] phase in {time.perf_counter() - t_phase:.2f}s; "
+          f"launches {counts_line}; {card}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3472,6 +3825,8 @@ def main() -> int:
                "features" if algo != "rf" else f"{msg}; int8 thresholds")
         del run
     streamed = {algo: fitted[algo] for algo in ("knn", "gnb")}
+    # the one-device fits the sharded phase holds its fits against
+    shard_fits = dict(fitted)
     # served again by the autotune and ladder phases
     fitted = {algo: fitted[algo] for algo in ("knn", "kmeans", "gnb")}
 
@@ -3611,6 +3966,7 @@ def main() -> int:
            f"neighbours equal to path='ref' but {n_odd} queries at probe "
            f"near-ties; B2 routes {rt['b2']}, B8 routes {rt['b8']}",
            kernels["B8"]["ms"])
+    shard_fits["ann"] = est
     del run, est, res, res_ref, p, Qa, exact
 
     # ------------------------------------------------ 6. the LM path
@@ -3705,6 +4061,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     ladder_path(torch, ops, dev, fitted, queries, kernels, helpers)
     del fitted
+
+    # ------------------------------------------------ 13. the sharded layer
+    torch.cuda.empty_cache()
+    from repro_torch.kernels.gemm import sm_count
+    sharded_path(torch, ops, dev, shard_fits,
+                 {"knn": knn_data, "kmeans": km_data, "gnb": gnb_data,
+                  "gmm": gnb_data, "rf": rf_data, "ann": ann_data},
+                 kernels, helpers, sm_count(torch.device(dev)))
+    del shard_fits
 
     # ------------------------------------------------ summary lines
     kernels = dict(sorted(kernels.items(), key=lambda kv: int(kv[0][1:])))

@@ -2,10 +2,11 @@
 
 The port's own copy of the JAX package's ``configs/base.py``: the model
 configs (``ModelConfig`` and its sub-configs, with the derived properties
-and the parameter count), ``ServeConfig`` and ``reduced``.  The values and
-the arithmetic are the same, so a config prints, compares and counts
-parameters as it does there.  ``MeshConfig`` and ``TrainConfig`` wait for
-the sharded and training layers (ROADMAP A17).
+and the parameter count), ``ServeConfig``, ``MeshConfig`` (the production
+mesh that ``launch/mesh.py`` builds) and ``reduced``.  The values and the
+arithmetic are the same, so a config prints, compares and counts
+parameters as it does there.  ``TrainConfig`` waits for the training
+layer (ROADMAP A17).
 """
 from __future__ import annotations
 
@@ -200,6 +201,39 @@ def _count_params(cfg: ModelConfig, active_only: bool) -> int:
                 _mlp_params(cfg, cfg.d_ff)
         total += cfg.n_layers * (_attn_params(cfg) + cfg.d_model)
     return total
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Production mesh description. ``multi_pod`` adds the leading pod
+    axis."""
+
+    data: int = 16
+    model: int = 16
+    pods: int = 1
+
+    @property
+    def multi_pod(self) -> bool:
+        return self.pods > 1
+
+    @property
+    def n_devices(self) -> int:
+        return self.pods * self.data * self.model
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return ("pod", "data", "model") if self.multi_pod \
+            else ("data", "model")
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (self.pods, self.data, self.model) if self.multi_pod \
+            else (self.data, self.model)
+
+    @property
+    def dp_axes(self) -> Tuple[str, ...]:
+        """Axes carrying data parallelism (batch sharding)."""
+        return ("pod", "data") if self.multi_pod else ("data",)
 
 
 @dataclass(frozen=True)

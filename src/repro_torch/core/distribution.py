@@ -6,8 +6,9 @@ and runtime lb/ub bounds; the port keeps the same decomposition as a
 reshape over a "cores" axis (counterpart: the JAX package's
 ``core/distribution.py``).  The paper's shared intermediate
 R[n_cores, N_class] and OP2's re-partitioned combine stay visible in
-``two_phase_matvec`` rather than folded into one ``W @ x``.  The sharded
-form (``two_phase_matvec_shardmap``) waits for ROADMAP A15.
+``two_phase_matvec`` rather than folded into one ``W @ x``.
+``two_phase_matvec_shardmap`` is the same scheme over a mesh axis
+(``launch/mesh.py``): OP1 a per-shard partial product, OP2 their psum.
 """
 from __future__ import annotations
 
@@ -93,6 +94,27 @@ def two_phase_matvec(W: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
     bc = split_chunks(bp, n_cores, axis=0)        # (n_cores, C/n)
     y = Rc.sum(dim=-3) + bc                       # (..., n_cores, C/n)
     return y.reshape(*y.shape[:-2], -1)[..., :C_orig]
+
+
+def two_phase_matvec_shardmap(W: torch.Tensor, x: torch.Tensor,
+                              b: torch.Tensor, mesh,
+                              axis: str = "data") -> torch.Tensor:
+    """``two_phase_matvec`` over a mesh axis: the d-contraction sharded
+    (zero-padded to a multiple of the shard count), OP1 each shard's
+    partial product over its feature chunk, OP2 the psum of the partials
+    plus the bias.  W: (C, d); x: (d,) or (B, d); b: (C,)."""
+    from repro_torch.core import collectives as col
+    devs = mesh.shard_devices(axis)
+    n = len(devs)
+    Wp, _ = pad_to_multiple(W, n, axis=1)
+    xp, _ = pad_to_multiple(x, n, axis=-1)
+    L = Wp.shape[1] // n
+    partial = []
+    for i, d in enumerate(devs):
+        with col.on(d):
+            partial.append(xp[..., i * L:(i + 1) * L].to(d)
+                           @ Wp[:, i * L:(i + 1) * L].to(d).T)   # OP1
+    return col.psum(partial, x.device) + b                   # OP2
 
 
 # ---------------------------------------------------------------------------

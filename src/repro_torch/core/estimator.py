@@ -26,6 +26,17 @@ whose tensor leaves have the same shapes across same-config fits (RF after
 the dispatch registry's grouped arm (``dispatch.grouped``): B1, B2 and B3
 with a tenant axis, one launch for the group, each lane bit-equal to the
 one-tenant call.
+
+Sharded execution (``core/cluster.py`` over a ``launch.mesh.Mesh``):
+``fit_sharded(X, y, mesh=...)`` fits with the data rows partitioned over a
+mesh axis (per-shard partial statistics psum'd into the K-Means, GNB and
+GMM updates, a shard-resident ``_FAR``-padded reference set for kNN, a
+tree-parallel block fit for RF, the replicated index for ANN), and
+``predict_batch_sharded_fn(mesh, axis, strategy)`` is the serving image:
+the same ``(params, X) -> (preds, aux)`` contract under a partition
+strategy (``"query"``, ``"reference"`` or ``"single"``,
+``dispatch.sharded``).  The estimator's device holds the merged params and
+outputs and must be one of the mesh's devices.
 """
 from __future__ import annotations
 
@@ -35,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import ann as _ann
+from repro_torch.core import cluster as _cluster
 from repro_torch.core import gmm as _gmm
 from repro_torch.core import gnb as _gnb
 from repro_torch.core import kmeans as _kmeans
@@ -139,6 +151,8 @@ class _EstimatorBase:
         self.device = resolve_device(device)
         self._params: Optional[NamedTuple] = None
         self._cal_absmax: Optional[torch.Tensor] = None  # fit's |X| max
+        self.mesh = None                  # set by fit_sharded
+        self.mesh_axis = "data"
 
     @property
     def params(self) -> NamedTuple:
@@ -244,6 +258,76 @@ class _EstimatorBase:
         reason)."""
         return dispatch.grouped(self.algorithm)(self)
 
+    def fit_sharded(self, X, y=None, *, mesh, axis: str = "data"):
+        """Data-parallel fit over ``mesh``'s ``axis``; records the mesh so
+        that ``predict_batch_sharded_fn()`` defaults to it.  The int8 tier
+        fits on one device (its lattice comes from the whole fit)."""
+        if self.policy is not None and self.policy.quantized:
+            raise NotImplementedError(
+                "the int8 tier is single-device: quantized params have no "
+                "sharded serving arm yet (DESIGN.md §8) — fit_sharded with "
+                "policy fp32/bf16 or drop mesh=")
+        self.check_mesh(mesh, axis)
+        self._fit_sharded(X, y, mesh, axis)
+        self.mesh, self.mesh_axis = mesh, axis
+        return self
+
+    def check_mesh(self, mesh, axis: str) -> None:
+        """The merged params and outputs live on this estimator's device,
+        which must be one of the mesh's: no shard or result moves to a
+        device nobody named."""
+        devs = mesh.shard_devices(axis)
+        if self.device not in devs:
+            raise ValueError(
+                f"{type(self).__name__} lives on {self.device}, not on the "
+                f"mesh's devices {sorted({str(d) for d in devs})}")
+
+    def _fit_sharded(self, X, y, mesh, axis) -> None:
+        raise NotImplementedError
+
+    def _resolve_mesh(self, mesh, axis):
+        mesh = mesh if mesh is not None else self.mesh
+        axis = axis if axis is not None else self.mesh_axis
+        if mesh is None:
+            raise ValueError(f"{type(self).__name__}: fit_sharded first or "
+                             "pass mesh=")
+        self.check_mesh(mesh, axis)
+        return mesh, axis
+
+    def predict_batch_sharded_fn(self, mesh=None, axis: Optional[str] = None,
+                                 strategy: Optional[str] = None) -> Callable:
+        """``(params, X) -> (preds, aux)`` over a mesh, by partition
+        ``strategy``: ``"query"`` shards the batch rows against a
+        replicated model (no merge), ``"reference"`` shards the model-side
+        axis and merges per-shard partials, ``"single"`` is
+        ``predict_batch_fn()``.  None keeps each algorithm's default
+        (kNN: reference, the others: query).  Any batch size: rows pad to
+        the shard count and are sliced back."""
+        mesh, axis = self._resolve_mesh(mesh, axis)
+        if strategy is None:
+            strategy = dispatch.DEFAULT_STRATEGY.get(self.algorithm, "query")
+        if strategy not in dispatch.STRATEGY_NAMES:
+            raise ValueError(f"strategy={strategy!r} is not one of "
+                             f"{dispatch.STRATEGY_NAMES}")
+        if strategy == "single":
+            return self.predict_batch_fn()
+        if self.quantized:
+            if strategy == "reference":
+                raise NotImplementedError(
+                    "the int8 tier has no model-partition serving arm: its "
+                    "lattices derive from the model-side operand, which a "
+                    "reference shard would chunk (DESIGN.md §8/§9) — serve "
+                    "quantized with strategy='query' or 'single'")
+            # the batch-row partition of the quantized predict fn: the
+            # lattice derives from the replicated params, so each shard's
+            # rows are the one-device rows
+            return _cluster.row_sharded_batch_fn(self.predict_batch_fn(),
+                                                 mesh, axis)
+        return self._sharded_fn(mesh, axis, strategy)
+
+    def _sharded_fn(self, mesh, axis, strategy: str) -> Callable:
+        raise NotImplementedError
+
     def serve_cost_shape(self) -> Dict[str, int]:
         raise NotImplementedError
 
@@ -274,6 +358,16 @@ class KNNEstimator(_EstimatorBase):
         self._params = _knn.KNNModel(A=self._cast(X).contiguous(), labels=y,
                                      n_class=n_class)
         return self._finalize_fit(X)
+
+    def _fit_sharded(self, X, y, mesh, axis) -> None:
+        """kNN's training is storing the reference set; the sharded fit
+        makes it shard-resident: padded to a multiple of the shard count
+        with far rows that never enter a top-k, so serving cuts it into
+        equal row blocks without padding it again."""
+        self.fit(X, y)
+        A, _ = _cluster._pad_rows(self._params.A, mesh.shape[axis],
+                                  value=_cluster._FAR)
+        self._params = self._params._replace(A=A.contiguous())
 
     @classmethod
     def from_params(cls, model, k: int = 4, **kw) -> "KNNEstimator":
@@ -314,6 +408,20 @@ class KNNEstimator(_EstimatorBase):
 
         return fn
 
+    def _sharded_fn(self, mesh, axis, strategy: str) -> Callable:
+        k, policy, path = self.k, self.policy, self.path
+        n_class = self.params.n_class
+
+        def fn(params: _knn.KNNModel, X):
+            X = policy.cast(X) if policy else X
+            model = _knn.KNNModel(A=params.A, labels=params.labels,
+                                  n_class=n_class)
+            return _cluster.knn_classify_batch_shardmap(
+                model, X, k, mesh, axis, policy=policy, path=path,
+                strategy=strategy)
+
+        return fn
+
     def serve_cost_shape(self) -> Dict[str, int]:
         A = self.params.qa if self.quantized else self.params.A
         return {"N": int(A.shape[0]), "d": int(A.shape[1]), "k": self.k}
@@ -349,6 +457,13 @@ class KMeansEstimator(_EstimatorBase):
         self._params = state._replace(
             centroids=self._cast(state.centroids).contiguous())
         return self._finalize_fit(X)
+
+    def _fit_sharded(self, X, y, mesh, axis) -> None:
+        state, _ = _cluster.kmeans_fit_shardmap(
+            self._tensor(X, torch.float32), self.n_clusters, mesh, axis,
+            threshold=self.threshold, max_iters=self.max_iters)
+        self._params = state._replace(
+            centroids=self._cast(state.centroids).contiguous())
 
     @classmethod
     def from_params(cls, state, **kw) -> "KMeansEstimator":
@@ -388,6 +503,18 @@ class KMeansEstimator(_EstimatorBase):
 
         return fn
 
+    def _sharded_fn(self, mesh, axis, strategy: str) -> Callable:
+        policy, path = self.policy, self.path
+        assign = dispatch.sharded("kmeans", "distance_argmin", strategy)
+
+        def fn(params: _kmeans.KMeansState, X):
+            X = policy.cast(X) if policy else X
+            dist, ids = assign(X, params.centroids, mesh=mesh, axis=axis,
+                               policy=policy, path=path)
+            return ids, dist
+
+        return fn
+
     def serve_cost_shape(self) -> Dict[str, int]:
         c = self.params.qc if self.quantized else self.params.centroids
         return {"K": int(c.shape[0]), "d": int(c.shape[1])}
@@ -421,6 +548,18 @@ class GNBEstimator(_EstimatorBase):
                                      var=self._cast(model.var).contiguous(),
                                      log_prior=model.log_prior)
         return self._finalize_fit(X)
+
+    def _fit_sharded(self, X, y, mesh, axis) -> None:
+        if y is None:
+            raise ValueError("GNB is supervised: fit_sharded(X, y)")
+        y = self._tensor(y, torch.int32)
+        n_class = self.n_class or int(y.max()) + 1
+        model = _cluster.gnb_fit_shardmap(
+            self._tensor(X, torch.float32), y, n_class, mesh, axis,
+            var_smoothing=self.var_smoothing)
+        self._params = _gnb.GNBModel(mu=self._cast(model.mu).contiguous(),
+                                     var=self._cast(model.var).contiguous(),
+                                     log_prior=model.log_prior)
 
     @classmethod
     def from_params(cls, model, **kw) -> "GNBEstimator":
@@ -457,6 +596,19 @@ class GNBEstimator(_EstimatorBase):
             X = policy.cast(X) if policy else X
             return _gnb.gnb_classify_batch(params, X, policy=policy,
                                            path=path)
+
+        return fn
+
+    def _sharded_fn(self, mesh, axis, strategy: str) -> Callable:
+        policy, path = self.policy, self.path
+        scores_of = dispatch.sharded("gnb", "scores", strategy)
+
+        def fn(params: _gnb.GNBModel, X):
+            X = policy.cast(X) if policy else X
+            scores = scores_of(X, params.mu, params.var, params.log_prior,
+                               mesh=mesh, axis=axis, policy=policy,
+                               path=path)
+            return torch.argmax(scores, dim=1).to(torch.int32), scores
 
         return fn
 
@@ -498,6 +650,13 @@ class GMMEstimator(_EstimatorBase):
                                       var=self._cast(state.var))
         return self._finalize_fit(X)
 
+    def _fit_sharded(self, X, y, mesh, axis) -> None:
+        state, _ = _cluster.gmm_fit_shardmap(
+            self._tensor(X, torch.float32), self.n_components, mesh, axis,
+            max_iters=self.max_iters, tol=self.tol)
+        self._params = state._replace(mu=self._cast(state.mu),
+                                      var=self._cast(state.var))
+
     @classmethod
     def from_params(cls, state, **kw) -> "GMMEstimator":
         """fp32 ``GMMState`` or its int8 form ``QuantGMMParams``."""
@@ -535,6 +694,19 @@ class GMMEstimator(_EstimatorBase):
             X = policy.cast(X) if policy else X
             return _gmm.gmm_classify_batch(params, X, policy=policy,
                                            path=path, n_cores=n_cores)
+
+        return fn
+
+    def _sharded_fn(self, mesh, axis, strategy: str) -> Callable:
+        policy, path, n_cores = self.policy, self.path, self.n_cores
+        resp_of = dispatch.sharded("gmm", "responsibilities", strategy)
+
+        def fn(params: _gmm.GMMState, X):
+            X = policy.cast(X) if policy else X
+            lr, _ = resp_of(params.mu, params.var, params.log_pi, X,
+                            mesh=mesh, axis=axis, policy=policy, path=path,
+                            n_cores=n_cores)
+            return torch.argmax(lr, dim=1).to(torch.int32), lr
 
         return fn
 
@@ -589,6 +761,17 @@ class RandomForestEstimator(_EstimatorBase):
             min_samples=self.min_samples, seed=self.seed))
         return self._finalize_fit(X)
 
+    def _fit_sharded(self, X, y, mesh, axis) -> None:
+        if y is None:
+            raise ValueError("RF is supervised: fit_sharded(X, y)")
+        X, y = (t.cpu().numpy() if isinstance(t, torch.Tensor)
+                else np.asarray(t) for t in (X, y))
+        n_class = self.n_class or int(np.max(y)) + 1
+        self._params = self._place(_rf.train_forest_sharded(
+            X, y, n_class, mesh.shape[axis], n_trees=self.n_trees,
+            max_depth=self.max_depth, min_samples=self.min_samples,
+            seed=self.seed))
+
     @classmethod
     def from_params(cls, forest, **kw) -> "RandomForestEstimator":
         """fp32 ``Forest`` or its int8 form ``QuantForest``."""
@@ -626,6 +809,17 @@ class RandomForestEstimator(_EstimatorBase):
             X = policy.cast(X) if policy else X
             return dispatch.forest_votes(params, X, policy=policy, path=path,
                                          depth=depth)
+
+        return fn
+
+    def _sharded_fn(self, mesh, axis, strategy: str) -> Callable:
+        policy, path, depth = self.policy, self.path, self._depth
+        votes_of = dispatch.sharded("rf", "forest_votes", strategy)
+
+        def fn(params: _rf.Forest, X):
+            X = policy.cast(X) if policy else X
+            return votes_of(params, X, mesh=mesh, axis=axis, policy=policy,
+                            path=path, depth=depth)
 
         return fn
 
@@ -686,6 +880,12 @@ class ANNKNNEstimator(_EstimatorBase):
             cast=lambda t: self._cast(t).contiguous())
         return self._finalize_fit(X)
 
+    def _fit_sharded(self, X, y, mesh, axis) -> None:
+        # the index is replicated: inverted lists address global row ids,
+        # so the fit has no row partition; the sharded serving gain is the
+        # query partition (_sharded_fn)
+        self.fit(X, y)
+
     @classmethod
     def from_params(cls, params: _ann.ANNParams,
                     **kw) -> "ANNKNNEstimator":
@@ -708,6 +908,18 @@ class ANNKNNEstimator(_EstimatorBase):
                                            path=path)
 
         return fn
+
+    def _sharded_fn(self, mesh, axis, strategy: str) -> Callable:
+        if strategy == "reference":
+            raise NotImplementedError(
+                "ANN has no model-partition serving arm: the IVF inverted "
+                "lists address global row ids, which a reference shard "
+                "would renumber (DESIGN.md §10) — serve with "
+                "strategy='query' or 'single'")
+        # probe (B1), LUTs, the candidate gather and ADC (B8) on each
+        # shard's query rows against the replicated index
+        return _cluster.row_sharded_batch_fn(self.predict_batch_fn(),
+                                             mesh, axis)
 
     def predict_batch_group_fn(self) -> Callable:
         raise NotImplementedError(
@@ -755,10 +967,15 @@ def make_estimator(algorithm: str, **kwargs: Any) -> _EstimatorBase:
 
 def make_fitted(algorithm: str, X, y=None, *,
                 n_groups: Optional[int] = None, device: DeviceLike = None,
+                mesh=None, mesh_axis: str = "data",
                 **kwargs: Any) -> _EstimatorBase:
     """Construct AND fit on ``device`` (the card unless "cpu" is named),
     mapping the generic ``n_groups`` (classes or clusters) onto the
-    algorithm's kwarg."""
+    algorithm's kwarg.  With ``mesh=`` the fit runs data-parallel over
+    that mesh axis (``fit_sharded``)."""
     if n_groups is not None and algorithm in _GROUP_KWARG:
         kwargs.setdefault(_GROUP_KWARG[algorithm], n_groups)
-    return make_estimator(algorithm, device=device, **kwargs).fit(X, y)
+    est = make_estimator(algorithm, device=device, **kwargs)
+    if mesh is not None:
+        return est.fit_sharded(X, y, mesh=mesh, axis=mesh_axis)
+    return est.fit(X, y)

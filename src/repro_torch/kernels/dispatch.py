@@ -30,10 +30,15 @@ sends a call on the card to the plain version.
 ``PrecisionPolicy`` carries the paper's FP-backend axis (§3.4, Figs. 9–11)
 as a compute dtype plus an analytic cost backend (the libgcc / rvfplib /
 fpu / int8 / cortex-m4 cycles-per-op vectors of ``core.precision``), so a
-caller can cost a call under each backend (``estimated_cycles``).  The
+caller can cost a call under each backend (``estimated_cycles``), and
+``resolve_strategy`` costs a mesh's partition strategies under it.  The
 process-wide ``CostModel`` (``set_cost_model``, or ``REPRO_CALIBRATION``
 naming a calibration file, loaded once at first use) is analytic, and
 then inert in ``resolve``, until a calibrated one is installed.
+
+The mesh-aware registry (``register_sharded``, ``sharded``,
+``resolve_strategy``) keys each hot op's sharded arms by partition
+strategy; ``core/cluster.py`` holds them.
 """
 from __future__ import annotations
 
@@ -113,7 +118,8 @@ class PrecisionPolicy:
     params onto the int8 lattice (``core/quantization.py``).
     ``cost_backend`` names a cycles-per-op vector in
     ``core.precision.BACKENDS`` for the analytic soft-float costing (the
-    card has no FP-emulation mode to measure)."""
+    card has no FP-emulation mode to measure): ``estimated_cycles``, and
+    the uncalibrated strategy costs ``resolve_strategy`` compares."""
 
     name: str
     dtype: torch.dtype
@@ -619,6 +625,220 @@ def adc_topk(qlut, codes, cand_ids, k: int, *,
                  device=qlut.device, Q=Q, L=L, m=m,
                  n_codes=qlut.shape[1] // max(m, 1), k=k)
     return kp.fn(qlut, codes, cand_ids, k)
+
+
+# ---------------------------------------------------------------------------
+# Mesh-aware arm — every hot-path op over a sharded data axis
+# ---------------------------------------------------------------------------
+#
+# The sharded arm is keyed like the single-device registry plus a partition
+# strategy: "query" shards the batch rows against a replicated model (no
+# merge collective: the paper's Independent-Tasks framing); "reference"
+# shards the model-side axis (kNN rows, centroids, classes, components,
+# trees) and merges per-shard partials (the paper's OP3 master merge).
+# Each shard runs the same registry-dispatched arm on its own shapes, so
+# the shape selectors, ``path=``, ``REPRO_BACKEND`` and ``measured_arm_ok``
+# hold per shard.  The implementations live in core/cluster.py over a
+# single-process mesh (launch/mesh.py); the deferred imports break the
+# core -> dispatch -> cluster -> core cycle.
+
+STRATEGY_ENV_VAR = "REPRO_SHARD_STRATEGY"
+STRATEGY_NAMES = ("single", "query", "reference")
+# the arm ``Estimator.predict_batch_sharded_fn(mesh)`` takes when no
+# strategy is named (kNN's reference partition; "query" for the others)
+DEFAULT_STRATEGY = {"knn": "reference"}
+
+_SHARDED: Dict[Tuple[str, str, str], Callable] = {}
+
+
+def register_sharded(algorithm: str, op: str, strategy: str = "query"):
+    if strategy not in STRATEGY_NAMES:
+        raise ValueError(f"unknown strategy {strategy!r}; known: "
+                         f"{STRATEGY_NAMES}")
+
+    def deco(fn):
+        _SHARDED[(algorithm, op, strategy)] = fn
+        return fn
+
+    return deco
+
+
+def sharded(algorithm: str, op: str,
+            strategy: Optional[str] = None) -> Callable:
+    """The mesh-aware executor for ``(algorithm, op)`` under ``strategy``
+    (None: the algorithm's default arm); raises KeyError for an op with no
+    such sharded arm, as ``resolve`` does for an unknown key."""
+    if strategy is None:
+        strategy = DEFAULT_STRATEGY.get(algorithm, "query")
+    key = (algorithm, op, strategy)
+    if key not in _SHARDED:
+        raise KeyError(f"no sharded arm for {key}; "
+                       f"known: {sorted(_SHARDED)}")
+    return _SHARDED[key]
+
+
+def sharded_registered() -> Tuple[Tuple[str, str, str], ...]:
+    """(algorithm, op, strategy) keys with a mesh-aware arm."""
+    return tuple(sorted(_SHARDED))
+
+
+def strategy_env_override() -> Optional[str]:
+    """``REPRO_SHARD_STRATEGY``: pin the serving partition strategy, with
+    ``REPRO_BACKEND``'s contract (a typo fails rather than running the
+    default).  ``auto`` defers to the cost model, the default spelled
+    out."""
+    v = os.environ.get(STRATEGY_ENV_VAR, "").strip()
+    if not v or v == "auto":
+        return None
+    if v not in STRATEGY_NAMES:
+        raise ValueError(f"{STRATEGY_ENV_VAR}={v!r} is not one of "
+                         f"{('auto',) + STRATEGY_NAMES}")
+    return v
+
+
+def resolve_strategy(algorithm: str, *, bucket: int, n_shards: int,
+                     strategy: Optional[str] = None,
+                     policy: Optional[PrecisionPolicy] = None,
+                     shape: Optional[Dict[str, int]] = None,
+                     quantized: Optional[bool] = None,
+                     cost_model=None) -> str:
+    """The serving partition strategy of one (algorithm, bucket, mesh)
+    cell.
+
+    Precedence as in ``resolve``: explicit ``strategy=`` >
+    ``REPRO_SHARD_STRATEGY`` > the active cost model (Eq. 15's
+    t_par / c + t_seq a partition: under the policy's ``cost_backend``
+    when analytic, measured µs a query when calibrated).  Quantized arms
+    (the int8 policy or ``REPRO_BACKEND=quant``) leave "reference" out:
+    their lattices derive from the model-side operand, which a model
+    partition would cut.  A strategy with no registered arm for the
+    algorithm is dropped (ANN has no "reference")."""
+    if strategy is not None and strategy != "auto":
+        if strategy not in STRATEGY_NAMES:
+            raise ValueError(f"strategy={strategy!r} is not one of "
+                             f"{('auto',) + STRATEGY_NAMES}")
+        return strategy
+    env = strategy_env_override()
+    if env is not None:
+        return env
+    if quantized is None:
+        quantized = ((policy is not None and policy.quantized)
+                     or env_override() == "quant")
+    cm = cost_model if cost_model is not None else active_cost_model()
+    if cm.calibrated:
+        base = (policy or DEFAULT_POLICY).name.split("@")[0]
+        costs = cm.strategy_costs(
+            algorithm, bucket=bucket, n_shards=n_shards, shape=shape,
+            quantized=quantized,
+            tier=precision.tier_for(base, quantized=quantized))
+    else:
+        backend = precision.BACKENDS[(policy or DEFAULT_POLICY).cost_backend]
+        costs = precision.serve_strategy_costs(
+            algorithm, bucket=bucket, n_shards=n_shards, shape=shape,
+            backend=backend, quantized=quantized)
+    for cand in [s for s in costs if s != "single"]:
+        if not any(a == algorithm and st == cand for a, _, st in _SHARDED):
+            del costs[cand]
+    return precision.pick_strategy(costs)
+
+
+@register_sharded("knn", "distance_topk", "reference")
+def distance_topk_sharded(a, c, k, *, mesh, axis="data", policy=None,
+                          path=None, merge=None):
+    """Reference rows sharded, the per-shard arm, the candidate merge
+    (the butterfly on power-of-two meshes)."""
+    from repro_torch.core import cluster
+    return cluster.distance_topk_shardmap(a, c, k, mesh, axis,
+                                          policy=policy, path=path,
+                                          merge=merge)
+
+
+@register_sharded("knn", "distance_topk", "query")
+def distance_topk_query_sharded(a, c, k, *, mesh, axis="data", policy=None,
+                                path=None):
+    from repro_torch.core import cluster
+    return cluster.distance_topk_query_shardmap(a, c, k, mesh, axis,
+                                                policy=policy, path=path)
+
+
+@register_sharded("ann", "adc_topk", "query")
+def adc_topk_query_sharded(qlut, codes, cand_ids, k, *, mesh, axis="data",
+                           policy=None, path=None):
+    """Every ADC operand is indexed by query row: shards run the whole op
+    on their rows, no merge."""
+    from repro_torch.core import cluster
+    return cluster.adc_topk_query_shardmap(qlut, codes, cand_ids, k, mesh,
+                                           axis, policy=policy, path=path)
+
+
+@register_sharded("kmeans", "distance_argmin", "query")
+def distance_argmin_sharded(a, c, *, mesh, axis="data", policy=None,
+                            path=None):
+    from repro_torch.core import cluster
+    return cluster.distance_argmin_shardmap(a, c, mesh, axis,
+                                            policy=policy, path=path)
+
+
+@register_sharded("kmeans", "distance_argmin", "reference")
+def distance_argmin_centroid_sharded(a, c, *, mesh, axis="data",
+                                     policy=None, path=None):
+    from repro_torch.core import cluster
+    return cluster.distance_argmin_centroid_shardmap(a, c, mesh, axis,
+                                                     policy=policy,
+                                                     path=path)
+
+
+@register_sharded("gnb", "scores", "query")
+def gnb_scores_sharded(X, mu, var, log_prior, *, mesh, axis="data",
+                       policy=None, path=None):
+    from repro_torch.core import cluster
+    return cluster.gnb_scores_shardmap(X, mu, var, log_prior, mesh, axis,
+                                       policy=policy, path=path)
+
+
+@register_sharded("gnb", "scores", "reference")
+def gnb_scores_class_sharded(X, mu, var, log_prior, *, mesh, axis="data",
+                             policy=None, path=None):
+    from repro_torch.core import cluster
+    return cluster.gnb_scores_class_shardmap(X, mu, var, log_prior, mesh,
+                                             axis, policy=policy, path=path)
+
+
+@register_sharded("gmm", "responsibilities", "query")
+def gmm_responsibilities_sharded(mu, var, log_pi, X, *, mesh, axis="data",
+                                 policy=None, path=None, n_cores=8):
+    from repro_torch.core import cluster
+    return cluster.gmm_responsibilities_shardmap(mu, var, log_pi, X, mesh,
+                                                 axis, policy=policy,
+                                                 path=path, n_cores=n_cores)
+
+
+@register_sharded("gmm", "responsibilities", "reference")
+def gmm_responsibilities_comp_sharded(mu, var, log_pi, X, *, mesh,
+                                      axis="data", policy=None, path=None,
+                                      n_cores=8):
+    from repro_torch.core import cluster
+    return cluster.gmm_responsibilities_comp_shardmap(
+        mu, var, log_pi, X, mesh, axis, policy=policy, path=path,
+        n_cores=n_cores)
+
+
+@register_sharded("rf", "forest_votes", "query")
+def forest_votes_sharded(forest, X, *, mesh, axis="data", policy=None,
+                         path=None, depth=None):
+    from repro_torch.core import cluster
+    return cluster.forest_votes_shardmap(forest, X, mesh, axis,
+                                         policy=policy, path=path,
+                                         depth=depth)
+
+
+@register_sharded("rf", "forest_votes", "reference")
+def forest_votes_tree_sharded(forest, X, *, mesh, axis="data", policy=None,
+                              path=None, depth=None):
+    from repro_torch.core import cluster
+    return cluster.forest_votes_tree_shardmap(forest, X, mesh, axis,
+                                              policy=policy, path=path,
+                                              depth=depth)
 
 
 # ---------------------------------------------------------------------------

@@ -51,8 +51,19 @@ Runs on the card; ``--device cpu`` runs the kernels' plain versions on the
 CPU instead (with ``--smoke`` for the LM: the full width does not fit a
 CPU run).  The counterpart of the JAX package's ``launch/serve.py``
 (``serve_nonneural``, ``serve_stream``, ``serve_tenants``,
-``serve_tenant_stream`` and ``serve_lm``); ``--mesh`` and ``--strategy``
-wait for the sharded layer (ROADMAP A15).
+``serve_tenant_stream`` and ``serve_lm``).
+
+Sharded Non-Neural serving: ``--mesh N`` fits AND serves data-parallel
+over an N-shard mesh axis (``fit_sharded`` and the engine's sharded
+buckets, ``core/cluster.py``), each bucket routed by ``--strategy``
+(``auto``: the cost model a bucket; the ``[serve] strategy=... routes:``
+line shows the routing).  N must not exceed the visible cards;
+``--virtual-shards`` runs the N shards on the one ``--device`` instead
+(``launch.mesh.make_local_mesh``, the counterpart of the JAX CLI's forced
+host devices), on the CPU as on one card:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --algo kmeans --mesh 8 --virtual-shards
 """
 from __future__ import annotations
 
@@ -85,10 +96,13 @@ def serve_nonneural(args) -> ClassifyResult:
             extra["n_cells"] = args.cells
         if args.pq_m is not None:
             extra["pq_m"] = args.pq_m
+    mesh = _mesh(args, device)
     est = make_fitted(args.algo, X, y, n_groups=n_class,
-                      policy=get_policy(args.policy), device=device, **extra)
+                      policy=get_policy(args.policy), device=device,
+                      mesh=mesh, **extra)
     engine = NonNeuralServeEngine(est, max_batch=args.batch, device=device,
-                                  policy=args.policy)
+                                  policy=args.policy, mesh=mesh,
+                                  strategy=args.strategy)
     if engine.quant_report:
         r = engine.quant_report
         print(f"[quant] params {r['bytes_fp32']}B fp32 -> "
@@ -112,11 +126,33 @@ def serve_nonneural(args) -> ClassifyResult:
                 .mean()) if args.algo in ("knn", "ann", "gnb", "rf") \
         else float("nan")
     print(f"[serve] algo={args.algo} policy={args.policy} "
-          f"device={device_name(device)} "
+          f"device={device_name(device)} shards={engine.n_shards} "
           f"served {args.requests} queries in {dt:.3f}s "
           f"({args.requests / dt:.0f} q/s, {result.launches} launches, "
           f"buckets={engine.bucket_launches}) acc={acc:.3f}")
+    if engine.sharded:
+        routes = ", ".join(f"{b}->{st}" for b, st in
+                           sorted(engine.bucket_strategies.items()))
+        print(f"[serve] strategy={args.strategy or 'auto'} routes: {routes}")
     return result
+
+
+def _mesh(args, device):
+    """--mesh N: an N-shard "data" axis over the visible cards, or with
+    --virtual-shards all N shards on ``device``; None for N = 1."""
+    if args.mesh <= 1:
+        return None
+    from repro_torch.device import device_name
+    from repro_torch.launch.mesh import _mk, make_local_mesh, visible_cards
+    if args.virtual_shards:
+        return make_local_mesh(args.mesh, device)
+    n_dev = len(visible_cards()) if device.type == "cuda" else 1
+    if n_dev < args.mesh:
+        raise SystemExit(
+            f"--mesh {args.mesh} needs {args.mesh} devices, only {n_dev} "
+            f"visible; add --virtual-shards to run the {args.mesh} shards "
+            f"on {device_name(device)}")
+    return _mk((args.mesh,), ("data",))
 
 
 def serve_tenants(args):
@@ -137,6 +173,8 @@ def serve_tenants(args):
     if args.algo == "ann":
         raise SystemExit("--tenants: ann has no grouped serving arm "
                          "(ragged IVF/PQ shapes, DESIGN.md §11)")
+    if args.mesh > 1:
+        raise SystemExit("--tenants is a single-device path; drop --mesh")
     device = resolve_device(args.device)
     G, d, n_class = args.tenants, args.dim, args.classes
     store = ModelStore(device=device)
@@ -321,8 +359,8 @@ def serve_stream(args, engine, Q):
     dt = time.perf_counter() - t0
     s = sched.stats.summary()
     print(f"[stream] algo={args.algo} policy={args.policy} "
-          f"rate={args.rate} ticks={args.ticks} max_wait={args.max_wait} "
-          f"cache={args.cache_size}")
+          f"shards={engine.n_shards} rate={args.rate} ticks={args.ticks} "
+          f"max_wait={args.max_wait} cache={args.cache_size}")
     n_strag = sum(e.kind.startswith("straggler_") for e in sched.events)
     print(f"[stream] served {len(ids)} requests in {dt:.3f}s wall "
           f"({s['launches']} launches, buckets={engine.bucket_launches}, "
@@ -408,11 +446,27 @@ def main(argv=None):
                          "fp32@libgcc; backends: libgcc, rvfplib, fpu, "
                          "int8, cortex-m4: an analytic costing only, the "
                          "card computes as under <dtype>)")
+    ap.add_argument("--mesh", type=int, default=1,
+                    help="shard count for data-parallel Non-Neural "
+                         "fit/serve (1 = one device); needs that many "
+                         "visible cards, or --virtual-shards")
+    ap.add_argument("--virtual-shards", action="store_true",
+                    help="--mesh N: run the N shards on the one --device "
+                         "(make_local_mesh), the counterpart of the JAX "
+                         "CLI's forced host devices")
+    ap.add_argument("--strategy", default=None,
+                    choices=["auto", "single", "query", "reference"],
+                    help="sharded serving partition strategy: auto = the "
+                         "cost model a bucket (default), query = batch "
+                         "rows sharded against a replicated model, "
+                         "reference = the model axis sharded and merged, "
+                         "single = one device")
     ap.add_argument("--autotune", action="store_true",
-                    help="time every registered arm of the hot op a "
-                         "warmed bucket and route its launches through "
-                         "the fastest instead of the static selector "
-                         "(paper §5.2 profile-then-optimize)")
+                    help="time every registered arm of the hot op (and on "
+                         "a mesh every partition strategy) a warmed "
+                         "bucket and route its launches through the "
+                         "fastest instead of the static selector (paper "
+                         "§5.2 profile-then-optimize)")
     ap.add_argument("--calibration", default=None, metavar="PATH",
                     help="a calibration file ({\"entries\": [...]} of "
                          "core.calibrate fits) to load into the cost "

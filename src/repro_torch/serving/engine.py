@@ -5,7 +5,7 @@
 estimator's registry-dispatched batch path once per bucket; batches past
 ``max_batch`` are split.  ``KNNServeEngine`` is the kNN facade.
 
-Counterpart of the JAX package's ``serving/engine.py``, single device.
+Counterpart of the JAX package's ``serving/engine.py``.
 ``policy="int8"`` serves an engine-local ``quantized_copy`` of the
 estimator (the caller's stays as it is) and fills ``quant_report``.  JAX
 compiles one executable per bucket; here a bucket's first call loads the
@@ -20,11 +20,26 @@ time every registered arm of the estimator's hot op at each bucket
 between two synchronizes) and route the bucket's production launches
 through the fastest (``tuned``, a ``TunedArm`` a bucket).  The JAX
 package's candidates without its ``bn`` arms (a Pallas row-block size the
-CUDA kernels do not have) and with the one strategy ``single`` until the
-sharded layer exists; never ``quant``, and on a card never ``ref`` (the
-plain version serves no production launch there, however it times); an
-explicit ``path=``, ``REPRO_BACKEND`` or the int8 policy collapses the
-path axis.
+CUDA kernels do not have): the paths on ``single``, and on a mesh every
+registered partition strategy with the estimator's own path; never
+``quant``, and on a card never ``ref`` (the plain version serves no
+production launch there, however it times); an explicit ``path=``,
+``REPRO_BACKEND`` or the int8 policy collapses the path axis, an explicit
+``strategy=`` or ``REPRO_SHARD_STRATEGY`` the strategy axis.  An arm that
+cannot take the bucket is left out by an explicit check, never by
+catching its failure.
+
+Sharded serving (``core/cluster.py`` over a ``launch.mesh.Mesh``): with
+``mesh=`` (or ``sharded=True`` after ``fit_sharded``) each bucket routes
+to a partition strategy, ``"reference"`` (the model axis sharded,
+per-shard kernels and a merge), ``"query"`` (batch rows sharded against a
+replicated model, no merge) or ``"single"`` (one device).  ``strategy=``
+pins one for every bucket; the default ``"auto"`` asks
+``dispatch.resolve_strategy`` (Eq. 15's cost model) a bucket, and
+``bucket_strategies`` records the routing.  Buckets are at least the
+shard count and rounded up to a multiple of it, so that every shard owns
+whole query rows.  A mesh of ``make_local_mesh(c, card)`` runs the c
+shards on one card.
 
 ``sibling`` builds an engine over a cheaper representation of the same
 fitted model, the brownout ladder's constructor (``serving/degrade.py``).
@@ -55,6 +70,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, ServeConfig
+from repro_torch.core import cluster as _cluster
+from repro_torch.core import collectives as _col
 from repro_torch.core import knn as _knn
 from repro_torch.core.estimator import KNNEstimator
 from repro_torch.device import DeviceLike, resolve_device
@@ -126,22 +143,35 @@ class TunedArm:
 
 
 class NonNeuralServeEngine:
-    """Power-of-two bucket batching over a fitted estimator, on one device
-    (the card unless ``device="cpu"`` is named, and the estimator's)."""
+    """Power-of-two bucket batching over a fitted estimator, on the card
+    unless ``device="cpu"`` is named (the estimator's device), or over a
+    mesh of shards (``mesh=``) whose outputs merge on that device."""
 
     def __init__(self, estimator, *, max_batch: int = 1024,
                  device: DeviceLike = None, policy: Optional[str] = None,
-                 mesh=None, sharded: bool = False,
+                 mesh=None, mesh_axis: str = "data", sharded: bool = False,
                  strategy: Optional[str] = None, max_group: int = 64):
-        if mesh is not None or sharded or strategy not in (None, "single"):
-            raise NotImplementedError(
-                "sharded serving is not ported yet (ROADMAP A15)")
         if not estimator.fitted:
             raise ValueError("fit the estimator before serving it")
         self.device = resolve_device(device)
         if estimator.device != self.device:
             raise ValueError(f"estimator lives on {estimator.device}, the "
                              f"engine on {self.device}")
+        wants_int8 = (policy is not None
+                      and str(policy).split("@")[0] == "int8") \
+            or estimator.quantized
+        if strategy is not None and strategy != "auto" \
+                and strategy not in dispatch.STRATEGY_NAMES:
+            raise ValueError(f"strategy={strategy!r} is not one of "
+                             f"{('auto',) + dispatch.STRATEGY_NAMES}")
+        if wants_int8 and (mesh is not None or sharded) \
+                and strategy == "reference":
+            # the int8 lattices derive from the model-side operand, which a
+            # model partition would cut; query keeps the model whole
+            raise NotImplementedError(
+                "the int8 tier has no model-partition serving arm: use "
+                "strategy='query'/'single'/'auto' (auto never routes "
+                "quantized params to 'reference')")
         self.quant_report: Optional[Dict[str, int]] = None
         if policy is not None and str(policy).split("@")[0] == "int8":
             # quantize into an engine-local copy: quantize() would rewrite
@@ -158,16 +188,28 @@ class NonNeuralServeEngine:
                 "bytes_fp32": _q.param_bytes(fp32),
                 "bytes_predicted": _q.quant_bytes(fp32, min_size=1),
             }
+        if mesh is None and sharded:
+            mesh, mesh_axis = estimator.mesh, estimator.mesh_axis
+            if mesh is None:
+                raise ValueError("sharded=True needs a fit_sharded "
+                                 "estimator or mesh=")
+        if mesh is not None:
+            estimator.check_mesh(mesh, mesh_axis)
         self.estimator = estimator
         self.algorithm = estimator.algorithm
         self.max_batch = int(max_batch)
         self.bucket_launches: Dict[int, int] = {}
         self.warmed: set = set()     # bucket sizes already run once
+        self.mesh, self.mesh_axis = mesh, mesh_axis
+        self.n_shards = mesh.shape[mesh_axis] if mesh is not None else 1
+        self.strategy = strategy     # None/"auto": the cost model routes
         self._quantized = bool(estimator.quantized)
         self._cost_shape = estimator.serve_cost_shape()
+        self.bucket_strategies: Dict[int, str] = {}
         self.tuned: Dict[int, TunedArm] = {}   # bucket -> autotune verdict
         self._fn = estimator.predict_batch_fn()      # the default arm
-        self._fns: Dict[str, object] = {}      # path -> its arm's fn
+        self._fns: Dict[Tuple[str, Optional[str]], object] = {}
+        self._placed: Dict[str, object] = {}   # strategy -> placed params
         self.cache_fingerprint = (self.algorithm, str(policy),
                                   next(_ENGINE_SEQ))
         # grouped (multi-tenant) state
@@ -176,6 +218,10 @@ class NonNeuralServeEngine:
         self.group_launches: Dict[Tuple[int, int], int] = {}
         self._gfn = None
 
+    @property
+    def sharded(self) -> bool:
+        return self.mesh is not None
+
     def sibling(self, *, policy: Optional[str] = None, estimator=None,
                 max_batch: Optional[int] = None) -> "NonNeuralServeEngine":
         """An engine over a cheaper representation of the SAME fitted
@@ -183,7 +229,13 @@ class NonNeuralServeEngine:
         estimator's ``quantized_copy``; ``estimator=`` substitutes another
         arm (an ANN index over an exact kNN's reference set).  Siblings
         share this engine's bucket geometry unless ``max_batch`` widens it
-        (a cheaper tier may take a larger per-drain budget)."""
+        (a cheaper tier may take a larger per-drain budget).  One device
+        only: a degraded tier is never the first thing to touch a mesh
+        under overload."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "brownout siblings are single-device — shard the primary "
+                "engine, degrade locally")
         est = self.estimator if estimator is None else estimator
         return NonNeuralServeEngine(
             est, max_batch=int(max_batch or self.max_batch),
@@ -193,30 +245,82 @@ class NonNeuralServeEngine:
         size = 1
         while size < b:
             size *= 2
-        return min(size, self.max_batch)
+        size = max(min(size, self.max_batch), self.n_shards)
+        # whole query rows a shard: a query partition splits axis 0, so
+        # every bucket is a multiple of the shard count (a no-op on
+        # power-of-two meshes)
+        return size + (-size) % self.n_shards
 
     def _route(self, bucket: int) -> str:
-        """The partition strategy serving this bucket: one device."""
-        return "single"
+        """The partition strategy serving this bucket (cached a bucket)."""
+        s = self.bucket_strategies.get(bucket)
+        if s is None:
+            if self.mesh is None:
+                s = "single"
+            else:
+                s = dispatch.resolve_strategy(
+                    self.algorithm, bucket=bucket, n_shards=self.n_shards,
+                    strategy=self.strategy, policy=self.estimator.policy,
+                    shape=self._cost_shape,
+                    quantized=True if self._quantized else None)
+            self.bucket_strategies[bucket] = s
+        return s
 
     def _fn_for(self, strategy: str, path: Optional[str] = None,
                 bn: Optional[int] = None):
         """The executor of one (strategy, path, bn) arm.  ``path``
-        overrides the estimator's through a shallow copy whose
-        ``predict_batch_fn`` closes over it (cached per arm); None keeps
-        the estimator's own, ``_fn``."""
-        if strategy != "single" or bn is not None:
+        overrides the estimator's through a shallow copy whose batch fns
+        close over it (cached per arm); None keeps the estimator's own
+        (``_fn`` on one device).  The CUDA kernels have no row-block knob,
+        so ``bn`` must be None."""
+        if bn is not None:
             raise NotImplementedError(
-                f"arm {(strategy, path, bn)}: one device and no row-block "
-                "knob (the sharded strategies are ROADMAP A15)")
-        if path is None:
+                f"arm {(strategy, path, bn)}: the CUDA kernels have no "
+                "row-block knob (ROADMAP C)")
+        if strategy != "single" and self.mesh is None:
+            raise ValueError(f"strategy {strategy!r} needs a mesh= engine")
+        if (strategy, path) == ("single", None):
             return self._fn
-        fn = self._fns.get(path)
+        fn = self._fns.get((strategy, path))
         if fn is None:
-            est = _copy.copy(self.estimator)
-            est.path = path
-            fn = self._fns[path] = est.predict_batch_fn()
+            est = self.estimator
+            if path is not None:
+                est = _copy.copy(est)
+                est.path = path
+            if strategy == "single":
+                fn = est.predict_batch_fn()
+            else:
+                fn = est.predict_batch_sharded_fn(self.mesh, self.mesh_axis,
+                                                  strategy)
+            self._fns[(strategy, path)] = fn
         return fn
+
+    def _params_for(self, strategy: str):
+        """Params placed once for the strategy: one copy a shard for
+        ``query`` (PULP-NN's weights in every local memory; the same
+        tensor c times on a one-device mesh), the ``_FAR``-padded kNN
+        reference set cut into its row shards for kNN ``reference`` (so
+        the hot path never pads again), the estimator's own otherwise
+        (the other model partitions cut their small operands a call).
+        The estimator's params are never changed."""
+        placed = self._placed.get(strategy)
+        if placed is None:
+            placed = params = self.estimator.params
+            if self.mesh is not None and strategy != "single":
+                devs = self.mesh.shard_devices(self.mesh_axis)
+                if strategy == "query":
+                    placed = type(params)(*(
+                        _col.replicate(v, devs)
+                        if isinstance(v, torch.Tensor) else v
+                        for v in params))
+                elif self.algorithm == "knn" and not self._quantized:
+                    parts, _ = _col.shard_rows(params.A, devs,
+                                               value=_cluster._FAR)
+                    labels, _ = _cluster._pad_rows(
+                        params.labels, self.n_shards)
+                    placed = params._replace(A=parts, labels=labels)
+            self._placed[strategy] = placed
+        return placed
 
     def _choice(self, bucket: int) -> Tuple[str, Optional[str],
                                             Optional[int]]:
@@ -259,21 +363,46 @@ class NonNeuralServeEngine:
         bucket: the static arm first, then every registered path of the
         hot op that measurement may route to on this engine's device
         (``dispatch.measured_arm_ok``: never ``quant``, and ``ref`` only
-        on the CPU).  An explicit ``path=``, ``REPRO_BACKEND`` or
-        the int8 policy collapses the path axis to the static arm; every
-        candidate comes from the registry, so ``bucket_launches ⊆ warmed``
-        holds for whatever wins."""
+        on the CPU) on ``single``, then on a mesh every registered
+        partition strategy of the algorithm with the estimator's own path
+        (each shard re-selects its arm by its own shapes).  An explicit
+        ``path=``, ``REPRO_BACKEND`` or the int8 policy collapses the path
+        axis, an explicit ``strategy=`` or ``REPRO_SHARD_STRATEGY`` the
+        strategy axis; quantized arms (the int8 policy or
+        ``REPRO_BACKEND=quant``) leave ``reference`` out, whose lattice
+        would be cut per shard.  Every candidate comes from the
+        registries, so ``bucket_launches ⊆ warmed`` holds for whatever
+        wins."""
         algo, op = self.algorithm, dispatch.HOT_OPS[self.algorithm]
+        # --- path axis
         paths: List[Optional[str]] = [None]
         if (self.estimator.path is None and not self._quantized
                 and dispatch.env_override() is None):
             regd = dispatch.registered().get((algo, op), ())
             paths = [p for p in regd
                      if dispatch.measured_arm_ok(p, self.device)] or [None]
+        # --- strategy axis
+        if self.mesh is None:
+            strategies = ["single"]
+        elif self.strategy is not None and self.strategy != "auto":
+            strategies = [self.strategy]
+        elif dispatch.strategy_env_override() is not None:
+            strategies = [dispatch.strategy_env_override()]
+        else:
+            cands = {st for (a, _, st) in dispatch.sharded_registered()
+                     if a == algo}
+            if self._quantized or dispatch.env_override() == "quant":
+                cands.discard("reference")
+            strategies = ["single"] + sorted(cands)
         arms = [(self._route(bucket), None, None)]   # the static arm
-        for p in paths:
-            if (self._route(bucket), p, None) not in arms:
-                arms.append((self._route(bucket), p, None))
+        for s in strategies:
+            for p in paths:
+                # sharded strategies keep the estimator's own path: each
+                # shard re-selects by its own shapes
+                if s != "single" and p is not None:
+                    continue
+                if (s, p, None) not in arms:
+                    arms.append((s, p, None))
         return arms
 
     def _autotune_bucket(self, size: int, chunk) -> Optional[TunedArm]:
@@ -289,7 +418,7 @@ class NonNeuralServeEngine:
             if p is not None and not dispatch.arm_fits(self.algorithm, op,
                                                        p, **kw):
                 continue
-            us = self._measure(self._fn_for(s, p, bn), self.estimator.params,
+            us = self._measure(self._fn_for(s, p, bn), self._params_for(s),
                                chunk)
             measured.append((s, p, bn, us))
             if (s == static_strategy and bn is None
@@ -304,11 +433,17 @@ class NonNeuralServeEngine:
                        static_us=static_us if static_us is not None else us,
                        candidates=measured)
         self.tuned[size] = arm
+        self.bucket_strategies[size] = s
         return arm
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Wait for this engine's device and every shard's."""
+        devs = {self.device}
+        if self.mesh is not None:
+            devs.update(self.mesh.shard_devices(self.mesh_axis))
+        for d in devs:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     def _as_queries(self, X) -> torch.Tensor:
         """Queries on the engine's device; float64 becomes float32, as in
@@ -336,7 +471,8 @@ class NonNeuralServeEngine:
         if autotune and self._autotune_bucket(size, chunk) is not None:
             self.warmed.add(size)
             return
-        self._fn_for(*self._choice(size))(self.estimator.params, chunk)
+        s, p, bn = self._choice(size)
+        self._fn_for(s, p, bn)(self._params_for(s), chunk)
         self._sync()
         self.warmed.add(size)
 
@@ -383,8 +519,9 @@ class NonNeuralServeEngine:
             pad = bucket - chunk.shape[0]
             if pad:
                 chunk = F.pad(chunk, (0, 0, 0, pad))
-            cls, aux = self._fn_for(*self._choice(bucket))(
-                self.estimator.params, chunk.contiguous())
+            s, p, bn = self._choice(bucket)
+            cls, aux = self._fn_for(s, p, bn)(self._params_for(s),
+                                              chunk.contiguous())
             classes.append(cls[: bucket - pad])
             auxes.append(aux[: bucket - pad])
             self.bucket_launches[bucket] = \
@@ -409,6 +546,11 @@ class NonNeuralServeEngine:
         """The grouped launch: the estimator's grouped arm
         (``predict_batch_group_fn``), built once."""
         if self._gfn is None:
+            if self.mesh is not None:
+                raise NotImplementedError(
+                    "grouped (multi-tenant) serving is single-device: the "
+                    "model-group axis and a mesh partition are separate "
+                    "batching dimensions — drop mesh=")
             self._gfn = self.estimator.predict_batch_group_fn()
         return self._gfn
 

@@ -301,11 +301,14 @@ class RequestScheduler:
         self.max_batch = min(int(max_batch or engine.max_batch),
                              engine.max_batch)
         # snapshot NOW: engine.warmed grows with every launch, so checking
-        # `bucket_launches ⊆ engine.warmed` afterwards would prove nothing
-        self.warmed = frozenset(b for b in engine.warmed
-                                if b <= self.max_batch)
+        # `bucket_launches ⊆ engine.warmed` afterwards would prove nothing.
+        # The cap follows the engine's bucket lattice: buckets round up to
+        # shard-count multiples (whole query rows a shard), so on a mesh
+        # of 3 the top bucket may pass max_batch
+        cap = self.max_batch + (-self.max_batch) % engine.n_shards
+        self.warmed = frozenset(b for b in engine.warmed if b <= cap)
         self.warmed_groups = frozenset(
-            (g, b) for g, b in engine.warmed_groups if b <= self.max_batch)
+            (g, b) for g, b in engine.warmed_groups if b <= cap)
         if store is None:
             assert self.warmed, (engine.warmed, self.max_batch)
         else:
@@ -343,8 +346,8 @@ class RequestScheduler:
                     f"must never be what builds or loads a bucket"
                 capacity = min(self.max_batch * t.capacity_factor,
                                t.engine.max_batch)
-                warmed = frozenset(b for b in t.engine.warmed
-                                   if b <= capacity)
+                tcap = capacity + (-capacity) % t.engine.n_shards
+                warmed = frozenset(b for b in t.engine.warmed if b <= tcap)
                 assert warmed, (t.name, t.engine.warmed, capacity)
                 self._tiers.append(_TierState(
                     t.name, t.engine, capacity, warmed,

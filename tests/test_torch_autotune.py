@@ -29,6 +29,7 @@ from repro_torch.core import estimator as port_est
 from repro_torch.data.datasets import class_blobs
 from repro_torch.kernels import dispatch as tdispatch
 from repro_torch.launch import serve as tserve
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.serving import NonNeuralServeEngine, TunedArm
 
 ALGOS = ("knn", "kmeans", "gnb", "gmm", "rf", "ann")
@@ -298,8 +299,15 @@ def test_fn_for_copies_the_estimator_per_arm(blobs):
     assert teng.estimator.path is None
     c_ref, _ = fn(teng.estimator.params, torch.as_tensor(X[:8]))
     assert torch.equal(c_ref, teng.estimator.predict_batch(X[:8])[0])
-    with pytest.raises(NotImplementedError, match="A15"):
-        teng._fn_for("query")
+    # the query arm builds on a mesh engine and agrees with single
+    meng = NonNeuralServeEngine(teng.estimator, max_batch=64, device="cpu",
+                                mesh=make_local_mesh(2, "cpu"))
+    qfn = meng._fn_for("query")
+    assert meng._fn_for("query") is qfn
+    Xq = torch.as_tensor(X[:9])
+    c_q, a_q = qfn(meng._params_for("query"), Xq)
+    c_s, a_s = meng._fn_for("single")(meng._params_for("single"), Xq)
+    assert torch.equal(c_q, c_s) and torch.equal(a_q, a_s)
     with pytest.raises(NotImplementedError, match="row-block"):
         teng._fn_for("single", "fused", 64)
 

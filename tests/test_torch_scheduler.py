@@ -7,8 +7,9 @@ across with ``repro_torch.convert``.  Per request, prediction, queue
 time, bucket, deadline miss, cache hit, shed, reason and tier are equal;
 float aux agrees to ``rtol = atol = 1e-5`` (integer aux exactly);
 ``ServingStats.summary()`` is equal (it holds no wall-clock field).  The
-behaviours mirror ``tests/test_scheduler.py`` (its sharded test waits
-for ROADMAP A15).
+behaviours mirror ``tests/test_scheduler.py``; its sharded stream runs
+here on ``make_local_mesh(c, "cpu")``, the port's counterpart of its
+forced host devices.
 """
 import os
 import re
@@ -30,6 +31,7 @@ from repro_torch import convert
 from repro_torch.core import estimator as port_est
 from repro_torch.data.datasets import class_blobs
 from repro_torch.kernels import dispatch as tdispatch
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.runtime import events as tevents
 from repro_torch.runtime.straggler import StepTimer, StragglerVerdict
 from repro_torch.serving import (NonNeuralServeEngine, RequestScheduler,
@@ -171,6 +173,34 @@ def test_steady_state_uses_only_warmed_buckets(blobs):
     assert sched.stats.completed > 100
     assert set(teng.bucket_launches) <= warmed == set(sched.warmed)
     assert teng.warmed == warmed
+
+
+@pytest.mark.parametrize("c", (3, 4))
+@pytest.mark.parametrize("algo", ALGOS)
+def test_sharded_stream_matches_oneshot(algo, c, blobs):
+    """The stream contract over a c-shard engine (the auto strategy a
+    bucket): warmup leaves the counts clean, buckets are at least the
+    shard count and shard multiples (on a mesh of 3 the top bucket, 18,
+    passes max_batch and the scheduler's cap follows it), every request's
+    prediction equals the one-device ``predict_batch`` of both packages,
+    and no bucket runs that was not warmed before the stream."""
+    X, y = blobs
+    jfit, tfit = _fits(algo, X, y)
+    eng = NonNeuralServeEngine(tfit, max_batch=16, device="cpu",
+                               mesh=make_local_mesh(c, "cpu"))
+    eng.warmup_buckets(X.shape[1])
+    assert eng.bucket_launches == {}
+    assert min(eng.warmed) >= c and all(b % c == 0 for b in eng.warmed)
+    sched = RequestScheduler(eng, max_wait=2)
+    assert max(sched.warmed) == 16 + (-16) % c
+    ids = replay_trace(sched, X[:40], poisson_trace(3.0, 20, seed=5))
+    Q = X[np.arange(len(ids)) % 40]
+    got = np.array([int(sched.results[i].prediction) for i in ids])
+    np.testing.assert_array_equal(got, tfit.predict_batch(Q)[0].numpy(),
+                                  err_msg=algo)
+    np.testing.assert_array_equal(got, np.asarray(jfit.predict_batch(Q)[0]),
+                                  err_msg=algo)
+    assert set(eng.bucket_launches) <= sched.warmed, algo
 
 
 def test_padded_batch_hits_the_warmed_bucket_exactly(blobs, monkeypatch):

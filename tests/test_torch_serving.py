@@ -26,6 +26,7 @@ from repro_torch.data.datasets import class_blobs
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch as tdispatch
 from repro_torch.launch import serve as tserve
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.serving import (ClassifyResult, KNNServeEngine,
                                  NonNeuralServeEngine)
 
@@ -158,10 +159,21 @@ def test_engine_rejects_unported_options():
                                       "bytes_predicted"}
     assert torch.equal(int8.classify(X[:5]).classes,
                        est.quantized_copy().predict_batch(X[:5])[0])
-    with pytest.raises(NotImplementedError, match="sharded"):
-        NonNeuralServeEngine(est, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="sharded"):
-        NonNeuralServeEngine(est, device="cpu", strategy="query")
+    # the sharded layer is ported (tests/test_torch_sharded.py); what the
+    # JAX engine refuses on a mesh, this one refuses too
+    with pytest.raises(ValueError, match="sharded=True needs"):
+        NonNeuralServeEngine(est, device="cpu", sharded=True)
+    with pytest.raises(ValueError, match="qry"):
+        NonNeuralServeEngine(est, device="cpu", strategy="qry")
+    mesh = make_local_mesh(2, "cpu")
+    with pytest.raises(NotImplementedError, match="model-partition"):
+        NonNeuralServeEngine(est, device="cpu", mesh=mesh, policy="int8",
+                             strategy="reference")
+    sharded = NonNeuralServeEngine(est, device="cpu", mesh=mesh)
+    with pytest.raises(NotImplementedError, match="single-device"):
+        sharded.sibling(policy="int8")
+    with pytest.raises(NotImplementedError, match="single-device"):
+        sharded.group_fn()
     # autotune is ported (tests/test_torch_autotune.py): one tuned bucket
     engine = NonNeuralServeEngine(est, device="cpu")
     assert engine.warmup(X[:4], autotune=True) == 1
