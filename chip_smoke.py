@@ -89,6 +89,22 @@ the CUDA toolkit.  In order it
    route's distance from an fp32 route (``lm_layers``).  B10 and B11 are
    also timed at each path shape by a CUDA graph of the calls
    (``device_ms``), beside the CUDA-event time of a loop of calls;
+   then serves qwen3-moe-30b-a3b at full width and depth (``MOE``: 48
+   layers, 128 experts, top 8; 61.1 GB of bf16 weights seeded on the
+   card one expert slab at a time) the same way (``moe_path``): B10 for
+   q, k, v, o and the unembedding, B11 in the prefill, B5 for every MoE
+   layer's router (48 x 33 launches, on its filter route); B5's
+   selection, ``route`` and ``apply_moe`` bit-equal to the plain route on
+   a layer's real prefill states at T = 2048 (the capacity branch) and
+   T = 4 (dropless), B5 timed at both router shapes; a teacher-forced
+   per-layer check made for routing (``moe_layers``: every flip of a
+   token's expert set at a near-tie, ``moe_flip_check``; at least
+   ``MOE_SAME`` of the tokens routed alike by all routes, and the layer's
+   output within ``LAYER_FACTOR`` of the fp32 noise over them); B10 and
+   B11 are held against their plain versions at both models' path
+   shapes among the edge cases (``lm_path_shapes``); free-running greedy generation on both routes,
+   printed, not gated (a flip at one near-tie moves a token by a whole
+   expert's share);
 5. replays a seeded Poisson request stream (``STREAM``: 256 arrivals a
    tick for 64 ticks, a coalescing window of 4 ticks, a deadline of 8)
    through ``RequestScheduler`` on the fitted kNN (B1) and GNB (B3)
@@ -226,6 +242,18 @@ LM_ATOL, LM_RTOL = 2.0 ** -3, 2.0 ** -6
 # bf16 rounding noise that the fp32 route measures; a wrong tile of one
 # head in one layer moves it past that noise at that layer.
 LAYER_FACTOR = 2.0
+# slice 15: qwen3-moe-30b-a3b at full width and depth (48 layers, 128
+# experts, top-8 on B5; 61.1 GB of bf16 weights) serves a batch of 4
+# prompts of 512 seeded tokens and 32 greedy new tokens: its prefill's
+# 2048 tokens take the capacity branch (C = 160 an expert), as stablelm's
+# batch does; a prompt of 1024 would run dropless at C = 8 x 1024 with a
+# 4.3 GB dispatch buffer a layer.  Decode is dropless (C = 32 at batch 4)
+MOE = dict(arch="qwen3-moe-30b-a3b", batch=4, prompt=512, new=32)
+# the MoE per-layer check holds a layer's output only over the tokens that
+# every route sends to the same experts; at least this share of a layer's
+# tokens must be among them (in runs on the card at least 1,866 of 2,048
+# were), or a fault that moves most routers would leave nothing to hold
+MOE_SAME = 0.5
 
 # slice 10: a Poisson request stream (the JAX CLI's --stream model) through
 # RequestScheduler on the fitted kNN (B1) and GNB (B3) engines, cycling
@@ -416,21 +444,54 @@ def attn_case(torch, ops, ref, q, k, v, causal, what):
     return float(err.max()), float((err / tol).max())
 
 
-def lm_kernel_edges(torch, ops, ref, dev, gen, cfg) -> int:
-    """B10 at every (M, N, K) of ``GEMM_EDGES``, at the LM path's shapes
-    and at the small-M boundary; B11 at every (S, d) of the edge sizes,
-    causal and not, in the models' layout, plus a head dim that is not a
-    multiple of 16 (the CUDA-core kernel in bf16); both dtypes.  Returns
-    the number of cases."""
+def lm_path_shapes(cfg, batch: int, prompt: int):
+    """The B10 (M, N, K) of one model's serving path, distinct and in
+    order: its projections at the prefill's M = batch · prompt and at
+    decode's M = batch (q, k, v, o, and the dense MLP's where the model
+    has one: ``transformer.layer_plan``), then the unembedding at M =
+    batch; and B11's (B, H, S, d) of its prefill (after the GQA repeat)."""
+    from repro_torch.models import transformer
+    d = cfg.d_model
+    proj = [(cfg.q_dim, d), (cfg.kv_dim, d), (d, cfg.q_dim)]
+    if transformer.layer_plan(cfg)[1] == ["mlp"]:
+        proj += [(cfg.d_ff, d), (d, cfg.d_ff)]
+    gemm = [(M, N, K) for M in (batch * prompt, batch) for N, K in proj]
+    gemm.append((batch, cfg.vocab_size, d))
+    return list(dict.fromkeys(gemm)), (batch, cfg.n_heads, prompt,
+                                       cfg.head_dim)
+
+
+def attn_path_inputs(torch, dev, gen, cfg, B, S, dtype):
+    """q, k, v (B, H, S, d) of N(0, 1) laid out as ``apply_attention``
+    gives them to B11: q a (B, S, H, d) projection seen through a permute,
+    k and v (B, S, KV, d) projections repeated to H heads (the GQA
+    repeat), then permuted."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn((B, S, H, hd), generator=gen, device=dev).to(dtype)
+    kv = [torch.randn((B, S, KV, hd), generator=gen, device=dev).to(dtype)
+          .repeat_interleave(H // KV, dim=2) for _ in range(2)]
+    return [t.permute(0, 2, 1, 3) for t in [q] + kv]
+
+
+def lm_kernel_edges(torch, ops, ref, dev, gen, models) -> int:
+    """B10 at every (M, N, K) of ``GEMM_EDGES``, at every LM path's shapes
+    (``models``: (config, batch, prompt) of each served model, through
+    ``lm_path_shapes``) and at the small-M boundary; B11 at every (S, d)
+    of the edge sizes, causal and not, in the models' layout, plus a head
+    dim that is not a multiple of 16 (the CUDA-core kernel in bf16), and
+    at each model's prefill shape in its own layout; both dtypes, each
+    path case on the route the shape rule gives.  Returns the number of
+    cases."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gemm
     from repro_torch.kernels.gemm import SMALL_M
-    d, ff = cfg.d_model, cfg.d_ff
-    rows = LM["batch"] * LM["prompt"]
-    path = [(rows, d, d), (rows, ff, d), (rows, d, ff), (LM["batch"], d, d),
-            (LM["batch"], ff, d), (LM["batch"], d, ff),
-            (LM["batch"], cfg.vocab_size, d),
-            (SMALL_M, ff, d), (SMALL_M + 1, d, ff)]
+    path, attn_path = [], []
+    for cfg, batch, prompt in models:
+        shapes, attn = lm_path_shapes(cfg, batch, prompt)
+        path += [s for s in shapes if s not in path]
+        attn_path.append((cfg, attn))
+    d, ff = models[0][0].d_model, models[0][0].d_ff
+    path += [(SMALL_M, ff, d), (SMALL_M + 1, d, ff)]
     n = 0
     ops.reset_launches()
     for dtype in (torch.bfloat16, torch.float32):
@@ -493,6 +554,23 @@ def lm_kernel_edges(torch, ops, ref, dev, gen, cfg) -> int:
     check(fa.ROUTE_LAUNCHES == want, f"B11 edge routes "
           f"{fa.ROUTE_LAUNCHES}, the layout rule gives {want}")
     print(f"[edge] routes: B10 {edge_routes}, B11 {dict(fa.ROUTE_LAUNCHES)}")
+    for cfg, (B, H, S, hd) in attn_path:
+        for dtype in (torch.bfloat16, torch.float32):
+            way = "wgmma" if dtype == torch.bfloat16 and hd % 16 == 0 \
+                else "cuda_core"
+            before = fa.ROUTE_LAUNCHES[way]
+            q, k, v = attn_path_inputs(torch, dev, gen, cfg, B, S, dtype)
+            err, ratio = attn_case(
+                torch, ops, ref, q, k, v, True, f"B11 {cfg.arch_id} {dtype} "
+                f"B={B} H={H} S={S} d={hd} causal")
+            check(fa.ROUTE_LAUNCHES[way] == before + 1,
+                  f"B11 {cfg.arch_id} {dtype} did not take the {way} route: "
+                  f"{fa.ROUTE_LAUNCHES}")
+            print(f"[edge] B11 {cfg.arch_id} {dtype} B={B} H={H} S={S} "
+                  f"d={hd} causal, KV heads {cfg.n_kv_heads} repeated "
+                  f"({way}): max_abs_err={err:.4g}, {ratio:.3f} of the "
+                  "tolerance")
+            n += 1
     return n
 
 
@@ -615,17 +693,21 @@ def lm_layer_check(torch, got, plain, exact):
 def lm_layers(torch, cfg, params, tokens):
     """One teacher-forced prefill of ``tokens``, layer by layer, through
     the kernel route, the plain route and the plain route in fp32 on the
-    same (upcast) weights; ``lm_layer_check`` on the three."""
+    same weights, upcast one layer at a time (never the whole tree: 122 GB
+    at qwen3-moe-30b-a3b's width); ``lm_layer_check`` on the three."""
     from repro_torch.models import transformer
-
-    def upcast(tree):
-        return {k: upcast(v) if isinstance(v, dict) else v.float()
-                for k, v in tree.items()}
     got = transformer.layer_states(params, tokens, cfg)
     plain = transformer.layer_states(params, tokens, cfg, path="ref")
-    exact = transformer.layer_states(upcast(params), tokens, cfg,
-                                     path="ref")
+    exact = transformer.layer_states(params, tokens, cfg, path="ref",
+                                     dtype=torch.float32)
     return lm_layer_check(torch, got, plain, exact), exact[-1].float().norm()
+
+
+def busy_ms(torch, window):
+    """Device busy time of ``window()`` in ms: the profiler's kernel time
+    over it (None where the window records no kernel)."""
+    from repro_torch.launch.lm_kernel_times import device_kernels
+    return sum(device_kernels(window).values()) or None
 
 
 def lm_path(torch, ops, dev, cfg):
@@ -721,28 +803,14 @@ def lm_path(torch, ops, dev, cfg):
     step_ms = (time.perf_counter() - t0) * 1e3 / steps
     # device busy time of a prefill and of the next decode steps, from
     # the profiler's kernels
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def busy_ms(window):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            window()
-            torch.cuda.synchronize()
-        us = sum(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-                 for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-        return us / 1e3 if us > 0 else None
-
-    prefill_dev_ms = busy_ms(lambda: engine.prefill(prompts))
+    prefill_dev_ms = busy_ms(torch, lambda: engine.prefill(prompts))
     state = {"cache": cache}
 
     def decode_steps():
         for i in range(steps, steps + traced):
             _, state["cache"] = engine.decode(state["cache"],
                                               res.tokens[:, i:i + 1])
-    step_busy = busy_ms(decode_steps)
+    step_busy = busy_ms(torch, decode_steps)
     del logits, cache, state
 
     # the plain route on the same tokens, teacher-forced
@@ -797,6 +865,347 @@ def lm_path(torch, ops, dev, cfg):
                 decisions=Bt * (new + 1), near=near, differ=differ,
                 worst=worst, first=res.tokens[0, :8].tolist(),
                 launches=launches, routes=routes, layers=layers)
+
+
+def expert_mask(torch, ids, n_experts: int, values=None):
+    """(T, k) expert ids -> (T, n_experts) bool, True at each token's ids
+    (only where ``values``, a (T, k) bool, is True, when given)."""
+    src = torch.ones_like(ids, dtype=torch.bool) if values is None else values
+    return torch.zeros((ids.shape[0], n_experts), dtype=torch.bool,
+                       device=ids.device).scatter_(1, ids.long(), src)
+
+
+def moe_flip_check(torch, ids_k, ids_p, logits_k, logits_p):
+    """The near-tie rule of the MoE per-layer check, on one layer's router
+    over T tokens: the kernel route's and the plain route's top-k expert
+    ids (T, k) and router logits (T, E), fp32.  Returns (flip, ok), two
+    (T,) bool tensors: ``flip`` where the two top-k sets differ, ``ok``
+    where there is no flip or the flip is at a near-tie.  A flip is at a
+    near-tie when, for every expert the plain route took and the kernel
+    route dropped and every expert the kernel route took in its place,
+    the plain route's logit gap between the two is at most twice the
+    largest |logit_k − logit_p| of that token: routes whose logits stand
+    within δ of each other can swap two experts only where the two stand
+    within 2δ."""
+    E = logits_p.shape[1]
+    in_k = expert_mask(torch, ids_k, E)
+    in_p = expert_mask(torch, ids_p, E)
+    flip = (in_k != in_p).any(1)
+    dropped = logits_p.masked_fill(~(in_p & ~in_k), -math.inf).amax(1)
+    taken = logits_p.masked_fill(~(in_k & ~in_p), math.inf).amin(1)
+    delta = (logits_k - logits_p).abs().amax(1)
+    return flip, ~flip | (dropped - taken <= 2 * delta)
+
+
+def moe_layers(torch, cfg, params, tokens):
+    """The per-layer check of an MoE model (ROADMAP C3, made for routing):
+    one teacher-forced prefill of ``tokens`` (B, S), layer by layer, each
+    layer fed the kernel route's residual stream and run on the kernel
+    route, the plain route and the plain route in fp32 (that layer's
+    weights upcast, one layer's copy at a time).  A token whose top-k set
+    differs between the kernel and the plain route must be at a near-tie
+    (``moe_flip_check``).  Over the tokens that all three routes send to
+    the same experts and keep in the same ones (a flip also moves the
+    capacity ranks of later tokens), ‖kernel − plain‖ ≤ LAYER_FACTOR ·
+    ‖plain − fp32‖ (Frobenius norm of the layer's output rows); those
+    tokens are at least ``MOE_SAME`` of the layer's, since the near-tie
+    bound widens with the error it is given (an error that moves every
+    token's router would flip them all, each within its own bound, and
+    leave no token for the norm).  Returns
+    one dict a layer: flips, flips far from a tie, tokens compared, the
+    two norms and whether the layer passed."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe, transformer
+    E = cfg.moe.num_experts
+    x = L.apply_embed(params["embed"], tokens, cfg)
+    B, S, d = x.shape
+    T = B * S
+    C = moe.capacity(T, cfg)
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    rows = []
+    for i in range(cfg.n_layers):
+        outs, ids, logits, chosen, kept = [], [], [], [], []
+        for dtype, path in ((None, None), (None, "ref"),
+                            (torch.float32, "ref")):
+            p = transformer.layer_params(params, i, dtype)
+            xa, _ = transformer.mixer(p, x if dtype is None else x.to(dtype),
+                                      cfg, positions, path)
+            h = L.apply_norm(p["norm_ffn"], xa, cfg).reshape(T, d)
+            w, e, _ = moe.route(p["moe"], h, cfg, path)
+            slot, _, _ = moe.slot_map(w, e, C, E)
+            ids.append(e)
+            logits.append(moe.router_logits(p["moe"], h))
+            chosen.append(expert_mask(torch, e, E))
+            kept.append(expert_mask(torch, e, E, slot < E * C))
+            outs.append(transformer.ffn(p, xa, cfg, path)[0])
+            del p, xa, h
+        flip, near = moe_flip_check(torch, ids[0], ids[1], logits[0],
+                                    logits[1])
+        same = ((chosen[0] == chosen[1]) & (chosen[1] == chosen[2]) &
+                (kept[0] == kept[1]) & (kept[1] == kept[2])).all(1)
+        got, plain, exact = (o.reshape(T, d)[same].float() for o in outs)
+        dist = float((got - plain).norm())
+        noise = float((plain - exact).norm())
+        rows.append(dict(layer=i, flips=int(flip.sum()),
+                         far=int((~near).sum()), same=int(same.sum()),
+                         dist=dist, noise=noise,
+                         ok=bool(near.all()) and
+                         int(same.sum()) >= MOE_SAME * T and
+                         dist <= LAYER_FACTOR * noise))
+        x = outs[0]
+    return rows
+
+
+def bits(torch, t):
+    """The raw bits of a float tensor, for bitwise comparison."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def moe_path(torch, ops, ref, dev, cfg, peaks):
+    """Serve ``MOE`` through ``ServeEngine.generate`` (qwen3-moe-30b-a3b at
+    full width and depth: bf16 weights seeded on the card, one expert
+    slab at a time) with the launch counts set to 0 just before and read
+    just after, each count and route what the shapes imply; time the
+    prefill and the decode steps on the host clock, then their device busy
+    time; hold B5's router selection and one MoE layer, kernel route
+    against plain route, bit for bit on a layer's real prefill hidden
+    states (T = batch · prompt, the capacity branch) and on the decode
+    shape (T = batch, dropless); time B5 at those two router shapes; run
+    the per-layer check (``moe_layers``); and generate greedily on both
+    routes, free-running, printing where their tokens part (not gated: a
+    flip at one near-tie moves a token's layer output by a whole
+    expert's share).  The host-clock times come after the stablelm
+    phase's profiler windows.  Returns the launch counts."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemm
+    from repro_torch.kernels import topk_select as ts
+    from repro_torch.launch.lm_kernel_times import device_kernels, device_ms
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe, transformer
+    from repro_torch.serving import ServeEngine
+    t_phase = time.perf_counter()
+    Bt, P, new = MOE["batch"], MOE["prompt"], MOE["new"]
+    nL, E, k = cfg.n_layers, cfg.moe.num_experts, cfg.moe.top_k
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from (leaves(v) if isinstance(v, dict) else [v])
+    n_params = sum(t.numel() for t in leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    # the reference's count leaves out the final norm and the q/k norms
+    check(n_params == cfg.param_count() + cfg.d_model +
+          2 * cfg.head_dim * nL,
+          f"lm/moe: {n_params} parameters in the tree, "
+          f"{cfg.param_count()} counted")
+    prompts = torch.randint(0, cfg.vocab_size, (Bt, P), generator=gen,
+                            device=dev)
+    serve_cfg = ServeConfig(max_seq=P + new)
+    engine = ServeEngine(cfg, params, serve_cfg)
+    print(f"[lm/moe] {cfg.arch_id}: {cfg.param_count()} parameters as the "
+          f"reference counts them ({n_params} in the tree, with the final "
+          f"norm and the q/k norms), {n_bytes} bytes (bf16, the router "
+          f"fp32), seeded on the card in {init_s:.2f}s; "
+          f"{torch.cuda.memory_allocated()} bytes allocated")
+    engine.generate(prompts[:, :16], 2)     # first calls outside the count
+    torch.cuda.synchronize()
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = engine.generate(prompts, new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    routes = dict(b10=dict(gemm.ROUTE_LAUNCHES), b11=dict(fa.ROUTE_LAUNCHES),
+                  b5=dict(ts.ROUTE_LAUNCHES))
+    want = {name: 0 for name in launches}
+    want["matmul"] = (4 * nL + 1) * (1 + new)
+    want["flash_attention"] = nL
+    want["topk_smallest"] = nL * (1 + new)
+    check(launches == want, f"lm/moe: launches {launches}, the shapes "
+          f"imply {want}")
+    # q, k, v, o of the prefill at M = batch x prompt on wgmma; its
+    # unembedding and every decode launch at M = batch on small-M; the
+    # router's k = 8 of 128 on B5's filter route
+    want_routes = dict(
+        b10=dict(wgmma=4 * nL, mma_sync=0, small_m=1 + new * (4 * nL + 1),
+                 fp32=0),
+        b11=dict(wgmma=nL, cuda_core=0),
+        b5=dict(filter=nL * (1 + new), radix=0))
+    check(routes == want_routes, f"lm/moe: routes {routes}, the design "
+          f"implies {want_routes}")
+    check(res.tokens.shape == (Bt, new) and
+          bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()) and
+          bool(torch.isfinite(res.logprobs).all()) and
+          bool((res.logprobs <= 0).all()),
+          f"lm/moe: tokens {tuple(res.tokens.shape)} or log-probabilities "
+          "out of range")
+
+    # timed: the prefill alone, then decode steps on its cache
+    prefill_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = engine.prefill(prompts)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    steps, traced = min(8, new // 2), min(2, new - min(8, new // 2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        logits, cache = engine.decode(cache, res.tokens[:, i:i + 1])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    # device busy time, and the kernels that take the most of it
+    prefill_kernels = device_kernels(lambda: engine.prefill(prompts))
+    state = {"cache": cache}
+
+    def decode_steps():
+        for i in range(steps, steps + traced):
+            _, state["cache"] = engine.decode(state["cache"],
+                                              res.tokens[:, i:i + 1])
+    step_kernels = {name: ms / traced for name, ms in
+                    device_kernels(decode_steps).items()}
+    prefill_dev = sum(prefill_kernels.values()) or None
+    step_dev = sum(step_kernels.values()) or None
+    del logits, cache, state
+
+    def share(busy, wall):
+        return "not measured" if busy is None else \
+            f"{busy:.2f} ms = {busy / wall:.3f}"
+
+    def top(kernels):
+        return "; ".join(f"{name[:70]} {ms:.3f} ms"
+                         for name, ms in list(kernels.items())[:6])
+    pre = min(prefill_ms)
+    print(f"[lm/moe] {cfg.arch_id} batch={Bt} prompt={P} new={new}: "
+          f"generate {gen_s:.3f}s ({Bt * new / gen_s:.1f} tok/s); prefill "
+          f"{pre:.2f} ms (device busy {share(prefill_dev, pre)}); decode "
+          f"step {step_ms:.2f} ms ({Bt / step_ms * 1e3:.1f} tok/s; device "
+          f"busy {share(step_dev, step_ms)}); launches B10 "
+          f"{launches['matmul']}, B11 {launches['flash_attention']}, B5 "
+          f"{launches['topk_smallest']} (the shapes imply them); routes "
+          f"{routes}")
+    print(f"[lm/moe] device time by kernel, prefill: {top(prefill_kernels)}")
+    print(f"[lm/moe] device time by kernel, a decode step: "
+          f"{top(step_kernels)}")
+
+    # B5 and one MoE layer, kernel route against plain route, on the
+    # hidden states of the middle layer's MoE in a real prefill, and on
+    # the last position of each row (the decode shape)
+    mid = nL // 2
+    x = transformer.layer_states(params, prompts, cfg)[mid - 1]
+    p = transformer.layer_params(params, mid)
+    positions = torch.arange(P, device=dev).expand(Bt, P)
+    xa, _ = transformer.mixer(p, x, cfg, positions)
+    h = L.apply_norm(p["norm_ffn"], xa, cfg)
+    del x, xa
+    b5_times = {}
+    for T, hh in ((Bt * P, h.reshape(Bt * P, -1)),
+                  (Bt, h[:, -1].contiguous())):
+        C = moe.capacity(T, cfg)
+        neg = -torch.softmax(moe.router_logits(p["moe"], hh), dim=-1)
+        kv, ki = ops.topk_smallest(neg, k)
+        pv, pi = ref.topk_smallest(neg, k)
+        check(torch.equal(ki, pi) and torch.equal(bits(torch, kv),
+                                                  bits(torch, pv)),
+              f"lm/moe router T={T}: B5 differs from its plain version")
+        wk, ik, ak = moe.route(p["moe"], hh, cfg)
+        wp, ip, ap = moe.route(p["moe"], hh, cfg, path="ref")
+        check(torch.equal(ik, ip) and
+              torch.equal(bits(torch, wk), bits(torch, wp)) and
+              torch.equal(bits(torch, ak), bits(torch, ap)),
+              f"lm/moe route T={T}: ids, weights or aux differ from the "
+              "plain route's")
+        yk, _ = moe.apply_moe(p["moe"], hh, cfg)
+        yp, _ = moe.apply_moe(p["moe"], hh, cfg, path="ref")
+        check(torch.equal(bits(torch, yk), bits(torch, yp)),
+              f"lm/moe apply_moe T={T}: the kernel route differs from the "
+              "plain route")
+        slot, _, _ = moe.slot_map(wk, ik, C, E)
+        dropped = int((slot == E * C).sum())
+        b, by = bound_ms(T * E, 4 * T * E + 8 * T * k, peaks)
+        r = dict(C=C, dropped=dropped, bound_ms=b, bound_by=by,
+                 ms=cuda_ms(torch, lambda: ops.topk_smallest(neg, k), 50),
+                 dev_ms=device_ms(lambda: ops.topk_smallest(neg, k), 50),
+                 plain_ms=cuda_ms(torch, lambda: ref.topk_smallest(neg, k),
+                                  50),
+                 library_ms=cuda_ms(torch, lambda: torch.topk(
+                     neg, k, dim=1, largest=False), 50),
+                 lib_dev_ms=device_ms(lambda: torch.topk(
+                     neg, k, dim=1, largest=False), 50))
+        b5_times[T] = r
+        print(f"[kernel] B5 router T={T} E={E} k={k} (layer {mid}'s "
+              f"prefill states; C={C}, {dropped} of {T * k} assignments "
+              f"dropped): ids and weights bit-equal to the plain version's, "
+              f"route() and apply_moe() bit-equal to the plain route's")
+        print(f"[time] B5 router ({T}, {E}) k={k}: kernel {r['ms']:.4f} ms, "
+              f"device {r['dev_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"torch.topk {r['library_ms']:.4f} ms (device "
+              f"{r['lib_dev_ms']:.4f} ms), bound {b:.6f} ms ({by})")
+    del p, h, neg, kv, ki, pv, pi, wk, ik, ak, wp, ip, ap, yk, yp, slot
+
+    # ROADMAP C3 for routing: one teacher-forced prefill, layer by layer
+    rows = moe_layers(torch, cfg, params, prompts)
+    bad = [r for r in rows if not r["ok"]]
+    check(not bad, "lm/moe layers: " + "; ".join(
+        f"layer {r['layer']}: {r['far']} of {r['flips']} flips away from a "
+        f"near-tie, ‖kernel − plain‖ {r['dist']:.4g} against {LAYER_FACTOR} "
+        f"x ‖plain − fp32‖ {r['noise']:.4g} over {r['same']} tokens (at "
+        f"least {MOE_SAME} x {Bt * P})"
+        for r in bad))
+    ratios = [r["dist"] / r["noise"] if r["noise"] else 0.0 for r in rows]
+    worst = max(range(nL), key=lambda i: ratios[i])
+    print(f"[lm/moe] per layer, one teacher-forced prefill of {Bt * P} "
+          f"tokens: every flip of a token's top-{k} set at a near-tie; "
+          f"flips a layer {[r['flips'] for r in rows]}; over the tokens all "
+          f"three routes route alike (fewest {min(r['same'] for r in rows)})"
+          f" ‖kernel − plain‖ within {LAYER_FACTOR} x ‖plain − fp32‖ at "
+          f"all {nL} layers, at most {ratios[worst]:.3f} x (layer {worst}: "
+          f"{rows[worst]['dist']:.4g} against {rows[worst]['noise']:.4g})")
+
+    # free-running greedy generation on both routes
+    def free_run(eng):
+        lg, c = eng.prefill(prompts)
+        toks, lgs = [], []
+        for _ in range(new):
+            lf = lg.float()
+            nxt = lf.argmax(-1)
+            toks.append(nxt)
+            lgs.append(lf)
+            lg, c = eng.decode(c, nxt[:, None])
+        return torch.stack(toks, dim=1), torch.stack(lgs, dim=1)
+    tk, lk = free_run(engine)
+    check(torch.equal(tk, res.tokens), "lm/moe: generate's tokens are not "
+          "the argmax of its own logits")
+    check(bool(torch.isfinite(lk).all()), "lm/moe: logits not finite")
+    tp, lp = free_run(ServeEngine(cfg, params, serve_cfg, path="ref"))
+    # a row's context is the same on both routes up to its first differing
+    # token, that step included
+    differ = tk != tp
+    first = torch.where(differ.any(1), differ.float().argmax(1),
+                        torch.full((Bt,), new, device=dev))
+    same_ctx = torch.arange(new, device=dev)[None, :] <= first[:, None]
+    worst_logit = float(((lk - lp).abs().amax(-1))[same_ctx].max())
+    steps_differ = {b: torch.nonzero(differ[b]).flatten().tolist()
+                    for b in range(Bt) if bool(differ[b].any())}
+    print(f"[lm/moe] free-running greedy, {new} steps a row: largest logit "
+          f"difference from the plain route while the contexts agree "
+          f"{worst_logit:.4g}; steps whose greedy token differs, by row: "
+          f"{steps_differ or 'none'} (not gated: ROADMAP C); first row "
+          f"{res.tokens[0, :8].tolist()}")
+    del tk, lk, tp, lp, res, engine, params
+    torch.cuda.empty_cache()
+    print(f"[lm/moe] phase in {time.perf_counter() - t_phase:.2f}s, peak "
+          f"{torch.cuda.max_memory_allocated()} bytes allocated")
+    return launches
 
 
 def stream_path(torch, ops, dev, est, kr, queries, helpers,
@@ -3052,7 +3461,11 @@ def main() -> int:
     from repro_torch.configs.registry import get_config
     lm_cfg = get_config(LM["arch"])
     lm_gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    edges += lm_kernel_edges(torch, ops, ref, dev, lm_gen, lm_cfg)
+    moe_cfg = get_config(MOE["arch"])
+    edges += lm_kernel_edges(
+        torch, ops, ref, dev, lm_gen,
+        [(lm_cfg, LM["batch"], LM["prompt"]),
+         (moe_cfg, MOE["batch"], MOE["prompt"])])
     edges += tenant_kernel_edges(torch, ops, ref, dev, gen)
     print(f"[edge] {edges} ragged and tied cases agree with the plain "
           "versions")
@@ -4024,6 +4437,15 @@ def main() -> int:
           f"layer {lm_cfg.n_layers - 1} {lay['last'][0]:.4g} against "
           f"{lay['last'][1]:.4g} (‖fp32 state‖ {lay['scale']:.4g})")
     del run
+
+    # ------------------------------------------------ 6b. the MoE LM path
+    # stablelm's weights are gone (lm_path, lm_kernel_times); qwen3's 61.1
+    # GB take the card's memory next, so the caches go back first
+    torch.cuda.empty_cache()
+    launches = moe_path(torch, ops, ref, dev, moe_cfg, peaks)
+    kernels["B5"]["launches"] += launches["topk_smallest"]
+    kernels["B10"]["launches"] += launches["matmul"]
+    kernels["B11"]["launches"] += launches["flash_attention"]
 
     # ------------------------------------------------ 7. request streams
     # the fitted kNN and GNB estimators behind RequestScheduler (one

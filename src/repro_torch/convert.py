@@ -18,8 +18,8 @@ serving.
 ``linear_from_numpy`` carries an LR or SVM ``LinearModel`` (``W``
 (C, d), ``b`` (C,)) across for ``core.gemm_based``.
 
-``lm_params_from_numpy`` carries a dense LM's params tree across (the
-reference's ``init_params`` tree with numpy leaves) for
+``lm_params_from_numpy`` carries a dense or MoE LM's params tree across
+(the reference's ``init_params`` tree with numpy leaves) for
 ``serving.ServeEngine``.
 """
 from __future__ import annotations
@@ -129,10 +129,13 @@ def lm_params_from_numpy(cfg, tree: Mapping[str, Any], *,
     """``tree``: the reference's LM params for ``cfg`` with numpy leaves
     (``jax.tree.map(np.asarray, params)``): ``embed`` (``tok``,
     ``unembed``), ``final_norm`` and ``layers/sub0`` with every layer's
-    weights stacked on a leading axis.  Returns the port's params, the
-    same tree of tensors on ``device`` with dtypes kept.  Missing leaves
-    raise ``KeyError`` and wrong shapes ``ValueError``, each naming the
-    leaf; non-dense configs raise ``NotImplementedError``."""
+    weights stacked on a leading axis (an MoE layer's ``moe``: ``router``
+    (L, d, E) fp32, ``w_in``/``w_gate`` (L, E, d, f) and ``w_out`` (L, E,
+    f, d) in the config's dtype).  Returns the port's params, the same
+    tree of tensors on ``device`` with dtypes kept.  Missing leaves raise
+    ``KeyError`` and wrong shapes ``ValueError``, each naming the leaf;
+    configs of the families the port does not serve raise
+    ``NotImplementedError``."""
     from repro_torch.models.transformer import param_shapes
     want = param_shapes(cfg)
     dev = resolve_device(device)

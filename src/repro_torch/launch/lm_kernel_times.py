@@ -65,6 +65,25 @@ def device_ms(fn, reps: int = REPS) -> float:
     return ms
 
 
+def device_kernels(window) -> dict:
+    """The device time of the kernels ``window()`` runs, in ms by kernel
+    name, largest first (``torch.profiler``'s ``key_averages``).  A
+    process that has run the profiler issues later launches more slowly,
+    so host-clock times come before the first such window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        window()
+        torch.cuda.synchronize()
+    ms = {e.key: getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0)) / 1e3
+          for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    return dict(sorted(((k, v) for k, v in ms.items() if v > 0),
+                       key=lambda kv: -kv[1]))
+
+
 def serve_times(torch, engine, prompts, new: int):
     """Host-clock ms of three prefills and s of three ``generate`` calls,
     each ending in a synchronize."""

@@ -3,11 +3,14 @@
 The defaults are the JAX package's (``launch/serve.py``): ``--algo lm``
 and ``--batch 4``, so the same bare command serves the same path.
 
-LM (dense family): seeded random weights and prompts, greedy or sampled
-generation through ``ServeEngine``.
+LM (dense and MoE families): seeded random weights and prompts, greedy
+or sampled generation through ``ServeEngine``; on one card the MoE arch
+qwen3-moe-30b-a3b serves at full width (61.1 GB of bf16 weights).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --algo lm \
       --arch stablelm-3b --batch 4 --prompt-len 512 --new-tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --algo lm \
+      --arch qwen3-moe-30b-a3b --batch 4 --prompt-len 512 --new-tokens 32
 
 Non-Neural: fit one estimator on seeded blobs and serve held-out queries
 through the bucketed engine (``--batch`` is the largest bucket).
@@ -426,7 +429,9 @@ def main(argv=None):
                          "engine's max_batch, its largest bucket (default "
                          "4, as in the JAX package's CLI)")
     ap.add_argument("--arch", default="stablelm-3b",
-                    help="--algo lm: architecture id")
+                    help="--algo lm: architecture id (stablelm-3b, "
+                         "qwen3-moe-30b-a3b; phi3.5-moe-42b-a6.6b with "
+                         "--smoke only on one card)")
     ap.add_argument("--smoke", action="store_true",
                     help="--algo lm: the reduced config (2 layers, d_model "
                          "64, fp32) of --arch")

@@ -1,1 +1,2 @@
-"""The port's LM stack (dense family): layers, attention, the decoder."""
+"""The port's LM stack (dense and MoE families): layers, attention, the
+MoE layer, the decoder."""

@@ -1,7 +1,9 @@
 """Model factory of the port: config -> parameters.
 
-Counterpart of the JAX package's ``models/factory.py``; its sharding specs
-and per-shape input trees wait for the sharded layer (ROADMAP A17).
+Counterpart of the JAX package's ``models/factory.py`` for the dense and
+MoE families; its sharding specs (the MoE's ``moe_logical`` among them)
+and per-shape input trees wait for the LM stack's sharding (ROADMAP
+A17).
 """
 from __future__ import annotations
 

@@ -10,10 +10,10 @@ reference's ``x @ w``; it flattens x to rows and calls B10
 (``ops.matmul``), or with the plain route its plain version.
 
 The plain route: ``path="ref"``, or no path and ``REPRO_BACKEND=ref``,
-sends B10 and B11 to ``kernels/ref.py``; ``path=None`` or ``"fused"``
-takes the kernels (on a card; the wrappers run the plain versions for
-CPU tensors either way).  The LM ops have no other arm, so any other
-``REPRO_BACKEND`` leaves them on the kernels.
+sends B10, B11 and the MoE router's B5 to ``kernels/ref.py``;
+``path=None`` or ``"fused"`` takes the kernels (on a card; the wrappers
+run the plain versions for CPU tensors either way).  The LM ops have no
+other arm, so any other ``REPRO_BACKEND`` leaves them on the kernels.
 """
 from __future__ import annotations
 
@@ -32,8 +32,8 @@ ROUTES = (None, "fused", "ref")
 
 
 def plain_route(path: Optional[str] = None) -> bool:
-    """Whether B10 and B11 take their plain versions (see the module
-    docstring)."""
+    """Whether B10, B11 and B5 (the MoE router) take their plain versions
+    (see the module docstring)."""
     if path not in ROUTES:
         raise ValueError(f"unknown LM path {path!r}; one of {ROUTES}")
     if path is None:

@@ -1,9 +1,9 @@
-"""Decoder LM stack of the port, dense family.
+"""Decoder LM stack of the port: the dense and MoE families.
 
 Counterpart of the JAX package's ``models/transformer.py`` for dense
-archs (stablelm-3b): the same parameter tree, with each layer's weights
-stacked on a leading axis under ``params["layers"]["sub0"]``, and the
-same three entry points:
+archs (stablelm-3b) and MoE archs (qwen3-moe-30b-a3b, phi3.5-moe): the
+same parameter tree, with each layer's weights stacked on a leading axis
+under ``params["layers"]["sub0"]``, and the same three entry points:
 
   forward(params, tokens, cfg)               scoring (full sequence)
   prefill(params, tokens, cfg, max_seq=)     full sequence + decode cache
@@ -11,9 +11,13 @@ same three entry points:
 
 The reference scans its layers; here a Python loop walks them, each
 layer's weights a view of the stacked tensors.  Every dense projection
-and the unembedding go through B10 and prefill's attention through B11.
-MoE, SSM, hybrid, enc-dec and VLM configs raise ``NotImplementedError``:
-their modules wait for ROADMAP A17.
+and the unembedding go through B10, prefill's attention through B11 and
+an MoE layer's router through B5 (``models/moe.py``; the expert GEMMs
+are batched ``torch.matmul``, as the reference's are plain einsums).  An
+MoE layer runs on the B·S tokens of a prefill and the B tokens of a
+decode step, as the reference's does.  SSM, hybrid, enc-dec and VLM
+configs raise ``NotImplementedError``: their modules wait for ROADMAP
+A17.
 """
 from __future__ import annotations
 
@@ -25,28 +29,34 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense decoder, the family the port
-    serves."""
+    """Raise unless ``cfg`` is a dense or MoE decoder, the families the
+    port serves."""
     other = [name for name, on in (
-        ("MoE", cfg.moe is not None or cfg.family == "moe"),
         ("SSM", cfg.ssm is not None or cfg.family == "ssm"),
         ("hybrid", bool(cfg.hybrid_block) or cfg.family == "hybrid"),
         ("enc-dec", cfg.encoder is not None or cfg.family == "audio"),
         ("VLM", cfg.vision is not None or cfg.family == "vlm")) if on]
-    if other or cfg.family != "dense":
+    if other or cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.arch_id}: the port's LM stack serves the dense family; "
-            f"{'/'.join(other) or cfg.family} layers wait for ROADMAP A17")
+            f"{cfg.arch_id}: the port's LM stack serves the dense and MoE "
+            f"families; {'/'.join(other) or cfg.family} layers wait for "
+            "ROADMAP A17")
 
 
 def layer_plan(cfg: ModelConfig):
     """(mixer kinds, ffn kinds, unit size, number of units), as in the
-    reference: for a dense decoder one attention layer per unit."""
+    reference: one attention layer per unit, its FFN an MoE where
+    ``cfg.moe.every == 1`` and else the dense MLP."""
     check_supported(cfg)
-    return ["attn"], ["mlp" if cfg.d_ff else "none"], 1, cfg.n_layers
+    if cfg.moe:
+        ffn = "moe" if cfg.moe.every == 1 else "mlp"
+    else:
+        ffn = "mlp" if cfg.d_ff else "none"
+    return ["attn"], [ffn], 1, cfg.n_layers
 
 
 # ---------------------------------------------------------------------------
@@ -73,6 +83,9 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                                                        lead)}
     if ffns[0] != "none":
         sub["norm_ffn"] = L.init_norm(cfg, dev, lead)
+    if ffns[0] == "moe":
+        sub["moe"] = moe_mod.init_moe(generator, cfg, dev, lead)
+    elif ffns[0] == "mlp":
         sub["mlp"] = L.init_mlp(generator, cfg, dev, lead)
     return {"embed": L.init_embed(generator, cfg, dev),
             "final_norm": L.init_norm(cfg, dev),
@@ -89,22 +102,49 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     return shapes(init_params(cfg, device="meta"))
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked tree: views, no copies."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+def layer_params(params, i: int, dtype: Optional[torch.dtype] = None):
+    """Layer ``i``'s weights: views of the stacked tensors (no copies), or
+    with ``dtype`` one layer's copy cast to it."""
+    def take(tree):
+        if isinstance(tree, dict):
+            return {k: take(v) for k, v in tree.items()}
+        return tree[i] if dtype is None else tree[i].to(dtype)
+    return take(params["layers"]["sub0"])
 
 
-def _sublayer(p, x: torch.Tensor, cfg: ModelConfig, positions, path):
+def mixer(p, x: torch.Tensor, cfg: ModelConfig, positions,
+          path: Optional[str] = None):
+    """The attention half of a layer (weights ``p``) on the residual stream
+    x (B, S, d): (x + attention(norm(x)), the layer's (k, v))."""
     h = L.apply_norm(p["norm_mixer"], x, cfg)
     out, kv = attn.apply_attention(p["attn"], h, cfg, positions=positions,
                                    path=path)
-    x = x + out
+    return x + out, kv
+
+
+def ffn(p, x: torch.Tensor, cfg: ModelConfig, path: Optional[str] = None):
+    """The FFN half of a layer on x (B, S, d): (x + MLP(norm(x)), None), or
+    for an MoE layer (x + MoE(norm(x)) over the B·S tokens, its aux loss)."""
+    if "moe" in p:
+        h = L.apply_norm(p["norm_ffn"], x, cfg)
+        y, aux = moe_mod.apply_moe(p["moe"], h.reshape(-1, h.shape[-1]), cfg,
+                                   path)
+        return x + y.reshape(x.shape), aux
     if "mlp" in p:
         x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["norm_ffn"], x, cfg),
                             cfg, path)
-    return x, kv
+    return x, None
+
+
+def _sublayer(p, x: torch.Tensor, cfg: ModelConfig, positions, path):
+    x, kv = mixer(p, x, cfg, positions, path)
+    x, aux = ffn(p, x, cfg, path)
+    return x, kv, aux
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    B, S, _ = x.shape
+    return torch.arange(S, device=x.device).expand(B, S)
 
 
 # ---------------------------------------------------------------------------
@@ -114,34 +154,42 @@ def _sublayer(p, x: torch.Tensor, cfg: ModelConfig, positions, path):
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             path: Optional[str] = None):
-    """tokens (B, S) -> (logits (B, S, vocab), aux loss): the aux loss is
-    the reference's MoE balance term, a zero for a dense model."""
+    """tokens (B, S) -> (logits (B, S, vocab), aux loss): the sum of the
+    MoE layers' balance terms, as the reference's; a zero for a dense
+    model."""
     _, _, _, n_units = layer_plan(cfg)
     x = L.apply_embed(params["embed"], tokens, cfg)
-    B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    positions = _positions(x)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_units):
-        x, _ = _sublayer(_layer(params["layers"]["sub0"], i), x, cfg,
-                         positions, path)
+        x, _, aux = _sublayer(layer_params(params, i), x, cfg, positions,
+                              path)
+        if aux is not None:
+            total = total + aux
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.apply_unembed(params["embed"], x, cfg, path)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, total
 
 
 def layer_states(params, tokens: torch.Tensor, cfg: ModelConfig, *,
-                 path: Optional[str] = None):
+                 path: Optional[str] = None,
+                 dtype: Optional[torch.dtype] = None):
     """tokens (B, S) -> the residual stream (B, S, d_model) after each
     layer, a list of ``n_layers`` tensors: the prefill's forward pass seen
     layer by layer, so that two routes can be held against each other at
-    every layer rather than only at the logits."""
+    every layer rather than only at the logits.  With ``dtype`` the
+    embedding table and each layer's weights are cast to it as they are
+    used, one layer's copy at a time: an fp32 route over bf16 weights
+    that never holds an fp32 copy of the whole tree."""
     _, _, _, n_units = layer_plan(cfg)
-    x = L.apply_embed(params["embed"], tokens, cfg)
-    B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    tok = params["embed"]["tok"]
+    x = L.apply_embed({"tok": tok if dtype is None else tok.to(dtype)},
+                      tokens, cfg)
+    positions = _positions(x)
     states = []
     for i in range(n_units):
-        x, _ = _sublayer(_layer(params["layers"]["sub0"], i), x, cfg,
-                         positions, path)
+        x, _, _ = _sublayer(layer_params(params, i, dtype), x, cfg,
+                            positions, path)
         states.append(x)
     return states
 
@@ -182,11 +230,11 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     max_seq = max_seq or S
     if S > max_seq:
         raise ValueError(f"prompt of {S} tokens exceeds max_seq={max_seq}")
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    positions = _positions(x)
     cache = init_cache(cfg, B, max_seq, device=x.device)
     for i in range(n_units):
-        x, (k, v) = _sublayer(_layer(params["layers"]["sub0"], i), x, cfg,
-                              positions, path)
+        x, (k, v), _ = _sublayer(layer_params(params, i), x, cfg, positions,
+                                 path)
         cache.kv_k[i, :, :S] = k
         cache.kv_v[i, :, :S] = v
     x = L.apply_norm(params["final_norm"], x, cfg)
@@ -210,15 +258,12 @@ def decode_step(params, cache: DecodeCache, tokens: torch.Tensor,
                          f"{cache.kv_k.shape[2]} positions written")
     x = L.apply_embed(params["embed"], tokens, cfg)
     for i in range(n_units):
-        p = _layer(params["layers"]["sub0"], i)
+        p = layer_params(params, i)
         h = L.apply_norm(p["norm_mixer"], x, cfg)
         out, _, _ = attn.decode_attention(
             p["attn"], h, cache.kv_k[i], cache.kv_v[i], cache.pos, cfg,
             length=cache.length, path=path)
-        x = x + out
-        if "mlp" in p:
-            x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["norm_ffn"], x,
-                                                       cfg), cfg, path)
+        x, _ = ffn(p, x + out, cfg, path)
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.apply_unembed(params["embed"], x[:, 0], cfg, path)
     return logits, cache._replace(pos=cache.pos + 1, length=cache.length + 1)

@@ -52,10 +52,11 @@ last tenant, through the estimator's grouped arm
 ``warmup_groups`` runs every cell a tenant stream can reach, and
 ``group_launches`` counts production launches a cell.
 
-``ServeEngine`` is the LM engine (dense family): ``generate`` runs the
-prompt through ``prefill`` (B10 for every projection and the unembedding,
-B11 for causal attention), then one ``decode_step`` per new token (B10 at
-M = batch; attention over the cache in torch ops), greedy or sampled.
+``ServeEngine`` is the LM engine (dense and MoE families): ``generate``
+runs the prompt through ``prefill`` (B10 for every projection and the
+unembedding, B11 for causal attention, B5 for an MoE layer's router),
+then one ``decode_step`` per new token (B10 at M = batch, B5 at T =
+batch; attention over the cache in torch ops), greedy or sampled.
 """
 from __future__ import annotations
 
@@ -685,12 +686,13 @@ class GenerationResult:
 
 
 class ServeEngine:
-    """Greedy or sampled generation from a dense decoder's params (a tree
-    from ``models.transformer.init_params`` or
+    """Greedy or sampled generation from a dense or MoE decoder's params
+    (a tree from ``models.transformer.init_params`` or
     ``convert.lm_params_from_numpy``), on the params' device.
 
-    ``path="ref"`` (or ``REPRO_BACKEND=ref``) runs B10 and B11's plain
-    versions: the yardstick the kernels are held against on the card."""
+    ``path="ref"`` (or ``REPRO_BACKEND=ref``) runs B10, B11 and B5's
+    plain versions: the yardstick the kernels are held against on the
+    card."""
 
     def __init__(self, cfg: ModelConfig, params, serve_cfg: ServeConfig = None,
                  *, path: Optional[str] = None):

@@ -80,3 +80,20 @@ def test_layer_check_fails_at_a_perturbed_layer():
     assert rows[0][3] and rows[0][1] == 0
     assert not rows[1][3]
     assert rows[1][1] > cs.LAYER_FACTOR * rows[1][2]
+
+
+def test_layer_states_cast_one_layer_at_a_time_equal_the_upcast_tree():
+    """``layer_states(dtype=torch.float32)`` (each layer's weights cast as
+    the layer runs, as ``chip_smoke.lm_layers`` now takes its fp32 route)
+    gives the states of the whole tree upcast, bit for bit, for the dense
+    and the MoE family."""
+    for arch in ("stablelm-3b", "qwen3-moe-30b-a3b"):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="bfloat16")
+        gen = torch.Generator().manual_seed(3)
+        params = T.init_params(cfg, gen, device="cpu")
+        tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen)
+        want = T.layer_states(_upcast(params), tokens, cfg, path="ref")
+        got = T.layer_states(params, tokens, cfg, path="ref",
+                             dtype=torch.float32)
+        assert all(g.dtype == torch.float32 and torch.equal(g, w)
+                   for g, w in zip(got, want))
