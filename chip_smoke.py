@@ -13,8 +13,8 @@ the CUDA toolkit.  In order it
 2. holds each kernel (B1 distance_topk, B2 distance_argmin,
    B3 gnb_scores_batch, B4 pairwise_sq_dist, B5 topk_smallest and its
    int32 key mode, B6 distance_topk_q8, B7 distance_argmin_q8, B8
-   adc_topk, B9 gnb_scores, B10 matmul, B11 flash_attention) against its
-   plain PyTorch version on the card
+   adc_topk, B9 gnb_scores, B10 matmul, B11 flash_attention, B12
+   flash_attention_bwd) against its plain PyTorch version on the card
    at the main-path shapes, at ragged edge shapes, on data with exact
    ties, on rows holding NaN and +Inf (int8: saturated ±127, INT_MIN and
    INT_MAX; B2's NaN rows take centroid 0, ROADMAP C4), B10 and B11 on
@@ -160,7 +160,27 @@ the CUDA toolkit.  In order it
    times a bucket, classes and neighbours equal to the one-device
    engine's, int8 ``reference`` refused; the ms of a 1024 classify a
    strategy at c = 1 and 8; autotune with the strategy axis at c = 8; a
-   request stream on the 3-shard mesh.
+   request stream on the 3-shard mesh;
+12. last, trains stablelm-3b at full width and depth
+   (``TRAIN``: bf16, batch 8 x seq 128 from ``token_stream``, the train
+   CLI's defaults): B12 (attention's backward pass) held against its
+   plain version at its edge shapes and at the path's and timed beside
+   SDPA's backward (``train_kernel_edges``, ``train_kernel_times``); B10
+   through its autograd form at every forward, dA and dB shape of the
+   step, and B11 at the step's shape, each against its plain version
+   (``train_path_edges``); one
+   step's gradients on the kernel route held leaf by leaf to the plain
+   route's, within ``LAYER_FACTOR`` of the plain route's distance from an
+   fp32 route, remat ``full`` and ``dots`` bit-equal to ``none``, and each
+   policy's launches and routes equal to ``train_launches``
+   (``train_step_checks``); then the main path, ``launch/train.run`` at
+   the CLI's defaults for ``TRAIN["steps"]`` steps through
+   ``FaultTolerantRunner`` with the counts set to 0 just before and read
+   just after: no ``step_failure``, finite losses, the probe loss falling,
+   the checkpoint of the last step restored by a fresh runner bit-equal,
+   and its next step bit-equal to the uninterrupted run's; the median
+   step, tokens/s, model-FLOPs share, peak memory and one profiled step's
+   top kernels printed (``train_path``).
 
 The comparison rule: integer outputs (B5's int32 mode, B6, B7, B8 and
 the int8 and ANN paths' neighbours, assignments and votes) match
@@ -178,7 +198,11 @@ ulp of the output dtype plus 1e-5·(|A|·|B|) (see ``gemm_case``); B11 to
 2^-7·(P·|V| + |out|) in bf16, from the rounding of p (see
 ``attn_case``); the LM logits to ``LM_ATOL + LM_RTOL·|logit|``, and a
 greedy token may differ from the plain route's argmax only where that
-route ranks the two within twice that (a near-tie, counted).  Any failure exits
+route ranks the two within twice that (a near-tie, counted).  B12 matches
+to ``BWD_RTOL`` of the size of the terms it sums plus one ulp (see
+``attn_bwd_case``); a training step's gradients, leaf by leaf, to
+``LAYER_FACTOR`` times the plain route's distance from an fp32 route
+(ROADMAP C3's rule).  Any failure exits
 non-zero; so does a machine without a card, or a directory without the
 package.  The last lines are a JSON object with each kernel's numbers,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -254,6 +278,18 @@ MOE = dict(arch="qwen3-moe-30b-a3b", batch=4, prompt=512, new=32)
 # tokens must be among them (in runs on the card at least 1,866 of 2,048
 # were), or a fault that moves most routers would leave nothing to hold
 MOE_SAME = 0.5
+
+# training: stablelm-3b trains at full width and depth (bf16, seeded
+# weights) on the train CLI's defaults: batch 8 x seq 128 from
+# token_stream, AdamW at lr 1e-3, remat "dots"; STEPS steps through the
+# CLI's FaultTolerantRunner loop, the probe loss logged every LOG_EVERY
+TRAIN = dict(arch="stablelm-3b", batch=8, seq=128, steps=20, log_every=5)
+# B12's edge sizes: S = 1, S off the 32-row tile and past it; d off 32
+BWD_EDGES_S = (1, 45, 129)
+BWD_EDGES_D = (16, 33, 80, 128, 256)
+# B12 against its plain version: both sum in fp32, so BWD_RTOL of the
+# size of the summed terms, plus one ulp of the output dtype
+BWD_RTOL = 1e-4
 
 # slice 10: a Poisson request stream (the JAX CLI's --stream model) through
 # RequestScheduler on the fitted kNN (B1) and GNB (B3) engines, cycling
@@ -378,25 +414,40 @@ def ulp(torch, x, dtype):
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 1 - bits)
 
 
-def gemm_case(torch, ops, ref, dev, gen, M, N, K, dtype):
-    """B10 against its plain version on N(0, 1) operands.  Tolerance: one
-    ulp of the plain value in the output dtype (each side rounds the fp32
-    sum once; two roundings of sums that differ in their last bits can
-    land one ulp apart, up to 2^-7·|ref| in bf16) plus 1e-5·(|A|·|B|) for
-    the fp32 sums' order.  Returns (max |err|, max err/tol)."""
-    a = torch.randn((M, K), generator=gen, device=dev).to(dtype)
-    b = torch.randn((K, N), generator=gen, device=dev).to(dtype)
-    got = ops.matmul(a, b)
+def gemm_check(torch, ref, got, a, b, what):
+    """B10's output ``got`` against its plain version on the same operands
+    a (M, K) and b (K, N).  Tolerance: one ulp of the plain value in the
+    output dtype (each side rounds the fp32 sum once; two roundings of
+    sums that differ in their last bits can land one ulp apart, up to
+    2^-7·|ref| in bf16) plus 1e-5·(|A|·|B|) for the fp32 sums' order.
+    Returns (max |err|, max err/tol)."""
     want = ref.matmul(a, b)
     torch.cuda.synchronize()
-    check(got.dtype == dtype and got.shape == (M, N),
-          f"B10 M={M} N={N} K={K} {dtype}: {got.dtype} {tuple(got.shape)}")
+    M, N = a.shape[0], b.shape[1]
+    check(got.dtype == a.dtype and got.shape == (M, N),
+          f"{what}: {got.dtype} {tuple(got.shape)}")
     err = (got.float() - want.float()).abs()
-    tol = ulp(torch, want, dtype) + 1e-5 * (a.float().abs() @ b.float().abs())
-    check(bool((err <= tol).all()), f"B10 M={M} N={N} K={K} {dtype}: "
-          f"{int((err > tol).sum())} values past the tolerance, max error "
-          f"{float(err.max())}")
+    tol = ulp(torch, want, a.dtype) + \
+        1e-5 * (a.float().abs() @ b.float().abs())
+    check(bool((err <= tol).all()), f"{what}: {int((err > tol).sum())} "
+          f"values past the tolerance, max error {float(err.max())}")
     return float(err.max()), float((err / tol).max())
+
+
+def gemm_case(torch, ops, ref, dev, gen, M, N, K, dtype):
+    """B10 against its plain version on N(0, 1) operands (``gemm_check``).
+    Returns (max |err|, max err/tol)."""
+    a = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+    b = torch.randn((K, N), generator=gen, device=dev).to(dtype)
+    return gemm_check(torch, ref, ops.matmul(a, b), a, b,
+                      f"B10 M={M} N={N} K={K} {dtype}")
+
+
+def gemm_way(torch, M, N, K, dtype) -> str:
+    """The route kernels/gemm.py's shape rule gives B10 at (M, N, K)."""
+    from repro_torch.kernels.gemm import SMALL_M
+    return "small_m" if M <= SMALL_M else "fp32" if dtype == torch.float32 \
+        else "wgmma" if N % 8 == 0 and K % 8 == 0 else "mma_sync"
 
 
 def attn_pv(torch, q, k, v, causal):
@@ -444,19 +495,26 @@ def attn_case(torch, ops, ref, q, k, v, causal, what):
     return float(err.max()), float((err / tol).max())
 
 
-def lm_path_shapes(cfg, batch: int, prompt: int):
-    """The B10 (M, N, K) of one model's serving path, distinct and in
-    order: its projections at the prefill's M = batch · prompt and at
-    decode's M = batch (q, k, v, o, and the dense MLP's where the model
-    has one: ``transformer.layer_plan``), then the unembedding at M =
-    batch; and B11's (B, H, S, d) of its prefill (after the GQA repeat)."""
+def lm_proj_shapes(cfg):
+    """The (N, K) of one model's projections, distinct and in order: q,
+    k, v, o, and the dense MLP's where the model has one
+    (``transformer.layer_plan``)."""
     from repro_torch.models import transformer
     d = cfg.d_model
     proj = [(cfg.q_dim, d), (cfg.kv_dim, d), (d, cfg.q_dim)]
     if transformer.layer_plan(cfg)[1] == ["mlp"]:
         proj += [(cfg.d_ff, d), (d, cfg.d_ff)]
+    return list(dict.fromkeys(proj))
+
+
+def lm_path_shapes(cfg, batch: int, prompt: int):
+    """The B10 (M, N, K) of one model's serving path, distinct and in
+    order: its projections (``lm_proj_shapes``) at the prefill's M =
+    batch · prompt and at decode's M = batch, then the unembedding at M =
+    batch; and B11's (B, H, S, d) of its prefill (after the GQA repeat)."""
+    proj = lm_proj_shapes(cfg)
     gemm = [(M, N, K) for M in (batch * prompt, batch) for N, K in proj]
-    gemm.append((batch, cfg.vocab_size, d))
+    gemm.append((batch, cfg.vocab_size, cfg.d_model))
     return list(dict.fromkeys(gemm)), (batch, cfg.n_heads, prompt,
                                        cfg.head_dim)
 
@@ -522,9 +580,7 @@ def lm_kernel_edges(torch, ops, ref, dev, gen, models) -> int:
               for K in GEMM_EDGES] + path
     for dtype in (torch.bfloat16, torch.float32):
         for M, N, K in shapes:
-            want["small_m" if M <= SMALL_M else "fp32"
-                 if dtype == torch.float32 else "wgmma"
-                 if N % 8 == 0 and K % 8 == 0 else "mma_sync"] += 1
+            want[gemm_way(torch, M, N, K, dtype)] += 1
     edge_routes = dict(gemm.ROUTE_LAUNCHES)
     check(edge_routes == want, f"B10 edge routes {edge_routes}, the shape "
           f"rule gives {want}")
@@ -572,6 +628,511 @@ def lm_kernel_edges(torch, ops, ref, dev, gen, models) -> int:
                   "tolerance")
             n += 1
     return n
+
+
+def attn_bwd_terms(torch, q, k, v, o, do, causal):
+    """The sizes of the terms that dq, dk and dv sum (the plain formula on
+    absolute values): dV's P^T|dO|, and dQ's and dK's |dS| bound
+    P·(|dO||V|^T + rowsum|dO·o|) against |K| and |Q|, scaled."""
+    S, d = q.shape[-2], q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, of, gf = (t.float() for t in (q, k, v, o, do))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if causal:
+        keep = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(keep, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, -1)
+    ds = p * (torch.matmul(gf.abs(), vf.abs().transpose(-1, -2)) +
+              (gf * of).abs().sum(-1, keepdim=True))
+    return (torch.matmul(ds, kf.abs()) * scale,
+            torch.matmul(ds.transpose(-1, -2), qf.abs()) * scale,
+            torch.matmul(p.transpose(-1, -2), gf.abs()))
+
+
+def attn_bwd_inputs(torch, ops, gen, q, k, v, causal):
+    """B11's output o at q, k, v and an N(0, 1) output gradient dO laid out
+    as q (the models' layout stays permuted)."""
+    o = ops.flash_attention(q, k, v, causal=causal)
+    do = torch.empty_like(q).copy_(torch.randn(
+        q.shape, generator=gen, device=q.device).to(q.dtype))
+    return o, do
+
+
+def attn_bwd_case(torch, ops, ref, gen, q, k, v, causal, what):
+    """B12 against its plain version on the same q, k, v, o, dO.
+    Tolerance: both sum in fp32 from the same inputs and round once, so
+    BWD_RTOL of the size of the terms (``attn_bwd_terms``: the fp32 sums'
+    order over up to S·d terms, and exp of scores that agree to a few fp32
+    ulps) plus one ulp of the output dtype.  Returns (max |err|, max
+    err/tol)."""
+    o, do = attn_bwd_inputs(torch, ops, gen, q, k, v, causal)
+    got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    want = ref.attention_bwd(q, k, v, o, do, causal=causal)
+    terms = attn_bwd_terms(torch, q, k, v, o, do, causal)
+    torch.cuda.synchronize()
+    worst = (0.0, 0.0)
+    for name, g, w, m, x in zip(("dq", "dk", "dv"), got, want, terms,
+                                (q, k, v)):
+        check(g.dtype == x.dtype and g.shape == x.shape,
+              f"{what} {name}: {g.dtype} {tuple(g.shape)}")
+        err = (g.float() - w.float()).abs()
+        tol = BWD_RTOL * m + ulp(torch, w, x.dtype)
+        check(bool((err <= tol).all()), f"{what} {name}: "
+              f"{int((err > tol).sum())} values past the tolerance, max "
+              f"error {float(err.max())}")
+        worst = max(worst, (float(err.max()), float((err / tol).max())),
+                    key=lambda t: t[1])
+    return worst
+
+
+def train_kernel_edges(torch, ops, ref, dev, gen, cfg) -> int:
+    """B12 against its plain version at every (S, d) of ``BWD_EDGES_S`` x
+    ``BWD_EDGES_D`` (S = 1, S not a multiple of the 32-row tile, d not a
+    multiple of 32), causal and full, fp32 and bf16, in the models'
+    permuted layout and contiguous, and at the training path's shape
+    (``TRAIN``: batch x heads x seq x head dim of ``cfg``, laid out as
+    ``apply_attention`` gives it), each call counted once in
+    ``ops.LAUNCHES``.  Returns the number of cases."""
+    ops.reset_launches()
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        worst = (0.0, 0.0)
+        for S in BWD_EDGES_S:
+            for hd in BWD_EDGES_D:
+                for causal in (True, False):
+                    layout = "model" if (S + hd) % 2 else "contiguous"
+                    q, k, v = attn_inputs(torch, dev, gen, 2, 3, S, hd, dtype,
+                                          layout)
+                    r = attn_bwd_case(torch, ops, ref, gen, q, k, v, causal,
+                                      f"B12 {dtype} S={S} d={hd} "
+                                      f"causal={causal} {layout}")
+                    worst = max(worst, r, key=lambda t: t[1])
+                    n += 1
+        print(f"[edge] B12 {dtype}: {len(BWD_EDGES_S) * len(BWD_EDGES_D) * 2}"
+              f" cases (S in {BWD_EDGES_S}, d in {BWD_EDGES_D}, causal and "
+              f"full, permuted and contiguous) within the tolerance; worst "
+              f"max_abs_err={worst[0]:.4g}, {worst[1]:.3f} of it")
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = attn_path_inputs(torch, dev, gen, cfg, B, S, dtype)
+        err, ratio = attn_bwd_case(torch, ops, ref, gen, q, k, v, True,
+                                   f"B12 path {dtype}")
+        print(f"[edge] B12 {cfg.arch_id} {dtype} B={B} H={cfg.n_heads} "
+              f"S={S} d={cfg.head_dim} causal, the models' layout: "
+              f"max_abs_err={err:.4g}, {ratio:.3f} of the tolerance")
+        n += 1
+    check(ops.LAUNCHES["flash_attention_bwd"] == n,
+          f"B12: {ops.LAUNCHES['flash_attention_bwd']} launches for {n} "
+          "cases")
+    return n
+
+
+def train_path_shapes(cfg, batch: int, seq: int):
+    """The B10 products of one training step of ``cfg`` at batch x seq
+    tokens, as (M, K, N) of each distinct weight's x (M, K) @ w (K, N) at
+    M = batch · seq: the projections (``lm_proj_shapes``) and the
+    unembedding (d_model, vocab).  Each gives three launches: the forward
+    (M, N, K), dA = dC @ wᵀ (M, K, N) and dB = xᵀ @ dC (K, N, M).  And
+    B11's (B, H, S, d) of the forward (after the GQA repeat)."""
+    weights = [(K, N) for N, K in lm_proj_shapes(cfg)]
+    weights.append((cfg.d_model, cfg.vocab_size))
+    M = batch * seq
+    return [(M, K, N) for K, N in dict.fromkeys(weights)], \
+        (batch, cfg.n_heads, seq, cfg.head_dim)
+
+
+def train_path_edges(torch, ops, ref, dev, gen, cfg) -> int:
+    """B10 and B11 at the training path's shapes (``TRAIN`` on ``cfg``,
+    ``train_path_shapes``): B10 through its autograd form
+    (``kernels/autograd.matmul``) for each weight, in bf16 as the step
+    runs it, forward and backward from an N(0, 1) dC, each of the three
+    outputs held against its plain version on the operands
+    ``_matmul_backward`` gives B10 (contiguous transposed copies) with
+    ``gemm_check``'s tolerance, and each launch on the route the shape
+    rule gives; B11 at the forward's shape in the models' layout, bf16 and
+    fp32 (``attn_case``), on its route.  Returns the number of cases."""
+    from repro_torch.kernels import autograd as grad_ops
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemm
+    bf = torch.bfloat16
+    shapes, (B, H, S, hd) = train_path_shapes(cfg, TRAIN["batch"],
+                                              TRAIN["seq"])
+    n = 0
+    for M, K, N in shapes:
+        x = torch.randn((M, K), generator=gen, device=dev).to(bf)
+        w = torch.randn((K, N), generator=gen, device=dev).to(bf)
+        dc = torch.randn((M, N), generator=gen, device=dev).to(bf)
+        cases = (("forward", x, w), ("dA", dc, w.t().contiguous()),
+                 ("dB", x.t().contiguous(), dc))
+        want = dict(gemm.ROUTE_LAUNCHES)
+        for _, a, b in cases:
+            want[gemm_way(torch, a.shape[0], b.shape[1], a.shape[1],
+                          bf)] += 1
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        out = grad_ops.matmul(xg, wg)
+        got = (out.detach(),) + torch.autograd.grad(out, (xg, wg), dc)
+        del xg, wg, out
+        check(gemm.ROUTE_LAUNCHES == want, f"B10 train x ({M}, {K}) @ w "
+              f"({K}, {N}): routes {gemm.ROUTE_LAUNCHES}, the shape rule "
+              f"gives {want}")
+        for (name, a, b), g in zip(cases, got):
+            Mc, Kc, Nc = a.shape[0], a.shape[1], b.shape[1]
+            what = f"B10 train {name} M={Mc} N={Nc} K={Kc} {bf}"
+            err, ratio = gemm_check(torch, ref, g, a, b, what)
+            print(f"[edge] {what} ({gemm_way(torch, Mc, Nc, Kc, bf)}, "
+                  f"autograd form): max_abs_err={err:.4g}, {ratio:.3f} of "
+                  "the tolerance")
+            n += 1
+        del x, w, dc, cases, got
+    for dtype in (bf, torch.float32):
+        way = "wgmma" if dtype == bf and hd % 16 == 0 else "cuda_core"
+        before = fa.ROUTE_LAUNCHES[way]
+        q, k, v = attn_path_inputs(torch, dev, gen, cfg, B, S, dtype)
+        what = f"B11 train {cfg.arch_id} {dtype} B={B} H={H} S={S} d={hd} " \
+            "causal"
+        err, ratio = attn_case(torch, ops, ref, q, k, v, True, what)
+        check(fa.ROUTE_LAUNCHES[way] == before + 1,
+              f"{what} did not take the {way} route: {fa.ROUTE_LAUNCHES}")
+        print(f"[edge] {what}, the models' layout ({way}): "
+              f"max_abs_err={err:.4g}, {ratio:.3f} of the tolerance")
+        n += 1
+    return n
+
+
+def train_kernel_times(torch, ops, ref, dev, gen, cfg, peaks):
+    """B12 at the training path's shape (``TRAIN`` on ``cfg``, bf16,
+    causal, the models' layout): kernel by CUDA events and by graph
+    replay, its plain version, and SDPA's backward on contiguous copies
+    (the library row), beside its bound.  Returns B12's kernel row."""
+    from repro_torch.launch.lm_kernel_times import device_ms
+    B, S, H, hd = TRAIN["batch"], TRAIN["seq"], cfg.n_heads, cfg.head_dim
+    bf = torch.bfloat16
+    q, k, v = attn_path_inputs(torch, dev, gen, cfg, B, S, bf)
+    o, do = attn_bwd_inputs(torch, ops, gen, q, k, v, True)
+    err, _ = attn_bwd_case(torch, ops, ref, gen, q, k, v, True, "B12 main")
+    qc, kc, vc = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qc, kc, vc,
+                                                           is_causal=True)
+    doc = do.contiguous()
+    pairs = B * H * S * (S + 1) // 2
+    b, by = bound_ms(10 * pairs * hd, 8 * B * H * S * hd * 2, peaks,
+                     bf16=True)
+    row = dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/attention.py:82", max_abs_err=err,
+        ms=cuda_ms(torch, lambda: ops.flash_attention_bwd(q, k, v, o, do),
+                   20),
+        dev_ms=device_ms(lambda: ops.flash_attention_bwd(q, k, v, o, do), 20),
+        plain_ms=cuda_ms(torch, lambda: ref.attention_bwd(q, k, v, o, do),
+                         5),
+        library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+            out, (qc, kc, vc), doc, retain_graph=True), 20),
+        bound_ms=b, bound_by=by, launches=0)
+    print(f"[time] B12 {row['name']} B={B} H={H} S={S} d={hd} bf16 causal: "
+          f"kernel {row['ms']:.4f} ms, device {row['dev_ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms "
+          f"(SDPA backward), bound {b:.4f} ms ({by})")
+    return row
+
+
+def train_launches(cfg, remat: str) -> dict:
+    """The launches of one training step (forward and backward) of the
+    dense ``cfg`` under ``remat``, derived from the code: B10 (``matmul``)
+    once a projection (q, k, v, o and the gated MLP's three: 7 a layer)
+    and for the unembedding in the forward pass, twice each (dA, dB) in
+    the backward pass, and the layers' 7 again where ``full`` recomputes
+    them (``dots`` keeps B10's outputs); B11 once a layer, twice where
+    the layer is recomputed (``full`` and ``dots``); B12 once a layer."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    check(transformer.layer_plan(cfg)[1] == ["mlp"] and cfg.mlp_type in
+          ("swiglu", "geglu"), f"{cfg.arch_id}: the launch rule is the "
+          "dense gated model's")
+    L, fwd = cfg.n_layers, 7 * cfg.n_layers + 1
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want["matmul"] = 3 * fwd + (7 * L if remat == "full" else 0)
+    want["flash_attention"] = L * (1 if remat == "none" else 2)
+    want["flash_attention_bwd"] = L
+    return want
+
+
+def grad_dist(torch, a, b) -> float:
+    """‖a − b‖ over a leaf in fp32, a slice of at most 2^24 values at a
+    time (a stacked leaf of stablelm-3b is 566M values)."""
+    rows = max(1, (1 << 24) * a.shape[0] // a.numel()) if a.ndim > 1 \
+        else a.numel()
+    return math.sqrt(sum(float((x.float() - y.float()).square().sum())
+                         for x, y in zip(a.split(rows), b.split(rows))))
+
+
+def train_grads(torch, ops, cfg, params, batch, remat, path=None):
+    """One step's loss and gradients (``trainer.loss_and_grads``) under
+    ``remat`` with the launch counts set to 0 just before and read just
+    after: (loss, gradient tree, launches, B10 and B11 routes)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemm
+    from repro_torch.training import trainer
+    ops.reset_launches()
+    loss, _, grads = trainer.loss_and_grads(params, batch, cfg,
+                                            TrainConfig(remat=remat), path)
+    torch.cuda.synchronize()
+    return loss, grads, dict(ops.LAUNCHES), dict(
+        b10=dict(gemm.ROUTE_LAUNCHES), b11=dict(fa.ROUTE_LAUNCHES))
+
+
+def aten_calls(torch, fn) -> int:
+    """The number of operators ``fn()`` dispatches, forward and backward
+    (a dispatch mode that counts each call and runs it)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+    with Count():
+        fn()
+    return Count.n
+
+
+def b10_dispatch_us(torch, ops, dev, reps: int = 200):
+    """Host µs a call of B10 at a small shape (64 x 64 x 64, bf16, one
+    synchronize after ``reps`` calls): the wrapper called directly, its
+    custom operator (``kernels/autograd.matmul``), and the operator
+    recording autograd, as a training forward calls it."""
+    from repro_torch.kernels import autograd as grad_ops
+    a, b = (torch.randn((64, 64), device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    ag, bg = a.clone().requires_grad_(), b.clone().requires_grad_()
+
+    def per_call(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e6
+    with torch.enable_grad():
+        return (per_call(lambda: ops.matmul(a, b)),
+                per_call(lambda: grad_ops.matmul(a, b)),
+                per_call(lambda: grad_ops.matmul(ag, bg)))
+
+
+def train_step_checks(torch, ops, dev, cfg):
+    """The training phase's step checks on one batch (``TRAIN``, the first
+    of the CLI's ``token_stream`` batches) at full width: the kernel
+    route's gradients (remat ``none``) against the plain route's and an
+    fp32 plain route's, every leaf within ``LAYER_FACTOR`` of the plain
+    route's fp32 noise (ROADMAP C3's rule); remat ``full`` and ``dots``
+    bit-equal to ``none``; each policy's launches and routes equal to
+    ``train_launches``.  Prints each policy's warm time and operator count
+    and B10's dispatch cost (``aten_calls``, ``b10_dispatch_us``).
+    Returns the rows printed."""
+    from repro_torch import tree as T
+    from repro_torch.data.datasets import token_stream
+    from repro_torch.data.pipeline import TokenBatcher, to_device
+    from repro_torch.models import transformer
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = transformer.init_params(cfg, gen, device=dev)
+    batcher = TokenBatcher(token_stream(2_000_000, cfg.vocab_size), B, S)
+    batch = to_device(batcher.batch_at(0), dev)
+    runs = {}
+    for remat in ("none", "full", "dots"):
+        loss, grads, launches, routes = train_grads(torch, ops, cfg, params,
+                                                    batch, remat)
+        want = train_launches(cfg, remat)
+        check(launches == want, f"train {remat}: launches {launches}, the "
+              f"code implies {want}")
+        want_routes = dict(
+            b10=dict(wgmma=want["matmul"], mma_sync=0, small_m=0, fp32=0),
+            b11=dict(wgmma=want["flash_attention"], cuda_core=0))
+        check(routes == want_routes, f"train {remat}: routes {routes}, the "
+              f"design implies {want_routes}")
+        check(bool(torch.isfinite(loss)), f"train {remat}: loss {loss}")
+        print(f"[lm/train] {remat}: loss {float(loss):.6f}; launches B10 "
+              f"{launches['matmul']}, B11 {launches['flash_attention']}, "
+              f"B12 {launches['flash_attention_bwd']} (as derived); routes "
+              f"B10 {routes['b10']}, B11 {routes['b11']}")
+        if remat == "none":
+            runs[remat] = (loss, grads)
+            continue
+        base_loss, base = runs["none"]
+        differ = [p for (p, g), b in zip(T.flatten(grads), T.leaves(base))
+                  if not torch.equal(g, b)]
+        check(torch.equal(loss, base_loss) and not differ,
+              f"train {remat}: loss {float(loss)} against {float(base_loss)}"
+              f"; gradients not bit-equal to remat none at {differ}")
+        print(f"[lm/train] {remat}: loss and all {len(T.leaves(grads))} "
+              "gradient leaves bit-equal to remat none")
+        del grads
+    # the host's share of a step: each policy's loss and gradients timed
+    # warm (the faster of two, each to a synchronize), the operators it
+    # dispatches, and B10's custom-operator dispatch beside the wrapper's
+    step_ms, n_aten = {}, {}
+    for remat in ("none", "full", "dots"):
+        ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            train_grads(torch, ops, cfg, params, batch, remat)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        step_ms[remat] = min(ms)
+        n_aten[remat] = aten_calls(torch, lambda: train_grads(
+            torch, ops, cfg, params, batch, remat))
+    direct, op, rec = b10_dispatch_us(torch, ops, dev)
+    fwd = 7 * cfg.n_layers + 1
+    print("[lm/train] loss and gradients, ms (warm, host clock to a "
+          "synchronize) and operators dispatched a step: " + ", ".join(
+              f"{r} {step_ms[r]:.2f} ms ({n_aten[r]} ops)" for r in step_ms)
+          + f"; dots - none {step_ms['dots'] - step_ms['none']:.2f} ms; B10 "
+          f"a call at 64 x 64 x 64: wrapper {direct:.1f} us, custom "
+          f"operator {op:.1f} us, recording autograd {rec:.1f} us, so "
+          f"{(rec - direct) * fwd / 1e3:.2f} ms a step over {fwd} forward "
+          "calls")
+    g_kernel = runs.pop("none")[1]
+    _, g_plain, plain_launches, _ = train_grads(torch, ops, cfg, params,
+                                                batch, "none", "ref")
+    check(not any(plain_launches.values()), f"train plain route launched "
+          f"kernels: {plain_launches}")
+    p32 = T.map(lambda t: t.float(), params)
+    del params
+    _, g_exact, _, _ = train_grads(torch, ops, cfg, p32, batch, "none", "ref")
+    del p32
+    rows = []
+    for (path, gk), gp, ge in zip(T.flatten(g_kernel), T.leaves(g_plain),
+                                  T.leaves(g_exact)):
+        dist, noise = grad_dist(torch, gk, gp), grad_dist(torch, gp, ge)
+        rows.append((path, dist, noise, dist <= LAYER_FACTOR * noise))
+    bad = [r for r in rows if not r[3]]
+    check(not bad, "train gradients: " + "; ".join(
+        f"{p}: ‖kernel − plain‖ {d:.4g} > {LAYER_FACTOR} x ‖plain − fp32‖ "
+        f"{n:.4g}" for p, d, n, _ in bad))
+    worst = max(rows, key=lambda r: r[1] / r[2])
+    print(f"[lm/train] gradients, kernel route against plain route, every "
+          f"leaf within {LAYER_FACTOR} x the plain route's distance from an "
+          f"fp32 route (ROADMAP C3's rule): at most {worst[1] / worst[2]:.3f}"
+          f" x ({worst[0]}); " + ", ".join(
+              f"{p} {d / n:.3f}" for p, d, n, _ in rows))
+    return rows
+
+
+def train_path(torch, ops, dev, cfg, peaks):
+    """The training phase's main path and what follows it: the train
+    CLI's loop (``launch/train.run`` at its defaults for ``TRAIN["steps"]``
+    steps, remat ``dots``, checkpoint at the last step) with the counts
+    set to 0 just before and read just after; no ``step_failure``, finite
+    losses, the probe loss lower at the last logged step than at the
+    first; then a fresh runner restores the checkpoint, bit-equal to the
+    run's state with dtypes kept, and its next step is bit-equal to the
+    uninterrupted run's.  Prints the step's timings.  Returns the
+    launches of the CLI run."""
+    import shutil
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch import train
+    from repro_torch.launch.lm_kernel_times import device_kernels
+    from repro_torch.runtime.events import kinds
+    from repro_torch.runtime.fault_tolerance import (FaultTolerantRunner,
+                                                     RunState)
+    from repro_torch.training import trainer
+    steps, every = TRAIN["steps"], TRAIN["log_every"]
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    ckpt_dir = ROOT / ".train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = train.run(train.parse_args(
+        ["--arch", cfg.arch_id, "--steps", str(steps), "--log-every",
+         str(every), "--ckpt-dir", str(ckpt_dir), "--device", str(dev)]))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_logs = len(res["logged"])
+    step = train_launches(cfg, "dots")
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    # each step, then a no-grad forward of the probe batch at each log
+    want["matmul"] = steps * step["matmul"] + n_logs * (7 * cfg.n_layers + 1)
+    want["flash_attention"] = steps * step["flash_attention"] + \
+        n_logs * cfg.n_layers
+    want["flash_attention_bwd"] = steps * step["flash_attention_bwd"]
+    check(launches == want, f"train CLI: launches {launches}, the code "
+          f"implies {want}")
+    runner, state, losses = res["runner"], res["state"], res["losses"]
+    fails = kinds(runner.events, "step_failure")
+    check(not fails, f"train CLI: step failures {fails}")
+    check(state.step == steps and res["logged"][-1] == steps and
+          all(math.isfinite(x) for x in losses), f"train CLI: step "
+          f"{state.step}, losses {losses}")
+    check(losses[-1] < losses[0], f"train CLI: the probe loss did not fall "
+          f"({losses})")
+    warm = sorted(res["step_ms"][2:])
+    step_ms = warm[len(warm) // 2]
+    n_params = cfg.param_count()
+    mfu = 6 * n_params * B * S / (step_ms / 1e3) / peaks[3]
+    print(f"[lm/train] CLI {cfg.arch_id} batch={B} seq={S} remat=dots "
+          f"steps={steps}: {run_s:.1f}s with the checkpoint; probe loss "
+          f"{' -> '.join(f'{x:.4f}' for x in losses)} at steps "
+          f"{res['logged']}; no step_failure; launches B10 "
+          f"{launches['matmul']}, B11 {launches['flash_attention']}, B12 "
+          f"{launches['flash_attention_bwd']} (as derived); median step "
+          f"{step_ms:.2f} ms after 2 warm-up steps ({B * S / step_ms * 1e3:.0f}"
+          f" tokens/s), model-FLOPs share {mfu:.4f} of {peaks[3] / 1e12:g} "
+          f"TFLOP/s (6 x {n_params} x {B * S} a step); peak "
+          f"{peak_gb:.2f} GB allocated")
+
+    # the checkpoint of step `steps`, restored by a fresh runner, and one
+    # more step from each
+    batch = to_device(res["batcher"].batch_at(steps), dev)
+    step_fn = trainer.make_train_step(res["cfg"], res["train_cfg"])
+    host = T.map(lambda t: t.to("cpu", copy=True),
+                 {"params": state.params, "opt_state": state.opt_state})
+    state = runner.run_step(step_fn, state, batch)
+    after = T.map(lambda t: t.to("cpu", copy=True),
+                  {"params": state.params, "opt_state": state.opt_state})
+    like = T.map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                       device="meta"), host)
+    del state, res, runner
+    torch.cuda.empty_cache()
+    fresh = FaultTolerantRunner(Checkpointer(ckpt_dir / cfg.arch_id))
+    t0 = time.perf_counter()
+    got = fresh.maybe_restore(RunState(0, like["params"], like["opt_state"]),
+                              device=dev)
+    restore_s = time.perf_counter() - t0
+    check(got.step == steps, f"resume: restored step {got.step}")
+
+    def same(tree, want_tree, what):
+        bad = [p for (p, g), w in zip(T.flatten(tree), T.leaves(want_tree))
+               if g.dtype != w.dtype or not torch.equal(g, w.to(g.device))]
+        check(not bad, f"resume: {what} differs at {bad}")
+    same({"params": got.params, "opt_state": got.opt_state}, host,
+         "the restored state")
+    del host
+    nxt = fresh.run_step(step_fn, got, batch)
+    check(not kinds(fresh.events, "step_failure"), "resume: step failure")
+    same({"params": nxt.params, "opt_state": nxt.opt_state}, after,
+         f"step {steps + 1} from the restored state")
+    del after
+    print(f"[lm/train] resume: step {steps} restored by a fresh runner in "
+          f"{restore_s:.1f}s, bit-equal to the run's state with dtypes kept; "
+          f"its step {steps + 1} bit-equal to the uninterrupted run's")
+
+    # one more step under the profiler
+    kern = device_kernels(lambda: fresh.run_step(step_fn, nxt, batch))
+    busy = sum(kern.values())
+    top = list(kern.items())[:8]
+    print(f"[lm/train] one step under the profiler: device busy {busy:.2f} "
+          f"ms = {busy / step_ms:.3f} of the median step; top kernels: "
+          + "; ".join(f"{k[:60]} {v:.2f} ms" for k, v in top))
+    del nxt, got
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return launches
 
 
 def lm_kernel_times(torch, ops, ref, dev, gen, cfg, peaks):
@@ -4447,6 +5008,7 @@ def main() -> int:
     kernels["B10"]["launches"] += launches["matmul"]
     kernels["B11"]["launches"] += launches["flash_attention"]
 
+
     # ------------------------------------------------ 7. request streams
     # the fitted kNN and GNB estimators behind RequestScheduler (one
     # warmed engine each, launch counts read around warmup and replay)
@@ -4492,6 +5054,27 @@ def main() -> int:
                   "gmm": gnb_data, "rf": rf_data, "ann": ann_data},
                  kernels, helpers, sm_count(torch.device(dev)))
     del shard_fits
+
+    # ------------------------------------------------ 14. training
+    # after the LM serving phases (the MoE's weights are gone) and last,
+    # so that its 40 GB of training state and its checkpoint's host
+    # copies come after every host-clock gate of the earlier phases
+    torch.cuda.empty_cache()
+    n = train_kernel_edges(torch, ops, ref, dev, lm_gen, lm_cfg)
+    print(f"[edge] B12: {n} cases within the tolerance")
+    n = train_path_edges(torch, ops, ref, dev, lm_gen, lm_cfg)
+    print(f"[edge] B10 and B11 at the training path's shapes: {n} cases "
+          "within the tolerance")
+    kernels["B12"] = train_kernel_times(torch, ops, ref, dev, lm_gen, lm_cfg,
+                                        peaks)
+    torch.cuda.empty_cache()
+    train_step_checks(torch, ops, dev, lm_cfg)
+    torch.cuda.empty_cache()
+    launches = train_path(torch, ops, dev, lm_cfg, peaks)
+    kernels["B10"]["launches"] += launches["matmul"]
+    kernels["B11"]["launches"] += launches["flash_attention"]
+    kernels["B12"]["launches"] = launches["flash_attention_bwd"]
+    torch.cuda.empty_cache()
 
     # ------------------------------------------------ summary lines
     kernels = dict(sorted(kernels.items(), key=lambda kv: int(kv[0][1:])))

@@ -2,11 +2,10 @@
 
 The port's own copy of the JAX package's ``configs/base.py``: the model
 configs (``ModelConfig`` and its sub-configs, with the derived properties
-and the parameter count), ``ServeConfig``, ``MeshConfig`` (the production
-mesh that ``launch/mesh.py`` builds) and ``reduced``.  The values and the
-arithmetic are the same, so a config prints, compares and counts
-parameters as it does there.  ``TrainConfig`` waits for the training
-layer (ROADMAP A17).
+and the parameter count), ``ServeConfig``, ``TrainConfig``, ``MeshConfig``
+(the production mesh that ``launch/mesh.py`` builds) and ``reduced``.  The
+values and the arithmetic are the same, so a config prints, compares and
+counts parameters as it does there.
 """
 from __future__ import annotations
 
@@ -234,6 +233,24 @@ class MeshConfig:
     def dp_axes(self) -> Tuple[str, ...]:
         """Axes carrying data parallelism (batch sharding)."""
         return ("pod", "data") if self.multi_pod else ("data",)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    microbatches: int = 1            # gradient accumulation
+    remat: str = "dots"              # none | dots | full
+    zero1: bool = True               # shard optimizer moments over data axis
+    grad_compression: str = "none"   # none | int8
+    label_smoothing: float = 0.0
+    seed: int = 0
 
 
 @dataclass(frozen=True)

@@ -20,7 +20,9 @@ serving.
 
 ``lm_params_from_numpy`` carries a dense or MoE LM's params tree across
 (the reference's ``init_params`` tree with numpy leaves) for
-``serving.ServeEngine``.
+``serving.ServeEngine``, and ``opt_state_from_numpy`` the training
+path's optimizer state (``AdamState``, or ``CompressedOptState`` with its
+error-feedback residual) for ``training.trainer.make_train_step``.
 """
 from __future__ import annotations
 
@@ -156,3 +158,35 @@ def lm_params_from_numpy(cfg, tree: Mapping[str, Any], *,
         return _lm_leaf(node, dev)
 
     return carry(tree, want, "params")
+
+
+def opt_state_from_numpy(cfg, state: Any, *, device: DeviceLike = None):
+    """``state``: the reference's optimizer state for ``cfg``'s params
+    with numpy leaves (``jax.tree.map(np.asarray, opt_state)``): an
+    ``AdamState`` (``step`` () int32, ``mu`` and ``nu`` fp32 trees shaped
+    as the params), or a ``CompressedOptState`` (``adam``, ``resid``, the
+    fp32 residual tree), as NamedTuples or mappings.  Returns the port's
+    ``AdamState`` or ``CompressedOptState`` on ``device``; trees are
+    checked against the params' shapes as ``lm_params_from_numpy``
+    checks them."""
+    from repro_torch.training.optimizer import AdamState
+    from repro_torch.training.trainer import CompressedOptState
+
+    def fields(node):
+        return node._asdict() if hasattr(node, "_asdict") else dict(node)
+
+    def moments(tree):
+        return lm_params_from_numpy(cfg, tree, device=device)
+
+    def adam(node):
+        f = fields(node)
+        step = torch.tensor(np.asarray(f["step"], np.int32),
+                            device=resolve_device(device))
+        return AdamState(step=step, mu=moments(f["mu"]),
+                         nu=moments(f["nu"]))
+
+    top = fields(state)
+    if "adam" in top:
+        return CompressedOptState(adam=adam(top["adam"]),
+                                  resid=moments(top["resid"]))
+    return adam(state)

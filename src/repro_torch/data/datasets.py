@@ -9,6 +9,8 @@ port keeps its own copy because that module's package imports JAX.
   - mnist_like:   (N, 784) in [0,1], 10 classes: GEMM-based + GNB
   - asd_like:     (N, 21) mixed-scale features, 2-3 classes: kNN / k-Means
   - digits_like:  (N, 64) in [0,16], 10 classes: RF
+  - token_stream: a Zipfian pseudo-corpus with bigram structure: LM
+    training
 """
 from __future__ import annotations
 
@@ -106,3 +108,19 @@ def digits_like(n: int = 1797, seed: int = 2):
     X, y = _blobs(rng, n, 64, 10, spread=2.5, scale=1.2)
     X = np.clip((X - X.min()) / (X.max() - X.min()) * 16.0, 0, 16)
     return X.astype(np.float32), y
+
+
+def token_stream(n_tokens: int, vocab_size: int, seed: int = 3) -> np.ndarray:
+    """Deterministic pseudo-corpus with a Zipfian unigram distribution and a
+    short-range bigram structure (so CE actually decreases in training)."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab_size + 1)
+    probs = 1.0 / ranks
+    probs /= probs.sum()
+    base = rng.choice(vocab_size, size=n_tokens, p=probs)
+    # bigram structure: with p=0.5, next token = f(prev)
+    follow = rng.permutation(vocab_size)
+    coin = rng.random(n_tokens) < 0.5
+    out = base.copy()
+    out[1:][coin[1:]] = follow[out[:-1][coin[1:]]]
+    return out.astype(np.int32)

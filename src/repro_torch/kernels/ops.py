@@ -11,7 +11,9 @@ before the kernel, as the Pallas kernels upcast inside, so both dtypes
 give the fp32 arithmetic.  The LM stack's B10 (``matmul``) and B11
 (``flash_attention``) take bf16 as bf16: upcasting would copy every
 weight to fp32 on every call.  They sum in fp32 and round once to the
-inputs' dtype.
+inputs' dtype, and so does B12 (``flash_attention_bwd``), B11's backward
+pass in training (``kernels/autograd.py``), which replaces no Pallas
+kernel.
 
 Counterpart of the JAX package's ``kernels/ops.py``.  The Hopper kernels
 mask ragged edges themselves, so none of that module's padding to block
@@ -48,6 +50,7 @@ from repro_torch.kernels import ann as _ann
 from repro_torch.kernels import distance_argmin as _da
 from repro_torch.kernels import distance_topk as _dt
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import gemm as _gemm
 from repro_torch.kernels import gnb_score as _gs
 from repro_torch.kernels import pairwise_sq_dist as _pd
@@ -63,7 +66,7 @@ LAUNCHES: Dict[str, int] = {"distance_topk": 0, "distance_argmin": 0,
                             "topk_smallest": 0, "gnb_scores": 0,
                             "distance_topk_q8": 0, "distance_argmin_q8": 0,
                             "adc_topk": 0, "matmul": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "flash_attention_bwd": 0}
 
 # the grouped launches among them (B1, B2, B3 with a tenant axis)
 GROUP_LAUNCHES: Dict[str, int] = {"distance_topk": 0, "distance_argmin": 0,
@@ -453,4 +456,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.attention(q, k, v, causal=causal)
     out = _fa.launch(q, k, v, causal)
     LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True):
+    """B12: the gradient of ``flash_attention`` at q, k, v (B, H, S, d),
+    given its output o and the output's gradient dO -> (dq, dk, dv) in
+    q's dtype, from the exact softmax in fp32 (D = rowsum(dO * o)).  Any
+    S >= 1 and d <= 256, any (batch, head, position) strides with the d
+    axis contiguous, as B11 takes them."""
+    D_MAX = _fab.D_MAX
+    dev = _check("flash_attention_bwd", inner=("q", "k", "v", "o", "do"),
+                 q=(q, 4), k=(k, 4), v=(v, 4), o=(o, 4), do=(do, 4))
+    if len({t.dtype for t in (q, k, v, o, do)}) != 1:
+        raise TypeError("flash_attention_bwd: q, k, v, o, dO of dtypes "
+                        f"{[str(t.dtype) for t in (q, k, v, o, do)]}; one "
+                        "dtype expected")
+    if any(t.shape != q.shape for t in (k, v, o, do)) or \
+            min(q.shape) < 1 or q.shape[-1] > D_MAX:
+        raise ValueError("flash_attention_bwd: shapes "
+                         f"{[tuple(t.shape) for t in (q, k, v, o, do)]}; one "
+                         f"(B, H, S, d) shape with d <= {D_MAX} expected")
+    if dev.type == "cpu":
+        return ref.attention_bwd(q, k, v, o, do, causal=causal)
+    out = _fab.launch(q, k, v, o, do, causal)
+    LAUNCHES["flash_attention_bwd"] += 1
     return out

@@ -213,3 +213,26 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.matmul(p.to(torch.float32),
                         v.to(torch.float32)).to(q.dtype)
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, do: torch.Tensor, causal: bool = True):
+    """The gradient of attention at (B, H, S, d) q, k, v given the output o
+    and its gradient dO, as the explicit formula in fp32: P the exact
+    softmax of the scaled, masked scores, dV = P^T dO, dS = P * (dO V^T -
+    rowsum(dO * o)), dQ = dS K / sqrt(d), dK = dS^T Q / sqrt(d); each
+    rounded once to its input's dtype."""
+    S, d = q.shape[-2], q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, of, gf = (t.to(torch.float32) for t in (q, k, v, o, do))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if causal:
+        keep = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(keep, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    ds = p * (dp - (gf * of).sum(-1, keepdim=True))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -8,7 +8,9 @@ kernel that implements this contract on the reference's hardware; the
 reference's own prefill materialises the scores at S <= 4096
 (``full_attention``), which computes the same function.  Decode
 (``decode_attention``) attends to the cache with ``full_attention`` in
-torch ops, as the reference does: it has no Pallas kernel there.
+torch ops, as the reference does: it has no Pallas kernel there.  In
+training (autograd recording) prefill's attention takes B11's autograd
+form, whose backward is B12 (``kernels/autograd.py``).
 
 Shapes:  x (B, S, d_model); q (B, S, Hq, hd); k/v (B, S, Hkv, hd).
 """
@@ -20,6 +22,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import autograd as grad_ops
 from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import (apply_rope, dense_init, linear,
                                        plain_route, rms_norm_vec,
@@ -103,6 +106,8 @@ def apply_attention(params, x: torch.Tensor, cfg: ModelConfig,
     qt, kt, vt = (t.permute(0, 2, 1, 3) for t in (q, kh, vh))
     if plain_route(path):
         out = ref.attention(qt, kt, vt, causal=causal)
+    elif grad_ops.records(qt, kt, vt):
+        out = grad_ops.flash_attention(qt, kt, vt, causal)
     else:
         out = ops.flash_attention(qt, kt, vt, causal=causal)
     out = out.permute(0, 2, 1, 3).reshape(B, S, cfg.q_dim)

@@ -7,7 +7,8 @@ parameter trees (plain dicts of tensors) and the same arithmetic: norms
 and rotary embeddings in fp32, cast back to the activations' dtype.
 Weights keep the reference's (in, out) layout, so ``linear(x, w)`` is the
 reference's ``x @ w``; it flattens x to rows and calls B10
-(``ops.matmul``), or with the plain route its plain version.
+(``ops.matmul``, or in training its autograd form), or with the plain
+route its plain version, which autograd differentiates as it is.
 
 The plain route: ``path="ref"``, or no path and ``REPRO_BACKEND=ref``,
 sends B10, B11 and the MoE router's B5 to ``kernels/ref.py``;
@@ -25,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import autograd as grad_ops
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.dispatch import ENV_VAR
 
@@ -44,9 +46,17 @@ def plain_route(path: Optional[str] = None) -> bool:
 def linear(x: torch.Tensor, w: torch.Tensor,
            path: Optional[str] = None) -> torch.Tensor:
     """x (..., K) @ w (K, N) -> (..., N) as one (rows, K) x (K, N) product
-    through B10 (one launch)."""
+    through B10 (one launch).  Where autograd records (grad mode on and x
+    or w requiring a gradient), B10's autograd form, whose backward is two
+    more B10 launches (``kernels/autograd.py``); serving calls B10
+    directly."""
     rows = x.reshape(-1, x.shape[-1]).contiguous()
-    mm = ref.matmul if plain_route(path) else ops.matmul
+    if plain_route(path):
+        mm = ref.matmul
+    elif grad_ops.records(rows, w):
+        mm = grad_ops.matmul
+    else:
+        mm = ops.matmul
     return mm(rows, w).reshape(*x.shape[:-1], w.shape[1])
 
 

@@ -97,13 +97,17 @@ def router_logits(params, x: torch.Tensor) -> torch.Tensor:
 def route(params, x: torch.Tensor, cfg: ModelConfig,
           path: Optional[str] = None):
     """Router: x (T, d) -> (weights (T, k) fp32, expert ids (T, k) int32,
-    aux loss): softmax, the top-k on B5, renormalised weights and the
+    aux loss): softmax, the top-k on B5 (its indices; the weights are
+    gathered from the probabilities), renormalised weights and the
     Switch-style balance term E * sum(f_e * p_e)."""
     m = cfg.moe
     probs = torch.softmax(router_logits(params, x), dim=-1)        # (T, E)
     topk = ref.topk_smallest if plain_route(path) else ops.topk_smallest
-    neg, ids = topk(-probs, m.top_k)
-    weights = -neg
+    _, ids = topk(-probs, m.top_k)
+    # the weights gathered from probs at B5's indices: the values B5
+    # returns, bit for bit (it is exact), but on probs' autograd graph, so
+    # the router gets its gradient through them on either route
+    weights = probs.gather(-1, ids.long())
     weights = weights / weights.sum(-1, keepdim=True)
     T = x.shape[0]
     # the experts' counts as integers (no host sync, unlike bincount on a

@@ -10,23 +10,31 @@ under ``params["layers"]["sub0"]``, and the same three entry points:
   decode_step(params, cache, tokens, cfg)    one token against the cache
 
 The reference scans its layers; here a Python loop walks them, each
-layer's weights a view of the stacked tensors.  Every dense projection
-and the unembedding go through B10, prefill's attention through B11 and
-an MoE layer's router through B5 (``models/moe.py``; the expert GEMMs
-are batched ``torch.matmul``, as the reference's are plain einsums).  An
-MoE layer runs on the B·S tokens of a prefill and the B tokens of a
+layer's weights a view of the stacked tensors.  ``forward`` is also the
+training path's (``training/trainer.py``): with autograd recording, B10
+and B11 take their autograd forms (B10 and B12 in the backward pass),
+and ``remat`` chooses what the backward pass recomputes.  Every dense
+projection and the unembedding go through B10, prefill's attention
+through B11 and an MoE layer's router through B5 (``models/moe.py``; the
+expert GEMMs are batched ``torch.matmul``, as the reference's are plain
+einsums).  An MoE layer runs on the B·S tokens of a prefill and the B tokens of a
 decode step, as the reference's does.  SSM, hybrid, enc-dec and VLM
 configs raise ``NotImplementedError``: their modules wait for ROADMAP
 A17.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import autograd as grad_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
@@ -152,20 +160,71 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+REMAT = ("none", "dots", "full")
+# the products whose outputs remat "dots" keeps: B10's autograd form and
+# the plain route's 2-D products (aten.mm), the counterparts of the
+# reference's dots with no batch dimensions
+SAVED_OPS = (grad_ops.MATMUL_OP, torch.ops.aten.mm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in SAVED_OPS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, policy: str):
+    """The reference's ``_remat_wrap``: ``none`` keeps every activation;
+    ``full`` recomputes the layer in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant); ``dots`` keeps the
+    outputs of ``SAVED_OPS`` and recomputes the rest, attention (B11)
+    included, as ``checkpoint_dots_with_no_batch_dims`` keeps the
+    reference's projections and recomputes its batched attention
+    einsums."""
+    if policy not in REMAT:
+        raise ValueError(f"unknown remat policy {policy!r}; one of {REMAT}")
+    if policy == "none":
+        return fn
+    context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                   _dots_policy) if policy == "dots" \
+        else noop_context_fn
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             context_fn=context_fn)
+
+
+def unstack_layers(params):
+    """Every layer's weights as views of the stacked tensors: each stacked
+    leaf ``unbind``-ed once, so its gradient is one ``stack`` of the
+    layers' gradients (indexing it once a layer would add a full-size
+    zero tensor into its gradient for every layer)."""
+    def split(tree):
+        if isinstance(tree, dict):
+            parts = {k: split(v) for k, v in tree.items()}
+            n = len(next(iter(parts.values())))
+            return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+        return torch.unbind(tree)
+    return split(params["layers"]["sub0"])
+
+
+def _layer(p, x: torch.Tensor, positions, cfg: ModelConfig, path):
+    x, _, aux = _sublayer(p, x, cfg, positions, path)
+    return x, aux if aux is not None else \
+        torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
-            path: Optional[str] = None):
+            path: Optional[str] = None, remat: str = "none"):
     """tokens (B, S) -> (logits (B, S, vocab), aux loss): the sum of the
     MoE layers' balance terms, as the reference's; a zero for a dense
-    model."""
-    _, _, _, n_units = layer_plan(cfg)
+    model.  ``remat`` (``REMAT``) chooses what the backward pass
+    recomputes (``_remat_wrap``)."""
+    layer_plan(cfg)
+    body = _remat_wrap(functools.partial(_layer, cfg=cfg, path=path), remat)
     x = L.apply_embed(params["embed"], tokens, cfg)
     positions = _positions(x)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(n_units):
-        x, _, aux = _sublayer(layer_params(params, i), x, cfg, positions,
-                              path)
-        if aux is not None:
-            total = total + aux
+    for p in unstack_layers(params):
+        x, aux = body(p, x, positions)
+        total = total + aux
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.apply_unembed(params["embed"], x, cfg, path)
     return logits, total

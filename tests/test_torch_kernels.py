@@ -275,7 +275,7 @@ def test_device_tensors_launch_and_never_reach_plain(monkeypatch):
                              "topk_smallest": 0, "gnb_scores": 0,
                              "distance_topk_q8": 0, "distance_argmin_q8": 0,
                              "adc_topk": 0, "matmul": 0,
-                             "flash_attention": 0}
+                             "flash_attention": 0, "flash_attention_bwd": 0}
     assert [n for n, _ in calls] == ["topk", "argmin", "gnb"]
     assert all(dt == torch.float32 for _, dts in calls for dt in dts)
 

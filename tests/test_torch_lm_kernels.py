@@ -278,7 +278,7 @@ def test_device_tensors_launch_and_never_reach_plain(monkeypatch):
                              "topk_smallest": 0, "gnb_scores": 0,
                              "distance_topk_q8": 0, "distance_argmin_q8": 0,
                              "adc_topk": 0, "matmul": 1,
-                             "flash_attention": 1}
+                             "flash_attention": 1, "flash_attention_bwd": 0}
     assert [c[0] for c in calls] == ["gemm", "flash"]
     assert all(dt == torch.bfloat16 for _, dts, _ in calls for dt in dts)
     assert calls[1][2] is False          # causal reaches the launcher
