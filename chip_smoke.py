@@ -164,8 +164,10 @@ the CUDA toolkit.  In order it
 12. last, trains stablelm-3b at full width and depth
    (``TRAIN``: bf16, batch 8 x seq 128 from ``token_stream``, the train
    CLI's defaults): B12 (attention's backward pass) held against its
-   plain version at its edge shapes and at the path's and timed beside
-   SDPA's backward (``train_kernel_edges``, ``train_kernel_times``); B10
+   plain version at its edge shapes and at the path's, on both its routes
+   (``wgmma``, ``cuda_core``, each case on the one its rule gives, a
+   second call bit-equal), and each route timed beside SDPA's backward
+   (``train_kernel_edges``, ``train_kernel_times``); B10
    through its autograd form at every forward, dA and dB shape of the
    step, and B11 at the step's shape, each against its plain version
    (``train_path_edges``); one
@@ -212,6 +214,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -284,11 +287,15 @@ MOE_SAME = 0.5
 # token_stream, AdamW at lr 1e-3, remat "dots"; STEPS steps through the
 # CLI's FaultTolerantRunner loop, the probe loss logged every LOG_EVERY
 TRAIN = dict(arch="stablelm-3b", batch=8, seq=128, steps=20, log_every=5)
-# B12's edge sizes: S = 1, S off the 32-row tile and past it; d off 32
-BWD_EDGES_S = (1, 45, 129)
+# B12's edge sizes: S = 1, S off the 32- and 64-row tiles, S = 64 (the
+# wgmma route's tile exactly) and past it; d off 32, and d on both sides
+# of the wgmma route's 128 (bf16 d = 16, 80, 128 take wgmma, the rest the
+# CUDA cores)
+BWD_EDGES_S = (1, 45, 64, 129)
 BWD_EDGES_D = (16, 33, 80, 128, 256)
-# B12 against its plain version: both sum in fp32, so BWD_RTOL of the
-# size of the summed terms, plus one ulp of the output dtype
+# B12 against its plain version: both sum in fp32 (the wgmma route feeds
+# P and dS in as two bf16 terms each, 16 significant bits), so BWD_RTOL of
+# the size of the summed terms, plus one ulp of the output dtype
 BWD_RTOL = 1e-4
 
 # slice 10: a Poisson request stream (the JAX CLI's --stream model) through
@@ -658,21 +665,40 @@ def attn_bwd_inputs(torch, ops, gen, q, k, v, causal):
     return o, do
 
 
-def attn_bwd_case(torch, ops, ref, gen, q, k, v, causal, what):
-    """B12 against its plain version on the same q, k, v, o, dO.
-    Tolerance: both sum in fp32 from the same inputs and round once, so
-    BWD_RTOL of the size of the terms (``attn_bwd_terms``: the fp32 sums'
-    order over up to S·d terms, and exp of scores that agree to a few fp32
-    ulps) plus one ulp of the output dtype.  Returns (max |err|, max
+def bwd_way(torch, dtype, hd) -> str:
+    """The route kernels/flash_attention_bwd.py's rule gives B12 on
+    aligned tensors (every layout of these checks is): ``wgmma`` for bf16
+    with d a multiple of 16 up to 128, else ``cuda_core``."""
+    return "wgmma" if dtype == torch.bfloat16 and hd % 16 == 0 and \
+        hd <= 128 else "cuda_core"
+
+
+def attn_bwd_case(torch, ops, ref, gen, q, k, v, causal, what, way=None):
+    """B12 against its plain version on the same q, k, v, o, dO, through
+    ``ops.flash_attention_bwd`` (the rule's route) or, with ``way``, the
+    launcher on that route.  Tolerance: both sum in fp32 from the same
+    inputs and round once (the wgmma route's P and dS in two bf16 terms
+    keep 16 bits, 2^-17 relative), so BWD_RTOL of the size of the terms
+    (``attn_bwd_terms``: the fp32 sums' order over up to S·d terms, and
+    exp of scores that agree to a few fp32 ulps) plus one ulp of the
+    output dtype.  A second call on the same inputs must give the same
+    bits (no atomics, a fixed schedule).  Returns (max |err|, max
     err/tol)."""
+    from repro_torch.kernels import flash_attention_bwd as fab
     o, do = attn_bwd_inputs(torch, ops, gen, q, k, v, causal)
-    got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+
+    def call():
+        if way is None:
+            return ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+        return fab.launch(q, k, v, o, do, causal, way=way)
+    got = call()
+    again = call()
     want = ref.attention_bwd(q, k, v, o, do, causal=causal)
     terms = attn_bwd_terms(torch, q, k, v, o, do, causal)
     torch.cuda.synchronize()
     worst = (0.0, 0.0)
-    for name, g, w, m, x in zip(("dq", "dk", "dv"), got, want, terms,
-                                (q, k, v)):
+    for name, g, a, w, m, x in zip(("dq", "dk", "dv"), got, again, want,
+                                   terms, (q, k, v)):
         check(g.dtype == x.dtype and g.shape == x.shape,
               f"{what} {name}: {g.dtype} {tuple(g.shape)}")
         err = (g.float() - w.float()).abs()
@@ -682,48 +708,70 @@ def attn_bwd_case(torch, ops, ref, gen, q, k, v, causal, what):
               f"error {float(err.max())}")
         worst = max(worst, (float(err.max()), float((err / tol).max())),
                     key=lambda t: t[1])
+        check(torch.equal(g, a), f"{what} {name}: a second call on the "
+              "same inputs gave other bits")
     return worst
 
 
 def train_kernel_edges(torch, ops, ref, dev, gen, cfg) -> int:
     """B12 against its plain version at every (S, d) of ``BWD_EDGES_S`` x
-    ``BWD_EDGES_D`` (S = 1, S not a multiple of the 32-row tile, d not a
-    multiple of 32), causal and full, fp32 and bf16, in the models'
-    permuted layout and contiguous, and at the training path's shape
-    (``TRAIN``: batch x heads x seq x head dim of ``cfg``, laid out as
-    ``apply_attention`` gives it), each call counted once in
-    ``ops.LAUNCHES``.  Returns the number of cases."""
+    ``BWD_EDGES_D`` (S = 1, S off and on the tiles, d not a multiple of
+    32, d past the wgmma route's 128), causal and full, fp32 and bf16, in
+    the models' permuted layout and contiguous, and at the training path's
+    shape (``TRAIN``: batch x heads x seq x head dim of ``cfg``, laid out
+    as ``apply_attention`` gives it) on each route, two calls a case
+    (``attn_bwd_case``: bit-equal), each counted once in ``ops.LAUNCHES``
+    and on the route ``bwd_way`` gives; both routes must run.  Returns
+    the number of cases."""
+    from repro_torch.kernels import flash_attention_bwd as fab
     ops.reset_launches()
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
-        worst = (0.0, 0.0)
+        worst = {}
         for S in BWD_EDGES_S:
             for hd in BWD_EDGES_D:
                 for causal in (True, False):
                     layout = "model" if (S + hd) % 2 else "contiguous"
                     q, k, v = attn_inputs(torch, dev, gen, 2, 3, S, hd, dtype,
                                           layout)
+                    way = bwd_way(torch, dtype, hd)
+                    before = fab.ROUTE_LAUNCHES[way]
+                    what = f"B12 {dtype} S={S} d={hd} causal={causal} " \
+                        f"{layout}"
                     r = attn_bwd_case(torch, ops, ref, gen, q, k, v, causal,
-                                      f"B12 {dtype} S={S} d={hd} "
-                                      f"causal={causal} {layout}")
-                    worst = max(worst, r, key=lambda t: t[1])
+                                      what)
+                    check(fab.ROUTE_LAUNCHES[way] == before + 2,
+                          f"{what} did not take the {way} route: "
+                          f"{fab.ROUTE_LAUNCHES}")
+                    worst[way] = max(worst.get(way, (0.0, 0.0)), r,
+                                     key=lambda t: t[1])
                     n += 1
         print(f"[edge] B12 {dtype}: {len(BWD_EDGES_S) * len(BWD_EDGES_D) * 2}"
               f" cases (S in {BWD_EDGES_S}, d in {BWD_EDGES_D}, causal and "
-              f"full, permuted and contiguous) within the tolerance; worst "
-              f"max_abs_err={worst[0]:.4g}, {worst[1]:.3f} of it")
+              f"full, permuted and contiguous), each called twice, bit-equal,"
+              f" within the tolerance; worst " + ", ".join(
+                  f"{w} max_abs_err={e:.4g}, {x:.3f} of it"
+                  for w, (e, x) in sorted(worst.items())))
+    check(ops.LAUNCHES["flash_attention_bwd"] == 2 * n and
+          all(fab.ROUTE_LAUNCHES.values()),
+          f"B12: {ops.LAUNCHES['flash_attention_bwd']} launches for {n} "
+          f"cases, routes {fab.ROUTE_LAUNCHES}; both routes expected")
     B, S = TRAIN["batch"], TRAIN["seq"]
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, way in ((torch.bfloat16, None), (torch.bfloat16, "cuda_core"),
+                       (torch.float32, None)):
         q, k, v = attn_path_inputs(torch, dev, gen, cfg, B, S, dtype)
+        want = way or bwd_way(torch, dtype, cfg.head_dim)
+        before = fab.ROUTE_LAUNCHES[want]
         err, ratio = attn_bwd_case(torch, ops, ref, gen, q, k, v, True,
-                                   f"B12 path {dtype}")
+                                   f"B12 path {dtype} {want}", way)
+        check(fab.ROUTE_LAUNCHES[want] == before + 2,
+              f"B12 path {dtype} did not take the {want} route: "
+              f"{fab.ROUTE_LAUNCHES}")
         print(f"[edge] B12 {cfg.arch_id} {dtype} B={B} H={cfg.n_heads} "
-              f"S={S} d={cfg.head_dim} causal, the models' layout: "
+              f"S={S} d={cfg.head_dim} causal, the models' layout, {want} "
+              f"route{'' if way is None else ' (named)'}: "
               f"max_abs_err={err:.4g}, {ratio:.3f} of the tolerance")
         n += 1
-    check(ops.LAUNCHES["flash_attention_bwd"] == n,
-          f"B12: {ops.LAUNCHES['flash_attention_bwd']} launches for {n} "
-          "cases")
     return n
 
 
@@ -801,19 +849,33 @@ def train_path_edges(torch, ops, ref, dev, gen, cfg) -> int:
 
 def train_kernel_times(torch, ops, ref, dev, gen, cfg, peaks):
     """B12 at the training path's shape (``TRAIN`` on ``cfg``, bf16,
-    causal, the models' layout): kernel by CUDA events and by graph
-    replay, its plain version, and SDPA's backward on contiguous copies
-    (the library row), beside its bound.  Returns B12's kernel row."""
+    causal, the models' layout, the wgmma route by the rule): the kernels
+    by CUDA events and by graph replay; the CUDA-core route (named) on the
+    same inputs by graph replay; its plain version; and SDPA's backward on
+    contiguous copies (the library row) by events and by graph replay (a
+    captured forward and backward less the captured forward), beside its
+    bound.  Returns B12's kernel row."""
+    from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.launch.lm_kernel_times import device_ms
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     B, S, H, hd = TRAIN["batch"], TRAIN["seq"], cfg.n_heads, cfg.head_dim
     bf = torch.bfloat16
     q, k, v = attn_path_inputs(torch, dev, gen, cfg, B, S, bf)
     o, do = attn_bwd_inputs(torch, ops, gen, q, k, v, True)
+    check(fab.route(q, k, v, o, do) == "wgmma",
+          f"B12 main: the rule gives {fab.route(q, k, v, o, do)}")
     err, _ = attn_bwd_case(torch, ops, ref, gen, q, k, v, True, "B12 main")
-    qc, kc, vc = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
-    out = torch.nn.functional.scaled_dot_product_attention(qc, kc, vc,
-                                                           is_causal=True)
+    qc, kc, vc = (t.detach().contiguous() for t in (q, k, v))
     doc = do.contiguous()
+
+    def library(backward):
+        # fresh leaves each call, so that a captured backward stays on
+        # the capturing stream
+        a, b, c = (t.detach().requires_grad_() for t in (qc, kc, vc))
+        out = sdpa(a, b, c, is_causal=True)
+        return torch.autograd.grad(out, (a, b, c), doc) if backward else out
+    leaves = [t.detach().requires_grad_() for t in (qc, kc, vc)]
+    out = sdpa(*leaves, is_causal=True)
     pairs = B * H * S * (S + 1) // 2
     b, by = bound_ms(10 * pairs * hd, 8 * B * H * S * hd * 2, peaks,
                      bf16=True)
@@ -824,15 +886,21 @@ def train_kernel_times(torch, ops, ref, dev, gen, cfg, peaks):
         ms=cuda_ms(torch, lambda: ops.flash_attention_bwd(q, k, v, o, do),
                    20),
         dev_ms=device_ms(lambda: ops.flash_attention_bwd(q, k, v, o, do), 20),
+        core_dev_ms=device_ms(lambda: fab.launch(q, k, v, o, do, True,
+                                                 way="cuda_core"), 20),
         plain_ms=cuda_ms(torch, lambda: ref.attention_bwd(q, k, v, o, do),
                          5),
         library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
-            out, (qc, kc, vc), doc, retain_graph=True), 20),
+            out, leaves, doc, retain_graph=True), 20),
+        lib_dev_ms=device_ms(lambda: library(True), 20) -
+        device_ms(lambda: library(False), 20),
         bound_ms=b, bound_by=by, launches=0)
     print(f"[time] B12 {row['name']} B={B} H={H} S={S} d={hd} bf16 causal: "
-          f"kernel {row['ms']:.4f} ms, device {row['dev_ms']:.4f} ms, plain "
-          f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms "
-          f"(SDPA backward), bound {b:.4f} ms ({by})")
+          f"wgmma route {row['ms']:.4f} ms, device {row['dev_ms']:.4f} ms "
+          f"(the CUDA-core route {row['core_dev_ms']:.4f} ms device), plain "
+          f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+          f"device {row['lib_dev_ms']:.4f} ms (SDPA backward), bound "
+          f"{b:.4f} ms ({by})")
     return row
 
 
@@ -843,7 +911,10 @@ def train_launches(cfg, remat: str) -> dict:
     and for the unembedding in the forward pass, twice each (dA, dB) in
     the backward pass, and the layers' 7 again where ``full`` recomputes
     them (``dots`` keeps B10's outputs); B11 once a layer, twice where
-    the layer is recomputed (``full`` and ``dots``); B12 once a layer."""
+    the layer is recomputed (``full`` and ``dots``); B12 once a layer.
+    Every launch takes the wgmma route of its kernel (the step's shapes
+    are bf16 with 16-byte aligned rows; ``train_step_checks`` and
+    ``train_path`` check the routes)."""
     from repro_torch.kernels import ops
     from repro_torch.models import transformer
     check(transformer.layer_plan(cfg)[1] == ["mlp"] and cfg.mlp_type in
@@ -869,9 +940,10 @@ def grad_dist(torch, a, b) -> float:
 def train_grads(torch, ops, cfg, params, batch, remat, path=None):
     """One step's loss and gradients (``trainer.loss_and_grads``) under
     ``remat`` with the launch counts set to 0 just before and read just
-    after: (loss, gradient tree, launches, B10 and B11 routes)."""
+    after: (loss, gradient tree, launches, B10, B11 and B12 routes)."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels import gemm
     from repro_torch.training import trainer
     ops.reset_launches()
@@ -879,7 +951,8 @@ def train_grads(torch, ops, cfg, params, batch, remat, path=None):
                                             TrainConfig(remat=remat), path)
     torch.cuda.synchronize()
     return loss, grads, dict(ops.LAUNCHES), dict(
-        b10=dict(gemm.ROUTE_LAUNCHES), b11=dict(fa.ROUTE_LAUNCHES))
+        b10=dict(gemm.ROUTE_LAUNCHES), b11=dict(fa.ROUTE_LAUNCHES),
+        b12=dict(fab.ROUTE_LAUNCHES))
 
 
 def aten_calls(torch, fn) -> int:
@@ -950,14 +1023,16 @@ def train_step_checks(torch, ops, dev, cfg):
               f"code implies {want}")
         want_routes = dict(
             b10=dict(wgmma=want["matmul"], mma_sync=0, small_m=0, fp32=0),
-            b11=dict(wgmma=want["flash_attention"], cuda_core=0))
+            b11=dict(wgmma=want["flash_attention"], cuda_core=0),
+            b12=dict(wgmma=want["flash_attention_bwd"], cuda_core=0))
         check(routes == want_routes, f"train {remat}: routes {routes}, the "
               f"design implies {want_routes}")
         check(bool(torch.isfinite(loss)), f"train {remat}: loss {loss}")
         print(f"[lm/train] {remat}: loss {float(loss):.6f}; launches B10 "
               f"{launches['matmul']}, B11 {launches['flash_attention']}, "
               f"B12 {launches['flash_attention_bwd']} (as derived); routes "
-              f"B10 {routes['b10']}, B11 {routes['b11']}")
+              f"B10 {routes['b10']}, B11 {routes['b11']}, B12 "
+              f"{routes['b12']}")
         if remat == "none":
             runs[remat] = (loss, grads)
             continue
@@ -1034,6 +1109,7 @@ def train_path(torch, ops, dev, cfg, peaks):
     from repro_torch import tree as T
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.data.pipeline import to_device
+    from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.launch import train
     from repro_torch.launch.lm_kernel_times import device_kernels
     from repro_torch.runtime.events import kinds
@@ -1053,6 +1129,7 @@ def train_path(torch, ops, dev, cfg, peaks):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    b12_routes = dict(fab.ROUTE_LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_logs = len(res["logged"])
     step = train_launches(cfg, "dots")
@@ -1064,6 +1141,8 @@ def train_path(torch, ops, dev, cfg, peaks):
     want["flash_attention_bwd"] = steps * step["flash_attention_bwd"]
     check(launches == want, f"train CLI: launches {launches}, the code "
           f"implies {want}")
+    check(b12_routes == dict(wgmma=want["flash_attention_bwd"], cuda_core=0),
+          f"train CLI: B12 routes {b12_routes}, all wgmma expected")
     runner, state, losses = res["runner"], res["state"], res["losses"]
     fails = kinds(runner.events, "step_failure")
     check(not fails, f"train CLI: step failures {fails}")
@@ -1081,7 +1160,8 @@ def train_path(torch, ops, dev, cfg, peaks):
           f"{' -> '.join(f'{x:.4f}' for x in losses)} at steps "
           f"{res['logged']}; no step_failure; launches B10 "
           f"{launches['matmul']}, B11 {launches['flash_attention']}, B12 "
-          f"{launches['flash_attention_bwd']} (as derived); median step "
+          f"{launches['flash_attention_bwd']} (as derived; B12 routes "
+          f"{b12_routes}); median step "
           f"{step_ms:.2f} ms after 2 warm-up steps ({B * S / step_ms * 1e3:.0f}"
           f" tokens/s), model-FLOPs share {mfu:.4f} of {peaks[3] / 1e12:g} "
           f"TFLOP/s (6 x {n_params} x {B * S} a step); peak "
@@ -3333,9 +3413,14 @@ def main() -> int:
           f"{[p.name for p in _build.sources()]} in "
           f"{time.perf_counter() - t0:.2f}s (nvcc {_build.build_seconds:.2f}s)")
     for stem, log in _build.logs().items():
+        kernel = ""
         for line in log.splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"[ptxas] {stem}: {line.strip()}")
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:       # the mangled name past the file's namespace
+                kernel = re.sub(r"^_ZN\w*?_cu_[0-9a-f]{8}", "",
+                                entry.group(1))[:40]
+            elif "Used" in line or "spill" in line:
+                print(f"[ptxas] {stem} {kernel}: {line.strip()}")
 
     # ------------------------------------------------ data of the main path
     def blobs(n, d, classes, seed):

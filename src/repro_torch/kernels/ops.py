@@ -80,18 +80,21 @@ _INT32 = (torch.int32,)
 def reset_launches() -> None:
     """Set every count to 0: ``LAUNCHES``, ``GROUP_LAUNCHES`` and the
     per-route counts of B1,
-    B2, B3 (with B9), B4, B5, B6, B7, B8, B10 and B11 (``ROUTE_LAUNCHES``
-    of ``kernels/distance_topk.py``, ``kernels/distance_argmin.py``,
-    ``kernels/gnb_score.py``, ``kernels/pairwise_sq_dist.py``,
-    ``kernels/topk_select.py``, ``kernels/quantized.py`` (B6; B7's are
-    ``ARGMIN_ROUTE_LAUNCHES`` there), ``kernels/ann.py``,
-    ``kernels/gemm.py`` and ``kernels/flash_attention.py``)."""
+    B2, B3 (with B9), B4, B5, B6, B7, B8, B10, B11 and B12
+    (``ROUTE_LAUNCHES`` of ``kernels/distance_topk.py``,
+    ``kernels/distance_argmin.py``, ``kernels/gnb_score.py``,
+    ``kernels/pairwise_sq_dist.py``, ``kernels/topk_select.py``,
+    ``kernels/quantized.py`` (B6; B7's are ``ARGMIN_ROUTE_LAUNCHES``
+    there), ``kernels/ann.py``, ``kernels/gemm.py``,
+    ``kernels/flash_attention.py`` and
+    ``kernels/flash_attention_bwd.py``)."""
     for counts in (LAUNCHES, GROUP_LAUNCHES, _dt.ROUTE_LAUNCHES,
                    _da.ROUTE_LAUNCHES,
                    _gs.ROUTE_LAUNCHES, _pd.ROUTE_LAUNCHES,
                    _ts.ROUTE_LAUNCHES, _q.ROUTE_LAUNCHES,
                    _q.ARGMIN_ROUTE_LAUNCHES, _ann.ROUTE_LAUNCHES,
-                   _gemm.ROUTE_LAUNCHES, _fa.ROUTE_LAUNCHES):
+                   _gemm.ROUTE_LAUNCHES, _fa.ROUTE_LAUNCHES,
+                   _fab.ROUTE_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -466,7 +469,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     given its output o and the output's gradient dO -> (dq, dk, dv) in
     q's dtype, from the exact softmax in fp32 (D = rowsum(dO * o)).  Any
     S >= 1 and d <= 256, any (batch, head, position) strides with the d
-    axis contiguous, as B11 takes them."""
+    axis contiguous, as B11 takes them; on the tensor cores where
+    ``flash_attention_bwd.route`` gives ``wgmma``."""
     D_MAX = _fab.D_MAX
     dev = _check("flash_attention_bwd", inner=("q", "k", "v", "o", "do"),
                  q=(q, 4), k=(k, 4), v=(v, 4), o=(o, 4), do=(do, 4))

@@ -18,7 +18,9 @@ Autotune (the paper's profile-then-optimize, §5.2, at warmup time):
 time every registered arm of the estimator's hot op at each bucket
 (``_measure``: the least host time of 3 launches after a warm one, each
 between two synchronizes) and route the bucket's production launches
-through the fastest (``tuned``, a ``TunedArm`` a bucket).  The JAX
+through the fastest (``tuned``, a ``TunedArm`` a bucket), where it
+beats the static arm by ``AUTOTUNE_MARGIN`` (the JAX package takes the
+least time outright; this margin is the port's own).  The JAX
 package's candidates without its ``bn`` arms (a Pallas row-block size the
 CUDA kernels do not have): the paths on ``single``, and on a mesh every
 registered partition strategy with the estimator's own path; never
@@ -113,6 +115,16 @@ class GroupClassifyResult:
 # so the same query bytes against different engines or policies never
 # cross-hit
 _ENGINE_SEQ = itertools.count()
+
+# A measured arm displaces the static arm of its bucket only where it times
+# at least this much faster: us * (1 + AUTOTUNE_MARGIN) < static us.  The
+# least of 3 host-timed launches of a small bucket moves by a few us
+# between arms from noise alone, so without a margin a tiny bucket can
+# leave its static arm for one that is no faster.  10% is the tolerance a
+# tuned classify is held to against the untuned one (``chip_smoke.py``'s
+# ``TUNE_TOL``): a displacing arm measured that much faster still serves
+# within it.
+AUTOTUNE_MARGIN = 0.10
 
 
 @dataclass
@@ -408,13 +420,15 @@ class NonNeuralServeEngine:
 
     def _autotune_bucket(self, size: int, chunk) -> Optional[TunedArm]:
         """Time every candidate arm for one bucket, record the winner in
-        ``self.tuned``, and route this bucket through it.  An arm that
-        refuses the bucket's shapes (``dispatch.arm_fits``: fused kNN past
-        B1's lists) is not timed."""
+        ``self.tuned``, and route this bucket through it.  The winner is
+        the static arm unless the fastest other arm beats it by
+        ``AUTOTUNE_MARGIN``.  An arm that refuses the bucket's shapes
+        (``dispatch.arm_fits``: fused kNN past B1's lists) is not
+        timed."""
         static_strategy, static_path = self._static_arm(size)
         op = dispatch.HOT_OPS[self.algorithm]
         kw = dispatch.hot_shape_kw(self.algorithm, self._cost_shape, size)
-        measured, static_us = [], None
+        measured, static = [], []
         for s, p, bn in self._autotune_candidates(size):
             if p is not None and not dispatch.arm_fits(self.algorithm, op,
                                                        p, **kw):
@@ -424,10 +438,13 @@ class NonNeuralServeEngine:
             measured.append((s, p, bn, us))
             if (s == static_strategy and bn is None
                     and (p is None or p == static_path)):
-                static_us = us if static_us is None else min(static_us, us)
+                static.append(measured[-1])
         if not measured:
             return None
         s, p, bn, us = min(measured, key=lambda m: m[3])
+        static_us = min(m[3] for m in static) if static else None
+        if static_us is not None and us * (1 + AUTOTUNE_MARGIN) >= static_us:
+            s, p, bn, us = min(static, key=lambda m: m[3])
         arm = TunedArm(strategy=s, path=p, bn=bn, us=us,
                        static_strategy=static_strategy,
                        static_path=static_path,

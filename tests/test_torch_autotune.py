@@ -151,6 +151,63 @@ def test_scripted_static_winner_does_not_differ(blobs):
         assert arm.us == arm.static_us
 
 
+def _script_us(engine, us_of):
+    """Replace the timing seam with ``us_of(arm)`` for every candidate
+    arm, in ``_autotune_candidates`` order."""
+    state = {"cands": None, "i": 0}
+
+    def fake(fn, params, chunk, iters=3):
+        arm = state["cands"][state["i"]]
+        state["i"] += 1
+        return us_of(arm)
+
+    orig = engine._autotune_candidates
+
+    def candidates(bucket):
+        state["cands"] = orig(bucket)
+        state["i"] = 0
+        return state["cands"]
+
+    engine._autotune_candidates = candidates
+    engine._measure = fake
+
+
+@pytest.mark.parametrize("ref_us,displaces", [
+    (49.0, False), (46.0, False), (45.5, False), (45.0, True),
+    (44.0, True), (5.0, True)])
+def test_margin_guards_the_static_arm(blobs, ref_us, displaces):
+    """An arm other than the static arm (50 us) displaces it only where
+    it times faster by ``AUTOTUNE_MARGIN`` (10%): ``ref_us * 1.1 < 50``.
+    The JAX engine has no margin and takes ``ref`` whenever it is the
+    least: that difference is deliberate."""
+    from repro_torch.serving import engine as tengine
+    assert tengine.AUTOTUNE_MARGIN == 0.10
+    X, y = blobs
+    jeng, teng = _engines(X, y, "knn")
+
+    def us_of(arm):
+        return {None: 50.0, "fused": 50.0, "ref": ref_us}.get(arm[1], 60.0)
+
+    for e in (jeng, teng):
+        _script_us(e, us_of)
+        e.warmup(X[:32], autotune=True)
+    arm, jarm = teng.tuned[32], jeng.tuned[32]
+    assert _winner(jarm) == ("single", "ref") and jarm.differs
+    assert arm.static_path == jarm.static_path == "fused"
+    assert arm.static_us == 50.0
+    assert {c[1]: c[3] for c in arm.candidates}["ref"] == ref_us
+    if displaces:
+        assert _winner(arm) == ("single", "ref") and arm.differs
+        assert arm.us == ref_us
+        assert teng._choice(32) == ("single", "ref", None)
+    else:
+        assert not arm.differs and arm.us == arm.static_us
+        assert teng._choice(32)[1] in (None, "fused")
+    got = teng.classify(X[:32])
+    assert torch.equal(got.classes, teng.estimator.predict_batch(X[:32])[0])
+    assert teng.bucket_launches == {32: 1}
+
+
 def _jax_candidates_without_bn(jeng, bucket):
     return [c for c in jeng._autotune_candidates(bucket) if c[2] is None]
 

@@ -374,8 +374,9 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     hdr.write_text(hdr.read_text() + "\n// edited\n")
     after = {s.stem: _build._target(s).name for s in _build.sources()}
     changed = {stem for stem in before if before[stem] != after[stem]}
-    assert changed == {"gemm", "flash_attention", "distance_topk",
-                       "distance_argmin", "quantized", "pairwise_sq_dist"}
+    assert changed == {"gemm", "flash_attention", "flash_attention_bwd",
+                       "distance_topk", "distance_argmin", "quantized",
+                       "pairwise_sq_dist"}
     hdr = csrc / "block_select.cuh"
     hdr.write_text(hdr.read_text() + "\n// edited\n")
     again = {s.stem: _build._target(s).name for s in _build.sources()}

@@ -366,15 +366,17 @@ def test_attention_bwd_wrapper_checks_and_card_branch(monkeypatch):
 
 def test_b12_source_is_built_and_self_contained():
     """B12 is a csrc source of its own that ``_build`` compiles with the
-    rest, exports its C entry and the error string, and includes no
-    ``csrc`` header (B11's source and headers stay untouched)."""
+    rest, exports its C entry (with the wgmma flag) and the error string,
+    uses no atomics, and includes exactly the Hopper headers B11 uses
+    (``hopper.cuh``, ``wgmma.cuh``), which it does not change."""
     from repro_torch.kernels import _build
     src = _build.CSRC / "flash_attention_bwd.cu"
     assert src in _build.sources()
     text = src.read_text()
-    assert "int flash_attention_bwd(" in text and \
+    assert "int flash_attention_bwd(int dtype, int use_wgmma," in text and \
         "cuda_error_string" in text and "atomicAdd" not in text
-    assert _build.headers(src) == []
+    assert _build.headers(src) == [_build.CSRC / "hopper.cuh",
+                                   _build.CSRC / "wgmma.cuh"]
 
 
 # ------------------------------------------------- autograd forms (B10/B11)
@@ -382,7 +384,8 @@ def test_b12_source_is_built_and_self_contained():
 
 def _kernel_route(monkeypatch):
     """The wrappers' card branch on the CPU: B10, B11 and B12's launchers
-    run the plain versions, each counting its route."""
+    run the plain versions, each counting its route (B12's the one it is
+    named, else the one its rule gives)."""
     def gemm_launch(a, b, tile_n=0):
         tgemm.ROUTE_LAUNCHES[tgemm.route(a, b)] += 1
         return tref.matmul(a, b)
@@ -392,8 +395,10 @@ def _kernel_route(monkeypatch):
         return tref.attention(q, k, v, causal)
     monkeypatch.setattr(tgemm, "launch", gemm_launch)
     monkeypatch.setattr(tfa, "launch", attn_launch)
-    monkeypatch.setattr(tfab, "launch", lambda q, k, v, o, do, causal:
-                        tref.attention_bwd(q, k, v, o, do, causal))
+    def attn_bwd_launch(q, k, v, o, do, causal, way=None):
+        tfab.ROUTE_LAUNCHES[way or tfab.route(q, k, v, o, do)] += 1
+        return tref.attention_bwd(q, k, v, o, do, causal)
+    monkeypatch.setattr(tfab, "launch", attn_bwd_launch)
     real_check = tops._check
     monkeypatch.setattr(tops, "_check", lambda op, **kw: (
         real_check(op, **kw), torch.device("cuda"))[1])
@@ -661,7 +666,11 @@ def test_train_kernel_edges_rehearsal(monkeypatch):
     gen = torch.Generator().manual_seed(0)
     n = cs.train_kernel_edges(torch, tops, tref, torch.device("cpu"), gen,
                               cfg)
-    assert n == 2 * 2 * 2 * 2 + 2
+    # 16 edge cases (wgmma: bf16 at d = 16; CUDA cores: d = 33, fp32), two
+    # calls each, then the path's bf16 case on each route and its fp32 one
+    assert n == 2 * 2 * 2 * 2 + 3
+    assert tfab.ROUTE_LAUNCHES == {"wgmma": 2 * (2 * 2 + 1),
+                                   "cuda_core": 2 * (3 * 2 * 2 + 2)}
     shapes, _ = cs.train_path_shapes(cfg, 1, 9)
     tops.reset_launches()
     n = cs.train_path_edges(torch, tops, tref, torch.device("cpu"), gen, cfg)
