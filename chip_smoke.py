@@ -104,7 +104,17 @@ the CUDA toolkit.  In order it
    B11 are held against their plain versions at both models' path
    shapes among the edge cases (``lm_path_shapes``); free-running greedy generation on both routes,
    printed, not gated (a flip at one near-tie moves a token by a whole
-   expert's share);
+   expert's share); then, on the same weights, the planned steps
+   (``moe_two_phase_path``, ``[lm/moe/two_phase]``):
+   ``make_prefill_step``/``make_decode_step`` with a ``ParallelPlan`` on
+   a (data 1, model 8) mesh of the card, every MoE layer two-phase (each
+   shard routes its tokens on B5 and runs its 16 experts, then one psum),
+   8 greedy new tokens with B5 launched 8 x 48 a forward and B10, B11 as
+   on one device; per layer (``moe_two_phase_layers``) the kept slots
+   equal to one device's and the output within the bf16 grouping bound
+   (``two_phase_check``), layer 0's router input bit-equal and every flip
+   at a near-tie; the layer's kernel route bit-equal to its plain route at
+   (1, 8) and (2, 4); prefill and decode ms beside ``[lm/moe]``'s;
 5. replays a seeded Poisson request stream (``STREAM``: 256 arrivals a
    tick for 64 ticks, a coalescing window of 4 ticks, a deadline of 8)
    through ``RequestScheduler`` on the fitted kNN (B1) and GNB (B3)
@@ -281,6 +291,14 @@ MOE = dict(arch="qwen3-moe-30b-a3b", batch=4, prompt=512, new=32)
 # tokens must be among them (in runs on the card at least 1,866 of 2,048
 # were), or a fault that moves most routers would leave nothing to hold
 MOE_SAME = 0.5
+# the same served model through the planned steps
+# (``make_prefill_step``/``make_decode_step`` with a ParallelPlan) on a
+# (data, model) mesh of the one card, 16 experts a model shard: every MoE
+# layer runs two-phase (OP1 a shard, OP2 one psum), B5 once a shard; 8
+# greedy new tokens, since eight shards multiply the decode step's host
+# work.  "split" is the (data, model) mesh of one more layer held kernel
+# route against plain route (its data shards change the capacity)
+TWO_PHASE = dict(mesh=(1, 8), split=(2, 4), new=8)
 
 # training: stablelm-3b trains at full width and depth (bf16, seeded
 # weights) on the train CLI's defaults: batch 8 x seq 128 from
@@ -1602,7 +1620,7 @@ def bits(torch, t):
     return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
-def moe_path(torch, ops, ref, dev, cfg, peaks):
+def moe_path(torch, ops, ref, dev, cfg, peaks, hand_on=None):
     """Serve ``MOE`` through ``ServeEngine.generate`` (qwen3-moe-30b-a3b at
     full width and depth: bf16 weights seeded on the card, one expert
     slab at a time) with the launch counts set to 0 just before and read
@@ -1616,7 +1634,9 @@ def moe_path(torch, ops, ref, dev, cfg, peaks):
     routes, free-running, printing where their tokens part (not gated: a
     flip at one near-tie moves a token's layer output by a whole
     expert's share).  The host-clock times come after the stablelm
-    phase's profiler windows.  Returns the launch counts."""
+    phase's profiler windows.  Returns the launch counts; with
+    ``hand_on`` (a dict) the params, prompts, greedy tokens and times are
+    left in it for ``moe_two_phase_path`` rather than freed."""
     from repro_torch.configs.base import ServeConfig
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gemm
@@ -1842,9 +1862,334 @@ def moe_path(torch, ops, ref, dev, cfg, peaks):
           f"{worst_logit:.4g}; steps whose greedy token differs, by row: "
           f"{steps_differ or 'none'} (not gated: ROADMAP C); first row "
           f"{res.tokens[0, :8].tolist()}")
+    if hand_on is not None:
+        hand_on.update(params=params, prompts=prompts, tokens=res.tokens,
+                       prefill_ms=pre, step_ms=step_ms,
+                       prefill_dev=prefill_dev, step_dev=step_dev)
     del tk, lk, tp, lp, res, engine, params
     torch.cuda.empty_cache()
     print(f"[lm/moe] phase in {time.perf_counter() - t_phase:.2f}s, peak "
+          f"{torch.cuda.max_memory_allocated()} bytes allocated")
+    return launches
+
+
+def two_phase_check(torch, cfg, p, h, plan):
+    """The layer check of the two-phase MoE: one MoE layer (params ``p``,
+    inputs h (T, d)) on one device (``expert_terms``, then ``combine``)
+    against ``apply_moe_two_phase`` over ``plan`` (one data shard, so
+    both take the capacity of all T tokens).  The shards' kept slots,
+    offset by e_base·C, must be the one-device kept slots, exactly, and
+    so must the dropped count.  Each shard's expert rows are then the
+    one-device rows of its slot block (counted where bit-equal), and the
+    two outputs differ only in how a token's k weighted rows t_j are
+    grouped in the bf16 additions (a shard's in ascending slot order,
+    then the shards' partials in shard order).  Any grouping of the sum
+    of k terms stands within (k − 1)·2^-8·Σ|t_j| of the exact sum (first
+    order; 2^-8 is bf16's unit roundoff), so elementwise
+    |y_tp − y_1| ≤ Σ_j |t^tp_j − t^1_j| + (k − 1)·2^-8·(Σ_j |t^tp_j| +
+    Σ_j |t^1_j|), which is 2(k − 1)·2^-8·Σ_j |w_j·ye_j| where the rows
+    are equal.  Returns a dict: y1 (the one-device output), kept,
+    dropped (one device), rows_equal (shards), ratio (the largest
+    |y_tp − y_1| over that bound) and ok."""
+    from repro_torch.models import moe
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    model_n = plan.mesh.shape[plan.model_axis]
+    e_local = E // model_n
+    n_data, T_loc, _ = moe.shard_grid(plan, h.shape[0])
+    check(n_data == 1, "two_phase_check takes a plan of one data shard")
+    C = moe.capacity(T_loc, cfg)
+    slot1, t1, _ = moe.expert_terms(p, h, cfg, C)
+    y1 = moe.combine(slot1, t1).to(h.dtype)
+    ytp, _ = moe.apply_moe_two_phase(p, h, cfg, plan)
+    union = torch.full_like(slot1, E * C)
+    diff = torch.zeros(h.shape, dtype=torch.float64, device=h.device)
+    mag = torch.zeros_like(diff)
+    rows_equal = 0
+    n_loc = e_local * C
+    for j in range(model_n):
+        sj, tj, _ = moe.expert_terms(moe.expert_shard(p, j, e_local,
+                                                      h.device),
+                                     h, cfg, C, e_base=j * e_local,
+                                     e_local=e_local)
+        mine = sj < n_loc
+        at = torch.where(mine, sj + j * n_loc, E * C)
+        union = torch.where(mine, at, union)
+        rows_equal += int(torch.equal(bits(torch, tj[:-1]),
+                                      bits(torch, t1[j * n_loc:
+                                                     (j + 1) * n_loc])))
+        gj, g1 = tj[sj].double(), t1[at].double()     # (T, k, d), 0 if not
+        diff += (gj - g1).abs().sum(1)
+        mag += gj.abs().sum(1) + g1.abs().sum(1)
+        del gj, g1
+    bound = diff + (k - 1) * 2.0 ** -8 * mag
+    err = (ytp.double() - y1.double()).abs()
+    ratio = torch.where(bound > 0, err / bound.clamp_min(1e-300),
+                        torch.where(err > 0, math.inf, 0.0))
+    kept = torch.equal(union, slot1)
+    worst = float(ratio.max())
+    return dict(y1=y1, kept=kept, dropped=int((slot1 == E * C).sum()),
+                rows_equal=rows_equal, ratio=worst,
+                ok=kept and worst <= 1.0)
+
+
+def moe_two_phase_layers(torch, cfg, params, tokens, plan):
+    """The per-layer checks of the two-phase MoE over one prefill of
+    ``tokens`` (B, S) on the kernel route, two residual streams side by
+    side: the one-device layer's and the two-phase layer's.  At every
+    layer, teacher-forced on the one-device stream's MoE inputs,
+    ``two_phase_check`` (kept slots exact, the bf16 grouping bound); on
+    each stream's own inputs, the two routers: layer 0's inputs are the
+    same bits, so its top-k sets must be the same, and at every layer a
+    token whose set differs must be at a near-tie (``moe_flip_check``) and
+    at least ``MOE_SAME`` of the tokens routed alike.  Returns one dict a
+    layer."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe, transformer
+    x1 = L.apply_embed(params["embed"], tokens, cfg)
+    xtp = x1
+    B, S, d = x1.shape
+    T = B * S
+    positions = torch.arange(S, device=x1.device).expand(B, S)
+    rows = []
+    for i in range(cfg.n_layers):
+        p = transformer.layer_params(params, i)
+        xa1, _ = transformer.mixer(p, x1, cfg, positions)
+        xatp, _ = transformer.mixer(p, xtp, cfg, positions)
+        h1 = L.apply_norm(p["norm_ffn"], xa1, cfg).reshape(T, d)
+        htp = L.apply_norm(p["norm_ffn"], xatp, cfg).reshape(T, d)
+        r = two_phase_check(torch, cfg, p["moe"], h1, plan)
+        _, ids1, _ = moe.route(p["moe"], h1, cfg)
+        _, idstp, _ = moe.route(p["moe"], htp, cfg)
+        flip, near = moe_flip_check(torch, idstp, ids1,
+                                    moe.router_logits(p["moe"], htp),
+                                    moe.router_logits(p["moe"], h1))
+        same_input = torch.equal(bits(torch, h1), bits(torch, htp))
+        r.update(layer=i, same_input=same_input, flips=int(flip.sum()),
+                 far=int((~near).sum()), alike=int((~flip).sum()))
+        r["ok"] = (r["ok"] and bool(near.all()) and
+                   r["alike"] >= MOE_SAME * T and
+                   (i > 0 or (same_input and r["flips"] == 0)))
+        x1 = xa1 + r.pop("y1").reshape(B, S, d)
+        ytp, _ = moe.apply_moe_two_phase(p["moe"], htp, cfg, plan)
+        xtp = xatp + ytp.reshape(B, S, d)
+        rows.append(r)
+        del p, xa1, xatp, h1, htp, ytp
+    return rows
+
+
+def moe_two_phase_path(torch, ops, dev, cfg, hand):
+    """Serve the ``[lm/moe]`` phase's model again (its params, prompts and
+    greedy tokens handed on in ``hand``; nothing seeded twice) through the
+    planned steps: ``trainer.make_prefill_step(cfg, max_seq, plan=plan)``
+    and ``make_decode_step(cfg, plan=plan)``, ``plan`` a ``ParallelPlan``
+    on a ``TWO_PHASE["mesh"]`` (data, model) mesh of the one card, so
+    every MoE layer runs ``apply_moe_two_phase``.  Greedy generation of
+    ``TWO_PHASE["new"]`` tokens with the launch counts set to 0 just
+    before and read just after: B5 once a shard a layer, B10 and B11 as
+    the one-device route's, each on its route.  Then the per-layer checks
+    (``moe_two_phase_layers``), the two-phase layer's kernel route
+    against its plain route bit for bit on a layer's real prefill states
+    (T = batch · prompt and T = batch) and on a ``TWO_PHASE["split"]``
+    mesh, the prefill and decode step times (host clock, then device
+    busy) beside ``[lm/moe]``'s, the peak memory, and where the greedy
+    tokens part from ``[lm/moe]``'s (printed, not gated).  Returns the
+    launch counts."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemm
+    from repro_torch.kernels import topk_select as ts
+    from repro_torch.launch.lm_kernel_times import device_kernels
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe, transformer
+    from repro_torch.sharding import ParallelPlan
+    from repro_torch.training import trainer
+    t_phase = time.perf_counter()
+    params, prompts, one = hand["params"], hand["prompts"], hand["tokens"]
+    Bt, P = prompts.shape
+    new = TWO_PHASE["new"]
+    nL, E, k = cfg.n_layers, cfg.moe.num_experts, cfg.moe.top_k
+
+    def plan_on(shape):
+        return ParallelPlan(mesh=make_local_mesh(shape, dev,
+                                                 axes=("data", "model")))
+    plan = plan_on(TWO_PHASE["mesh"])
+    shards = plan.mesh.size
+    model_n = plan.mesh.shape["model"]
+    torch.cuda.reset_peak_memory_stats()
+    prefill_step = trainer.make_prefill_step(cfg, P + new, plan=plan)
+    decode_step = trainer.make_decode_step(cfg, plan=plan)
+
+    def generate():
+        logits, cache = prefill_step(params, {"tokens": prompts})
+        toks = []
+        for _ in range(new):
+            nxt = logits.float().argmax(-1)
+            toks.append(nxt)
+            logits, cache = decode_step(params, cache, nxt[:, None])
+        return torch.stack(toks, dim=1), logits
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    toks, last = generate()
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    routes = dict(b10=dict(gemm.ROUTE_LAUNCHES), b11=dict(fa.ROUTE_LAUNCHES),
+                  b5=dict(ts.ROUTE_LAUNCHES))
+    want = {name: 0 for name in launches}
+    want["matmul"] = (4 * nL + 1) * (1 + new)
+    want["flash_attention"] = nL
+    want["topk_smallest"] = nL * shards * (1 + new)
+    check(launches == want, f"lm/moe/two_phase: launches {launches}, the "
+          f"shapes imply {want}")
+    # bf16 (the card's model) on wgmma; an fp32 model (a CPU rehearsal)
+    # on B10's fp32 and B11's CUDA-core routes
+    big, att = ("wgmma", "wgmma") if cfg.dtype == "bfloat16" else \
+        ("fp32", "cuda_core")
+    want_routes = dict(
+        b10=dict(wgmma=0, mma_sync=0, small_m=1 + new * (4 * nL + 1),
+                 fp32=0),
+        b11=dict(wgmma=0, cuda_core=0),
+        b5=dict(filter=nL * shards * (1 + new), radix=0))
+    want_routes["b10"][big] += 4 * nL
+    want_routes["b11"][att] += nL
+    check(routes == want_routes, f"lm/moe/two_phase: routes {routes}, the "
+          f"design implies {want_routes}")
+    check(toks.shape == (Bt, new) and
+          bool(((toks >= 0) & (toks < cfg.vocab_size)).all()) and
+          bool(torch.isfinite(last).all()),
+          "lm/moe/two_phase: tokens out of range or logits not finite")
+
+    # timed: the prefill alone, then decode steps on its cache (host
+    # clock), then device busy time under the profiler
+    prefill_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill_step(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    steps, traced = new // 2, new // 4
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        logits, cache = decode_step(params, cache, toks[:, i:i + 1])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    spent = {"serve": time.perf_counter() - t_phase}
+    t0 = time.perf_counter()
+    prefill_kernels = device_kernels(
+        lambda: prefill_step(params, {"tokens": prompts}))
+    state = {"cache": cache}
+
+    def decode_steps():
+        for i in range(steps, steps + traced):
+            _, state["cache"] = decode_step(params, state["cache"],
+                                            toks[:, i:i + 1])
+    step_kernels = {name: ms / traced for name, ms in
+                    device_kernels(decode_steps).items()}
+    prefill_dev = sum(prefill_kernels.values()) or None
+    step_dev = sum(step_kernels.values()) or None
+    del logits, cache, state
+    spent["profile"] = time.perf_counter() - t0
+
+    def busy(ms, wall):
+        return "not measured" if ms is None else f"{ms:.2f} ms = " \
+            f"{ms / wall:.3f}"
+    pre = min(prefill_ms)
+    print(f"[lm/moe/two_phase] {cfg.arch_id} on a {TWO_PHASE['mesh']} "
+          f"(data, model) mesh of the card ({E // model_n} experts a "
+          f"shard) batch={Bt} prompt={P} new={new}: generate "
+          f"{gen_s:.3f}s; prefill {pre:.2f} ms (device busy "
+          f"{busy(prefill_dev, pre)}), one device {hand['prefill_ms']:.2f} "
+          f"ms ({busy(hand['prefill_dev'], hand['prefill_ms'])}); decode "
+          f"step {step_ms:.2f} ms (device busy {busy(step_dev, step_ms)}), "
+          f"one device {hand['step_ms']:.2f} ms "
+          f"({busy(hand['step_dev'], hand['step_ms'])}); launches B5 "
+          f"{launches['topk_smallest']} ({nL} x {shards} a forward), B10 "
+          f"{launches['matmul']}, B11 {launches['flash_attention']} (the "
+          f"shapes imply them); routes {routes}")
+    print("[lm/moe/two_phase] device time by kernel, prefill: " + "; ".join(
+        f"{n[:70]} {ms:.3f} ms" for n, ms in list(prefill_kernels.items())[:6]))
+    print("[lm/moe/two_phase] device time by kernel, a decode step: " +
+          "; ".join(f"{n[:70]} {ms:.3f} ms"
+                    for n, ms in list(step_kernels.items())[:6]))
+
+    # the per-layer checks over one prefill
+    t0 = time.perf_counter()
+    rows = moe_two_phase_layers(torch, cfg, params, prompts, plan)
+    spent["layers"] = time.perf_counter() - t0
+    bad = [r for r in rows if not r["ok"]]
+    check(not bad, "lm/moe/two_phase layers: " + "; ".join(
+        f"layer {r['layer']}: kept slots equal {r['kept']}, bound ratio "
+        f"{r['ratio']:.4g}, same input {r['same_input']}, {r['far']} of "
+        f"{r['flips']} flips away from a near-tie, {r['alike']} of "
+        f"{Bt * P} routed alike" for r in bad))
+    worst = max(rows, key=lambda r: r["ratio"])
+    print(f"[lm/moe/two_phase] per layer, one prefill of {Bt * P} tokens: "
+          f"teacher-forced, the kept slots equal one device's at all {nL} "
+          f"layers (dropped a layer {[r['dropped'] for r in rows]}), expert "
+          f"rows bit-equal in {sum(r['rows_equal'] for r in rows)} of "
+          f"{nL * model_n} shard blocks, |y_tp − y_1| within the bf16 "
+          f"grouping bound at most {worst['ratio']:.4f} of it (layer "
+          f"{worst['layer']}); free-running, layer 0's router input "
+          f"bit-equal and its top-{k} sets equal, flips a layer "
+          f"{[r['flips'] for r in rows]}, all at near-ties, fewest alike "
+          f"{min(r['alike'] for r in rows)}")
+
+    # the two-phase layer, kernel route against plain route, bit for bit
+    t0 = time.perf_counter()
+    mid = nL // 2
+    x = transformer.layer_states(params, prompts, cfg, plan=plan)[mid - 1]
+    p = transformer.layer_params(params, mid)
+    positions = torch.arange(P, device=dev).expand(Bt, P)
+    xa, _ = transformer.mixer(p, x, cfg, positions)
+    h = L.apply_norm(p["norm_ffn"], xa, cfg)
+    del x, xa
+    split = plan_on(TWO_PHASE["split"])
+    for pl, T, hh in ((plan, Bt * P, h.reshape(Bt * P, -1)),
+                      (plan, Bt, h[:, -1].contiguous()),
+                      (split, Bt * P, h.reshape(Bt * P, -1))):
+        n_data, T_loc, _ = moe.shard_grid(pl, T)
+        C = moe.capacity(T_loc, cfg)
+        mn = pl.mesh.shape["model"]
+        ops.reset_launches()
+        yk, ak = moe.apply_moe_two_phase(p["moe"], hh, cfg, pl)
+        torch.cuda.synchronize()
+        n_b5 = ops.LAUNCHES["topk_smallest"]
+        yp, ap = moe.apply_moe_two_phase(p["moe"], hh, cfg, pl, path="ref")
+        check(n_b5 == pl.mesh.size and
+              torch.equal(bits(torch, yk), bits(torch, yp)) and
+              torch.equal(bits(torch, ak), bits(torch, ap)),
+              f"lm/moe/two_phase {tuple(pl.mesh.shape.values())} T={T}: "
+              f"the kernel route differs from the plain route ({n_b5} B5 "
+              "launches)")
+        kept = 0
+        for i in range(n_data):
+            w, ids, _ = moe.route(p["moe"], hh[i * T_loc:(i + 1) * T_loc],
+                                  cfg)
+            slot, _, _ = moe.slot_map(w, ids, C, E)
+            kept += int((slot < E * C).sum())
+        print(f"[lm/moe/two_phase] layer {mid}, mesh (data, model) = "
+              f"{tuple(pl.mesh.shape.values())}, T={T} ({n_data} data "
+              f"shards of {T_loc} tokens, C={C}, {E // mn} experts a "
+              f"shard): {kept} of {T * k} assignments kept; kernel route "
+              f"bit-equal to the plain route, B5 launched {n_b5} times")
+    del p, h, hh, yk, yp, ak, ap
+    spent["routes"] = time.perf_counter() - t0
+
+    # where the greedy tokens part from the one-device route's
+    differ = toks != one[:, :new]
+    parts = {b: int(differ[b].float().argmax()) for b in range(Bt)
+             if bool(differ[b].any())}
+    torch.cuda.empty_cache()
+    print(f"[lm/moe/two_phase] greedy tokens against [lm/moe]'s, first "
+          f"differing step by row: {parts or 'none'} (not gated: ROADMAP "
+          f"C); first row {toks[0].tolist()}; phase in "
+          f"{time.perf_counter() - t_phase:.2f}s (" + ", ".join(
+              f"{name} {sec:.2f}s" for name, sec in spent.items())
+          + f"), peak "
           f"{torch.cuda.max_memory_allocated()} bytes allocated")
     return launches
 
@@ -5088,7 +5433,18 @@ def main() -> int:
     # stablelm's weights are gone (lm_path, lm_kernel_times); qwen3's 61.1
     # GB take the card's memory next, so the caches go back first
     torch.cuda.empty_cache()
-    launches = moe_path(torch, ops, ref, dev, moe_cfg, peaks)
+    hand: dict = {}
+    launches = moe_path(torch, ops, ref, dev, moe_cfg, peaks, hand_on=hand)
+    kernels["B5"]["launches"] += launches["topk_smallest"]
+    kernels["B10"]["launches"] += launches["matmul"]
+    kernels["B11"]["launches"] += launches["flash_attention"]
+
+    # ------------------------------------------------ 6c. the MoE two-phase
+    # the same weights through the planned steps on a (1, 8) mesh, then
+    # freed before the request streams
+    launches = moe_two_phase_path(torch, ops, dev, moe_cfg, hand)
+    hand.clear()
+    torch.cuda.empty_cache()
     kernels["B5"]["launches"] += launches["topk_smallest"]
     kernels["B10"]["launches"] += launches["matmul"]
     kernels["B11"]["launches"] += launches["flash_attention"]

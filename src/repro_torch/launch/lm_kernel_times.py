@@ -69,12 +69,14 @@ def device_kernels(window) -> dict:
     """The device time of the kernels ``window()`` runs, in ms by kernel
     name, largest first (``torch.profiler``'s ``key_averages``).  A
     process that has run the profiler issues later launches more slowly,
-    so host-clock times come before the first such window."""
+    so host-clock times come before the first such window.  Only the
+    CUDA activity is recorded: the kernel times do not depend on the CPU
+    operators' records, which cost several times a long window (tens of
+    thousands of operators) to collect and to average."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         window()
         torch.cuda.synchronize()
     ms = {e.key: getattr(e, "self_device_time_total",

@@ -9,7 +9,9 @@ no device.
 
 ``_mk`` (and the builders over it) takes the visible cards in order and
 raises, naming the count, where fewer exist than shards.
-``make_local_mesh(n, device)`` puts all ``n`` shards on one named device:
+``make_local_mesh(n, device)`` puts all ``n`` shards on one named device
+(``axes=`` gives a grid of several axes, as the LM stack's (data, model)
+plan takes):
 the counterpart of the JAX package's forced host devices
 (``XLA_FLAGS=--xla_force_host_platform_device_count=n``), which the tests
 use on the CPU and ``chip_smoke.py`` on the one card.  No builder places a
@@ -61,6 +63,16 @@ class Mesh:
             out.append(self.devices[tuple(index)])
         return out
 
+    def device_at(self, coords: Dict[str, int]) -> torch.device:
+        """The device at ``coords`` (axis name -> index; 0 on every axis
+        not named)."""
+        unknown = set(coords) - set(self.axis_names)
+        if unknown:
+            raise KeyError(f"mesh has no axes {sorted(unknown)}; axes "
+                           f"{self.axis_names}")
+        return self.devices[tuple(coords.get(a, 0)
+                                  for a in self.axis_names)]
+
     def __repr__(self) -> str:
         devs = sorted({str(d) for d in self.devices.flat})
         return f"Mesh(shape={self.shape}, devices={devs})"
@@ -92,12 +104,18 @@ def _mk(shape, axes, devices: Optional[Sequence[DeviceLike]] = None
     return Mesh(grid.reshape(shape), axes)
 
 
-def make_local_mesh(n: int, device: DeviceLike, axis: str = "data") -> Mesh:
-    """``n`` shards on one explicit device along ``axis``: the counterpart
-    of the JAX package's forced host devices, for the CPU tests and for a
-    machine with one card."""
+def make_local_mesh(n, device: DeviceLike, axis: str = "data", *,
+                    axes: Optional[Sequence[str]] = None) -> Mesh:
+    """``n`` shards on one explicit device along ``axis``, or with
+    ``axes`` a grid of shape ``n`` (a tuple, one size an axis) such as
+    ``make_local_mesh((1, 8), card, axes=("data", "model"))``: the
+    counterpart of the JAX package's forced host devices
+    (``_mk((4, 2), ("data", "model"))`` in its tests), for the CPU tests
+    and for a machine with one card."""
     dev = resolve_device(device)
-    return _mk((n,), (axis,), devices=[dev] * int(n))
+    shape = (int(n),) if axes is None else tuple(int(s) for s in n)
+    names = (axis,) if axes is None else tuple(axes)
+    return _mk(shape, names, devices=[dev] * math.prod(shape))
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

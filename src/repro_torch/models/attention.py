@@ -45,6 +45,15 @@ def init_attention(gen, cfg: ModelConfig, device: torch.device, lead=()):
     return p
 
 
+def attention_logical(cfg: ModelConfig):
+    lg = {"wq": ("embed", "qkv"), "wk": ("embed", "qkv"),
+          "wv": ("embed", "qkv"), "wo": ("qkv", "embed")}
+    if cfg.attn.qk_norm:
+        lg["q_norm"] = ("head_dim",)
+        lg["k_norm"] = ("head_dim",)
+    return lg
+
+
 def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor, path: Optional[str] = None):
     B, S, _ = x.shape

@@ -89,6 +89,12 @@ def init_norm(cfg: ModelConfig, device: torch.device, lead=()):
     return p
 
 
+def norm_logical(cfg: ModelConfig):
+    if cfg.norm == "layernorm":
+        return {"scale": ("embed",), "bias": ("embed",)}
+    return {"scale": ("embed",)}
+
+
 def apply_norm(params, x: torch.Tensor, cfg: ModelConfig,
                eps: float = 1e-6) -> torch.Tensor:
     xf = x.to(torch.float32)
@@ -156,6 +162,13 @@ def init_mlp(gen, cfg: ModelConfig, device: torch.device, lead=()):
     return p
 
 
+def mlp_logical(cfg: ModelConfig):
+    lg = {"w_in": ("embed", "mlp"), "w_out": ("mlp", "embed")}
+    if mlp_is_gated(cfg.mlp_type):
+        lg["w_gate"] = ("embed", "mlp")
+    return lg
+
+
 def apply_mlp(params, x: torch.Tensor, cfg: ModelConfig,
               path: Optional[str] = None) -> torch.Tensor:
     h = linear(x, params["w_in"], path)
@@ -187,6 +200,13 @@ def init_embed(gen, cfg: ModelConfig, device: torch.device):
         p["unembed"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dt,
                                   device)
     return p
+
+
+def embed_logical(cfg: ModelConfig):
+    lg = {"tok": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        lg["unembed"] = ("embed", "vocab")
+    return lg
 
 
 def apply_embed(params, tokens: torch.Tensor,

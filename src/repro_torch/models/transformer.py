@@ -9,6 +9,12 @@ under ``params["layers"]["sub0"]``, and the same three entry points:
   prefill(params, tokens, cfg, max_seq=)     full sequence + decode cache
   decode_step(params, cache, tokens, cfg)    one token against the cache
 
+Each takes ``plan=`` (a ``sharding.ParallelPlan``), which sends the MoE
+layers through the two-phase expert-parallel ``apply_moe_two_phase``, as
+the reference's ``_moe`` does; ``plan=None`` keeps the one-device layer.
+``params_logical`` and ``cache_logical`` give the trees' logical axes for
+``models/factory.py``'s specs.
+
 The reference scans its layers; here a Python loop walks them, each
 layer's weights a view of the stacked tensors.  ``forward`` is also the
 training path's (``training/trainer.py``): with autograd recording, B10
@@ -19,8 +25,8 @@ through B11 and an MoE layer's router through B5 (``models/moe.py``; the
 expert GEMMs are batched ``torch.matmul``, as the reference's are plain
 einsums).  An MoE layer runs on the B·S tokens of a prefill and the B tokens of a
 decode step, as the reference's does.  SSM, hybrid, enc-dec and VLM
-configs raise ``NotImplementedError``: their modules wait for ROADMAP
-A17.
+configs raise ``NotImplementedError`` (``check_supported``): their layer
+modules wait for ROADMAP A17.4-A17.5.
 """
 from __future__ import annotations
 
@@ -100,6 +106,33 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             "layers": {"sub0": sub}}
 
 
+def _sublayer_logical(cfg: ModelConfig, mixer: str, ffn: str):
+    lg: Dict[str, Any] = {"norm_mixer": L.norm_logical(cfg),
+                          "attn": attn.attention_logical(cfg)}
+    if ffn != "none":
+        lg["norm_ffn"] = L.norm_logical(cfg)
+    if ffn == "moe":
+        lg["moe"] = moe_mod.moe_logical(cfg)
+    elif ffn == "mlp":
+        lg["mlp"] = L.mlp_logical(cfg)
+    return lg
+
+
+def params_logical(cfg: ModelConfig):
+    """The parameter tree's logical axes (``sharding/partitioning.py``),
+    each stacked leaf with the leading "layers" axis, as the
+    reference's."""
+    mixers, ffns, _, _ = layer_plan(cfg)
+
+    def stacked(tree):
+        return {k: stacked(v) if isinstance(v, dict) else ("layers",) + v
+                for k, v in tree.items()}
+    return {"embed": L.embed_logical(cfg),
+            "final_norm": L.norm_logical(cfg),
+            "layers": {"sub0": stacked(_sublayer_logical(cfg, mixers[0],
+                                                         ffns[0]))}}
+
+
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     """The parameter tree's leaf shapes, from ``init_params`` on the meta
     device (nothing allocated)."""
@@ -130,13 +163,17 @@ def mixer(p, x: torch.Tensor, cfg: ModelConfig, positions,
     return x + out, kv
 
 
-def ffn(p, x: torch.Tensor, cfg: ModelConfig, path: Optional[str] = None):
+def ffn(p, x: torch.Tensor, cfg: ModelConfig, path: Optional[str] = None,
+        plan=None):
     """The FFN half of a layer on x (B, S, d): (x + MLP(norm(x)), None), or
-    for an MoE layer (x + MoE(norm(x)) over the B·S tokens, its aux loss)."""
+    for an MoE layer (x + MoE(norm(x)) over the B·S tokens, its aux loss):
+    the two-phase expert-parallel MoE where a ``ParallelPlan`` is given,
+    as the reference's ``_moe`` takes it."""
     if "moe" in p:
         h = L.apply_norm(p["norm_ffn"], x, cfg)
-        y, aux = moe_mod.apply_moe(p["moe"], h.reshape(-1, h.shape[-1]), cfg,
-                                   path)
+        h2 = h.reshape(-1, h.shape[-1])
+        y, aux = moe_mod.apply_moe(p["moe"], h2, cfg, path) if plan is None \
+            else moe_mod.apply_moe_two_phase(p["moe"], h2, cfg, plan, path)
         return x + y.reshape(x.shape), aux
     if "mlp" in p:
         x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["norm_ffn"], x, cfg),
@@ -144,9 +181,10 @@ def ffn(p, x: torch.Tensor, cfg: ModelConfig, path: Optional[str] = None):
     return x, None
 
 
-def _sublayer(p, x: torch.Tensor, cfg: ModelConfig, positions, path):
+def _sublayer(p, x: torch.Tensor, cfg: ModelConfig, positions, path,
+              plan=None):
     x, kv = mixer(p, x, cfg, positions, path)
-    x, aux = ffn(p, x, cfg, path)
+    x, aux = ffn(p, x, cfg, path, plan)
     return x, kv, aux
 
 
@@ -205,20 +243,23 @@ def unstack_layers(params):
     return split(params["layers"]["sub0"])
 
 
-def _layer(p, x: torch.Tensor, positions, cfg: ModelConfig, path):
-    x, _, aux = _sublayer(p, x, cfg, positions, path)
+def _layer(p, x: torch.Tensor, positions, cfg: ModelConfig, path,
+           plan=None):
+    x, _, aux = _sublayer(p, x, cfg, positions, path, plan)
     return x, aux if aux is not None else \
         torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
-            path: Optional[str] = None, remat: str = "none"):
+            path: Optional[str] = None, remat: str = "none", plan=None):
     """tokens (B, S) -> (logits (B, S, vocab), aux loss): the sum of the
     MoE layers' balance terms, as the reference's; a zero for a dense
     model.  ``remat`` (``REMAT``) chooses what the backward pass
-    recomputes (``_remat_wrap``)."""
+    recomputes (``_remat_wrap``); ``plan`` (a ``ParallelPlan``) sends
+    the MoE layers through ``apply_moe_two_phase``."""
     layer_plan(cfg)
-    body = _remat_wrap(functools.partial(_layer, cfg=cfg, path=path), remat)
+    body = _remat_wrap(functools.partial(_layer, cfg=cfg, path=path,
+                                         plan=plan), remat)
     x = L.apply_embed(params["embed"], tokens, cfg)
     positions = _positions(x)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -232,7 +273,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 def layer_states(params, tokens: torch.Tensor, cfg: ModelConfig, *,
                  path: Optional[str] = None,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, plan=None):
     """tokens (B, S) -> the residual stream (B, S, d_model) after each
     layer, a list of ``n_layers`` tensors: the prefill's forward pass seen
     layer by layer, so that two routes can be held against each other at
@@ -248,7 +289,7 @@ def layer_states(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     states = []
     for i in range(n_units):
         x, _, _ = _sublayer(layer_params(params, i, dtype), x, cfg,
-                            positions, path)
+                            positions, path, plan)
         states.append(x)
     return states
 
@@ -263,6 +304,19 @@ class DecodeCache(NamedTuple):
     kv_v: torch.Tensor
     pos: torch.Tensor      # (B,) int32: the next position to write
     length: int            # the same position, on the host
+
+
+def cache_logical(cfg: ModelConfig, long_context: bool = False):
+    """Logical specs for the decode cache.  The reference's k and v are
+    (n_units, n_attn_per_unit, B, S_max, Hkv, hd) with ("blocks",
+    "layers", ...); the port's hold one attention layer a unit, so its
+    (n_units, B, S_max, Hkv, hd) drop the "layers" axis (both axes map to
+    no mesh axis).  ``length``, a host int, is replicated (``()``).  For
+    ``long_context`` (batch 1) the caller's rules shard the KV sequence
+    over the data axes instead of the batch."""
+    layer_plan(cfg)
+    kv = ("blocks", "batch", "kv_seq", "kv_heads", "kv_hd")
+    return DecodeCache(kv_k=kv, kv_v=kv, pos=("batch",), length=())
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -280,7 +334,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,
-            max_seq: Optional[int] = None, path: Optional[str] = None):
+            max_seq: Optional[int] = None, path: Optional[str] = None,
+            plan=None):
     """tokens (B, S) -> (last-position logits (B, vocab), DecodeCache with
     the prompt's k and v in positions [0, S) of ``max_seq``)."""
     _, _, _, n_units = layer_plan(cfg)
@@ -293,7 +348,7 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     cache = init_cache(cfg, B, max_seq, device=x.device)
     for i in range(n_units):
         x, (k, v), _ = _sublayer(layer_params(params, i), x, cfg, positions,
-                                 path)
+                                 path, plan)
         cache.kv_k[i, :, :S] = k
         cache.kv_v[i, :, :S] = v
     x = L.apply_norm(params["final_norm"], x, cfg)
@@ -304,7 +359,7 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 
 def decode_step(params, cache: DecodeCache, tokens: torch.Tensor,
-                cfg: ModelConfig, *, path: Optional[str] = None):
+                cfg: ModelConfig, *, path: Optional[str] = None, plan=None):
     """tokens (B, 1) -> (logits (B, vocab), cache advanced by one), every
     row at one position (the reference's ``aligned=True``).
 
@@ -322,7 +377,7 @@ def decode_step(params, cache: DecodeCache, tokens: torch.Tensor,
         out, _, _ = attn.decode_attention(
             p["attn"], h, cache.kv_k[i], cache.kv_v[i], cache.pos, cfg,
             length=cache.length, path=path)
-        x, _ = ffn(p, x + out, cfg, path)
+        x, _ = ffn(p, x + out, cfg, path, plan)
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.apply_unembed(params["embed"], x[:, 0], cfg, path)
     return logits, cache._replace(pos=cache.pos + 1, length=cache.length + 1)

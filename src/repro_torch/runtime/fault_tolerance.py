@@ -12,9 +12,10 @@ step function with:
 Each step is timed to a device synchronize where the state lives on a
 card, so ``StepTimer`` sees the step's device time and not only the
 host's enqueue, and a fault in a kernel surfaces inside the step's retry
-(as a ``step_failure`` event) rather than in a later one.  The elastic
-replan of the reference (``runtime/elastic.py``) waits for the LM stack's
-sharding (ROADMAP A17).
+(as a ``step_failure`` event) rather than in a later one.  An evicted
+straggler is recorded in the same typed stream that the elastic replanner
+(``runtime/elastic.py``: ``replan_after_failure``, ``replan_event``)
+reads; as in the reference, the runner itself calls no replan.
 """
 from __future__ import annotations
 

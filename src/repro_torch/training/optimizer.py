@@ -13,7 +13,9 @@ past ``CHUNK`` elements are updated in slices of their leading axis of at
 most ``CHUNK`` elements (one layer of a stacked leaf, a few thousand rows
 of the embedding), so the fp32 temporaries of an update are a slice's,
 not a whole leaf's, while the launches stay few.  ``opt_state_pspecs``
-(ZeRO-1) waits for the LM stack's sharding (ROADMAP A17).
+applies the ZeRO-1 rule of ``sharding/partitioning.py``: the moments
+additionally sharded over the data axes (the paper's horizontal split
+applied to optimizer memory).
 """
 from __future__ import annotations
 
@@ -23,7 +25,9 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch import tree as T
-from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.base import MeshConfig, TrainConfig
+from repro_torch.sharding.partitioning import (PartitionSpec, leaf_shape,
+                                               map_logical, zero1_pspec)
 
 CHUNK = 1 << 24       # elements past which a leaf is updated by slices
 
@@ -94,3 +98,17 @@ def adamw_update(params, grads, state: AdamState, cfg: TrainConfig):
             upd(ps, gs, ms, vs)
     stats = {"grad_norm": gn, "lr": lr}
     return params, AdamState(step=step, mu=state.mu, nu=state.nu), stats
+
+
+def opt_state_pspecs(param_pspecs, params_shape, mesh_cfg: MeshConfig,
+                     zero1: bool = True) -> AdamState:
+    """PartitionSpecs for AdamState: the step replicated, the moments as
+    the params (``params_shape``: a tree of shapes or meta tensors), or
+    with ``zero1`` each also sharded over the data axes
+    (``zero1_pspec``)."""
+    def mom_spec(ps, shp):
+        return zero1_pspec(ps, leaf_shape(shp), mesh_cfg) if zero1 else ps
+
+    mu = map_logical(mom_spec, param_pspecs, params_shape)
+    return AdamState(step=PartitionSpec(), mu=mu,
+                     nu=map_logical(lambda ps: ps, mu))

@@ -67,18 +67,21 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-            train_cfg: TrainConfig, path: Optional[str] = None):
+            train_cfg: TrainConfig, path: Optional[str] = None, plan=None):
     """(ce + the MoE balance coefficient x aux, {"ce", "aux"}) of a batch
-    {tokens (B, S), targets (B, S)}."""
+    {tokens (B, S), targets (B, S)}; ``plan`` as in
+    ``transformer.forward``."""
     logits, aux = transformer.forward(params, batch["tokens"], cfg,
-                                      remat=train_cfg.remat, path=path)
+                                      remat=train_cfg.remat, path=path,
+                                      plan=plan)
     ce = cross_entropy(logits, batch["targets"], train_cfg.label_smoothing)
     moe_coef = cfg.moe.load_balance_coef if cfg.moe else 0.0
     return ce + moe_coef * aux, {"ce": ce, "aux": aux}
 
 
 def loss_and_grads(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-                   train_cfg: TrainConfig, path: Optional[str] = None):
+                   train_cfg: TrainConfig, path: Optional[str] = None,
+                   plan=None):
     """(loss, {"ce", "aux"}, gradient tree) of ``loss_fn``, each gradient
     in its param's dtype.  The params themselves are left untouched: the
     graph is built on detached views of them that require gradients."""
@@ -86,7 +89,7 @@ def loss_and_grads(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     views = [p.detach().requires_grad_() for p in flat]
     with torch.enable_grad():
         loss, parts = loss_fn(T.unflatten(params, iter(views)), batch, cfg,
-                              train_cfg, path)
+                              train_cfg, path, plan)
         grads = torch.autograd.grad(loss, views, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(flat, grads)]
@@ -104,9 +107,10 @@ def _split_microbatches(batch: Dict[str, torch.Tensor], n: int):
 
 
 def make_train_step(cfg: ModelConfig, train_cfg: TrainConfig,
-                    path: Optional[str] = None):
+                    path: Optional[str] = None, plan=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt,
-    metrics), batch {tokens, targets} on the params' device."""
+    metrics), batch {tokens, targets} on the params' device; ``plan`` (a
+    ``ParallelPlan``) runs the MoE layers two-phase."""
 
     def train_step(params, opt_state, batch):
         n_mb = train_cfg.microbatches
@@ -116,7 +120,7 @@ def make_train_step(cfg: ModelConfig, train_cfg: TrainConfig,
             loss = 0.0
             for mb in _split_microbatches(batch, n_mb):
                 mb_loss, _parts, grads = loss_and_grads(params, mb, cfg,
-                                                        train_cfg, path)
+                                                        train_cfg, path, plan)
                 for a, g in zip(T.leaves(acc), T.leaves(grads)):
                     a.add_(g.to(torch.float32) / n_mb)
                 loss = loss + mb_loss / n_mb
@@ -125,7 +129,7 @@ def make_train_step(cfg: ModelConfig, train_cfg: TrainConfig,
             parts = {"ce": loss, "aux": torch.zeros_like(loss)}
         else:
             loss, parts, grads = loss_and_grads(params, batch, cfg,
-                                                train_cfg, path)
+                                                train_cfg, path, plan)
 
         if train_cfg.grad_compression == "int8":
             adam, resid = opt_state
@@ -146,14 +150,16 @@ def make_train_step(cfg: ModelConfig, train_cfg: TrainConfig,
 
 
 def make_prefill_step(cfg: ModelConfig, max_seq: Optional[int] = None,
-                      path: Optional[str] = None):
+                      path: Optional[str] = None, plan=None):
     def prefill_step(params, batch):
         return transformer.prefill(params, batch["tokens"], cfg,
-                                   max_seq=max_seq, path=path)
+                                   max_seq=max_seq, path=path, plan=plan)
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, path: Optional[str] = None):
+def make_decode_step(cfg: ModelConfig, path: Optional[str] = None,
+                     plan=None):
     def serve_step(params, cache, tokens):
-        return transformer.decode_step(params, cache, tokens, cfg, path=path)
+        return transformer.decode_step(params, cache, tokens, cfg, path=path,
+                                       plan=plan)
     return serve_step
