@@ -89,7 +89,20 @@ the CUDA toolkit.  In order it
    route's distance from an fp32 route (``lm_layers``).  B10 and B11 are
    also timed at each path shape by a CUDA graph of the calls
    (``device_ms``), beside the CUDA-event time of a loop of calls;
-   then serves qwen3-moe-30b-a3b at full width and depth (``MOE``: 48
+   then four more archs the same way (``lm_arch_path``, ``LM_ARCHS``, a
+   ``[lm/<tag>]`` phase each, bf16 weights and stub frontend inputs
+   seeded on the card): deepseek-67b and nemotron-4-340b at their
+   published widths with the depth cut to the most layers whose phase
+   peak stays within 72 GB (``layer_cut``; 41 and 4, named
+   "<arch>-L<n>"), whisper-large-v3 (1,500 encoder frames, a 64-token
+   decoder prompt; its encoder's self-attention on B11, bidirectional,
+   its cross-attention's projections on B10) and phi-3-vision-4.2b (576
+   patch embeddings before a 512-token prompt), each with B10 and B11's
+   launches and routes as ``lm_launch_plan`` derives them from its layer
+   plan, the parameter count as ``tree_extra`` derives it, the logits
+   gate and the per-layer check (whisper's encoder layers first), its
+   prefill and decode ms by the host clock and by device busy time, and
+   its peak memory; then serves qwen3-moe-30b-a3b at full width and depth (``MOE``: 48
    layers, 128 experts, top 8; 61.1 GB of bf16 weights seeded on the
    card one expert slab at a time) the same way (``moe_path``): B10 for
    q, k, v, o and the unembedding, B11 in the prefill, B5 for every MoE
@@ -101,8 +114,9 @@ the CUDA toolkit.  In order it
    token's expert set at a near-tie, ``moe_flip_check``; at least
    ``MOE_SAME`` of the tokens routed alike by all routes, and the layer's
    output within ``LAYER_FACTOR`` of the fp32 noise over them); B10 and
-   B11 are held against their plain versions at both models' path
-   shapes among the edge cases (``lm_path_shapes``); free-running greedy generation on both routes,
+   B11 are held against their plain versions at every served model's
+   path shapes among the edge cases (``lm_path_shapes``,
+   ``lm_attn_shapes``: B11 also non-causal at S = 1,500); free-running greedy generation on both routes,
    printed, not gated (a flip at one near-tie moves a token by a whole
    expert's share); then, on the same weights, the planned steps
    (``moe_two_phase_path``, ``[lm/moe/two_phase]``):
@@ -221,6 +235,7 @@ the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -259,6 +274,23 @@ Q8_BLOCKED_K = 64
 # slice 4: stablelm-3b at full width serves a batch of 4 prompts of 512
 # seeded tokens and 32 greedy new tokens (the KV cache holds 544)
 LM = dict(arch="stablelm-3b", batch=4, prompt=512, new=32)
+# slice 21: four more archs served the same way, each a phase of its own
+# ("[lm/<tag>]"): deepseek-67b and nemotron-4-340b at their published
+# widths with the depth cut to the most layers whose phase peak stays
+# within CUT_PEAK_BYTES (``layer_cut``; the arch id says "-L<n>"), then
+# whisper-large-v3 (32 + 32 layers, 1,500 seeded encoder frames, a
+# 64-token decoder prompt: its text context is 448) and phi-3-vision-4.2b
+# (576 seeded patch embeddings before a 512-token prompt) at full depth
+LM_ARCHS = (
+    dict(tag="deepseek", arch="deepseek-67b", batch=4, prompt=512, new=32,
+         cut=True),
+    dict(tag="nemotron", arch="nemotron-4-340b", batch=4, prompt=512, new=32,
+         cut=True),
+    dict(tag="whisper", arch="whisper-large-v3", batch=4, prompt=64, new=32,
+         cut=False),
+    dict(tag="vlm", arch="phi-3-vision-4.2b", batch=4, prompt=512, new=32,
+         cut=False))
+CUT_PEAK_BYTES = 72e9
 # B10's edge sizes (every M, N, K among them) and B11's (S, d)
 GEMM_EDGES = (1, 3, 65, 257, 6913)
 ATTN_EDGES_S = (1, 12, 129, 512)
@@ -532,16 +564,39 @@ def lm_proj_shapes(cfg):
     return list(dict.fromkeys(proj))
 
 
+def lm_seq(cfg, prompt: int) -> int:
+    """The decoder's prefill length: a VLM's patches, then the prompt."""
+    return prompt + (cfg.vision.num_patches if cfg.vision is not None
+                     else 0)
+
+
 def lm_path_shapes(cfg, batch: int, prompt: int):
     """The B10 (M, N, K) of one model's serving path, distinct and in
     order: its projections (``lm_proj_shapes``) at the prefill's M =
-    batch · prompt and at decode's M = batch, then the unembedding at M =
-    batch; and B11's (B, H, S, d) of its prefill (after the GQA repeat)."""
+    batch · (patches + prompt) and at decode's M = batch, then the
+    unembedding at M = batch, then for an enc-dec arch the same
+    projections at the encoder's M = batch · n_ctx (the encoder's layers,
+    and the decoder's cross-attention keys and values of the memory; its
+    queries and outputs are the decoder's q and o shapes); and B11's (B,
+    H, S, d) of its decoder's prefill (after the GQA repeat)."""
     proj = lm_proj_shapes(cfg)
-    gemm = [(M, N, K) for M in (batch * prompt, batch) for N, K in proj]
+    S = lm_seq(cfg, prompt)
+    gemm = [(M, N, K) for M in (batch * S, batch) for N, K in proj]
     gemm.append((batch, cfg.vocab_size, cfg.d_model))
-    return list(dict.fromkeys(gemm)), (batch, cfg.n_heads, prompt,
-                                       cfg.head_dim)
+    if cfg.encoder is not None:
+        gemm += [(batch * cfg.encoder.n_ctx, N, K) for N, K in proj]
+    return list(dict.fromkeys(gemm)), (batch, cfg.n_heads, S, cfg.head_dim)
+
+
+def lm_attn_shapes(cfg, batch: int, prompt: int):
+    """B11's ((B, H, S, d), causal) on one model's serving path: the
+    decoder's causal prefill, and an enc-dec arch's bidirectional encoder
+    layers at S = n_ctx."""
+    shapes = [(lm_path_shapes(cfg, batch, prompt)[1], True)]
+    if cfg.encoder is not None:
+        shapes.append(((batch, cfg.n_heads, cfg.encoder.n_ctx,
+                        cfg.head_dim), False))
+    return shapes
 
 
 def attn_path_inputs(torch, dev, gen, cfg, B, S, dtype):
@@ -562,17 +617,19 @@ def lm_kernel_edges(torch, ops, ref, dev, gen, models) -> int:
     ``lm_path_shapes``) and at the small-M boundary; B11 at every (S, d)
     of the edge sizes, causal and not, in the models' layout, plus a head
     dim that is not a multiple of 16 (the CUDA-core kernel in bf16), and
-    at each model's prefill shape in its own layout; both dtypes, each
-    path case on the route the shape rule gives.  Returns the number of
-    cases."""
+    at each model's path shapes in its own layout (``lm_attn_shapes``:
+    the decoder's causal prefill, an encoder's bidirectional layers);
+    both dtypes, each path case on the route the shape rule gives.
+    Returns the number of cases."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gemm
     from repro_torch.kernels.gemm import SMALL_M
     path, attn_path = [], []
     for cfg, batch, prompt in models:
-        shapes, attn = lm_path_shapes(cfg, batch, prompt)
+        shapes, _ = lm_path_shapes(cfg, batch, prompt)
         path += [s for s in shapes if s not in path]
-        attn_path.append((cfg, attn))
+        attn_path += [(cfg, attn, causal) for attn, causal in
+                      lm_attn_shapes(cfg, batch, prompt)]
     d, ff = models[0][0].d_model, models[0][0].d_ff
     path += [(SMALL_M, ff, d), (SMALL_M + 1, d, ff)]
     n = 0
@@ -586,8 +643,7 @@ def lm_kernel_edges(torch, ops, ref, dev, gen, models) -> int:
                     worst = max(worst, r, key=lambda t: t[1])
                     n += 1
         for M, N, K in path:
-            way = "small_m" if M <= SMALL_M else \
-                "wgmma" if dtype == torch.bfloat16 else "fp32"
+            way = gemm_way(torch, M, N, K, dtype)
             before = gemm.ROUTE_LAUNCHES[way]
             err, ratio = gemm_case(torch, ops, ref, dev, gen, M, N, K, dtype)
             check(gemm.ROUTE_LAUNCHES[way] == before + 1,
@@ -635,20 +691,21 @@ def lm_kernel_edges(torch, ops, ref, dev, gen, models) -> int:
     check(fa.ROUTE_LAUNCHES == want, f"B11 edge routes "
           f"{fa.ROUTE_LAUNCHES}, the layout rule gives {want}")
     print(f"[edge] routes: B10 {edge_routes}, B11 {dict(fa.ROUTE_LAUNCHES)}")
-    for cfg, (B, H, S, hd) in attn_path:
+    for cfg, (B, H, S, hd), causal in attn_path:
+        mask = "causal" if causal else "full"
         for dtype in (torch.bfloat16, torch.float32):
             way = "wgmma" if dtype == torch.bfloat16 and hd % 16 == 0 \
                 else "cuda_core"
             before = fa.ROUTE_LAUNCHES[way]
             q, k, v = attn_path_inputs(torch, dev, gen, cfg, B, S, dtype)
             err, ratio = attn_case(
-                torch, ops, ref, q, k, v, True, f"B11 {cfg.arch_id} {dtype} "
-                f"B={B} H={H} S={S} d={hd} causal")
+                torch, ops, ref, q, k, v, causal, f"B11 {cfg.arch_id} "
+                f"{dtype} B={B} H={H} S={S} d={hd} {mask}")
             check(fa.ROUTE_LAUNCHES[way] == before + 1,
                   f"B11 {cfg.arch_id} {dtype} did not take the {way} route: "
                   f"{fa.ROUTE_LAUNCHES}")
             print(f"[edge] B11 {cfg.arch_id} {dtype} B={B} H={H} S={S} "
-                  f"d={hd} causal, KV heads {cfg.n_kv_heads} repeated "
+                  f"d={hd} {mask}, KV heads {cfg.n_kv_heads} repeated "
                   f"({way}): max_abs_err={err:.4g}, {ratio:.3f} of the "
                   "tolerance")
             n += 1
@@ -1349,17 +1406,96 @@ def lm_layer_check(torch, got, plain, exact):
     return rows
 
 
-def lm_layers(torch, cfg, params, tokens):
-    """One teacher-forced prefill of ``tokens``, layer by layer, through
-    the kernel route, the plain route and the plain route in fp32 on the
-    same weights, upcast one layer at a time (never the whole tree: 122 GB
-    at qwen3-moe-30b-a3b's width); ``lm_layer_check`` on the three."""
+def lm_layers(torch, cfg, params, tokens, frontend=None):
+    """One teacher-forced prefill of ``tokens`` (and the stub frontends'
+    ``frontend`` inputs), layer by layer (an enc-dec arch's encoder layers
+    first), through the kernel route, the plain route and the plain route
+    in fp32 on the same weights, upcast one layer at a time (never the
+    whole tree: 122 GB at qwen3-moe-30b-a3b's width);
+    ``lm_layer_check`` on the three."""
     from repro_torch.models import transformer
-    got = transformer.layer_states(params, tokens, cfg)
-    plain = transformer.layer_states(params, tokens, cfg, path="ref")
+    frontend = frontend or {}
+    got = transformer.layer_states(params, tokens, cfg, **frontend)
+    plain = transformer.layer_states(params, tokens, cfg, path="ref",
+                                     **frontend)
     exact = transformer.layer_states(params, tokens, cfg, path="ref",
-                                     dtype=torch.float32)
+                                     dtype=torch.float32, **frontend)
     return lm_layer_check(torch, got, plain, exact), exact[-1].float().norm()
+
+
+def tree_extra(cfg) -> int:
+    """The parameters in the tree beyond the reference's ``param_count``,
+    which counts d_model for each norm of a layer (two a decoder or
+    encoder layer, one a cross-attention block) and nothing for a final
+    norm: so the final norms (an encoder's too), every LayerNorm's bias
+    and a qk-norm arch's q and k norms."""
+    per_norm = 2 * cfg.d_model if cfg.norm == "layernorm" else cfg.d_model
+    norms = 2 * cfg.n_layers + 1          # each layer's two, the final one
+    counted = 2 * cfg.d_model * cfg.n_layers
+    if cfg.encoder is not None:
+        norms += 2 * cfg.encoder.n_layers + 1 + cfg.n_layers
+        counted += 2 * cfg.d_model * cfg.encoder.n_layers + \
+            cfg.d_model * cfg.n_layers
+    qk = 2 * cfg.head_dim * cfg.n_layers if cfg.attn.qk_norm else 0
+    return per_norm * norms - counted + qk
+
+
+def lm_launch_plan(torch, cfg, batch: int, prompt: int, new: int) -> dict:
+    """Every B10 and B11 launch of ``generate`` on a dense, enc-dec or VLM
+    model (one prefill of batch x prompt, after a VLM's patches, then
+    ``new`` decode steps), derived from its layer plan: each launch's
+    shape, and the route the shape rules give it.  Returns the launch
+    counts and the routes, as ``ops.LAUNCHES`` and the two
+    ``ROUTE_LAUNCHES`` count them."""
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import mlp_is_gated
+    check(transformer.layer_plan(cfg)[1] == ["mlp"],
+          f"{cfg.arch_id}: lm_launch_plan derives dense MLP layers only")
+    d, q, kv, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    mlp = [(ff, d)] * (2 if mlp_is_gated(cfg.mlp_type) else 1) + [(d, ff)]
+    attn = [(q, d), (kv, d), (kv, d), (d, q)]
+    S = lm_seq(cfg, prompt)
+    gemm, flash = [], []
+    if cfg.encoder is not None:
+        Me = batch * cfg.encoder.n_ctx
+        for _ in range(cfg.encoder.n_layers):
+            gemm += [(Me, N, K) for N, K in attn + mlp]
+            flash.append(cfg.head_dim)
+    for M, prefill in [(batch * S, True)] + [(batch, False)] * new:
+        for _ in range(cfg.n_layers):
+            gemm += [(M, N, K) for N, K in attn + mlp]
+            if prefill:
+                flash.append(cfg.head_dim)
+            if cfg.encoder is not None:
+                # cross q and o; its k and v of the memory in the prefill
+                gemm += [(M, q, d), (M, d, q)]
+                if prefill:
+                    gemm += [(batch * cfg.encoder.n_ctx, kv, d)] * 2
+        gemm.append((batch, cfg.vocab_size, d))    # the last position's
+    b10 = {way: 0 for way in ("wgmma", "mma_sync", "small_m", "fp32")}
+    for M, N, K in gemm:
+        b10[gemm_way(torch, M, N, K, torch.bfloat16)] += 1
+    b11 = {"wgmma": sum(hd % 16 == 0 for hd in flash)}
+    b11["cuda_core"] = len(flash) - b11["wgmma"]
+    return dict(launches=dict(matmul=len(gemm), flash_attention=len(flash)),
+                routes=dict(b10=b10, b11=b11))
+
+
+def frontend_inputs(torch, dev, gen, cfg, batch: int) -> dict:
+    """The stub frontends' inputs, N(0, 0.02²) in the config's dtype as
+    the JAX CLI draws them: an enc-dec arch's encoder frames (batch, n_ctx,
+    d_model), a VLM's patch embeddings (batch, num_patches, d_model)."""
+    from repro_torch.models.layers import torch_dtype
+
+    def draw(n):
+        return torch.randn((batch, n, cfg.d_model), generator=gen,
+                           device=dev).mul_(0.02).to(torch_dtype(cfg))
+    out = {}
+    if cfg.encoder is not None:
+        out["encoder_frames"] = draw(cfg.encoder.n_ctx)
+    if cfg.vision is not None:
+        out["patch_embeds"] = draw(cfg.vision.num_patches)
+    return out
 
 
 def busy_ms(torch, window):
@@ -1369,26 +1505,31 @@ def busy_ms(torch, window):
     return sum(device_kernels(window).values()) or None
 
 
-def lm_path(torch, ops, dev, cfg):
-    """Serve ``LM`` through ``ServeEngine.generate`` with the launch counts
-    set to 0 just before and read just after (every B10 launch on the
-    wgmma route in the prefill and the small-M route at M = batch, every
-    B11 launch on the wgmma route); time the prefill and the decode
-    steps; hold the kernel route's logits, step by step, to the plain
-    route's (``path="ref"``) on the same tokens; and hold one prefill's
-    residual stream to the plain route's after every layer
-    (``lm_layers``).  Every host-clock time is taken before the first
+def lm_path(torch, ops, dev, cfg, spec=None, tag: str = "lm"):
+    """Serve ``spec`` (``LM`` by default, or an ``LM_ARCHS`` entry: batch,
+    prompt, new tokens) of ``cfg`` through ``ServeEngine.generate``, with
+    seeded weights and, for an enc-dec or VLM arch, seeded stub frontend
+    inputs (``frontend_inputs``), the launch counts set to 0 just before
+    and read just after: each count and route what ``lm_launch_plan``
+    derives from the layer plan (B10 on the wgmma route in the prefill
+    and the small-M route at M = batch, B11 on the wgmma route).  Time
+    the prefill and the decode steps; hold the kernel route's logits,
+    step by step, to the plain route's (``path="ref"``) on the same
+    tokens; and hold one prefill's residual stream to the plain route's
+    after every layer, an encoder's too (``lm_layers``).  For stablelm
+    (the first LM phase) every host-clock time is taken before the first
     profiler window of the process: a process that has run
     ``torch.profiler`` issues later launches more slowly.  The device busy
     time of a prefill and of a decode step is the profiler's kernel time
     (None, printed "not measured", where a window records no kernel).
-    Returns the numbers of the report line."""
+    Messages carry ``tag``.  Returns the numbers of the report line."""
     from repro_torch.configs.base import ServeConfig
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gemm
     from repro_torch.models import transformer
     from repro_torch.serving import ServeEngine
-    Bt, P, new = LM["batch"], LM["prompt"], LM["new"]
+    spec = spec or LM
+    Bt, P, new = spec["batch"], spec["prompt"], spec["new"]
     gen = torch.Generator(device=dev).manual_seed(SEED)
     t0 = time.perf_counter()
     params = transformer.init_params(cfg, gen, device=dev)
@@ -1400,57 +1541,65 @@ def lm_path(torch, ops, dev, cfg):
             yield from (leaves(v) if isinstance(v, dict) else [v])
     n_params = sum(t.numel() for t in leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
-    check(n_params == cfg.param_count() + 2 * cfg.d_model * (cfg.n_layers + 1),
-          f"lm: {n_params} parameters in the tree, {cfg.param_count()} "
-          "counted")
+    extra = tree_extra(cfg)
+    check(n_params == cfg.param_count() + extra,
+          f"{tag}: {n_params} parameters in the tree, {cfg.param_count()} "
+          f"counted, {extra} norm parameters left out of the count")
     prompts = torch.randint(0, cfg.vocab_size, (Bt, P), generator=gen,
                             device=dev)
-    serve_cfg = ServeConfig(max_seq=P + new)
+    frontend = frontend_inputs(torch, dev, gen, cfg, Bt)
+    S = lm_seq(cfg, P)
+    serve_cfg = ServeConfig(max_seq=S + new)
     engine = ServeEngine(cfg, params, serve_cfg)
-    cache_bytes = 2 * cfg.n_layers * Bt * (P + new) * cfg.kv_dim * \
-        params["embed"]["tok"].dtype.itemsize
-    print(f"[lm] {cfg.arch_id}: {cfg.param_count()} parameters as the "
+    item = params["embed"]["tok"].dtype.itemsize
+    cache_bytes = 2 * cfg.n_layers * Bt * (S + new) * cfg.kv_dim * item
+    if cfg.encoder is not None:
+        cache_bytes += 2 * cfg.n_layers * Bt * cfg.encoder.n_ctx * \
+            cfg.kv_dim * item
+    print(f"[{tag}] {cfg.arch_id}: {cfg.param_count()} parameters as the "
           f"reference counts them ({n_params} in the tree, with the "
-          f"LayerNorm biases and the final norm), {n_bytes} bytes of "
+          f"{extra} of the norms it leaves out), {n_bytes} bytes of "
           f"{cfg.dtype}, seeded on the card in {init_s:.2f}s; KV cache "
-          f"{cache_bytes} bytes for batch {Bt} x {P + new} positions")
-    engine.generate(prompts[:, :16], 2)     # first calls outside the count
+          f"{cache_bytes} bytes for batch {Bt} x {S + new} positions"
+          + (f" and the memory's {cfg.encoder.n_ctx}"
+             if cfg.encoder is not None else "")
+          + "".join(f"; {k} {tuple(v.shape)} seeded"
+                    for k, v in frontend.items()))
+    # first calls outside the count
+    engine.generate(prompts[:, :16], 2, **frontend)
     torch.cuda.synchronize()
 
     ops.reset_launches()
     t0 = time.perf_counter()
-    res = engine.generate(prompts, new)
+    res = engine.generate(prompts, new, **frontend)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     routes = dict(b10=dict(gemm.ROUTE_LAUNCHES), b11=dict(fa.ROUTE_LAUNCHES))
+    plan = lm_launch_plan(torch, cfg, Bt, P, new)
     want = {name: 0 for name in launches}
-    want["matmul"] = (7 * cfg.n_layers + 1) * (1 + new)
-    want["flash_attention"] = cfg.n_layers
-    check(launches == want, f"lm: launches {launches}, the shapes imply "
+    want.update(plan["launches"])
+    check(launches == want, f"{tag}: launches {launches}, the shapes imply "
           f"{want}")
-    # the prefill's projections at M = batch x prompt on wgmma; its
-    # unembedding (the last position) and every decode launch at M = batch
-    # on the small-M kernel; the prefill's attention on wgmma
-    want_routes = dict(
-        b10=dict(wgmma=7 * cfg.n_layers, mma_sync=0,
-                 small_m=1 + new * (7 * cfg.n_layers + 1), fp32=0),
-        b11=dict(wgmma=cfg.n_layers, cuda_core=0))
-    check(routes == want_routes, f"lm: routes {routes}, the design "
-          f"implies {want_routes}")
+    # the prefill's projections at M = batch x prompt (and an encoder's at
+    # batch x n_ctx) on wgmma; its unembedding (the last position) and
+    # every decode launch at M = batch on the small-M kernel; the
+    # prefill's attention on wgmma
+    check(routes == plan["routes"], f"{tag}: routes {routes}, the design "
+          f"implies {plan['routes']}")
     check(res.tokens.shape == (Bt, new) and
           bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()) and
           bool(torch.isfinite(res.logprobs).all()) and
           bool((res.logprobs <= 0).all()),
-          f"lm: tokens {tuple(res.tokens.shape)} or log-probabilities out of "
-          "range")
+          f"{tag}: tokens {tuple(res.tokens.shape)} or log-probabilities "
+          "out of range")
 
     # timed: the prefill alone, then decode steps on its cache
     prefill_ms = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = engine.prefill(prompts)
+        logits, cache = engine.prefill(prompts, **frontend)
         torch.cuda.synchronize()
         prefill_ms.append((time.perf_counter() - t0) * 1e3)
     steps, traced = min(8, new // 2), min(2, new - min(8, new // 2))
@@ -1462,7 +1611,8 @@ def lm_path(torch, ops, dev, cfg):
     step_ms = (time.perf_counter() - t0) * 1e3 / steps
     # device busy time of a prefill and of the next decode steps, from
     # the profiler's kernels
-    prefill_dev_ms = busy_ms(torch, lambda: engine.prefill(prompts))
+    prefill_dev_ms = busy_ms(torch, lambda: engine.prefill(prompts,
+                                                           **frontend))
     state = {"cache": cache}
 
     def decode_steps():
@@ -1474,27 +1624,29 @@ def lm_path(torch, ops, dev, cfg):
 
     # the plain route on the same tokens, teacher-forced
     ref_engine = ServeEngine(cfg, params, serve_cfg, path="ref")
-    lk, ck = engine.prefill(prompts)
-    lr, cr = ref_engine.prefill(prompts)
+    lk, ck = engine.prefill(prompts, **frontend)
+    lr, cr = ref_engine.prefill(prompts, **frontend)
     worst, near, differ = 0.0, 0, 0
     for step in range(new + 1):
         lkf, lrf = lk.float(), lr.float()
         diff = (lkf - lrf).abs()
         tol = LM_ATOL + LM_RTOL * lrf.abs()
-        check(bool((diff <= tol).all()), f"lm step {step}: logits differ "
-              f"from the plain route's by up to {float(diff.max())}")
+        check(bool((diff <= tol).all()), f"{tag} step {step}: logits "
+              f"differ from the plain route's by up to "
+              f"{float(diff.max())}")
         worst = max(worst, float((diff / tol).max()))
         tk, tr = lkf.argmax(-1), lrf.argmax(-1)
         if step < new:
             check(torch.equal(tk, res.tokens[:, step]),
-                  f"lm step {step}: generate's tokens are not its logits' "
-                  "argmax")
+                  f"{tag} step {step}: generate's tokens are not its "
+                  "logits' argmax")
         # a token may differ from the plain route's argmax only where the
         # plain route ranks the two within twice the tolerance
         gap = lrf.gather(1, tr[:, None]) - lrf.gather(1, tk[:, None])
         room = 2 * (LM_ATOL + LM_RTOL * lrf.gather(1, tr[:, None]).abs())
-        check(bool((gap <= room).all()), f"lm step {step}: a greedy token "
-              "differs from the plain route's argmax without a near-tie")
+        check(bool((gap <= room).all()), f"{tag} step {step}: a greedy "
+              "token differs from the plain route's argmax without a "
+              "near-tie")
         top2 = lrf.topk(2, dim=-1).values
         near += int((top2[:, 0] - top2[:, 1] <= room[:, 0]).sum())
         differ += int((tk != tr).sum())
@@ -1506,24 +1658,110 @@ def lm_path(torch, ops, dev, cfg):
     del lk, ck, lr, cr, engine, ref_engine
 
     # ROADMAP C3: one teacher-forced prefill, layer by layer
-    rows, scale = lm_layers(torch, cfg, params, prompts)
+    rows, scale = lm_layers(torch, cfg, params, prompts, frontend)
     bad = [r for r in rows if not r[3]]
-    check(not bad, "lm layers: " + "; ".join(
+    check(not bad, f"{tag} layers: " + "; ".join(
         f"layer {i}: ‖kernel − plain‖ {dist:.4g} > {LAYER_FACTOR} x "
         f"‖plain − fp32‖ {noise:.4g}" for i, dist, noise, _ in bad))
     ratios = [dist / noise for _, dist, noise, _ in rows]
     worst_layer = max(range(len(rows)), key=lambda i: ratios[i])
     layers = dict(
-        worst=ratios[worst_layer], worst_layer=worst_layer,
+        n=len(rows), worst=ratios[worst_layer], worst_layer=worst_layer,
         first=(rows[0][1], rows[0][2]), last=(rows[-1][1], rows[-1][2]),
         scale=float(scale))
-    del params
+    del params, frontend
     return dict(gen_s=gen_s, prefill_ms=min(prefill_ms), step_ms=step_ms,
                 prefill_dev_ms=prefill_dev_ms,
                 step_dev_ms=None if step_busy is None else step_busy / traced,
                 decisions=Bt * (new + 1), near=near, differ=differ,
                 worst=worst, first=res.tokens[0, :8].tolist(),
                 launches=launches, routes=routes, layers=layers)
+
+
+def layer_weights(cfg, n: int) -> int:
+    """Bytes of the tree of ``cfg`` at ``n`` layers (every leaf in the
+    config's 2-byte dtype)."""
+    c = dataclasses.replace(cfg, n_layers=n)
+    return 2 * (c.param_count() + tree_extra(c))
+
+
+def cut_peak(cfg, spec, n: int) -> int:
+    """The phase's peak bytes at ``n`` layers of ``cfg``, estimated: the
+    weights, plus the larger of the plain route's largest transient (the
+    fp32 copy of the widest weight, the unembedding or an MLP matrix, and
+    fp32 activations at the prefill's rows) and the per-layer check's
+    (three routes' residual streams after every layer, bf16, bf16 and
+    fp32, the fp32 copy of one layer and its activations), plus 2 GB for
+    the caches, the logits and the allocator."""
+    B, S, d = spec["batch"], lm_seq(cfg, spec["prompt"]), cfg.d_model
+    act = 3 * 4 * B * S * max(cfg.d_ff, cfg.q_dim)
+    widest = 4 * d * max(cfg.vocab_size, cfg.d_ff, cfg.q_dim)
+    layer = layer_weights(cfg, 2) - layer_weights(cfg, 1)
+    states = n * B * S * d * (2 + 2 + 4)
+    return layer_weights(cfg, n) + max(widest, states + 2 * layer) + act + \
+        2 * 10 ** 9
+
+
+def layer_cut(cfg, spec) -> int:
+    """The most layers of ``cfg`` whose phase peak (``cut_peak``) stays
+    within ``CUT_PEAK_BYTES``."""
+    n = 1
+    while n < cfg.n_layers and cut_peak(cfg, spec, n + 1) <= CUT_PEAK_BYTES:
+        n += 1
+    return n
+
+
+def lm_arch_path(torch, ops, dev, spec) -> dict:
+    """One ``LM_ARCHS`` phase, ``[lm/<tag>]``: the arch at its published
+    widths (the layer-cut ones at ``layer_cut``'s depth, named
+    "<arch>-L<n>") through ``lm_path``, with the phase's peak memory.
+    Returns the launch counts."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(spec["arch"])
+    tag = f"lm/{spec['tag']}"
+    depth = ""
+    if spec["cut"]:
+        n = layer_cut(cfg, spec)
+        depth = (f" ({n} of {cfg.n_layers} layers, the most whose phase "
+                 f"peak stays within {CUT_PEAK_BYTES / 1e9:g} GB by "
+                 f"cut_peak's estimate, {cut_peak(cfg, spec, n) / 1e9:.1f} "
+                 "GB; every width as published)")
+        cfg = dataclasses.replace(cfg, n_layers=n,
+                                  arch_id=f"{cfg.arch_id}-L{n}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    run = lm_path(torch, ops, dev, cfg, spec, tag)
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+
+    def share(busy, wall):
+        return "not measured" if busy is None else \
+            f"{busy:.2f} ms = {busy / wall:.3f}"
+    Bt, new = spec["batch"], spec["new"]
+    pre, step, lay = run["prefill_ms"], run["step_ms"], run["layers"]
+    print(f"[{tag}] {cfg.arch_id}{depth} batch={Bt} prompt={spec['prompt']}"
+          f" new={new}, bf16 weights seeded from a torch.Generator on the "
+          f"card: generate {run['gen_s']:.3f}s "
+          f"({Bt * new / run['gen_s']:.1f} tok/s); prefill {pre:.2f} ms "
+          f"(device busy {share(run['prefill_dev_ms'], pre)}); decode step "
+          f"{step:.2f} ms ({Bt / step * 1e3:.1f} tok/s; device busy "
+          f"{share(run['step_dev_ms'], step)}); peak {peak / 1e9:.2f} GB "
+          f"allocated; phase {time.perf_counter() - t_phase:.1f}s")
+    print(f"[{tag}] launches B10={run['launches']['matmul']} "
+          f"B11={run['launches']['flash_attention']}, routes B10 "
+          f"{run['routes']['b10']}, B11 {run['routes']['b11']} (the layer "
+          f"plan implies them); against the plain route, teacher-forced: "
+          f"logits within {run['worst']:.3f} of the tolerance, "
+          f"{run['differ']} of {run['decisions']} greedy tokens differ from "
+          f"its argmax, all at near-ties ({run['near']} near-ties); per "
+          f"layer ‖kernel − plain‖ within {LAYER_FACTOR} x ‖plain − fp32‖ "
+          f"at all {lay['n']} layers"
+          + (f" ({cfg.encoder.n_layers} encoder layers first)"
+             if cfg.encoder is not None else "")
+          + f", at most {lay['worst']:.3f} x (layer {lay['worst_layer']}); "
+          f"first row {run['first']}")
+    return run["launches"]
 
 
 def expert_mask(torch, ids, n_experts: int, values=None):
@@ -4456,7 +4694,8 @@ def main() -> int:
     edges += lm_kernel_edges(
         torch, ops, ref, dev, lm_gen,
         [(lm_cfg, LM["batch"], LM["prompt"]),
-         (moe_cfg, MOE["batch"], MOE["prompt"])])
+         (moe_cfg, MOE["batch"], MOE["prompt"])] +
+        [(get_config(a["arch"]), a["batch"], a["prompt"]) for a in LM_ARCHS])
     edges += tenant_kernel_edges(torch, ops, ref, dev, gen)
     print(f"[edge] {edges} ragged and tied cases agree with the plain "
           "versions")
@@ -5428,6 +5667,14 @@ def main() -> int:
           f"layer {lm_cfg.n_layers - 1} {lay['last'][0]:.4g} against "
           f"{lay['last'][1]:.4g} (‖fp32 state‖ {lay['scale']:.4g})")
     del run
+
+    # ------------------------------------------------ 6a. four more archs
+    # deepseek-67b and nemotron-4-340b layer-cut, whisper-large-v3 and
+    # phi-3-vision-4.2b at full depth, each freed before the next
+    for spec in LM_ARCHS:
+        launches = lm_arch_path(torch, ops, dev, spec)
+        kernels["B10"]["launches"] += launches["matmul"]
+        kernels["B11"]["launches"] += launches["flash_attention"]
 
     # ------------------------------------------------ 6b. the MoE LM path
     # stablelm's weights are gone (lm_path, lm_kernel_times); qwen3's 61.1

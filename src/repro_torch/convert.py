@@ -18,9 +18,9 @@ serving.
 ``linear_from_numpy`` carries an LR or SVM ``LinearModel`` (``W``
 (C, d), ``b`` (C,)) across for ``core.gemm_based``.
 
-``lm_params_from_numpy`` carries a dense or MoE LM's params tree across
-(the reference's ``init_params`` tree with numpy leaves) for
-``serving.ServeEngine``, and ``opt_state_from_numpy`` the training
+``lm_params_from_numpy`` carries an LM's params tree across (dense, MoE,
+enc-dec or VLM: the reference's ``init_params`` tree with numpy leaves)
+for ``serving.ServeEngine``, and ``opt_state_from_numpy`` the training
 path's optimizer state (``AdamState``, or ``CompressedOptState`` with its
 error-feedback residual) for ``training.trainer.make_train_step``.
 """
@@ -133,11 +133,12 @@ def lm_params_from_numpy(cfg, tree: Mapping[str, Any], *,
     ``unembed``), ``final_norm`` and ``layers/sub0`` with every layer's
     weights stacked on a leading axis (an MoE layer's ``moe``: ``router``
     (L, d, E) fp32, ``w_in``/``w_gate`` (L, E, d, f) and ``w_out`` (L, E,
-    f, d) in the config's dtype).  Returns the port's params, the same
-    tree of tensors on ``device`` with dtypes kept.  Missing leaves raise
-    ``KeyError`` and wrong shapes ``ValueError``, each naming the leaf;
-    configs of the families the port does not serve raise
-    ``NotImplementedError``."""
+    f, d) in the config's dtype; an enc-dec arch's ``encoder`` and
+    ``cross`` subtrees, stacked the same way).  Returns the port's
+    params, the same tree of tensors on ``device`` with dtypes kept.
+    Missing leaves raise ``KeyError`` and wrong shapes ``ValueError``,
+    each naming the leaf; configs of the families the port does not
+    serve (SSM, hybrid) raise ``NotImplementedError``."""
     from repro_torch.models.transformer import param_shapes
     want = param_shapes(cfg)
     dev = resolve_device(device)

@@ -26,7 +26,8 @@ come from the meta-device trees and the specs, in place of XLA's
 argument and output sizes.
 
 The cells cover the port's registered archs (stablelm-3b,
-qwen3-moe-30b-a3b, phi3.5-moe-42b-a6.6b); ``long_500k`` is ``skipped`` on
+nemotron-4-340b, deepseek-67b, phi3.5-moe-42b-a6.6b, qwen3-moe-30b-a3b,
+phi-3-vision-4.2b, whisper-large-v3); ``long_500k`` is ``skipped`` on
 them, as the reference skips it on every full-attention arch.  The
 variants: ``--no-tp`` (replicated model-axis weights) and
 ``--decode-seq-shard`` (the KV sequence over the model axis) change the
@@ -141,11 +142,12 @@ def tree_bytes(tree, specs, mesh_cfg: MeshConfig) -> Dict[str, int]:
 
 def tree_specs(specs) -> Dict[str, list]:
     """{leaf path: its spec's entries} of a tree of PartitionSpecs (a
-    tuple of names as a list), for the JSON record."""
+    tuple of names as a list), for the JSON record; an absent field (the
+    cache's ``cross_kv`` of a decoder-only arch) has none."""
     flat = [("", specs)] if isinstance(specs, PartitionSpec) \
         else T.flatten(specs)
     return {path: [list(e) if isinstance(e, tuple) else e for e in spec]
-            for path, spec in flat}
+            for path, spec in flat if spec is not None}
 
 
 def run_cell(arch_id: str, shape_name: str, multi_pod: bool,

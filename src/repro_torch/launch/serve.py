@@ -3,14 +3,21 @@
 The defaults are the JAX package's (``launch/serve.py``): ``--algo lm``
 and ``--batch 4``, so the same bare command serves the same path.
 
-LM (dense and MoE families): seeded random weights and prompts, greedy
-or sampled generation through ``ServeEngine``; on one card the MoE arch
-qwen3-moe-30b-a3b serves at full width (61.1 GB of bf16 weights).
+LM (dense, MoE, enc-dec and VLM families): seeded random weights and
+prompts, greedy or sampled generation through ``ServeEngine``; on one
+card the MoE arch qwen3-moe-30b-a3b serves at full width (61.1 GB of
+bf16 weights).  An enc-dec arch (whisper-large-v3) gets seeded encoder
+frames (B, n_ctx, d_model) and a VLM (phi-3-vision-4.2b) seeded patch
+embeddings (B, num_patches, d_model), N(0, 0.02²) in the config's dtype
+as the JAX CLI draws them; a VLM's cache holds num_patches + prompt +
+new tokens (the JAX CLI's holds prompt + new tokens only: ROADMAP C).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --algo lm \
       --arch stablelm-3b --batch 4 --prompt-len 512 --new-tokens 32
   PYTHONPATH=src python -m repro_torch.launch.serve --algo lm \
       --arch qwen3-moe-30b-a3b --batch 4 --prompt-len 512 --new-tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --algo lm \
+      --arch whisper-large-v3 --batch 4 --prompt-len 64 --new-tokens 32
 
 Non-Neural: fit one estimator on seeded blobs and serve held-out queries
 through the bucketed engine (``--batch`` is the largest bucket).
@@ -385,6 +392,7 @@ def serve_lm(args) -> GenerationResult:
     from repro_torch.configs.registry import get_config, get_smoke_config
     from repro_torch.device import device_name, resolve_device
     from repro_torch.models import transformer
+    from repro_torch.models.layers import torch_dtype
     from repro_torch.serving import ServeEngine
 
     device = resolve_device(args.device)
@@ -392,10 +400,20 @@ def serve_lm(args) -> GenerationResult:
     batch = args.batch
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = transformer.init_params(cfg, gen, device=device)
+    patches = cfg.vision.num_patches if cfg.vision is not None else 0
     engine = ServeEngine(cfg, params, ServeConfig(
-        max_seq=args.prompt_len + args.new_tokens))
+        max_seq=patches + args.prompt_len + args.new_tokens))
     prompts = torch.randint(0, cfg.vocab_size, (batch, args.prompt_len),
                             generator=gen, device=device)
+    frontend = {}
+
+    def stub(n):
+        return torch.randn((batch, n, cfg.d_model), generator=gen,
+                           device=device).mul_(0.02).to(torch_dtype(cfg))
+    if cfg.encoder is not None:
+        frontend["encoder_frames"] = stub(cfg.encoder.n_ctx)
+    if cfg.vision is not None:
+        frontend["patch_embeds"] = stub(patches)
     sampler = torch.Generator(device=device).manual_seed(args.seed + 1)
 
     def sync():
@@ -405,7 +423,8 @@ def serve_lm(args) -> GenerationResult:
     sync()
     t0 = time.perf_counter()
     result = engine.generate(prompts, args.new_tokens,
-                             temperature=args.temperature, generator=sampler)
+                             temperature=args.temperature, generator=sampler,
+                             **frontend)
     sync()
     dt = time.perf_counter() - t0
     toks = batch * args.new_tokens
@@ -430,8 +449,10 @@ def main(argv=None):
                          "4, as in the JAX package's CLI)")
     ap.add_argument("--arch", default="stablelm-3b",
                     help="--algo lm: architecture id (stablelm-3b, "
-                         "qwen3-moe-30b-a3b; phi3.5-moe-42b-a6.6b with "
-                         "--smoke only on one card)")
+                         "qwen3-moe-30b-a3b, whisper-large-v3, "
+                         "phi-3-vision-4.2b; phi3.5-moe-42b-a6.6b, "
+                         "deepseek-67b and nemotron-4-340b with --smoke "
+                         "only on one card)")
     ap.add_argument("--smoke", action="store_true",
                     help="--algo lm: the reduced config (2 layers, d_model "
                          "64, fp32) of --arch")

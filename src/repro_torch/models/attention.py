@@ -8,7 +8,10 @@ kernel that implements this contract on the reference's hardware; the
 reference's own prefill materialises the scores at S <= 4096
 (``full_attention``), which computes the same function.  Decode
 (``decode_attention``) attends to the cache with ``full_attention`` in
-torch ops, as the reference does: it has no Pallas kernel there.  In
+torch ops, as the reference does: it has no Pallas kernel there.  So
+does an enc-dec decoder's cross-attention into the encoder memory
+(``apply_cross_attention``), whose keys outnumber its queries; its
+projections run on B10 (``encode_cross_kv``).  In
 training (autograd recording) prefill's attention takes B11's autograd
 form, whose backward is B12 (``kernels/autograd.py``).
 
@@ -31,13 +34,17 @@ from repro_torch.models.layers import (apply_rope, dense_init, linear,
 NEG_INF = -1e30
 
 
-def init_attention(gen, cfg: ModelConfig, device: torch.device, lead=()):
+def init_attention(gen, cfg: ModelConfig, device: torch.device, lead=(),
+                   cross: bool = False):
+    """A block's q, k, v, o projections (and, for a qk-norm self-attention
+    block, its q and k norms; a cross-attention block has none, as in the
+    reference)."""
     dt = torch_dtype(cfg)
     p = {"wq": dense_init(gen, cfg.d_model, cfg.q_dim, dt, device, lead),
          "wk": dense_init(gen, cfg.d_model, cfg.kv_dim, dt, device, lead),
          "wv": dense_init(gen, cfg.d_model, cfg.kv_dim, dt, device, lead),
          "wo": dense_init(gen, cfg.q_dim, cfg.d_model, dt, device, lead)}
-    if cfg.attn.qk_norm:
+    if cfg.attn.qk_norm and not cross:
         p["q_norm"] = torch.ones((*lead, cfg.head_dim), dtype=dt,
                                  device=device)
         p["k_norm"] = torch.ones((*lead, cfg.head_dim), dtype=dt,
@@ -45,10 +52,10 @@ def init_attention(gen, cfg: ModelConfig, device: torch.device, lead=()):
     return p
 
 
-def attention_logical(cfg: ModelConfig):
+def attention_logical(cfg: ModelConfig, cross: bool = False):
     lg = {"wq": ("embed", "qkv"), "wk": ("embed", "qkv"),
           "wv": ("embed", "qkv"), "wo": ("qkv", "embed")}
-    if cfg.attn.qk_norm:
+    if cfg.attn.qk_norm and not cross:
         lg["q_norm"] = ("head_dim",)
         lg["k_norm"] = ("head_dim",)
     return lg
@@ -121,6 +128,34 @@ def apply_attention(params, x: torch.Tensor, cfg: ModelConfig,
         out = ops.flash_attention(qt, kt, vt, causal=causal)
     out = out.permute(0, 2, 1, 3).reshape(B, S, cfg.q_dim)
     return linear(out, params["wo"], path), (k, v)
+
+
+def encode_cross_kv(params, memory: torch.Tensor, cfg: ModelConfig,
+                    path: Optional[str] = None):
+    """The encoder memory (B, n_ctx, d_model) projected to a decoder
+    layer's cross-attention keys and values, each (B, n_ctx, Hkv, hd), on
+    B10; no RoPE, as in the reference."""
+    B, S, _ = memory.shape
+    k = linear(memory, params["wk"], path).reshape(B, S, cfg.n_kv_heads,
+                                                   cfg.head_dim)
+    v = linear(memory, params["wv"], path).reshape(B, S, cfg.n_kv_heads,
+                                                   cfg.head_dim)
+    return k, v
+
+
+def apply_cross_attention(params, x: torch.Tensor, memory_kv,
+                          cfg: ModelConfig, path: Optional[str] = None):
+    """Decoder cross-attention of x (B, S, d_model) into the encoder
+    memory's (k, v) (``encode_cross_kv``): q and the output projection on
+    B10, the scores over every memory position in ``full_attention``
+    (torch ops: B11 takes only keys as long as its queries), no RoPE, as
+    in the reference."""
+    B, S, _ = x.shape
+    q = linear(x, params["wq"], path).reshape(B, S, cfg.n_heads,
+                                              cfg.head_dim)
+    k, v = memory_kv
+    out = full_attention(q, k, v, cfg, causal=False)
+    return linear(out.reshape(B, S, cfg.q_dim), params["wo"], path)
 
 
 def decode_attention(params, x: torch.Tensor, cache_k: torch.Tensor,

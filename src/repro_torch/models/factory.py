@@ -1,11 +1,13 @@
 """Model factory of the port: config -> parameters, logical sharding specs
 and input trees for every assigned shape.
 
-Counterpart of the JAX package's ``models/factory.py`` for the dense and
-MoE families.  Shapes come from the ``meta`` device (nothing is
-allocated): ``transformer.param_shapes`` for the params, ``make_batch``
-with ``abstract=True`` for a step's inputs, ``cache_shapes`` for the
-decode cache; the specs resolve their logical axes against a
+Counterpart of the JAX package's ``models/factory.py`` for the dense,
+MoE, enc-dec and VLM families (an enc-dec arch's ``encoder`` and
+``cross`` params and its cache's ``cross_kv`` pair included).  Shapes
+come from the ``meta`` device (nothing is allocated):
+``transformer.param_shapes`` for the params, ``make_batch`` with
+``abstract=True`` for a step's inputs, ``cache_shapes`` for the decode
+cache; the specs resolve their logical axes against a
 ``MeshConfig`` (``sharding/partitioning.py``), leaf by leaf with the
 reference's divisibility fix-up.  Real batches are drawn from a
 ``torch.Generator``.

@@ -64,15 +64,48 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+# the most fp32 elements ``normal_init`` draws at once (1 GiB)
+DRAW_ELEMS = 1 << 28
+
+
+def normal_init(gen: Optional[torch.Generator], shape, scale: float,
+                dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """N(0, scale²) values of ``shape`` in ``dtype``, drawn in fp32 and
+    cast, at most ``DRAW_ELEMS`` rows' worth at a time: a full-width table
+    or a stack of layers never has a whole fp32 copy (a tensor of at most
+    ``DRAW_ELEMS`` elements is one draw).  On the ``meta`` device nothing
+    is drawn."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if device.type == "meta" or out.numel() == 0:
+        return out
+    rows = out.view(-1, shape[-1])
+    step = max(1, DRAW_ELEMS // shape[-1])
+    for lo in range(0, rows.shape[0], step):
+        part = rows[lo:lo + step]
+        part.copy_(torch.randn(part.shape, generator=gen,
+                               dtype=torch.float32, device=device)
+                   .mul_(scale))
+    return out
+
+
 def dense_init(gen: Optional[torch.Generator], in_dim: int, out_dim: int,
                dtype: torch.dtype, device: torch.device, lead=(),
                scale: Optional[float] = None) -> torch.Tensor:
     """N(0, 1/in_dim) weights of shape lead + (in_dim, out_dim), drawn in
-    fp32 and cast, as the reference's ``dense_init``."""
+    fp32 and cast, as the reference's ``dense_init``
+    (``normal_init``)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
-    w = torch.randn((*lead, in_dim, out_dim), generator=gen,
-                    dtype=torch.float32, device=device)
-    return w.mul_(scale).to(dtype)
+    return normal_init(gen, (*lead, in_dim, out_dim), scale, dtype, device)
+
+
+def take_layer(tree, i: Optional[int], dtype: Optional[torch.dtype] = None):
+    """Layer ``i`` of a tree of leaves stacked on a leading layer axis:
+    views (no copies), or with ``dtype`` one layer's copy cast to it;
+    ``i=None`` takes each leaf whole."""
+    if isinstance(tree, dict):
+        return {k: take_layer(v, i, dtype) for k, v in tree.items()}
+    t = tree if i is None else tree[i]
+    return t if dtype is None else t.to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -143,6 +176,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(n_ctx: int, d_model: int,
+                         device: Optional[torch.device] = None
+                         ) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal table (n_ctx, d_model) in fp32: sines
+    of the first d_model/2 frequencies, then cosines, as the reference's
+    ``sinusoidal_positions``."""
+    pos = torch.arange(n_ctx, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d_model // 2, dtype=torch.float32,
+                       device=device)[None, :]
+    inv = torch.exp(-math.log(10_000.0) * dim / max(d_model // 2 - 1, 1))
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # MLP variants (swiglu | geglu | squared_relu | gelu)
 # ---------------------------------------------------------------------------
@@ -193,9 +240,8 @@ def apply_mlp(params, x: torch.Tensor, cfg: ModelConfig,
 
 def init_embed(gen, cfg: ModelConfig, device: torch.device):
     dt = torch_dtype(cfg)
-    tok = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
-                      dtype=torch.float32, device=device)
-    p = {"tok": tok.mul_(0.02).to(dt)}
+    p = {"tok": normal_init(gen, (cfg.vocab_size, cfg.d_model), 0.02, dt,
+                            device)}
     if not cfg.tie_embeddings:
         p["unembed"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dt,
                                   device)

@@ -30,10 +30,10 @@ grouping of the bf16 additions (a token's k rows are summed a shard at a
 time, then across shards), within 2(k − 1)·2^-8·Σ|w·ye| where both keep
 the same assignments.
 
-Memory: ``init_moe`` draws the (E, d, f) expert slabs one layer at a time
-in fp32 and casts each at once, so at qwen3-moe-30b-a3b's width (48 x 128
-x 2048 x 768 a weight) the fp32 temporary is one layer's slab, 805 MB,
-not the whole stack's 38.7 GB.
+Memory: ``init_moe`` draws the stacked (E, d, f) expert weights through
+``layers.normal_init``, at most 1 GiB of fp32 at a time, so at
+qwen3-moe-30b-a3b's width (48 x 128 x 2048 x 768 a weight) the fp32
+temporary is not the whole stack's 38.7 GB.
 """
 from __future__ import annotations
 
@@ -53,20 +53,6 @@ CAPACITY_FACTOR = 1.25
 DROPLESS_THRESHOLD = 1024  # below this token count, run fully dropless
 
 
-def _expert_slabs(gen, n_experts: int, in_dim: int, out_dim: int,
-                  dtype: torch.dtype, device: torch.device, lead=()):
-    """lead + (E, in, out) N(0, 1/in) weights, drawn one (E, in, out) slab
-    at a time in fp32 and cast into place."""
-    out = torch.empty((*lead, n_experts, in_dim, out_dim), dtype=dtype,
-                      device=device)
-    if device.type == "meta":
-        return out
-    for slab in out.view(-1, n_experts, in_dim, out_dim):
-        slab.copy_(dense_init(gen, in_dim, out_dim, torch.float32, device,
-                              (n_experts,)))
-    return out
-
-
 def init_moe(gen, cfg: ModelConfig, device: torch.device, lead=()):
     m = cfg.moe
     dt = torch_dtype(cfg)
@@ -74,11 +60,11 @@ def init_moe(gen, cfg: ModelConfig, device: torch.device, lead=()):
     params = {
         "router": dense_init(gen, d, E, torch.float32, device, lead,
                              scale=0.02),
-        "w_in": _expert_slabs(gen, E, d, f, dt, device, lead),
-        "w_out": _expert_slabs(gen, E, f, d, dt, device, lead),
+        "w_in": dense_init(gen, d, f, dt, device, (*lead, E)),
+        "w_out": dense_init(gen, f, d, dt, device, (*lead, E)),
     }
     if mlp_is_gated(cfg.mlp_type):
-        params["w_gate"] = _expert_slabs(gen, E, d, f, dt, device, lead)
+        params["w_gate"] = dense_init(gen, d, f, dt, device, (*lead, E))
     return params
 
 

@@ -1,13 +1,26 @@
-"""Decoder LM stack of the port: the dense and MoE families.
+"""Decoder LM stack of the port: the dense, MoE, enc-dec and VLM families.
 
 Counterpart of the JAX package's ``models/transformer.py`` for dense
-archs (stablelm-3b) and MoE archs (qwen3-moe-30b-a3b, phi3.5-moe): the
-same parameter tree, with each layer's weights stacked on a leading axis
-under ``params["layers"]["sub0"]``, and the same three entry points:
+archs (stablelm-3b, deepseek-67b, nemotron-4-340b), MoE archs
+(qwen3-moe-30b-a3b, phi3.5-moe), the enc-dec whisper-large-v3 and the VLM
+phi-3-vision-4.2b: the same parameter tree, with each layer's weights
+stacked on a leading axis under ``params["layers"]["sub0"]`` (an enc-dec
+arch adds ``params["encoder"]`` and, per decoder layer, its
+cross-attention block and norm under ``params["cross"]``), and the same
+three entry points:
 
   forward(params, tokens, cfg)               scoring (full sequence)
   prefill(params, tokens, cfg, max_seq=)     full sequence + decode cache
   decode_step(params, cache, tokens, cfg)    one token against the cache
+
+``forward`` and ``prefill`` take the stub frontends' inputs as the
+reference's do: ``patch_embeds`` (B, P, d_model), prepended to the
+tokens' embeddings (positions 0..P+S-1), and ``encoder_frames`` (B,
+n_ctx, d_model), run through the encoder once (``models/whisper.py``);
+each decoder layer then ends with norm, cross-attention into the memory
+and a residual, after its MLP.  Prefill keeps each layer's memory keys
+and values in the cache's ``cross_kv``; decode reads them and never
+writes them.
 
 Each takes ``plan=`` (a ``sharding.ParallelPlan``), which sends the MoE
 layers through the two-phase expert-parallel ``apply_moe_two_phase``, as
@@ -24,14 +37,16 @@ projection and the unembedding go through B10, prefill's attention
 through B11 and an MoE layer's router through B5 (``models/moe.py``; the
 expert GEMMs are batched ``torch.matmul``, as the reference's are plain
 einsums).  An MoE layer runs on the B·S tokens of a prefill and the B tokens of a
-decode step, as the reference's does.  SSM, hybrid, enc-dec and VLM
-configs raise ``NotImplementedError`` (``check_supported``): their layer
-modules wait for ROADMAP A17.4-A17.5.
+decode step, as the reference's does.  The cross-attention's scores run
+in torch ops (``attention.apply_cross_attention``), its projections on
+B10; the encoder's self-attention on B11.  SSM and hybrid configs raise
+``NotImplementedError`` (``check_supported``): their layer modules wait
+for ROADMAP A17.5.
 """
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -44,21 +59,24 @@ from repro_torch.kernels import autograd as grad_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import whisper
+
+
+SERVED = ("dense", "moe", "audio", "vlm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense or MoE decoder, the families the
-    port serves."""
+    """Raise unless ``cfg`` is of a family the port serves: a dense or MoE
+    decoder, an enc-dec ("audio") or a VLM."""
     other = [name for name, on in (
         ("SSM", cfg.ssm is not None or cfg.family == "ssm"),
-        ("hybrid", bool(cfg.hybrid_block) or cfg.family == "hybrid"),
-        ("enc-dec", cfg.encoder is not None or cfg.family == "audio"),
-        ("VLM", cfg.vision is not None or cfg.family == "vlm")) if on]
-    if other or cfg.family not in ("dense", "moe"):
+        ("hybrid", bool(cfg.hybrid_block) or cfg.family == "hybrid"))
+        if on]
+    if other or cfg.family not in SERVED:
         raise NotImplementedError(
-            f"{cfg.arch_id}: the port's LM stack serves the dense and MoE "
-            f"families; {'/'.join(other) or cfg.family} layers wait for "
-            "ROADMAP A17")
+            f"{cfg.arch_id}: the port's LM stack serves the dense, MoE, "
+            f"enc-dec and VLM families; {'/'.join(other) or cfg.family} "
+            "layers wait for ROADMAP A17.5")
 
 
 def layer_plan(cfg: ModelConfig):
@@ -101,9 +119,15 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         sub["moe"] = moe_mod.init_moe(generator, cfg, dev, lead)
     elif ffns[0] == "mlp":
         sub["mlp"] = L.init_mlp(generator, cfg, dev, lead)
-    return {"embed": L.init_embed(generator, cfg, dev),
-            "final_norm": L.init_norm(cfg, dev),
-            "layers": {"sub0": sub}}
+    params = {"embed": L.init_embed(generator, cfg, dev),
+              "final_norm": L.init_norm(cfg, dev),
+              "layers": {"sub0": sub}}
+    if cfg.encoder is not None:
+        params["encoder"] = whisper.init_encoder(generator, cfg, dev)
+        params["cross"] = {"attn": attn.init_attention(generator, cfg, dev,
+                                                       lead, cross=True),
+                           "norm": L.init_norm(cfg, dev, lead)}
+    return params
 
 
 def _sublayer_logical(cfg: ModelConfig, mixer: str, ffn: str):
@@ -127,10 +151,16 @@ def params_logical(cfg: ModelConfig):
     def stacked(tree):
         return {k: stacked(v) if isinstance(v, dict) else ("layers",) + v
                 for k, v in tree.items()}
-    return {"embed": L.embed_logical(cfg),
-            "final_norm": L.norm_logical(cfg),
-            "layers": {"sub0": stacked(_sublayer_logical(cfg, mixers[0],
-                                                         ffns[0]))}}
+    lg = {"embed": L.embed_logical(cfg),
+          "final_norm": L.norm_logical(cfg),
+          "layers": {"sub0": stacked(_sublayer_logical(cfg, mixers[0],
+                                                       ffns[0]))}}
+    if cfg.encoder is not None:
+        lg["encoder"] = whisper.encoder_logical(cfg)
+        lg["cross"] = stacked({"attn": attn.attention_logical(cfg,
+                                                              cross=True),
+                               "norm": L.norm_logical(cfg)})
+    return lg
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
@@ -143,14 +173,13 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     return shapes(init_params(cfg, device="meta"))
 
 
-def layer_params(params, i: int, dtype: Optional[torch.dtype] = None):
+def layer_params(params, i: int, dtype: Optional[torch.dtype] = None,
+                 part: str = "layers"):
     """Layer ``i``'s weights: views of the stacked tensors (no copies), or
-    with ``dtype`` one layer's copy cast to it."""
-    def take(tree):
-        if isinstance(tree, dict):
-            return {k: take(v) for k, v in tree.items()}
-        return tree[i] if dtype is None else tree[i].to(dtype)
-    return take(params["layers"]["sub0"])
+    with ``dtype`` one layer's copy cast to it; ``part="cross"`` takes its
+    cross-attention block and norm instead."""
+    return L.take_layer(params["layers"]["sub0"] if part == "layers"
+                        else params[part], i, dtype)
 
 
 def mixer(p, x: torch.Tensor, cfg: ModelConfig, positions,
@@ -181,16 +210,70 @@ def ffn(p, x: torch.Tensor, cfg: ModelConfig, path: Optional[str] = None,
     return x, None
 
 
+def cross(cp, x: torch.Tensor, memory_kv, cfg: ModelConfig,
+          path: Optional[str] = None) -> torch.Tensor:
+    """An enc-dec decoder layer's last part (weights ``cp``: its
+    cross-attention block and norm): x + cross-attention(norm(x)) into the
+    memory's (k, v)."""
+    h = L.apply_norm(cp["norm"], x, cfg)
+    return x + attn.apply_cross_attention(cp["attn"], h, memory_kv, cfg,
+                                          path)
+
+
 def _sublayer(p, x: torch.Tensor, cfg: ModelConfig, positions, path,
-              plan=None):
+              plan=None, cp=None, memory=None):
+    """One decoder layer: (x out, its (k, v), the MoE aux loss or None,
+    the memory's (k, v) for an enc-dec layer or None)."""
     x, kv = mixer(p, x, cfg, positions, path)
     x, aux = ffn(p, x, cfg, path, plan)
-    return x, kv, aux
+    memory_kv = None
+    if cp is not None:
+        memory_kv = attn.encode_cross_kv(cp["attn"], memory, cfg, path)
+        x = cross(cp, x, memory_kv, cfg, path)
+    return x, kv, aux, memory_kv
 
 
 def _positions(x: torch.Tensor) -> torch.Tensor:
     B, S, _ = x.shape
     return torch.arange(S, device=x.device).expand(B, S)
+
+
+def _embed(params, tokens: torch.Tensor, cfg: ModelConfig, patch_embeds,
+           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The tokens' embeddings (B, S_tok, d), after the patch embeddings
+    (B, P, d) cast to their dtype where a VLM's are given.  With ``dtype``
+    only the rows the tokens take are cast to it, never the whole
+    table."""
+    if dtype is None:
+        x = L.apply_embed(params["embed"], tokens, cfg)
+    else:
+        rows, inv = torch.unique(tokens, return_inverse=True)
+        x = L.apply_embed({"tok": params["embed"]["tok"][rows].to(dtype)},
+                          inv, cfg)
+    if patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
+def _frontend_check(cfg: ModelConfig, patch_embeds, encoder_frames):
+    """The stub frontends' inputs a config takes: frames, and only frames,
+    for an enc-dec arch; patches only for a VLM."""
+    if (cfg.encoder is None) != (encoder_frames is None):
+        raise ValueError(
+            f"{cfg.arch_id}: encoder_frames (B, n_ctx, d_model) are "
+            f"{'required' if cfg.encoder is not None else 'only for'} "
+            "enc-dec archs")
+    if cfg.vision is None and patch_embeds is not None:
+        raise ValueError(f"{cfg.arch_id}: patch_embeds are only for VLM "
+                         "archs")
+
+
+def _memory(params, cfg: ModelConfig, encoder_frames, path):
+    """The encoder memory of an enc-dec arch (None otherwise)."""
+    if cfg.encoder is None:
+        return None
+    return whisper.apply_encoder(params["encoder"], encoder_frames, cfg,
+                                 path=path)
 
 
 # ---------------------------------------------------------------------------
@@ -229,42 +312,53 @@ def _remat_wrap(fn, policy: str):
                              context_fn=context_fn)
 
 
-def unstack_layers(params):
+def unstack_layers(params, part: str = "layers"):
     """Every layer's weights as views of the stacked tensors: each stacked
     leaf ``unbind``-ed once, so its gradient is one ``stack`` of the
     layers' gradients (indexing it once a layer would add a full-size
-    zero tensor into its gradient for every layer)."""
+    zero tensor into its gradient for every layer).  ``part="cross"``:
+    the layers' cross-attention blocks and norms."""
     def split(tree):
         if isinstance(tree, dict):
             parts = {k: split(v) for k, v in tree.items()}
             n = len(next(iter(parts.values())))
             return [{k: v[i] for k, v in parts.items()} for i in range(n)]
         return torch.unbind(tree)
-    return split(params["layers"]["sub0"])
+    return split(params["layers"]["sub0"] if part == "layers"
+                 else params[part])
 
 
-def _layer(p, x: torch.Tensor, positions, cfg: ModelConfig, path,
-           plan=None):
-    x, _, aux = _sublayer(p, x, cfg, positions, path, plan)
+def _layer(p, x: torch.Tensor, positions, cp, memory, cfg: ModelConfig,
+           path, plan=None):
+    x, _, aux, _ = _sublayer(p, x, cfg, positions, path, plan, cp, memory)
     return x, aux if aux is not None else \
         torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+            patch_embeds: Optional[torch.Tensor] = None,
+            encoder_frames: Optional[torch.Tensor] = None,
             path: Optional[str] = None, remat: str = "none", plan=None):
-    """tokens (B, S) -> (logits (B, S, vocab), aux loss): the sum of the
-    MoE layers' balance terms, as the reference's; a zero for a dense
-    model.  ``remat`` (``REMAT``) chooses what the backward pass
+    """tokens (B, S_tok) -> (logits (B, S, vocab), aux loss): the sum of
+    the MoE layers' balance terms, as the reference's; a zero for a dense
+    model.  A VLM's ``patch_embeds`` (B, P, d_model) come first (S = P +
+    S_tok); an enc-dec arch's ``encoder_frames`` (B, n_ctx, d_model) go
+    through the encoder, whose memory each decoder layer cross-attends
+    into.  ``remat`` (``REMAT``) chooses what the backward pass
     recomputes (``_remat_wrap``); ``plan`` (a ``ParallelPlan``) sends
     the MoE layers through ``apply_moe_two_phase``."""
     layer_plan(cfg)
+    _frontend_check(cfg, patch_embeds, encoder_frames)
     body = _remat_wrap(functools.partial(_layer, cfg=cfg, path=path,
                                          plan=plan), remat)
-    x = L.apply_embed(params["embed"], tokens, cfg)
+    x = _embed(params, tokens, cfg, patch_embeds)
     positions = _positions(x)
+    memory = _memory(params, cfg, encoder_frames, path)
+    crosses = unstack_layers(params, "cross") if memory is not None \
+        else [None] * cfg.n_layers
     total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in unstack_layers(params):
-        x, aux = body(p, x, positions)
+    for p, cp in zip(unstack_layers(params), crosses):
+        x, aux = body(p, x, positions, cp, memory)
         total = total + aux
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.apply_unembed(params["embed"], x, cfg, path)
@@ -272,24 +366,33 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 
 def layer_states(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+                 patch_embeds: Optional[torch.Tensor] = None,
+                 encoder_frames: Optional[torch.Tensor] = None,
                  path: Optional[str] = None,
                  dtype: Optional[torch.dtype] = None, plan=None):
-    """tokens (B, S) -> the residual stream (B, S, d_model) after each
-    layer, a list of ``n_layers`` tensors: the prefill's forward pass seen
-    layer by layer, so that two routes can be held against each other at
-    every layer rather than only at the logits.  With ``dtype`` the
-    embedding table and each layer's weights are cast to it as they are
+    """tokens (B, S_tok) -> the residual stream after each layer: the
+    prefill's forward pass seen layer by layer, so that two routes can be
+    held against each other at every layer rather than only at the
+    logits.  A list of ``n_layers`` tensors (B, S, d_model), after the
+    encoder's ``encoder.n_layers`` (B, n_ctx, d_model) for an enc-dec
+    arch.  With ``dtype`` the embedding rows the tokens take, the stub
+    frontends' inputs and each layer's weights are cast to it as they are
     used, one layer's copy at a time: an fp32 route over bf16 weights
     that never holds an fp32 copy of the whole tree."""
     _, _, _, n_units = layer_plan(cfg)
-    tok = params["embed"]["tok"]
-    x = L.apply_embed({"tok": tok if dtype is None else tok.to(dtype)},
-                      tokens, cfg)
+    _frontend_check(cfg, patch_embeds, encoder_frames)
+    x = _embed(params, tokens, cfg, patch_embeds, dtype)
     positions = _positions(x)
-    states = []
+    states: List[torch.Tensor] = []
+    memory = None
+    if cfg.encoder is not None:
+        states, memory = whisper.encoder_states(
+            params["encoder"], encoder_frames, cfg, path=path, dtype=dtype)
     for i in range(n_units):
-        x, _, _ = _sublayer(layer_params(params, i, dtype), x, cfg,
-                            positions, path, plan)
+        cp = None if memory is None else \
+            layer_params(params, i, dtype, part="cross")
+        x, _, _, _ = _sublayer(layer_params(params, i, dtype), x, cfg,
+                               positions, path, plan, cp, memory)
         states.append(x)
     return states
 
@@ -299,11 +402,20 @@ def layer_states(params, tokens: torch.Tensor, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 
+class CrossKV(NamedTuple):
+    """An enc-dec arch's memory keys and values, each (n_layers, B, n_ctx,
+    Hkv, hd): the reference's (k, v) pair, written by prefill and only
+    read by decode."""
+    k: Any
+    v: Any
+
+
 class DecodeCache(NamedTuple):
     kv_k: torch.Tensor     # (n_layers, B, S_max, Hkv, hd)
     kv_v: torch.Tensor
     pos: torch.Tensor      # (B,) int32: the next position to write
     length: int            # the same position, on the host
+    cross_kv: Optional[CrossKV] = None    # enc-dec archs only
 
 
 def cache_logical(cfg: ModelConfig, long_context: bool = False):
@@ -311,12 +423,18 @@ def cache_logical(cfg: ModelConfig, long_context: bool = False):
     (n_units, n_attn_per_unit, B, S_max, Hkv, hd) with ("blocks",
     "layers", ...); the port's hold one attention layer a unit, so its
     (n_units, B, S_max, Hkv, hd) drop the "layers" axis (both axes map to
-    no mesh axis).  ``length``, a host int, is replicated (``()``).  For
-    ``long_context`` (batch 1) the caller's rules shard the KV sequence
-    over the data axes instead of the batch."""
+    no mesh axis).  ``length``, a host int, is replicated (``()``).  An
+    enc-dec arch's ``cross_kv`` takes the reference's spec, which has no
+    "layers" axis.  For ``long_context`` (batch 1) the caller's rules
+    shard the KV sequence over the data axes instead of the batch."""
     layer_plan(cfg)
     kv = ("blocks", "batch", "kv_seq", "kv_heads", "kv_hd")
-    return DecodeCache(kv_k=kv, kv_v=kv, pos=("batch",), length=())
+    cross_kv = None
+    if cfg.encoder is not None:
+        c = ("blocks", "batch", "frames", "kv_heads", "kv_hd")
+        cross_kv = CrossKV(c, c)
+    return DecodeCache(kv_k=kv, kv_v=kv, pos=("batch",), length=(),
+                       cross_kv=cross_kv)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -326,31 +444,53 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     dev = resolve_device(device)
     shape = (n_units, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     dt = dtype or L.torch_dtype(cfg)
+    cross_kv = None
+    if cfg.encoder is not None:
+        c = (n_units, batch, cfg.encoder.n_ctx, cfg.n_kv_heads, cfg.head_dim)
+        cross_kv = CrossKV(torch.zeros(c, dtype=dt, device=dev),
+                           torch.zeros(c, dtype=dt, device=dev))
     return DecodeCache(kv_k=torch.zeros(shape, dtype=dt, device=dev),
                        kv_v=torch.zeros(shape, dtype=dt, device=dev),
                        pos=torch.zeros((batch,), dtype=torch.int32,
                                        device=dev),
-                       length=0)
+                       length=0, cross_kv=cross_kv)
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,
-            max_seq: Optional[int] = None, path: Optional[str] = None,
-            plan=None):
-    """tokens (B, S) -> (last-position logits (B, vocab), DecodeCache with
-    the prompt's k and v in positions [0, S) of ``max_seq``)."""
+            max_seq: Optional[int] = None,
+            patch_embeds: Optional[torch.Tensor] = None,
+            encoder_frames: Optional[torch.Tensor] = None,
+            path: Optional[str] = None, plan=None):
+    """tokens (B, S_tok) -> (last-position logits (B, vocab), DecodeCache
+    with the prompt's k and v in positions [0, S) of ``max_seq``, S = P +
+    S_tok where a VLM's ``patch_embeds`` (B, P, d_model) come first; for
+    an enc-dec arch, with every layer's memory (k, v) from
+    ``encoder_frames`` in ``cross_kv``).  A prompt longer than
+    ``max_seq`` raises: the reference's prefill leaves such a cache at S
+    positions, and its decode then writes every token at the last one
+    (ROADMAP C)."""
     _, _, _, n_units = layer_plan(cfg)
-    x = L.apply_embed(params["embed"], tokens, cfg)
+    _frontend_check(cfg, patch_embeds, encoder_frames)
+    x = _embed(params, tokens, cfg, patch_embeds)
     B, S, _ = x.shape
     max_seq = max_seq or S
     if S > max_seq:
-        raise ValueError(f"prompt of {S} tokens exceeds max_seq={max_seq}")
+        raise ValueError(f"prompt of {S} positions exceeds max_seq="
+                         f"{max_seq}")
     positions = _positions(x)
     cache = init_cache(cfg, B, max_seq, device=x.device)
+    memory = _memory(params, cfg, encoder_frames, path)
     for i in range(n_units):
-        x, (k, v), _ = _sublayer(layer_params(params, i), x, cfg, positions,
-                                 path, plan)
+        cp = None if memory is None else layer_params(params, i,
+                                                      part="cross")
+        x, (k, v), _, memory_kv = _sublayer(layer_params(params, i), x, cfg,
+                                            positions, path, plan, cp,
+                                            memory)
         cache.kv_k[i, :, :S] = k
         cache.kv_v[i, :, :S] = v
+        if memory_kv is not None:
+            cache.cross_kv.k[i] = memory_kv[0]
+            cache.cross_kv.v[i] = memory_kv[1]
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.apply_unembed(params["embed"], x[:, -1], cfg, path)
     return logits, cache._replace(
@@ -378,6 +518,9 @@ def decode_step(params, cache: DecodeCache, tokens: torch.Tensor,
             p["attn"], h, cache.kv_k[i], cache.kv_v[i], cache.pos, cfg,
             length=cache.length, path=path)
         x, _ = ffn(p, x + out, cfg, path, plan)
+        if cache.cross_kv is not None:
+            x = cross(layer_params(params, i, part="cross"), x,
+                      (cache.cross_kv.k[i], cache.cross_kv.v[i]), cfg, path)
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.apply_unembed(params["embed"], x[:, 0], cfg, path)
     return logits, cache._replace(pos=cache.pos + 1, length=cache.length + 1)

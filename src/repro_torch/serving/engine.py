@@ -703,9 +703,12 @@ class GenerationResult:
 
 
 class ServeEngine:
-    """Greedy or sampled generation from a dense or MoE decoder's params
-    (a tree from ``models.transformer.init_params`` or
-    ``convert.lm_params_from_numpy``), on the params' device.
+    """Greedy or sampled generation from an LM's params (a tree from
+    ``models.transformer.init_params`` or
+    ``convert.lm_params_from_numpy``), on the params' device: a dense or
+    MoE decoder, an enc-dec arch (pass ``encoder_frames``) or a VLM (pass
+    ``patch_embeds``), the stub frontends' inputs, as the reference's
+    ``prefill``/``generate`` take them (``**frontend``).
 
     ``path="ref"`` (or ``REPRO_BACKEND=ref``) runs B10, B11 and B5's
     plain versions: the yardstick the kernels are held against on the
@@ -725,11 +728,28 @@ class ServeEngine:
             tokens = torch.from_numpy(np.ascontiguousarray(tokens))
         return torch.as_tensor(tokens, device=self.device).to(torch.long)
 
-    def prefill(self, tokens):
-        """tokens: (B, S) -> (last logits (B, vocab), DecodeCache)."""
+    def _frontend(self, frontend) -> dict:
+        """The stub frontends' inputs (numpy arrays or tensors) as tensors
+        on the engine's device, their dtypes kept."""
+        unknown = set(frontend) - {"patch_embeds", "encoder_frames"}
+        if unknown:
+            raise TypeError(f"unknown frontend inputs {sorted(unknown)}: "
+                            "patch_embeds, encoder_frames")
+        out = {}
+        for key, value in frontend.items():
+            if isinstance(value, np.ndarray):
+                value = torch.from_numpy(np.ascontiguousarray(value))
+            out[key] = torch.as_tensor(value, device=self.device)
+        return out
+
+    def prefill(self, tokens, **frontend):
+        """tokens: (B, S) -> (last logits (B, vocab), DecodeCache); a VLM
+        takes ``patch_embeds`` (B, P, d_model), an enc-dec arch
+        ``encoder_frames`` (B, n_ctx, d_model)."""
         return transformer.prefill(self.params, self._tokens(tokens),
                                    self.cfg, max_seq=self.serve_cfg.max_seq,
-                                   path=self.path)
+                                   path=self.path,
+                                   **self._frontend(frontend))
 
     def decode(self, cache, tokens):
         """tokens: (B, 1) -> (logits (B, vocab), the cache one on; written
@@ -740,9 +760,10 @@ class ServeEngine:
 
     def generate(self, prompt_tokens, n_new: int, *,
                  temperature: float = 0.0,
-                 generator: Optional[torch.Generator] = None
+                 generator: Optional[torch.Generator] = None, **frontend
                  ) -> GenerationResult:
-        """Prefill the prompts (B, S), then ``n_new`` decode steps.
+        """Prefill the prompts (B, S) (and the stub frontends' inputs, as
+        ``prefill``), then ``n_new`` decode steps.
         ``temperature > 0`` samples from softmax(logits / temperature)
         with ``generator`` (a ``torch.Generator`` on the engine's device,
         so a seed gives the same tokens again); 0 is greedy.  Asynchronous
@@ -754,11 +775,14 @@ class ServeEngine:
                 "torch.Generator on the engine's device, for reproducible "
                 "draws); greedy decoding (temperature=0.0) needs none")
         tokens = self._tokens(prompt_tokens)
+        frontend = self._frontend(frontend)
         B, S = tokens.shape
-        if S + n_new > self.serve_cfg.max_seq:
-            raise ValueError(f"{S} prompt + {n_new} new tokens exceed "
-                             f"max_seq={self.serve_cfg.max_seq}")
-        logits, cache = self.prefill(tokens)
+        patches = frontend.get("patch_embeds")
+        P = 0 if patches is None else patches.shape[1]
+        if P + S + n_new > self.serve_cfg.max_seq:
+            raise ValueError(f"{P} patch + {S} prompt + {n_new} new tokens "
+                             f"exceed max_seq={self.serve_cfg.max_seq}")
+        logits, cache = self.prefill(tokens, **frontend)
         toks, lps = [], []
         for _ in range(n_new):
             lf = logits.to(torch.float32)

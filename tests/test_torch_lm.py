@@ -116,27 +116,62 @@ def test_full_width_counts_and_shapes_on_meta():
 
 
 def test_registry_holds_the_dense_arch_only():
-    """The SSM and hybrid archs are not ported (the MoE family is, in
-    ``tests/test_torch_moe.py``)."""
-    with pytest.raises(KeyError, match="A17"):
-        get_config("mamba2-780m")
-    with pytest.raises(KeyError, match="A17"):
-        get_smoke_config("jamba-1.5-large-398b")
+    """The archs still to port raise, naming ROADMAP A17.5: the SSM and
+    hybrid archs and gemma-7b's tied unembedding (the MoE family is
+    ported, in ``tests/test_torch_moe.py``; deepseek-67b and
+    nemotron-4-340b in ``tests/test_torch_dense_archs.py``; the enc-dec
+    and VLM archs in ``tests/test_torch_encdec_vlm.py``)."""
+    for arch in ("mamba2-780m", "gemma-7b", "jamba-1.5-large-398b"):
+        with pytest.raises(KeyError, match="A17.5"):
+            get_config(arch)
+        with pytest.raises(KeyError, match="A17.5"):
+            get_smoke_config(arch)
 
 
 @pytest.mark.parametrize("family,extra", [
     ("ssm", dict(ssm=tbase.SSMConfig())),
     ("hybrid", dict(hybrid_block=4, ssm=tbase.SSMConfig())),
-    ("audio", dict(encoder=tbase.EncoderConfig(n_layers=2))),
-    ("vlm", dict(vision=tbase.VisionConfig()))])
+    ("audio", dict(encoder=tbase.EncoderConfig(n_layers=2, n_ctx=16))),
+    ("vlm", dict(vision=tbase.VisionConfig(num_patches=4)))])
 def test_non_dense_configs_raise(family, extra, served):
+    """The SSM and hybrid families raise, naming ROADMAP A17.5; the enc-dec
+    ("audio") and VLM families build, carry across from numpy and serve,
+    their stub frontends' inputs given."""
     cfg = dataclasses.replace(get_smoke_config(ARCH), family=family, **extra)
-    with pytest.raises(NotImplementedError, match="A17"):
-        T.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A17"):
-        ServeEngine(cfg, served["params"])
-    with pytest.raises(NotImplementedError, match="A17"):
-        convert.lm_params_from_numpy(cfg, {}, device="cpu")
+    if family in ("ssm", "hybrid"):
+        with pytest.raises(NotImplementedError, match="A17.5"):
+            T.init_params(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="A17.5"):
+            ServeEngine(cfg, served["params"])
+        with pytest.raises(NotImplementedError, match="A17.5"):
+            convert.lm_params_from_numpy(cfg, {}, device="cpu")
+        return
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    assert ("encoder" in params) == ("cross" in params) == \
+        (family == "audio")
+    carried = convert.lm_params_from_numpy(
+        cfg, _numpy_tree(params), device="cpu")
+    assert carried.keys() == params.keys()
+    rng = np.random.default_rng(3)
+    n = 16 if family == "audio" else 4
+    key = "encoder_frames" if family == "audio" else "patch_embeds"
+    front = {key: rng.normal(size=(2, n, 64)).astype(np.float32)}
+    res = ServeEngine(cfg, carried, tbase.ServeConfig(max_seq=24)).generate(
+        served["prompts"], 3, **front)
+    assert res.tokens.shape == (2, 3) and bool(torch.isfinite(
+        res.logprobs).all())
+    # an enc-dec arch needs its frames; a VLM takes none
+    wrong = {} if family == "audio" else \
+        dict(front, encoder_frames=front[key])
+    with pytest.raises(ValueError, match="encoder_frames"):
+        ServeEngine(cfg, carried, tbase.ServeConfig(max_seq=24)).generate(
+            served["prompts"], 3, **wrong)
+
+
+def _numpy_tree(tree):
+    return {k: _numpy_tree(v) if isinstance(v, dict) else v.numpy()
+            for k, v in tree.items()}
 
 
 # ------------------------------------------------------------------ layers
