@@ -89,20 +89,29 @@ the CUDA toolkit.  In order it
    route's distance from an fp32 route (``lm_layers``).  B10 and B11 are
    also timed at each path shape by a CUDA graph of the calls
    (``device_ms``), beside the CUDA-event time of a loop of calls;
-   then four more archs the same way (``lm_arch_path``, ``LM_ARCHS``, a
+   then seven more archs the same way (``lm_arch_path``, ``LM_ARCHS``, a
    ``[lm/<tag>]`` phase each, bf16 weights and stub frontend inputs
    seeded on the card): deepseek-67b and nemotron-4-340b at their
    published widths with the depth cut to the most layers whose phase
    peak stays within 72 GB (``layer_cut``; 41 and 4, named
    "<arch>-L<n>"), whisper-large-v3 (1,500 encoder frames, a 64-token
    decoder prompt; its encoder's self-attention on B11, bidirectional,
-   its cross-attention's projections on B10) and phi-3-vision-4.2b (576
-   patch embeddings before a 512-token prompt), each with B10 and B11's
-   launches and routes as ``lm_launch_plan`` derives them from its layer
-   plan, the parameter count as ``tree_extra`` derives it, the logits
-   gate and the per-layer check (whisper's encoder layers first), its
-   prefill and decode ms by the host clock and by device busy time, and
-   its peak memory; then serves qwen3-moe-30b-a3b at full width and depth (``MOE``: 48
+   its cross-attention's projections on B10), phi-3-vision-4.2b (576
+   patch embeddings before a 512-token prompt), gemma-7b (its tied
+   unembedding on B10 over a copy of the table's transpose, timed beside
+   its byte bound; B11 at head_dim 256) and mamba2-780m (the SSD mixer:
+   six B10 launches a layer, its scan in torch ops) at full width and
+   depth, and jamba-1.5-large-398b at ``reduced`` widths in bf16
+   (``phase_config``, named "<arch>-reduced": one hybrid unit of SSD,
+   attention and MoE sublayers, B5 for its routers), each with B10, B11
+   and B5's launches and routes as ``lm_launch_plan`` derives them from
+   its layer plan, the parameter count as ``tree_extra`` derives it, the
+   logits gate (jamba's plain route taking the kernel route's expert
+   choices, each differing one at a near-tie: ``tied_routes``; gemma's
+   and mamba2's the fp32 gate, ``gate="fp32"``) and the
+   per-layer check (whisper's encoder layers first; jamba's made for
+   routing, ``moe_layers``), its prefill and decode ms by the host clock
+   and by device busy time, and its peak memory; then serves qwen3-moe-30b-a3b at full width and depth (``MOE``: 48
    layers, 128 experts, top 8; 61.1 GB of bf16 weights seeded on the
    card one expert slab at a time) the same way (``moe_path``): B10 for
    q, k, v, o and the unembedding, B11 in the prefill, B5 for every MoE
@@ -116,7 +125,9 @@ the CUDA toolkit.  In order it
    output within ``LAYER_FACTOR`` of the fp32 noise over them); B10 and
    B11 are held against their plain versions at every served model's
    path shapes among the edge cases (``lm_path_shapes``,
-   ``lm_attn_shapes``: B11 also non-causal at S = 1,500); free-running greedy generation on both routes,
+   ``lm_attn_shapes``: B11 also non-causal at S = 1,500; jamba's at its
+   published widths too, and B5 at every MoE model's router shapes);
+   free-running greedy generation on both routes,
    printed, not gated (a flip at one near-tie moves a token by a whole
    expert's share); then, on the same weights, the planned steps
    (``moe_two_phase_path``, ``[lm/moe/two_phase]``):
@@ -222,9 +233,13 @@ indices must match exactly; B5 ranks the very floats its plain version
 sorts, so its indices must match exactly everywhere.  B10 matches to one
 ulp of the output dtype plus 1e-5·(|A|·|B|) (see ``gemm_case``); B11 to
 2^-7·(P·|V| + |out|) in bf16, from the rounding of p (see
-``attn_case``); the LM logits to ``LM_ATOL + LM_RTOL·|logit|``, and a
+``attn_case``); the LM logits to ``LM_ATOL + LM_RTOL·|logit|``, or
+under the fp32 gate (mamba2-780m, gemma-7b, whose right bf16 routes
+stand about that far from an fp32 route) to within ``LAYER_FACTOR``
+times the plain route's distance from an fp32 route, step by step; a
 greedy token may differ from the plain route's argmax only where that
-route ranks the two within twice that (a near-tie, counted).  B12 matches
+route ranks the two within twice what the gate allows between the two
+routes (a near-tie, counted).  B12 matches
 to ``BWD_RTOL`` of the size of the terms it sums plus one ulp (see
 ``attn_bwd_case``); a training step's gradients, leaf by leaf, to
 ``LAYER_FACTOR`` times the plain route's distance from an fp32 route
@@ -289,7 +304,19 @@ LM_ARCHS = (
     dict(tag="whisper", arch="whisper-large-v3", batch=4, prompt=64, new=32,
          cut=False),
     dict(tag="vlm", arch="phi-3-vision-4.2b", batch=4, prompt=512, new=32,
-         cut=False))
+         cut=False),
+    # slice 22: jamba (the hybrid unit: SSD, attention and MoE
+    # sublayers) at ``reduced`` widths in bf16, since no unit of its
+    # published width fits one card; mamba2-780m (the SSD mixer, tied) and
+    # gemma-7b (its tied unembedding, B11 at head_dim 256) at full width
+    # and depth, their logits held by the fp32 gate (``gate``: see
+    # LM_ATOL below)
+    dict(tag="jamba", arch="jamba-1.5-large-398b", batch=4, prompt=512,
+         new=32, cut=False, reduced=True),
+    dict(tag="mamba2", arch="mamba2-780m", batch=4, prompt=512, new=32,
+         cut=False, gate="fp32"),
+    dict(tag="gemma", arch="gemma-7b", batch=4, prompt=512, new=32,
+         cut=False, gate="fp32"))
 CUT_PEAK_BYTES = 72e9
 # B10's edge sizes (every M, N, K among them) and B11's (S, d)
 GEMM_EDGES = (1, 3, 65, 257, 6913)
@@ -302,6 +329,14 @@ ATTN_EDGES_D = (16, 64, 80, 128, 144, 192, 256)
 # million compared comes to about 0.8 of this bound), where a wrong
 # kernel moves logits by their own size (about 1)
 LM_ATOL, LM_RTOL = 2.0 ** -3, 2.0 ** -6
+# That bound is absolute, set on stablelm.  Two right bf16 routes of
+# mamba2-780m stand up to 1.8 of it from an fp32 route (and of gemma-7b
+# up to 1.0), so their phases (``gate="fp32"``) hold the logits as the
+# per-layer check below holds each layer: at every step an fp32 route
+# (the plain route over fp32 copies of the weights) runs beside the two,
+# and the kernel route's largest |logit − fp32 logit| over the tolerance
+# at the fp32 logits may be at most LAYER_FACTOR times the plain route's.
+# A wrong tile moves some logits by their own size, many times the noise.
 # the per-layer check (ROADMAP C3): after every layer of one teacher-forced
 # prefill, the kernel route's residual stream may stand from the plain
 # route's at most LAYER_FACTOR times as far (Frobenius norm over the whole
@@ -553,13 +588,20 @@ def attn_case(torch, ops, ref, q, k, v, causal, what):
 
 
 def lm_proj_shapes(cfg):
-    """The (N, K) of one model's projections, distinct and in order: q,
-    k, v, o, and the dense MLP's where the model has one
-    (``transformer.layer_plan``)."""
+    """The (N, K) of one model's projections, distinct and in order (from
+    ``transformer.layer_plan``): q, k, v, o where it has attention; an
+    SSD mixer's z and x, B and C, dt and out where it has one; the dense
+    MLP's where it has one."""
     from repro_torch.models import transformer
+    mixers, ffns, _, _ = transformer.layer_plan(cfg)
     d = cfg.d_model
-    proj = [(cfg.q_dim, d), (cfg.kv_dim, d), (d, cfg.q_dim)]
-    if transformer.layer_plan(cfg)[1] == ["mlp"]:
+    proj = []
+    if "attn" in mixers:
+        proj += [(cfg.q_dim, d), (cfg.kv_dim, d), (d, cfg.q_dim)]
+    if "ssm" in mixers:
+        proj += [(cfg.d_inner, d), (cfg.ssm.n_groups * cfg.ssm.d_state, d),
+                 (cfg.ssm_heads, d), (d, cfg.d_inner)]
+    if "mlp" in ffns:
         proj += [(cfg.d_ff, d), (d, cfg.d_ff)]
     return list(dict.fromkeys(proj))
 
@@ -578,21 +620,26 @@ def lm_path_shapes(cfg, batch: int, prompt: int):
     projections at the encoder's M = batch · n_ctx (the encoder's layers,
     and the decoder's cross-attention keys and values of the memory; its
     queries and outputs are the decoder's q and o shapes); and B11's (B,
-    H, S, d) of its decoder's prefill (after the GQA repeat)."""
+    H, S, d) of its decoder's prefill (after the GQA repeat), None for a
+    model without attention."""
+    from repro_torch.models import transformer
     proj = lm_proj_shapes(cfg)
     S = lm_seq(cfg, prompt)
     gemm = [(M, N, K) for M in (batch * S, batch) for N, K in proj]
     gemm.append((batch, cfg.vocab_size, cfg.d_model))
     if cfg.encoder is not None:
         gemm += [(batch * cfg.encoder.n_ctx, N, K) for N, K in proj]
-    return list(dict.fromkeys(gemm)), (batch, cfg.n_heads, S, cfg.head_dim)
+    attn = (batch, cfg.n_heads, S, cfg.head_dim) \
+        if "attn" in transformer.layer_plan(cfg)[0] else None
+    return list(dict.fromkeys(gemm)), attn
 
 
 def lm_attn_shapes(cfg, batch: int, prompt: int):
     """B11's ((B, H, S, d), causal) on one model's serving path: the
-    decoder's causal prefill, and an enc-dec arch's bidirectional encoder
-    layers at S = n_ctx."""
-    shapes = [(lm_path_shapes(cfg, batch, prompt)[1], True)]
+    decoder's causal prefill (none without attention), and an enc-dec
+    arch's bidirectional encoder layers at S = n_ctx."""
+    attn = lm_path_shapes(cfg, batch, prompt)[1]
+    shapes = [] if attn is None else [(attn, True)]
     if cfg.encoder is not None:
         shapes.append(((batch, cfg.n_heads, cfg.encoder.n_ctx,
                         cfg.head_dim), False))
@@ -619,8 +666,8 @@ def lm_kernel_edges(torch, ops, ref, dev, gen, models) -> int:
     dim that is not a multiple of 16 (the CUDA-core kernel in bf16), and
     at each model's path shapes in its own layout (``lm_attn_shapes``:
     the decoder's causal prefill, an encoder's bidirectional layers);
-    both dtypes, each path case on the route the shape rule gives.
-    Returns the number of cases."""
+    both dtypes, each path case on the route the shape rule gives; B5 at
+    each MoE model's router shapes.  Returns the number of cases."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gemm
     from repro_torch.kernels.gemm import SMALL_M
@@ -708,6 +755,29 @@ def lm_kernel_edges(torch, ops, ref, dev, gen, models) -> int:
                   f"d={hd} {mask}, KV heads {cfg.n_kv_heads} repeated "
                   f"({way}): max_abs_err={err:.4g}, {ratio:.3f} of the "
                   "tolerance")
+            n += 1
+    # B5 at each MoE model's router shapes (the prefill's batch x S tokens
+    # and decode's batch, top-k of the negated softmax probabilities of E
+    # experts, as ``moe.route`` hands them to it), on the filter route
+    from repro_torch.kernels import topk_select
+    for cfg, batch, prompt in models:
+        if cfg.moe is None:
+            continue
+        E, k = cfg.moe.num_experts, cfg.moe.top_k
+        way = topk_select.route(k)
+        for T in (batch * lm_seq(cfg, prompt), batch):
+            x = -torch.softmax(torch.randn((T, E), generator=gen,
+                                           device=dev), dim=-1)
+            before = topk_select.ROUTE_LAUNCHES[way]
+            got, want = ops.topk_smallest(x, k), ref.topk_smallest(x, k)
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"B5 {cfg.arch_id} router T={T} E={E} k={k}: differs "
+                  "from its plain version")
+            check(topk_select.ROUTE_LAUNCHES[way] == before + 1,
+                  f"B5 {cfg.arch_id} router T={T} did not take the {way} "
+                  f"route: {topk_select.ROUTE_LAUNCHES}")
+            print(f"[edge] B5 {cfg.arch_id} router T={T} E={E} k={k} "
+                  f"({way}): values and indices equal")
             n += 1
     return n
 
@@ -1425,60 +1495,88 @@ def lm_layers(torch, cfg, params, tokens, frontend=None):
 
 def tree_extra(cfg) -> int:
     """The parameters in the tree beyond the reference's ``param_count``,
-    which counts d_model for each norm of a layer (two a decoder or
-    encoder layer, one a cross-attention block) and nothing for a final
-    norm: so the final norms (an encoder's too), every LayerNorm's bias
-    and a qk-norm arch's q and k norms."""
+    which counts d_model twice for the norms of a decoder layer (once
+    more an encoder layer, once a cross-attention block) and nothing for
+    a final norm: so the final norms (an encoder's too), every LayerNorm's
+    bias, a qk-norm arch's q and k norms, an SSD mixer's gated norm
+    (d_inner), less d_model for each layer without an FFN (one norm, not
+    two)."""
+    from repro_torch.models import transformer
+    mixers, ffns, _, n_units = transformer.layer_plan(cfg)
     per_norm = 2 * cfg.d_model if cfg.norm == "layernorm" else cfg.d_model
-    norms = 2 * cfg.n_layers + 1          # each layer's two, the final one
+    # each layer's norm_mixer and, with an FFN, norm_ffn; the final one
+    norms = n_units * sum(1 + (ff != "none") for ff in ffns) + 1
     counted = 2 * cfg.d_model * cfg.n_layers
     if cfg.encoder is not None:
         norms += 2 * cfg.encoder.n_layers + 1 + cfg.n_layers
         counted += 2 * cfg.d_model * cfg.encoder.n_layers + \
             cfg.d_model * cfg.n_layers
-    qk = 2 * cfg.head_dim * cfg.n_layers if cfg.attn.qk_norm else 0
-    return per_norm * norms - counted + qk
+    qk = 2 * cfg.head_dim * n_units * mixers.count("attn") \
+        if cfg.attn.qk_norm else 0
+    gated = cfg.d_inner * n_units * mixers.count("ssm") if "ssm" in mixers \
+        else 0
+    return per_norm * norms - counted + qk + gated
 
 
 def lm_launch_plan(torch, cfg, batch: int, prompt: int, new: int) -> dict:
-    """Every B10 and B11 launch of ``generate`` on a dense, enc-dec or VLM
-    model (one prefill of batch x prompt, after a VLM's patches, then
-    ``new`` decode steps), derived from its layer plan: each launch's
-    shape, and the route the shape rules give it.  Returns the launch
-    counts and the routes, as ``ops.LAUNCHES`` and the two
-    ``ROUTE_LAUNCHES`` count them."""
+    """Every B10, B11 and B5 launch of ``generate`` (one prefill of batch
+    x prompt, after a VLM's patches, then ``new`` decode steps), derived
+    from the layer plan (``transformer.layer_plan``): each launch's shape,
+    and the route the shape rules give it in the config's dtype.  A
+    forward pass launches B10 four times an attention sublayer (q, k, v,
+    o), six an SSD mixer (z, x, B, C, dt, out), two or three a dense MLP
+    (in, gate where it is gated, out) and once for the unembedding; B11
+    once an attention sublayer, in the prefill only; B5 once an MoE
+    sublayer (its router; the expert GEMMs are torch's).  Returns the
+    launch counts and the routes, as ``ops.LAUNCHES`` and the
+    ``ROUTE_LAUNCHES`` count them (B5's only for a model with MoE
+    layers)."""
     from repro_torch.models import transformer
-    from repro_torch.models.layers import mlp_is_gated
-    check(transformer.layer_plan(cfg)[1] == ["mlp"],
-          f"{cfg.arch_id}: lm_launch_plan derives dense MLP layers only")
+    from repro_torch.models.layers import mlp_is_gated, torch_dtype
+    mixers, ffns, _, n_units = transformer.layer_plan(cfg)
     d, q, kv, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
     mlp = [(ff, d)] * (2 if mlp_is_gated(cfg.mlp_type) else 1) + [(d, ff)]
     attn = [(q, d), (kv, d), (kv, d), (d, q)]
+    mixer_proj = {"attn": attn}
+    if "ssm" in mixers:
+        GN, d_in = cfg.ssm.n_groups * cfg.ssm.d_state, cfg.d_inner
+        mixer_proj["ssm"] = [(d_in, d), (d_in, d), (GN, d), (GN, d),
+                             (cfg.ssm_heads, d), (d, d_in)]
     S = lm_seq(cfg, prompt)
-    gemm, flash = [], []
+    gemm, flash, router = [], [], 0
     if cfg.encoder is not None:
         Me = batch * cfg.encoder.n_ctx
         for _ in range(cfg.encoder.n_layers):
             gemm += [(Me, N, K) for N, K in attn + mlp]
             flash.append(cfg.head_dim)
     for M, prefill in [(batch * S, True)] + [(batch, False)] * new:
-        for _ in range(cfg.n_layers):
-            gemm += [(M, N, K) for N, K in attn + mlp]
-            if prefill:
-                flash.append(cfg.head_dim)
+        for _ in range(n_units):
+            for mx, ffn in zip(mixers, ffns):
+                proj = mixer_proj[mx] + (mlp if ffn == "mlp" else [])
+                gemm += [(M, N, K) for N, K in proj]
+                if prefill and mx == "attn":
+                    flash.append(cfg.head_dim)
+                router += ffn == "moe"
             if cfg.encoder is not None:
                 # cross q and o; its k and v of the memory in the prefill
                 gemm += [(M, q, d), (M, d, q)]
                 if prefill:
                     gemm += [(batch * cfg.encoder.n_ctx, kv, d)] * 2
         gemm.append((batch, cfg.vocab_size, d))    # the last position's
+    dtype = torch_dtype(cfg)
     b10 = {way: 0 for way in ("wgmma", "mma_sync", "small_m", "fp32")}
     for M, N, K in gemm:
-        b10[gemm_way(torch, M, N, K, torch.bfloat16)] += 1
-    b11 = {"wgmma": sum(hd % 16 == 0 for hd in flash)}
+        b10[gemm_way(torch, M, N, K, dtype)] += 1
+    b11 = {"wgmma": sum(hd % 16 == 0 for hd in flash)
+           if dtype == torch.bfloat16 else 0}
     b11["cuda_core"] = len(flash) - b11["wgmma"]
-    return dict(launches=dict(matmul=len(gemm), flash_attention=len(flash)),
-                routes=dict(b10=b10, b11=b11))
+    launches = dict(matmul=len(gemm), flash_attention=len(flash))
+    routes = dict(b10=b10, b11=b11)
+    if router:
+        # k <= FILTER_K_MAX: every router launch on the filter route
+        launches["topk_smallest"] = router
+        routes["b5"] = {"filter": router, "radix": 0}
+    return dict(launches=launches, routes=routes)
 
 
 def frontend_inputs(torch, dev, gen, cfg, batch: int) -> dict:
@@ -1505,6 +1603,54 @@ def busy_ms(torch, window):
     return sum(device_kernels(window).values()) or None
 
 
+def busy_share(busy, wall) -> str:
+    """A device busy time and its share of the host-clock time."""
+    return "not measured" if busy is None else \
+        f"{busy:.2f} ms = {busy / wall:.3f}"
+
+
+def fp32_route(torch, cfg, params, serve_cfg):
+    """The fp32 route of an LM: the plain route (``path="ref"``) over fp32
+    copies of the weights, its caches in fp32."""
+    from repro_torch.serving import ServeEngine
+    from repro_torch.tree import map as tree_map
+    return ServeEngine(dataclasses.replace(cfg, dtype="float32"),
+                       tree_map(lambda t: t.float(), params), serve_cfg,
+                       path="ref")
+
+
+def fp32_distances(torch, cfg, params, serve_cfg, prompts, frontend,
+                   tokens, step, got, plain):
+    """Where the fixed logits gate fails at ``step``: the same step on the
+    fp32 route (``fp32_route``, teacher-forced on ``tokens``), and how far
+    the kernel route's logits ``got`` and the plain route's ``plain``
+    stand from it, each the largest |logit − fp32 logit| over the gate's
+    tolerance at the fp32 logits.  A diagnosis printed with the failure,
+    not a gate: it tells two bf16 routes that each stand near the fp32
+    route from one that does not.  None off the card, or where the copy
+    would not fit its free memory."""
+    from repro_torch.tree import leaves
+    dev = got.device
+    need = 2 * sum(t.numel() * t.element_size() for t in leaves(params))
+    if dev.type != "cuda" or torch.cuda.mem_get_info(dev)[0] < need + 4e9:
+        return None
+    engine = fp32_route(torch, cfg, params, serve_cfg)
+    logits, cache = engine.prefill(prompts, **frontend)
+    for i in range(step):
+        logits, cache = engine.decode(cache, tokens[:, i:i + 1])
+    return fp32_gaps(torch, logits, got, plain)
+
+
+def fp32_gaps(torch, exact, got, plain):
+    """The largest |logit − fp32 logit| over the tolerance at the fp32
+    logits ``exact``, of the kernel route's logits ``got`` and of the
+    plain route's ``plain``, and that tolerance."""
+    exact = exact.float()
+    tol = LM_ATOL + LM_RTOL * exact.abs()
+    return tuple(float(((t - exact).abs() / tol).max())
+                 for t in (got, plain)) + (tol,)
+
+
 def lm_path(torch, ops, dev, cfg, spec=None, tag: str = "lm"):
     """Serve ``spec`` (``LM`` by default, or an ``LM_ARCHS`` entry: batch,
     prompt, new tokens) of ``cfg`` through ``ServeEngine.generate``, with
@@ -1512,22 +1658,28 @@ def lm_path(torch, ops, dev, cfg, spec=None, tag: str = "lm"):
     inputs (``frontend_inputs``), the launch counts set to 0 just before
     and read just after: each count and route what ``lm_launch_plan``
     derives from the layer plan (B10 on the wgmma route in the prefill
-    and the small-M route at M = batch, B11 on the wgmma route).  Time
-    the prefill and the decode steps; hold the kernel route's logits,
-    step by step, to the plain route's (``path="ref"``) on the same
-    tokens; and hold one prefill's residual stream to the plain route's
-    after every layer, an encoder's too (``lm_layers``).  For stablelm
-    (the first LM phase) every host-clock time is taken before the first
-    profiler window of the process: a process that has run
+    and the small-M route at M = batch, B11 on the wgmma route; B5 for an
+    MoE arch's routers).  Time the prefill and the decode steps; hold the
+    kernel route's logits, step by step, to the plain route's
+    (``path="ref"``) on the same tokens (an MoE arch's plain route
+    taking the kernel route's expert choices, each at a near-tie where
+    the two differ: ``tied_routes``), or for a ``gate="fp32"`` spec to
+    LAYER_FACTOR times the plain route's distance from the fp32 route
+    (``fp32_route``, run beside them); and hold one prefill's residual
+    stream to the plain route's after every layer, an encoder's too
+    (``lm_layers``; an MoE arch's made for routing, ``moe_layers``).  For
+    stablelm (the first LM phase) every host-clock time is taken before
+    the first profiler window of the process: a process that has run
     ``torch.profiler`` issues later launches more slowly.  The device busy
     time of a prefill and of a decode step is the profiler's kernel time
     (None, printed "not measured", where a window records no kernel).
     Messages carry ``tag``.  Returns the numbers of the report line."""
     from repro_torch.configs.base import ServeConfig
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import gemm
+    from repro_torch.kernels import gemm, topk_select
     from repro_torch.models import transformer
     from repro_torch.serving import ServeEngine
+    from repro_torch.tree import leaves as tree_leaves
     spec = spec or LM
     Bt, P, new = spec["batch"], spec["prompt"], spec["new"]
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1551,15 +1703,16 @@ def lm_path(torch, ops, dev, cfg, spec=None, tag: str = "lm"):
     S = lm_seq(cfg, P)
     serve_cfg = ServeConfig(max_seq=S + new)
     engine = ServeEngine(cfg, params, serve_cfg)
-    item = params["embed"]["tok"].dtype.itemsize
-    cache_bytes = 2 * cfg.n_layers * Bt * (S + new) * cfg.kv_dim * item
-    if cfg.encoder is not None:
-        cache_bytes += 2 * cfg.n_layers * Bt * cfg.encoder.n_ctx * \
-            cfg.kv_dim * item
+    # the decode cache's bytes: k and v, an enc-dec arch's memory (k, v),
+    # an SSD mixer's conv windows and fp32 state
+    cache_bytes = sum(
+        t.numel() * t.element_size() for t in tree_leaves(
+            transformer.init_cache(cfg, Bt, S + new, device="meta"))
+        if isinstance(t, torch.Tensor))
     print(f"[{tag}] {cfg.arch_id}: {cfg.param_count()} parameters as the "
           f"reference counts them ({n_params} in the tree, with the "
           f"{extra} of the norms it leaves out), {n_bytes} bytes of "
-          f"{cfg.dtype}, seeded on the card in {init_s:.2f}s; KV cache "
+          f"{cfg.dtype}, seeded on the card in {init_s:.2f}s; decode cache "
           f"{cache_bytes} bytes for batch {Bt} x {S + new} positions"
           + (f" and the memory's {cfg.encoder.n_ctx}"
              if cfg.encoder is not None else "")
@@ -1577,6 +1730,8 @@ def lm_path(torch, ops, dev, cfg, spec=None, tag: str = "lm"):
     launches = dict(ops.LAUNCHES)
     routes = dict(b10=dict(gemm.ROUTE_LAUNCHES), b11=dict(fa.ROUTE_LAUNCHES))
     plan = lm_launch_plan(torch, cfg, Bt, P, new)
+    if "b5" in plan["routes"]:
+        routes["b5"] = dict(topk_select.ROUTE_LAUNCHES)
     want = {name: 0 for name in launches}
     want.update(plan["launches"])
     check(launches == want, f"{tag}: launches {launches}, the shapes imply "
@@ -1609,6 +1764,19 @@ def lm_path(torch, ops, dev, cfg, spec=None, tag: str = "lm"):
         logits, cache = engine.decode(cache, res.tokens[:, i:i + 1])
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    # a tied arch's unembedding copies the (vocab, d_model) table to a
+    # contiguous (d_model, vocab) B10 weight each forward pass: its time
+    # by CUDA events, beside a plain copy of the same bytes in their own
+    # order (``clone``) and its bytes (one read, one write) over the
+    # card's memory rate
+    tied_copy = None
+    if cfg.tie_embeddings and dev.type == "cuda":
+        tok = params["embed"]["tok"]
+        rate = card_peaks(torch.cuda.get_device_name(dev))[1][1]
+        tied_copy = (cuda_ms(torch, lambda: tok.t().contiguous(), 10),
+                     2 * tok.numel() * tok.element_size() / rate * 1e3,
+                     tok.numel() * tok.element_size(),
+                     cuda_ms(torch, tok.clone, 10))
     # device busy time of a prefill and of the next decode steps, from
     # the profiler's kernels
     prefill_dev_ms = busy_ms(torch, lambda: engine.prefill(prompts,
@@ -1621,29 +1789,79 @@ def lm_path(torch, ops, dev, cfg, spec=None, tag: str = "lm"):
                                               res.tokens[:, i:i + 1])
     step_busy = busy_ms(torch, decode_steps)
     del logits, cache, state
+    pre, step_dev = min(prefill_ms), \
+        None if step_busy is None else step_busy / traced
+    print(f"[{tag}] {cfg.arch_id}: generate {gen_s:.3f}s "
+          f"({Bt * new / gen_s:.1f} tok/s); prefill {pre:.2f} ms (device "
+          f"busy {busy_share(prefill_dev_ms, pre)}); decode step "
+          f"{step_ms:.2f} ms ({Bt / step_ms * 1e3:.1f} tok/s; device busy "
+          f"{busy_share(step_dev, step_ms)})"
+          + ("" if tied_copy is None else
+             f"; tied unembedding: the (d_model, vocab) copy of the "
+             f"{tied_copy[2]}-byte table {tied_copy[0]:.4f} ms a forward "
+             f"pass by CUDA events (a clone of the table {tied_copy[3]:.4f}"
+             f" ms), bound {tied_copy[1]:.4f} ms (one read and one write at "
+             "the card's memory rate)"))
 
-    # the plain route on the same tokens, teacher-forced
+    # the plain route on the same tokens, teacher-forced; for an MoE arch
+    # it takes the kernel route's expert choices (``tied_routes``); for a
+    # phase of the fp32 gate the fp32 route runs beside the two
     ref_engine = ServeEngine(cfg, params, serve_cfg, path="ref")
+    tie = tied_routes(torch) if cfg.moe is not None else None
+    f32 = fp32_route(torch, cfg, params, serve_cfg) \
+        if spec.get("gate") == "fp32" else None
     lk, ck = engine.prefill(prompts, **frontend)
     lr, cr = ref_engine.prefill(prompts, **frontend)
+    if f32 is not None:
+        lf, cf = f32.prefill(prompts, **frontend)
     worst, near, differ = 0.0, 0, 0
+    # the fp32 gate's largest distances: kernel − fp32 and plain − fp32
+    # (each over the tolerance at the fp32 logits), kernel − plain
+    far = None if f32 is None else dict(kernel=0.0, plain=0.0, pair=0.0)
     for step in range(new + 1):
         lkf, lrf = lk.float(), lr.float()
         diff = (lkf - lrf).abs()
         tol = LM_ATOL + LM_RTOL * lrf.abs()
-        check(bool((diff <= tol).all()), f"{tag} step {step}: logits "
-              f"differ from the plain route's by up to "
-              f"{float(diff.max())}")
-        worst = max(worst, float((diff / tol).max()))
+        pair = float((diff / tol).max())
+        if f32 is None:
+            # the kernel route within the tolerance of the plain route
+            ok = bool((diff <= tol).all())
+            exact = None if ok else fp32_distances(
+                torch, cfg, params, serve_cfg, prompts, frontend,
+                res.tokens, step, lkf, lrf)
+            check(ok, f"{tag} step {step}: logits differ from the plain "
+                  f"route's by up to {float(diff.max())} ({pair:.3f} of "
+                  f"the tolerance, {int((diff > tol).sum())} of "
+                  f"{diff.numel()} logits past it)"
+                  + ("" if exact is None else
+                     f"; from an fp32 route on the same weights the kernel "
+                     f"route stands at most {exact[0]:.3f} of the "
+                     f"tolerance, the plain route {exact[1]:.3f}"))
+            worst = max(worst, pair)
+            allow = tol
+        else:
+            # the kernel route within LAYER_FACTOR of the plain route's
+            # distance from the fp32 route; two routes within the gate
+            # stand at most (1 + LAYER_FACTOR) x the plain one's apart
+            dk, dp, tol = fp32_gaps(torch, lf, lkf, lrf)
+            check(dk <= LAYER_FACTOR * dp, f"{tag} step {step}: the kernel "
+                  f"route's logits stand {dk:.3f} of the tolerance from an "
+                  f"fp32 route's, past {LAYER_FACTOR} x the plain route's "
+                  f"{dp:.3f} (kernel − plain {pair:.3f})")
+            worst = max(worst, dk / dp)
+            far = dict(kernel=max(far["kernel"], dk),
+                       plain=max(far["plain"], dp),
+                       pair=max(far["pair"], pair))
+            allow = (1 + LAYER_FACTOR) * dp * tol
         tk, tr = lkf.argmax(-1), lrf.argmax(-1)
         if step < new:
             check(torch.equal(tk, res.tokens[:, step]),
                   f"{tag} step {step}: generate's tokens are not its "
                   "logits' argmax")
         # a token may differ from the plain route's argmax only where the
-        # plain route ranks the two within twice the tolerance
+        # plain route ranks the two within twice what the gate allows
         gap = lrf.gather(1, tr[:, None]) - lrf.gather(1, tk[:, None])
-        room = 2 * (LM_ATOL + LM_RTOL * lrf.gather(1, tr[:, None]).abs())
+        room = 2 * allow.gather(1, tr[:, None])
         check(bool((gap <= room).all()), f"{tag} step {step}: a greedy "
               "token differs from the plain route's argmax without a "
               "near-tie")
@@ -1655,10 +1873,35 @@ def lm_path(torch, ops, dev, cfg, spec=None, tag: str = "lm"):
         nxt = res.tokens[:, step:step + 1]
         lk, ck = engine.decode(ck, nxt)
         lr, cr = ref_engine.decode(cr, nxt)
+        if f32 is not None:
+            lf, cf = f32.decode(cf, nxt)
     del lk, ck, lr, cr, engine, ref_engine
+    if f32 is not None:
+        del lf, cf, f32
+    router_tie = None
+    if tie is not None:
+        router_tie = tie.close()
+        check(router_tie["far"] == 0, f"{tag}: {router_tie['far']} of "
+              f"{router_tie['flips']} expert choices the plain route took "
+              "over from the kernel route are away from a near-tie")
 
-    # ROADMAP C3: one teacher-forced prefill, layer by layer
-    rows, scale = lm_layers(torch, cfg, params, prompts, frontend)
+    # ROADMAP C3: one teacher-forced prefill, layer by layer (an MoE
+    # arch's made for routing, ``moe_layers``)
+    moe_rows = None
+    if cfg.moe is None:
+        rows, scale = lm_layers(torch, cfg, params, prompts, frontend)
+    else:
+        moe_rows = moe_layers(torch, cfg, params, prompts)
+        bad = [r for r in moe_rows if not r["ok"]]
+        check(not bad, f"{tag} layers: " + "; ".join(
+            f"layer {r['layer']}: {r['far']} of {r['flips']} flips away "
+            f"from a near-tie, ‖kernel − plain‖ {r['dist']:.4g} against "
+            f"{LAYER_FACTOR} x ‖plain − fp32‖ {r['noise']:.4g} over "
+            f"{r['same']} tokens (at least {MOE_SAME} x {Bt * S})"
+            for r in bad))
+        rows = [(r["layer"], r["dist"], r["noise"], r["ok"])
+                for r in moe_rows]
+        scale = moe_rows[-1]["scale"]
     bad = [r for r in rows if not r[3]]
     check(not bad, f"{tag} layers: " + "; ".join(
         f"layer {i}: ‖kernel − plain‖ {dist:.4g} > {LAYER_FACTOR} x "
@@ -1668,14 +1911,16 @@ def lm_path(torch, ops, dev, cfg, spec=None, tag: str = "lm"):
     layers = dict(
         n=len(rows), worst=ratios[worst_layer], worst_layer=worst_layer,
         first=(rows[0][1], rows[0][2]), last=(rows[-1][1], rows[-1][2]),
-        scale=float(scale))
+        scale=float(scale),
+        flips=None if moe_rows is None else [r["flips"] for r in moe_rows],
+        same=None if moe_rows is None else min(r["same"] for r in moe_rows))
     del params, frontend
-    return dict(gen_s=gen_s, prefill_ms=min(prefill_ms), step_ms=step_ms,
-                prefill_dev_ms=prefill_dev_ms,
-                step_dev_ms=None if step_busy is None else step_busy / traced,
+    return dict(gen_s=gen_s, prefill_ms=pre, step_ms=step_ms,
+                prefill_dev_ms=prefill_dev_ms, step_dev_ms=step_dev,
                 decisions=Bt * (new + 1), near=near, differ=differ,
-                worst=worst, first=res.tokens[0, :8].tolist(),
-                launches=launches, routes=routes, layers=layers)
+                worst=worst, far=far, first=res.tokens[0, :8].tolist(),
+                launches=launches, routes=routes, layers=layers,
+                router_tie=router_tie)
 
 
 def layer_weights(cfg, n: int) -> int:
@@ -1711,13 +1956,27 @@ def layer_cut(cfg, spec) -> int:
     return n
 
 
+def phase_config(spec):
+    """The config an ``LM_ARCHS`` phase serves: the registered arch, or
+    for a ``reduced`` entry its ``reduced`` config in bf16 (the per-layer
+    check holds a bf16 route against an fp32 one), named
+    "<arch>-reduced"."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(spec["arch"])
+    if spec.get("reduced"):
+        cfg = dataclasses.replace(reduced(cfg), dtype="bfloat16",
+                                  arch_id=f"{cfg.arch_id}-reduced")
+    return cfg
+
+
 def lm_arch_path(torch, ops, dev, spec) -> dict:
     """One ``LM_ARCHS`` phase, ``[lm/<tag>]``: the arch at its published
     widths (the layer-cut ones at ``layer_cut``'s depth, named
-    "<arch>-L<n>") through ``lm_path``, with the phase's peak memory.
-    Returns the launch counts."""
-    from repro_torch.configs.registry import get_config
-    cfg = get_config(spec["arch"])
+    "<arch>-L<n>"; a ``reduced`` one at ``phase_config``'s widths)
+    through ``lm_path``, with the phase's peak memory.  Returns the
+    launch counts."""
+    cfg = phase_config(spec)
     tag = f"lm/{spec['tag']}"
     depth = ""
     if spec["cut"]:
@@ -1735,30 +1994,39 @@ def lm_arch_path(torch, ops, dev, spec) -> dict:
     peak = torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()
 
-    def share(busy, wall):
-        return "not measured" if busy is None else \
-            f"{busy:.2f} ms = {busy / wall:.3f}"
-    Bt, new = spec["batch"], spec["new"]
-    pre, step, lay = run["prefill_ms"], run["step_ms"], run["layers"]
+    Bt, new, lay = spec["batch"], spec["new"], run["layers"]
     print(f"[{tag}] {cfg.arch_id}{depth} batch={Bt} prompt={spec['prompt']}"
           f" new={new}, bf16 weights seeded from a torch.Generator on the "
-          f"card: generate {run['gen_s']:.3f}s "
-          f"({Bt * new / run['gen_s']:.1f} tok/s); prefill {pre:.2f} ms "
-          f"(device busy {share(run['prefill_dev_ms'], pre)}); decode step "
-          f"{step:.2f} ms ({Bt / step * 1e3:.1f} tok/s; device busy "
-          f"{share(run['step_dev_ms'], step)}); peak {peak / 1e9:.2f} GB "
-          f"allocated; phase {time.perf_counter() - t_phase:.1f}s")
+          f"card (times above): peak {peak / 1e9:.2f} GB allocated; phase "
+          f"{time.perf_counter() - t_phase:.1f}s")
+    tie = run["router_tie"]
     print(f"[{tag}] launches B10={run['launches']['matmul']} "
-          f"B11={run['launches']['flash_attention']}, routes B10 "
-          f"{run['routes']['b10']}, B11 {run['routes']['b11']} (the layer "
-          f"plan implies them); against the plain route, teacher-forced: "
-          f"logits within {run['worst']:.3f} of the tolerance, "
-          f"{run['differ']} of {run['decisions']} greedy tokens differ from "
+          f"B11={run['launches']['flash_attention']}"
+          + (f" B5={run['launches']['topk_smallest']}, routes B5 "
+             f"{run['routes']['b5']}" if "b5" in run["routes"] else "")
+          + f", routes B10 {run['routes']['b10']}, B11 "
+          f"{run['routes']['b11']} (the layer plan implies them); against "
+          f"the plain route, teacher-forced"
+          + (f" (its router taking the kernel route's experts: "
+             f"{tie['flips']} of {tie['decisions']} decisions differed, "
+             f"all at near-ties)" if tie is not None else "") + ": "
+          + (f"logits within {run['worst']:.3f} of the tolerance, "
+             if run["far"] is None else
+             f"logits from an fp32 route at most {run['worst']:.3f} x the "
+             f"plain route's distance at a step (the gate {LAYER_FACTOR} "
+             f"x; kernel route up to {run['far']['kernel']:.3f} of the "
+             f"tolerance, plain {run['far']['plain']:.3f}; kernel − plain "
+             f"{run['far']['pair']:.3f}, not gated), ")
+          + f"{run['differ']} of {run['decisions']} greedy tokens differ from "
           f"its argmax, all at near-ties ({run['near']} near-ties); per "
           f"layer ‖kernel − plain‖ within {LAYER_FACTOR} x ‖plain − fp32‖ "
           f"at all {lay['n']} layers"
           + (f" ({cfg.encoder.n_layers} encoder layers first)"
              if cfg.encoder is not None else "")
+          + (f" (the MoE sublayers' over the tokens all three routes route "
+             f"alike, fewest {lay['same']}; router flips a layer "
+             f"{lay['flips']}, each at a near-tie)"
+             if lay["flips"] is not None else "")
           + f", at most {lay['worst']:.3f} x (layer {lay['worst_layer']}); "
           f"first row {run['first']}")
     return run["launches"]
@@ -1794,23 +2062,69 @@ def moe_flip_check(torch, ids_k, ids_p, logits_k, logits_p):
     return flip, ~flip | (dropped - taken <= 2 * delta)
 
 
+class tied_routes:
+    """The teacher-forced comparison of an MoE model's kernel route with
+    its plain route (``lm_path``), made for routing: while it is open,
+    each router call of the kernel route (``moe.route``) records its
+    expert ids and router logits, and each call of the plain route, made
+    in the same order, takes those ids (its weights gathered from its own
+    probabilities) after ``moe_flip_check`` has held them against its own
+    choice: where the two differ, it must be at a near-tie.  So a near-tie
+    that the two routes break apart moves neither route's later tokens
+    (a flip in a prefill also moves the capacity ranks of every later
+    token), and the logits gate holds the kernels' arithmetic.  ``close``
+    restores ``moe.route`` and returns the counts: router decisions,
+    flips taken over, flips away from a near-tie."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe
+        from repro_torch.models.layers import plain_route
+        self.moe, self.real = moe, moe.route
+        self.queue, self.counts = [], dict(decisions=0, flips=0, far=0)
+
+        def route(params, x, cfg, path=None):
+            if not plain_route(path):
+                w, ids, aux = self.real(params, x, cfg, path)
+                self.queue.append((ids, moe.router_logits(params, x)))
+                return w, ids, aux
+            ids_k, logits_k = self.queue.pop(0)
+            _, ids_p, aux = self.real(params, x, cfg, path)
+            logits_p = moe.router_logits(params, x)
+            flip, ok = moe_flip_check(torch, ids_k, ids_p, logits_k,
+                                      logits_p)
+            self.counts["decisions"] += ids_k.shape[0]
+            self.counts["flips"] += int(flip.sum())
+            self.counts["far"] += int((~ok).sum())
+            w = torch.softmax(logits_p, dim=-1).gather(-1, ids_k.long())
+            return w / w.sum(-1, keepdim=True), ids_k, aux
+        moe.route = route
+
+    def close(self) -> dict:
+        self.moe.route = self.real
+        check(not self.queue, f"{len(self.queue)} router calls of the "
+              "kernel route had no plain-route counterpart")
+        return dict(self.counts)
+
+
 def moe_layers(torch, cfg, params, tokens):
     """The per-layer check of an MoE model (ROADMAP C3, made for routing):
     one teacher-forced prefill of ``tokens`` (B, S), layer by layer, each
     layer fed the kernel route's residual stream and run on the kernel
     route, the plain route and the plain route in fp32 (that layer's
-    weights upcast, one layer's copy at a time).  A token whose top-k set
-    differs between the kernel and the plain route must be at a near-tie
-    (``moe_flip_check``).  Over the tokens that all three routes send to
-    the same experts and keep in the same ones (a flip also moves the
-    capacity ranks of later tokens), ‖kernel − plain‖ ≤ LAYER_FACTOR ·
-    ‖plain − fp32‖ (Frobenius norm of the layer's output rows); those
-    tokens are at least ``MOE_SAME`` of the layer's, since the near-tie
-    bound widens with the error it is given (an error that moves every
-    token's router would flip them all, each within its own bound, and
-    leave no token for the norm).  Returns
-    one dict a layer: flips, flips far from a tie, tokens compared, the
-    two norms and whether the layer passed."""
+    weights upcast, one layer's copy at a time).  In an MoE layer a token
+    whose top-k set differs between the kernel and the plain route must
+    be at a near-tie (``moe_flip_check``).  Over the tokens that all
+    three routes send to the same experts and keep in the same ones (a
+    flip also moves the capacity ranks of later tokens), ‖kernel −
+    plain‖ ≤ LAYER_FACTOR · ‖plain − fp32‖ (Frobenius norm of the layer's
+    output rows); those tokens are at least ``MOE_SAME`` of the layer's,
+    since the near-tie bound widens with the error it is given (an error
+    that moves every token's router would flip them all, each within its
+    own bound, and leave no token for the norm).  A layer without an MoE
+    (a hybrid's other sublayers, attention or SSD, with a dense MLP or
+    none) is held over all its tokens.  Returns one dict a layer: flips,
+    flips far from a tie, tokens compared, the two norms, the fp32
+    output's norm and whether the layer passed."""
     from repro_torch.models import layers as L
     from repro_torch.models import moe, transformer
     E = cfg.moe.num_experts
@@ -1827,25 +2141,31 @@ def moe_layers(torch, cfg, params, tokens):
             p = transformer.layer_params(params, i, dtype)
             xa, _ = transformer.mixer(p, x if dtype is None else x.to(dtype),
                                       cfg, positions, path)
-            h = L.apply_norm(p["norm_ffn"], xa, cfg).reshape(T, d)
-            w, e, _ = moe.route(p["moe"], h, cfg, path)
-            slot, _, _ = moe.slot_map(w, e, C, E)
-            ids.append(e)
-            logits.append(moe.router_logits(p["moe"], h))
-            chosen.append(expert_mask(torch, e, E))
-            kept.append(expert_mask(torch, e, E, slot < E * C))
+            if "moe" in p:
+                h = L.apply_norm(p["norm_ffn"], xa, cfg).reshape(T, d)
+                w, e, _ = moe.route(p["moe"], h, cfg, path)
+                slot, _, _ = moe.slot_map(w, e, C, E)
+                ids.append(e)
+                logits.append(moe.router_logits(p["moe"], h))
+                chosen.append(expert_mask(torch, e, E))
+                kept.append(expert_mask(torch, e, E, slot < E * C))
+                del h
             outs.append(transformer.ffn(p, xa, cfg, path)[0])
-            del p, xa, h
-        flip, near = moe_flip_check(torch, ids[0], ids[1], logits[0],
-                                    logits[1])
-        same = ((chosen[0] == chosen[1]) & (chosen[1] == chosen[2]) &
-                (kept[0] == kept[1]) & (kept[1] == kept[2])).all(1)
+            del p, xa
+        if ids:
+            flip, near = moe_flip_check(torch, ids[0], ids[1], logits[0],
+                                        logits[1])
+            same = ((chosen[0] == chosen[1]) & (chosen[1] == chosen[2]) &
+                    (kept[0] == kept[1]) & (kept[1] == kept[2])).all(1)
+        else:
+            flip = torch.zeros((T,), dtype=torch.bool, device=x.device)
+            near = same = ~flip
         got, plain, exact = (o.reshape(T, d)[same].float() for o in outs)
         dist = float((got - plain).norm())
         noise = float((plain - exact).norm())
         rows.append(dict(layer=i, flips=int(flip.sum()),
                          far=int((~near).sum()), same=int(same.sum()),
-                         dist=dist, noise=noise,
+                         dist=dist, noise=noise, scale=float(exact.norm()),
                          ok=bool(near.all()) and
                          int(same.sum()) >= MOE_SAME * T and
                          dist <= LAYER_FACTOR * noise))
@@ -4695,7 +5015,11 @@ def main() -> int:
         torch, ops, ref, dev, lm_gen,
         [(lm_cfg, LM["batch"], LM["prompt"]),
          (moe_cfg, MOE["batch"], MOE["prompt"])] +
-        [(get_config(a["arch"]), a["batch"], a["prompt"]) for a in LM_ARCHS])
+        [(phase_config(a), a["batch"], a["prompt"]) for a in LM_ARCHS] +
+        # a ``reduced`` phase's arch at its published widths too: its
+        # kernels are held at the shapes its path would give them there
+        [(get_config(a["arch"]), a["batch"], a["prompt"])
+         for a in LM_ARCHS if a.get("reduced")])
     edges += tenant_kernel_edges(torch, ops, ref, dev, gen)
     print(f"[edge] {edges} ragged and tied cases agree with the plain "
           "versions")
@@ -5668,13 +5992,15 @@ def main() -> int:
           f"{lay['last'][1]:.4g} (‖fp32 state‖ {lay['scale']:.4g})")
     del run
 
-    # ------------------------------------------------ 6a. four more archs
-    # deepseek-67b and nemotron-4-340b layer-cut, whisper-large-v3 and
-    # phi-3-vision-4.2b at full depth, each freed before the next
+    # ------------------------------------------------ 6a. seven more archs
+    # deepseek-67b and nemotron-4-340b layer-cut, whisper-large-v3,
+    # phi-3-vision-4.2b, gemma-7b and mamba2-780m at full depth, jamba
+    # reduced, each freed before the next
     for spec in LM_ARCHS:
         launches = lm_arch_path(torch, ops, dev, spec)
         kernels["B10"]["launches"] += launches["matmul"]
         kernels["B11"]["launches"] += launches["flash_attention"]
+        kernels["B5"]["launches"] += launches["topk_smallest"]
 
     # ------------------------------------------------ 6b. the MoE LM path
     # stablelm's weights are gone (lm_path, lm_kernel_times); qwen3's 61.1

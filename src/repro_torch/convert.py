@@ -18,8 +18,8 @@ serving.
 ``linear_from_numpy`` carries an LR or SVM ``LinearModel`` (``W``
 (C, d), ``b`` (C,)) across for ``core.gemm_based``.
 
-``lm_params_from_numpy`` carries an LM's params tree across (dense, MoE,
-enc-dec or VLM: the reference's ``init_params`` tree with numpy leaves)
+``lm_params_from_numpy`` carries an LM's params tree across (any of the
+reference's archs: its ``init_params`` tree with numpy leaves)
 for ``serving.ServeEngine``, and ``opt_state_from_numpy`` the training
 path's optimizer state (``AdamState``, or ``CompressedOptState`` with its
 error-feedback residual) for ``training.trainer.make_train_step``.
@@ -129,16 +129,18 @@ def _lm_leaf(value: Any, device: torch.device) -> torch.Tensor:
 def lm_params_from_numpy(cfg, tree: Mapping[str, Any], *,
                          device: DeviceLike = None) -> dict:
     """``tree``: the reference's LM params for ``cfg`` with numpy leaves
-    (``jax.tree.map(np.asarray, params)``): ``embed`` (``tok``,
-    ``unembed``), ``final_norm`` and ``layers/sub0`` with every layer's
-    weights stacked on a leading axis (an MoE layer's ``moe``: ``router``
-    (L, d, E) fp32, ``w_in``/``w_gate`` (L, E, d, f) and ``w_out`` (L, E,
-    f, d) in the config's dtype; an enc-dec arch's ``encoder`` and
-    ``cross`` subtrees, stacked the same way).  Returns the port's
-    params, the same tree of tensors on ``device`` with dtypes kept.
-    Missing leaves raise ``KeyError`` and wrong shapes ``ValueError``,
-    each naming the leaf; configs of the families the port does not
-    serve (SSM, hybrid) raise ``NotImplementedError``."""
+    (``jax.tree.map(np.asarray, params)``): ``embed`` (``tok``, and
+    ``unembed`` unless the arch ties it to ``tok``), ``final_norm`` and
+    ``layers/sub<j>``, each of a scan unit's sublayers with its weights
+    stacked over the units on a leading axis (one sublayer but for a
+    hybrid arch; an MoE layer's ``moe``: ``router`` (L, d, E) fp32,
+    ``w_in``/``w_gate`` (L, E, d, f) and ``w_out`` (L, E, f, d) in the
+    config's dtype; an SSD mixer's ``ssm``, its ``A_log``, ``D`` and
+    ``dt_bias`` fp32; an enc-dec arch's ``encoder`` and ``cross``
+    subtrees, stacked the same way).  Returns the port's params, the same
+    tree of tensors on ``device`` with dtypes kept.  Missing leaves raise
+    ``KeyError`` and wrong shapes ``ValueError``, each naming the
+    leaf."""
     from repro_torch.models.transformer import param_shapes
     want = param_shapes(cfg)
     dev = resolve_device(device)

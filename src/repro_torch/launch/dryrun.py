@@ -25,17 +25,20 @@ so temp bytes, FLOPs, collective bytes and compile time are left out
 come from the meta-device trees and the specs, in place of XLA's
 argument and output sizes.
 
-The cells cover the port's registered archs (stablelm-3b,
-nemotron-4-340b, deepseek-67b, phi3.5-moe-42b-a6.6b, qwen3-moe-30b-a3b,
-phi-3-vision-4.2b, whisper-large-v3); ``long_500k`` is ``skipped`` on
-them, as the reference skips it on every full-attention arch.  The
+The cells cover all ten of the reference's archs at full width (jamba's
+398 B parameters too: nothing is allocated); ``long_500k`` runs for the
+sub-quadratic mamba2-780m and jamba-1.5-large-398b and is ``skipped`` on
+the others, as the reference skips it on every full-attention arch.  The
 variants: ``--no-tp`` (replicated model-axis weights) and
 ``--decode-seq-shard`` (the KV sequence over the model axis) change the
 specs (``--no-tp`` the params' bytes a device; ``--decode-seq-shard``
 moves the cache's model split from its head dim to its sequence, the
-same bytes a device at the assigned shapes); ``--two-phase-moe`` (a ``ParallelPlan`` over the
-mesh, recorded with its shards), ``--attn-threshold``, ``--ssm-chunk``
-and ``--remat`` change no tree and are recorded.
+same bytes a device at the assigned shapes); ``--ssm-chunk`` replaces
+an SSM arch's chunk in its config, as the reference does (each record
+of an SSM arch gives its ``ssm_chunk``; no tree depends on it);
+``--two-phase-moe`` (a ``ParallelPlan`` over the mesh, recorded with
+its shards), ``--attn-threshold`` and ``--remat`` change no tree and are
+recorded.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh single \\
@@ -45,6 +48,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import traceback
@@ -81,6 +85,14 @@ def meta_plan(mesh_cfg: MeshConfig) -> ParallelPlan:
                         model_axis="model")
 
 
+def variant_config(cfg, variant: dict):
+    """``cfg`` with the variant's ``ssm_chunk`` where it has an SSM."""
+    if variant.get("ssm_chunk") and cfg.ssm is not None:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, chunk=int(variant["ssm_chunk"])))
+    return cfg
+
+
 def build_cell(cfg, shape, mesh_cfg: MeshConfig, train_cfg: TrainConfig,
                variant: Optional[dict] = None) -> dict:
     """{tree name: (tree of meta tensors, tree of PartitionSpecs)} for one
@@ -88,9 +100,10 @@ def build_cell(cfg, shape, mesh_cfg: MeshConfig, train_cfg: TrainConfig,
 
     ``variant``: the reference's knobs -- two_phase_moe (the plan of the
     two-phase MoE), decode_seq_shard (the KV sequence over the model
-    axis), no_tp (replicated model-axis weights); the others change no
-    tree."""
+    axis), no_tp (replicated model-axis weights), ssm_chunk (the SSM's
+    chunk, ``variant_config``); the others change no tree."""
     variant = variant or {}
+    cfg = variant_config(cfg, variant)
     plan = meta_plan(mesh_cfg) if variant.get("two_phase_moe") and \
         cfg.moe is not None else None
     rules = NO_TP_RULES if variant.get("no_tp") else None
@@ -162,6 +175,7 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
         rec.update(status="skipped", reason=reason)
         return rec
     variant = variant or {}
+    cfg = variant_config(cfg, variant)
     remat = variant.get("remat") or "dots"
     train_cfg = train_cfg or TrainConfig(remat=remat, zero1=True)
     mesh_cfg = mesh_config(multi_pod=multi_pod)
@@ -185,6 +199,8 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
         zero1=train_cfg.zero1,
         not_computed=list(NOT_COMPUTED),
     )
+    if cfg.ssm is not None:
+        rec["ssm_chunk"] = cfg.ssm.chunk
     if plan is not None:
         rec["plan"] = {"dp_axes": list(plan.dp_axes),
                        "model_axis": plan.model_axis,

@@ -3,10 +3,12 @@
 The defaults are the JAX package's (``launch/serve.py``): ``--algo lm``
 and ``--batch 4``, so the same bare command serves the same path.
 
-LM (dense, MoE, enc-dec and VLM families): seeded random weights and
-prompts, greedy or sampled generation through ``ServeEngine``; on one
-card the MoE arch qwen3-moe-30b-a3b serves at full width (61.1 GB of
-bf16 weights).  An enc-dec arch (whisper-large-v3) gets seeded encoder
+LM (every family of the reference: dense, MoE, SSM, hybrid, enc-dec and
+VLM): seeded random weights and prompts, greedy or sampled generation
+through ``ServeEngine``; on one card the MoE arch qwen3-moe-30b-a3b
+serves at full width (61.1 GB of bf16 weights), gemma-7b (its tied
+unembedding) and mamba2-780m (the SSD mixer) too, and the hybrid
+jamba-1.5-large-398b with ``--smoke`` only.  An enc-dec arch (whisper-large-v3) gets seeded encoder
 frames (B, n_ctx, d_model) and a VLM (phi-3-vision-4.2b) seeded patch
 embeddings (B, num_patches, d_model), N(0, 0.02²) in the config's dtype
 as the JAX CLI draws them; a VLM's cache holds num_patches + prompt +
@@ -18,6 +20,8 @@ new tokens (the JAX CLI's holds prompt + new tokens only: ROADMAP C).
       --arch qwen3-moe-30b-a3b --batch 4 --prompt-len 512 --new-tokens 32
   PYTHONPATH=src python -m repro_torch.launch.serve --algo lm \
       --arch whisper-large-v3 --batch 4 --prompt-len 64 --new-tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --algo lm \
+      --arch mamba2-780m --batch 4 --prompt-len 512 --new-tokens 32
 
 Non-Neural: fit one estimator on seeded blobs and serve held-out queries
 through the bucketed engine (``--batch`` is the largest bucket).
@@ -449,10 +453,11 @@ def main(argv=None):
                          "4, as in the JAX package's CLI)")
     ap.add_argument("--arch", default="stablelm-3b",
                     help="--algo lm: architecture id (stablelm-3b, "
-                         "qwen3-moe-30b-a3b, whisper-large-v3, "
-                         "phi-3-vision-4.2b; phi3.5-moe-42b-a6.6b, "
-                         "deepseek-67b and nemotron-4-340b with --smoke "
-                         "only on one card)")
+                         "gemma-7b, mamba2-780m, qwen3-moe-30b-a3b, "
+                         "whisper-large-v3, phi-3-vision-4.2b; "
+                         "phi3.5-moe-42b-a6.6b, deepseek-67b, "
+                         "nemotron-4-340b and jamba-1.5-large-398b with "
+                         "--smoke only on one card)")
     ap.add_argument("--smoke", action="store_true",
                     help="--algo lm: the reduced config (2 layers, d_model "
                          "64, fp32) of --arch")

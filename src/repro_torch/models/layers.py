@@ -265,8 +265,14 @@ def apply_embed(params, tokens: torch.Tensor,
 
 def apply_unembed(params, x: torch.Tensor, cfg: ModelConfig,
                   path: Optional[str] = None) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        raise NotImplementedError(
-            "tied embeddings: B10 takes the unembedding as an (in, out) "
-            "weight, and the tied table is (vocab, d_model); ROADMAP A17")
-    return linear(x, params["unembed"], path)
+    """x (..., d_model) -> logits (..., vocab) through B10.  A tied arch
+    (``cfg.tie_embeddings``) multiplies by the embedding table's
+    transpose, the reference's ``x @ tok.T``: B10 takes its weight as
+    (in, out), so a contiguous (d_model, vocab) copy of the (vocab,
+    d_model) table is made for each call (its bytes once more a forward
+    pass; a B10 form that reads the table in place is ROADMAP P14).  With
+    autograd recording the copy stays on the graph, so the table's
+    gradient sums its embedding and unembedding parts."""
+    w = params["tok"].t().contiguous() if cfg.tie_embeddings \
+        else params["unembed"]
+    return linear(x, w, path)

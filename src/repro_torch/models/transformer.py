@@ -1,13 +1,18 @@
-"""Decoder LM stack of the port: the dense, MoE, enc-dec and VLM families.
+"""Decoder LM stack of the port: dense, MoE, SSM, hybrid, enc-dec and VLM.
 
-Counterpart of the JAX package's ``models/transformer.py`` for dense
-archs (stablelm-3b, deepseek-67b, nemotron-4-340b), MoE archs
-(qwen3-moe-30b-a3b, phi3.5-moe), the enc-dec whisper-large-v3 and the VLM
-phi-3-vision-4.2b: the same parameter tree, with each layer's weights
-stacked on a leading axis under ``params["layers"]["sub0"]`` (an enc-dec
-arch adds ``params["encoder"]`` and, per decoder layer, its
-cross-attention block and norm under ``params["cross"]``), and the same
-three entry points:
+Counterpart of the JAX package's ``models/transformer.py`` for all of
+its archs: dense (stablelm-3b, gemma-7b, deepseek-67b, nemotron-4-340b),
+MoE (qwen3-moe-30b-a3b, phi3.5-moe), SSM (mamba2-780m), hybrid
+(jamba-1.5-large-398b), the enc-dec whisper-large-v3 and the VLM
+phi-3-vision-4.2b.  The same parameter tree: the layers run in scan
+units of ``layer_plan``'s sublayers (one for every arch but a hybrid,
+whose unit is ``hybrid_block`` sublayers: SSD mixers with one attention
+at ``hybrid_attn_pos``, an MoE FFN at every ``moe.every``-th), and
+sublayer j's weights are stacked over the units under
+``params["layers"]["sub<j>"]`` (an enc-dec arch adds
+``params["encoder"]`` and, per decoder layer, its cross-attention block
+and norm under ``params["cross"]``).  Layer i is sublayer i % unit of
+unit i // unit.  The same three entry points:
 
   forward(params, tokens, cfg)               scoring (full sequence)
   prefill(params, tokens, cfg, max_seq=)     full sequence + decode cache
@@ -36,12 +41,14 @@ and ``remat`` chooses what the backward pass recomputes.  Every dense
 projection and the unembedding go through B10, prefill's attention
 through B11 and an MoE layer's router through B5 (``models/moe.py``; the
 expert GEMMs are batched ``torch.matmul``, as the reference's are plain
-einsums).  An MoE layer runs on the B·S tokens of a prefill and the B tokens of a
-decode step, as the reference's does.  The cross-attention's scores run
-in torch ops (``attention.apply_cross_attention``), its projections on
-B10; the encoder's self-attention on B11.  SSM and hybrid configs raise
-``NotImplementedError`` (``check_supported``): their layer modules wait
-for ROADMAP A17.5.
+einsums).  An SSD mixer's five in-projections and output projection go
+through B10, its scan in torch ops (``models/ssm.py``); a tied arch's
+unembedding through B10 on a copy of the table's transpose
+(``layers.apply_unembed``).  An MoE layer runs on the B·S tokens of a
+prefill and the B tokens of a decode step, as the reference's does.  The
+cross-attention's scores run in torch ops
+(``attention.apply_cross_attention``), its projections on B10; the
+encoder's self-attention on B11.
 """
 from __future__ import annotations
 
@@ -59,36 +66,39 @@ from repro_torch.kernels import autograd as grad_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import whisper
 
 
-SERVED = ("dense", "moe", "audio", "vlm")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is of a family the port serves: a dense or MoE
-    decoder, an enc-dec ("audio") or a VLM."""
-    other = [name for name, on in (
-        ("SSM", cfg.ssm is not None or cfg.family == "ssm"),
-        ("hybrid", bool(cfg.hybrid_block) or cfg.family == "hybrid"))
-        if on]
-    if other or cfg.family not in SERVED:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the port's LM stack serves the dense, MoE, "
-            f"enc-dec and VLM families; {'/'.join(other) or cfg.family} "
-            "layers wait for ROADMAP A17.5")
-
-
 def layer_plan(cfg: ModelConfig):
-    """(mixer kinds, ffn kinds, unit size, number of units), as in the
-    reference: one attention layer per unit, its FFN an MoE where
-    ``cfg.moe.every == 1`` and else the dense MLP."""
-    check_supported(cfg)
+    """(mixer kinds, ffn kinds, unit size, number of units), the
+    reference's: for a hybrid arch a unit of ``hybrid_block`` sublayers,
+    SSD mixers but attention at ``hybrid_attn_pos``, an MoE FFN where
+    ``i % moe.every == moe.every - 1``; otherwise one sublayer a unit, an
+    SSD mixer for the SSM family and attention else, its FFN an MoE where
+    ``moe.every == 1``, the dense MLP, or none where ``d_ff`` is 0."""
+    if cfg.hybrid_block:
+        unit = cfg.hybrid_block
+        mixers = ["attn" if i == cfg.hybrid_attn_pos else "ssm"
+                  for i in range(unit)]
+        e = cfg.moe.every if cfg.moe else 0
+        ffns = [("moe" if (cfg.moe and i % e == e - 1) else
+                 ("mlp" if cfg.d_ff else "none")) for i in range(unit)]
+        return mixers, ffns, unit, cfg.n_layers // unit
+    mixers = ["ssm" if cfg.family == "ssm" else "attn"]
     if cfg.moe:
-        ffn = "moe" if cfg.moe.every == 1 else "mlp"
+        ffns = ["moe" if cfg.moe.every == 1 else "mlp"]
     else:
-        ffn = "mlp" if cfg.d_ff else "none"
-    return ["attn"], [ffn], 1, cfg.n_layers
+        ffns = ["mlp" if cfg.d_ff else "none"]
+    return mixers, ffns, 1, cfg.n_layers
+
+
+def ssm_slots(cfg: ModelConfig) -> List[Optional[int]]:
+    """For each sublayer of a unit, its index among the unit's SSD
+    mixers (the decode cache's second SSM axis), None for attention."""
+    mixers = layer_plan(cfg)[0]
+    return [mixers[:j].count("ssm") if m == "ssm" else None
+            for j, m in enumerate(mixers)]
 
 
 # ---------------------------------------------------------------------------
@@ -110,18 +120,11 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     elif generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     lead = (n_units,)
-    sub: Dict[str, Any] = {"norm_mixer": L.init_norm(cfg, dev, lead),
-                           "attn": attn.init_attention(generator, cfg, dev,
-                                                       lead)}
-    if ffns[0] != "none":
-        sub["norm_ffn"] = L.init_norm(cfg, dev, lead)
-    if ffns[0] == "moe":
-        sub["moe"] = moe_mod.init_moe(generator, cfg, dev, lead)
-    elif ffns[0] == "mlp":
-        sub["mlp"] = L.init_mlp(generator, cfg, dev, lead)
+    layers = {f"sub{j}": _sublayer_init(generator, cfg, mx, ff, dev, lead)
+              for j, (mx, ff) in enumerate(zip(mixers, ffns))}
     params = {"embed": L.init_embed(generator, cfg, dev),
               "final_norm": L.init_norm(cfg, dev),
-              "layers": {"sub0": sub}}
+              "layers": layers}
     if cfg.encoder is not None:
         params["encoder"] = whisper.init_encoder(generator, cfg, dev)
         params["cross"] = {"attn": attn.init_attention(generator, cfg, dev,
@@ -130,9 +133,31 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return params
 
 
+def _sublayer_init(gen, cfg: ModelConfig, mixer: str, ffn: str,
+                   dev: torch.device, lead) -> Dict[str, Any]:
+    """One sublayer's weights stacked over ``lead``, as the reference's
+    ``_sublayer_init``: ``norm_mixer``, ``attn`` or ``ssm``, and where
+    it has an FFN ``norm_ffn`` and ``moe`` or ``mlp``."""
+    sub: Dict[str, Any] = {"norm_mixer": L.init_norm(cfg, dev, lead)}
+    if mixer == "attn":
+        sub["attn"] = attn.init_attention(gen, cfg, dev, lead)
+    else:
+        sub["ssm"] = ssm_mod.init_ssm(gen, cfg, dev, lead)
+    if ffn != "none":
+        sub["norm_ffn"] = L.init_norm(cfg, dev, lead)
+    if ffn == "moe":
+        sub["moe"] = moe_mod.init_moe(gen, cfg, dev, lead)
+    elif ffn == "mlp":
+        sub["mlp"] = L.init_mlp(gen, cfg, dev, lead)
+    return sub
+
+
 def _sublayer_logical(cfg: ModelConfig, mixer: str, ffn: str):
-    lg: Dict[str, Any] = {"norm_mixer": L.norm_logical(cfg),
-                          "attn": attn.attention_logical(cfg)}
+    lg: Dict[str, Any] = {"norm_mixer": L.norm_logical(cfg)}
+    if mixer == "attn":
+        lg["attn"] = attn.attention_logical(cfg)
+    else:
+        lg["ssm"] = ssm_mod.ssm_logical(cfg)
     if ffn != "none":
         lg["norm_ffn"] = L.norm_logical(cfg)
     if ffn == "moe":
@@ -153,8 +178,8 @@ def params_logical(cfg: ModelConfig):
                 for k, v in tree.items()}
     lg = {"embed": L.embed_logical(cfg),
           "final_norm": L.norm_logical(cfg),
-          "layers": {"sub0": stacked(_sublayer_logical(cfg, mixers[0],
-                                                       ffns[0]))}}
+          "layers": {f"sub{j}": stacked(_sublayer_logical(cfg, mx, ff))
+                     for j, (mx, ff) in enumerate(zip(mixers, ffns))}}
     if cfg.encoder is not None:
         lg["encoder"] = whisper.encoder_logical(cfg)
         lg["cross"] = stacked({"attn": attn.attention_logical(cfg,
@@ -175,21 +200,29 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
 
 def layer_params(params, i: int, dtype: Optional[torch.dtype] = None,
                  part: str = "layers"):
-    """Layer ``i``'s weights: views of the stacked tensors (no copies), or
-    with ``dtype`` one layer's copy cast to it; ``part="cross"`` takes its
-    cross-attention block and norm instead."""
-    return L.take_layer(params["layers"]["sub0"] if part == "layers"
-                        else params[part], i, dtype)
+    """Layer ``i``'s weights (sublayer i % unit of unit i // unit): views
+    of the stacked tensors (no copies), or with ``dtype`` one layer's
+    copy cast to it; ``part="cross"`` takes unit ``i``'s cross-attention
+    block and norm instead."""
+    if part != "layers":
+        return L.take_layer(params[part], i, dtype)
+    subs = params["layers"]
+    u, j = divmod(i, len(subs))
+    return L.take_layer(subs[f"sub{j}"], u, dtype)
 
 
 def mixer(p, x: torch.Tensor, cfg: ModelConfig, positions,
           path: Optional[str] = None):
-    """The attention half of a layer (weights ``p``) on the residual stream
-    x (B, S, d): (x + attention(norm(x)), the layer's (k, v))."""
+    """The mixer half of a layer (weights ``p``) on the residual stream
+    x (B, S, d): (x + mixer(norm(x)), the state it leaves for decode: an
+    attention layer's (k, v), an SSD mixer's ``SSMCache``)."""
     h = L.apply_norm(p["norm_mixer"], x, cfg)
-    out, kv = attn.apply_attention(p["attn"], h, cfg, positions=positions,
-                                   path=path)
-    return x + out, kv
+    if "ssm" in p:
+        out, state = ssm_mod.apply_ssm(p["ssm"], h, cfg, path=path)
+    else:
+        out, state = attn.apply_attention(p["attn"], h, cfg,
+                                          positions=positions, path=path)
+    return x + out, state
 
 
 def ffn(p, x: torch.Tensor, cfg: ModelConfig, path: Optional[str] = None,
@@ -222,15 +255,16 @@ def cross(cp, x: torch.Tensor, memory_kv, cfg: ModelConfig,
 
 def _sublayer(p, x: torch.Tensor, cfg: ModelConfig, positions, path,
               plan=None, cp=None, memory=None):
-    """One decoder layer: (x out, its (k, v), the MoE aux loss or None,
-    the memory's (k, v) for an enc-dec layer or None)."""
-    x, kv = mixer(p, x, cfg, positions, path)
+    """One decoder layer: (x out, its mixer's state (``mixer``), the MoE
+    aux loss or None, the memory's (k, v) where ``cp`` (a unit's last
+    layer of an enc-dec arch) is given, or None)."""
+    x, state = mixer(p, x, cfg, positions, path)
     x, aux = ffn(p, x, cfg, path, plan)
     memory_kv = None
     if cp is not None:
         memory_kv = attn.encode_cross_kv(cp["attn"], memory, cfg, path)
         x = cross(cp, x, memory_kv, cfg, path)
-    return x, kv, aux, memory_kv
+    return x, state, aux, memory_kv
 
 
 def _positions(x: torch.Tensor) -> torch.Tensor:
@@ -313,19 +347,22 @@ def _remat_wrap(fn, policy: str):
 
 
 def unstack_layers(params, part: str = "layers"):
-    """Every layer's weights as views of the stacked tensors: each stacked
-    leaf ``unbind``-ed once, so its gradient is one ``stack`` of the
-    layers' gradients (indexing it once a layer would add a full-size
-    zero tensor into its gradient for every layer).  ``part="cross"``:
-    the layers' cross-attention blocks and norms."""
+    """Every layer's weights as views of the stacked tensors, in the order
+    the layers run: each stacked leaf ``unbind``-ed once, so its gradient
+    is one ``stack`` of the layers' gradients (indexing it once a layer
+    would add a full-size zero tensor into its gradient for every layer).
+    ``part="cross"``: the units' cross-attention blocks and norms."""
     def split(tree):
         if isinstance(tree, dict):
             parts = {k: split(v) for k, v in tree.items()}
             n = len(next(iter(parts.values())))
             return [{k: v[i] for k, v in parts.items()} for i in range(n)]
         return torch.unbind(tree)
-    return split(params["layers"]["sub0"] if part == "layers"
-                 else params[part])
+    if part != "layers":
+        return split(params[part])
+    subs = [split(params["layers"][f"sub{j}"])
+            for j in range(len(params["layers"]))]
+    return [s[u] for u in range(len(subs[0])) for s in subs]
 
 
 def _layer(p, x: torch.Tensor, positions, cp, memory, cfg: ModelConfig,
@@ -347,7 +384,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     into.  ``remat`` (``REMAT``) chooses what the backward pass
     recomputes (``_remat_wrap``); ``plan`` (a ``ParallelPlan``) sends
     the MoE layers through ``apply_moe_two_phase``."""
-    layer_plan(cfg)
+    _, _, unit, _ = layer_plan(cfg)
     _frontend_check(cfg, patch_embeds, encoder_frames)
     body = _remat_wrap(functools.partial(_layer, cfg=cfg, path=path,
                                          plan=plan), remat)
@@ -355,9 +392,11 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     positions = _positions(x)
     memory = _memory(params, cfg, encoder_frames, path)
     crosses = unstack_layers(params, "cross") if memory is not None \
-        else [None] * cfg.n_layers
+        else None
     total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p, cp in zip(unstack_layers(params), crosses):
+    for i, p in enumerate(unstack_layers(params)):
+        u, j = divmod(i, unit)
+        cp = crosses[u] if crosses is not None and j == unit - 1 else None
         x, aux = body(p, x, positions, cp, memory)
         total = total + aux
     x = L.apply_norm(params["final_norm"], x, cfg)
@@ -373,13 +412,14 @@ def layer_states(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     """tokens (B, S_tok) -> the residual stream after each layer: the
     prefill's forward pass seen layer by layer, so that two routes can be
     held against each other at every layer rather than only at the
-    logits.  A list of ``n_layers`` tensors (B, S, d_model), after the
+    logits.  A list of one tensor (B, S, d_model) a layer (a hybrid's
+    sublayers each count as one), after the
     encoder's ``encoder.n_layers`` (B, n_ctx, d_model) for an enc-dec
     arch.  With ``dtype`` the embedding rows the tokens take, the stub
     frontends' inputs and each layer's weights are cast to it as they are
     used, one layer's copy at a time: an fp32 route over bf16 weights
     that never holds an fp32 copy of the whole tree."""
-    _, _, _, n_units = layer_plan(cfg)
+    _, _, unit, n_units = layer_plan(cfg)
     _frontend_check(cfg, patch_embeds, encoder_frames)
     x = _embed(params, tokens, cfg, patch_embeds, dtype)
     positions = _positions(x)
@@ -388,9 +428,10 @@ def layer_states(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     if cfg.encoder is not None:
         states, memory = whisper.encoder_states(
             params["encoder"], encoder_frames, cfg, path=path, dtype=dtype)
-    for i in range(n_units):
-        cp = None if memory is None else \
-            layer_params(params, i, dtype, part="cross")
+    for i in range(unit * n_units):
+        u, j = divmod(i, unit)
+        cp = None if memory is None or j != unit - 1 else \
+            layer_params(params, u, dtype, part="cross")
         x, _, _, _ = _sublayer(layer_params(params, i, dtype), x, cfg,
                                positions, path, plan, cp, memory)
         states.append(x)
@@ -411,49 +452,66 @@ class CrossKV(NamedTuple):
 
 
 class DecodeCache(NamedTuple):
-    kv_k: torch.Tensor     # (n_layers, B, S_max, Hkv, hd)
-    kv_v: torch.Tensor
+    kv_k: Optional[torch.Tensor]   # (n_units, B, S_max, Hkv, hd)
+    kv_v: Optional[torch.Tensor]
     pos: torch.Tensor      # (B,) int32: the next position to write
     length: int            # the same position, on the host
     cross_kv: Optional[CrossKV] = None    # enc-dec archs only
+    ssm: Optional[ssm_mod.SSMCache] = None  # (n_units, n_ssm, B, ...)
 
 
 def cache_logical(cfg: ModelConfig, long_context: bool = False):
     """Logical specs for the decode cache.  The reference's k and v are
     (n_units, n_attn_per_unit, B, S_max, Hkv, hd) with ("blocks",
-    "layers", ...); the port's hold one attention layer a unit, so its
-    (n_units, B, S_max, Hkv, hd) drop the "layers" axis (both axes map to
-    no mesh axis).  ``length``, a host int, is replicated (``()``).  An
-    enc-dec arch's ``cross_kv`` takes the reference's spec, which has no
-    "layers" axis.  For ``long_context`` (batch 1) the caller's rules
-    shard the KV sequence over the data axes instead of the batch."""
-    layer_plan(cfg)
-    kv = ("blocks", "batch", "kv_seq", "kv_heads", "kv_hd")
+    "layers", ...); every layer plan has at most one attention sublayer a
+    unit, so the port's (n_units, B, S_max, Hkv, hd) drop the "layers"
+    axis (both axes map to no mesh axis).  Its SSM state keeps the
+    reference's (n_units, n_ssm_per_unit, ...) and ("blocks", "layers",
+    ...), since a hybrid unit holds several SSD mixers (jamba's seven).
+    A field the layer plan has no use for is None, as in the reference:
+    k and v without attention, ``ssm`` without an SSD mixer.
+    ``length``, a host int, is replicated (``()``).  An enc-dec arch's
+    ``cross_kv`` takes the reference's spec, which has no "layers" axis.
+    For ``long_context`` (batch 1) the caller's rules shard the KV
+    sequence over the data axes instead of the batch."""
+    mixers = layer_plan(cfg)[0]
+    kv = ("blocks", "batch", "kv_seq", "kv_heads", "kv_hd") \
+        if "attn" in mixers else None
+    ssm = ssm_mod.SSMCache(*(("blocks", "layers") + lg for lg in
+                             ssm_mod.ssm_cache_logical(cfg))) \
+        if "ssm" in mixers else None
     cross_kv = None
     if cfg.encoder is not None:
         c = ("blocks", "batch", "frames", "kv_heads", "kv_hd")
         cross_kv = CrossKV(c, c)
     return DecodeCache(kv_k=kv, kv_v=kv, pos=("batch",), length=(),
-                       cross_kv=cross_kv)
+                       cross_kv=cross_kv, ssm=ssm)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype: Optional[torch.dtype] = None, *,
                device: DeviceLike = None) -> DecodeCache:
-    _, _, _, n_units = layer_plan(cfg)
+    mixers, _, _, n_units = layer_plan(cfg)
     dev = resolve_device(device)
-    shape = (n_units, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     dt = dtype or L.torch_dtype(cfg)
+    kv_k = kv_v = None
+    if "attn" in mixers:
+        shape = (n_units, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        kv_k = torch.zeros(shape, dtype=dt, device=dev)
+        kv_v = torch.zeros(shape, dtype=dt, device=dev)
+    ssm = None
+    if "ssm" in mixers:
+        ssm = ssm_mod.init_ssm_cache(cfg, batch, dt, device=dev,
+                                     lead=(n_units, mixers.count("ssm")))
     cross_kv = None
     if cfg.encoder is not None:
         c = (n_units, batch, cfg.encoder.n_ctx, cfg.n_kv_heads, cfg.head_dim)
         cross_kv = CrossKV(torch.zeros(c, dtype=dt, device=dev),
                            torch.zeros(c, dtype=dt, device=dev))
-    return DecodeCache(kv_k=torch.zeros(shape, dtype=dt, device=dev),
-                       kv_v=torch.zeros(shape, dtype=dt, device=dev),
+    return DecodeCache(kv_k=kv_k, kv_v=kv_v,
                        pos=torch.zeros((batch,), dtype=torch.int32,
                                        device=dev),
-                       length=0, cross_kv=cross_kv)
+                       length=0, cross_kv=cross_kv, ssm=ssm)
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -463,13 +521,14 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             path: Optional[str] = None, plan=None):
     """tokens (B, S_tok) -> (last-position logits (B, vocab), DecodeCache
     with the prompt's k and v in positions [0, S) of ``max_seq``, S = P +
-    S_tok where a VLM's ``patch_embeds`` (B, P, d_model) come first; for
-    an enc-dec arch, with every layer's memory (k, v) from
-    ``encoder_frames`` in ``cross_kv``).  A prompt longer than
-    ``max_seq`` raises: the reference's prefill leaves such a cache at S
-    positions, and its decode then writes every token at the last one
-    (ROADMAP C)."""
-    _, _, _, n_units = layer_plan(cfg)
+    S_tok where a VLM's ``patch_embeds`` (B, P, d_model) come first; an
+    SSD mixer's conv windows and final state; for an enc-dec arch, with
+    every layer's memory (k, v) from ``encoder_frames`` in
+    ``cross_kv``).  A prompt longer than ``max_seq`` raises: the
+    reference's prefill leaves such a cache at S positions, and its
+    decode then writes every token at the last one (ROADMAP C)."""
+    _, _, unit, n_units = layer_plan(cfg)
+    slots = ssm_slots(cfg)
     _frontend_check(cfg, patch_embeds, encoder_frames)
     x = _embed(params, tokens, cfg, patch_embeds)
     B, S, _ = x.shape
@@ -480,17 +539,22 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     positions = _positions(x)
     cache = init_cache(cfg, B, max_seq, device=x.device)
     memory = _memory(params, cfg, encoder_frames, path)
-    for i in range(n_units):
-        cp = None if memory is None else layer_params(params, i,
-                                                      part="cross")
-        x, (k, v), _, memory_kv = _sublayer(layer_params(params, i), x, cfg,
-                                            positions, path, plan, cp,
-                                            memory)
-        cache.kv_k[i, :, :S] = k
-        cache.kv_v[i, :, :S] = v
+    for i in range(unit * n_units):
+        u, j = divmod(i, unit)
+        cp = None if memory is None or j != unit - 1 else \
+            layer_params(params, u, part="cross")
+        x, state, _, memory_kv = _sublayer(layer_params(params, i), x, cfg,
+                                           positions, path, plan, cp,
+                                           memory)
+        if slots[j] is None:
+            cache.kv_k[u, :, :S] = state[0]
+            cache.kv_v[u, :, :S] = state[1]
+        else:
+            for dst, src in zip(cache.ssm, state):
+                dst[u, slots[j]] = src
         if memory_kv is not None:
-            cache.cross_kv.k[i] = memory_kv[0]
-            cache.cross_kv.v[i] = memory_kv[1]
+            cache.cross_kv.k[u] = memory_kv[0]
+            cache.cross_kv.v[u] = memory_kv[1]
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.apply_unembed(params["embed"], x[:, -1], cfg, path)
     return logits, cache._replace(
@@ -503,24 +567,33 @@ def decode_step(params, cache: DecodeCache, tokens: torch.Tensor,
     """tokens (B, 1) -> (logits (B, vocab), cache advanced by one), every
     row at one position (the reference's ``aligned=True``).
 
-    The cache's k and v tensors are written in place (see
-    ``attention.decode_attention``): the returned cache holds the same
-    tensors, and the one passed in is spent."""
-    _, _, _, n_units = layer_plan(cfg)
-    if cache.length >= cache.kv_k.shape[2]:
+    The cache's tensors are written in place (see
+    ``attention.decode_attention``; an SSD mixer's windows and state are
+    copied into their slots): the returned cache holds the same tensors,
+    and the one passed in is spent."""
+    _, _, unit, n_units = layer_plan(cfg)
+    slots = ssm_slots(cfg)
+    if cache.kv_k is not None and cache.length >= cache.kv_k.shape[2]:
         raise ValueError(f"the cache is full: {cache.length} of "
                          f"{cache.kv_k.shape[2]} positions written")
     x = L.apply_embed(params["embed"], tokens, cfg)
-    for i in range(n_units):
+    for i in range(unit * n_units):
+        u, j = divmod(i, unit)
         p = layer_params(params, i)
         h = L.apply_norm(p["norm_mixer"], x, cfg)
-        out, _, _ = attn.decode_attention(
-            p["attn"], h, cache.kv_k[i], cache.kv_v[i], cache.pos, cfg,
-            length=cache.length, path=path)
+        if slots[j] is None:
+            out, _, _ = attn.decode_attention(
+                p["attn"], h, cache.kv_k[u], cache.kv_v[u], cache.pos, cfg,
+                length=cache.length, path=path)
+        else:
+            state = ssm_mod.SSMCache(*(t[u, slots[j]] for t in cache.ssm))
+            out, state = ssm_mod.decode_ssm(p["ssm"], h, state, cfg, path)
+            for dst, src in zip(cache.ssm, state):
+                dst[u, slots[j]] = src
         x, _ = ffn(p, x + out, cfg, path, plan)
-        if cache.cross_kv is not None:
-            x = cross(layer_params(params, i, part="cross"), x,
-                      (cache.cross_kv.k[i], cache.cross_kv.v[i]), cfg, path)
+        if cache.cross_kv is not None and j == unit - 1:
+            x = cross(layer_params(params, u, part="cross"), x,
+                      (cache.cross_kv.k[u], cache.cross_kv.v[u]), cfg, path)
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.apply_unembed(params["embed"], x[:, 0], cfg, path)
     return logits, cache._replace(pos=cache.pos + 1, length=cache.length + 1)

@@ -705,10 +705,10 @@ class GenerationResult:
 class ServeEngine:
     """Greedy or sampled generation from an LM's params (a tree from
     ``models.transformer.init_params`` or
-    ``convert.lm_params_from_numpy``), on the params' device: a dense or
-    MoE decoder, an enc-dec arch (pass ``encoder_frames``) or a VLM (pass
-    ``patch_embeds``), the stub frontends' inputs, as the reference's
-    ``prefill``/``generate`` take them (``**frontend``).
+    ``convert.lm_params_from_numpy``), on the params' device: a dense,
+    MoE, SSM or hybrid decoder, an enc-dec arch (pass ``encoder_frames``)
+    or a VLM (pass ``patch_embeds``), the stub frontends' inputs, as the
+    reference's ``prefill``/``generate`` take them (``**frontend``).
 
     ``path="ref"`` (or ``REPRO_BACKEND=ref``) runs B10, B11 and B5's
     plain versions: the yardstick the kernels are held against on the
@@ -716,7 +716,6 @@ class ServeEngine:
 
     def __init__(self, cfg: ModelConfig, params, serve_cfg: ServeConfig = None,
                  *, path: Optional[str] = None):
-        transformer.check_supported(cfg)
         self.cfg = cfg
         self.params = params
         self.serve_cfg = serve_cfg or ServeConfig()

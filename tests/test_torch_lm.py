@@ -115,44 +115,54 @@ def test_full_width_counts_and_shapes_on_meta():
         T.param_shapes(cfg)
 
 
-def test_registry_holds_the_dense_arch_only():
-    """The archs still to port raise, naming ROADMAP A17.5: the SSM and
-    hybrid archs and gemma-7b's tied unembedding (the MoE family is
-    ported, in ``tests/test_torch_moe.py``; deepseek-67b and
-    nemotron-4-340b in ``tests/test_torch_dense_archs.py``; the enc-dec
-    and VLM archs in ``tests/test_torch_encdec_vlm.py``)."""
-    for arch in ("mamba2-780m", "gemma-7b", "jamba-1.5-large-398b"):
-        with pytest.raises(KeyError, match="A17.5"):
-            get_config(arch)
-        with pytest.raises(KeyError, match="A17.5"):
-            get_smoke_config(arch)
+def test_registry_resolves_every_reference_arch():
+    """All ten of the reference's arch ids resolve, at full width and at
+    ``reduced``, to the reference's configs (gemma-7b, mamba2-780m and
+    jamba-1.5-large-398b in ``tests/test_torch_ssm.py`` and
+    ``tests/test_torch_tied_hybrid.py``; the MoE family in
+    ``tests/test_torch_moe.py``; deepseek-67b and nemotron-4-340b in
+    ``tests/test_torch_dense_archs.py``; the enc-dec and VLM archs in
+    ``tests/test_torch_encdec_vlm.py``)."""
+    from repro.configs.registry import ALL_ARCH_IDS as JIDS
+    assert len(JIDS) == 10
+    for arch in JIDS:
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(jax_get_config(arch))
+        assert dataclasses.asdict(get_smoke_config(arch)) == \
+            dataclasses.asdict(jax_smoke(arch))
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gemma-8b")
 
 
 @pytest.mark.parametrize("family,extra", [
     ("ssm", dict(ssm=tbase.SSMConfig())),
-    ("hybrid", dict(hybrid_block=4, ssm=tbase.SSMConfig())),
+    ("hybrid", dict(hybrid_block=4, n_layers=4, ssm=tbase.SSMConfig())),
     ("audio", dict(encoder=tbase.EncoderConfig(n_layers=2, n_ctx=16))),
     ("vlm", dict(vision=tbase.VisionConfig(num_patches=4)))])
-def test_non_dense_configs_raise(family, extra, served):
-    """The SSM and hybrid families raise, naming ROADMAP A17.5; the enc-dec
-    ("audio") and VLM families build, carry across from numpy and serve,
-    their stub frontends' inputs given."""
+def test_every_family_builds_carries_and_serves(family, extra, served):
+    """Every family builds, carries across from numpy and serves: the SSM
+    (an SSD mixer a layer) and hybrid (a unit of SSD mixers with
+    attention at position 0) families without frontend inputs, the
+    enc-dec ("audio") and VLM families with their stub frontends'
+    inputs given."""
     cfg = dataclasses.replace(get_smoke_config(ARCH), family=family, **extra)
-    if family in ("ssm", "hybrid"):
-        with pytest.raises(NotImplementedError, match="A17.5"):
-            T.init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="A17.5"):
-            ServeEngine(cfg, served["params"])
-        with pytest.raises(NotImplementedError, match="A17.5"):
-            convert.lm_params_from_numpy(cfg, {}, device="cpu")
-        return
     params = T.init_params(cfg, torch.Generator().manual_seed(0),
                            device="cpu")
     assert ("encoder" in params) == ("cross" in params) == \
         (family == "audio")
+    n_sub = 4 if family == "hybrid" else 1
+    assert sorted(params["layers"]) == [f"sub{j}" for j in range(n_sub)]
+    assert ("ssm" in params["layers"][f"sub{n_sub - 1}"]) == \
+        (family in ("ssm", "hybrid"))
     carried = convert.lm_params_from_numpy(
         cfg, _numpy_tree(params), device="cpu")
     assert carried.keys() == params.keys()
+    if family in ("ssm", "hybrid"):
+        res = ServeEngine(cfg, carried, tbase.ServeConfig(
+            max_seq=24)).generate(served["prompts"], 3)
+        assert res.tokens.shape == (2, 3) and bool(torch.isfinite(
+            res.logprobs).all())
+        return
     rng = np.random.default_rng(3)
     n = 16 if family == "audio" else 4
     key = "encoder_frames" if family == "audio" else "patch_embeds"

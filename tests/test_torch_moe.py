@@ -622,7 +622,8 @@ def test_lm_kernel_edges_rehearsal(monkeypatch, capsys):
     """``chip_smoke.lm_kernel_edges`` on the CPU with the launchers the
     plain versions (``_kernel_route``), shrunk edge lists and both reduced
     models in bf16: every path case takes the route the shape rule gives,
-    and the B11 cases include each model's prefill in its GQA layout."""
+    the B11 cases include each model's prefill in its GQA layout, and B5
+    is held at the MoE model's two router shapes."""
     cs = _chip_smoke()
     _kernel_route(monkeypatch)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
@@ -635,11 +636,15 @@ def test_lm_kernel_edges_rehearsal(monkeypatch, capsys):
                            torch.Generator().manual_seed(0), models)
     shapes = {s for cfg, b, p in models for s in
               cs.lm_path_shapes(cfg, b, p)[0]}
-    assert n == 2 * (8 + len(shapes) + 2) + 2 * (8 + 2) + 2 * 2
+    assert n == 2 * (8 + len(shapes) + 2) + 2 * (8 + 2) + 2 * 2 + 2
     out = capsys.readouterr().out
     qwen = models[1][0]
     assert (f"B11 {qwen.arch_id} torch.bfloat16 B=2 H={qwen.n_heads} S=8 "
             f"d={qwen.head_dim} causal, KV heads {qwen.n_kv_heads}") in out
+    E, k = qwen.moe.num_experts, qwen.moe.top_k
+    for T in (16, 2):
+        assert (f"B5 {qwen.arch_id} router T={T} E={E} k={k} (filter): "
+                "values and indices equal") in out
 
 
 def test_chip_phase_rehearsal(monkeypatch, capsys):

@@ -178,7 +178,15 @@ def test_logical_trees_match_jax(arch):
         assert len(lg) == shape.ndim
     jc = jtransformer.cache_logical(arch["jcfg"])
     pc = transformer.cache_logical(arch["cfg"])
-    assert pc.kv_k == jc.kv_k[:1] + jc.kv_k[2:] and pc.kv_v == pc.kv_k
+    # no k and v without attention (mamba2), as in the reference; the SSM
+    # state's specs are the reference's
+    if jc.kv_k is None:
+        assert pc.kv_k is None and pc.kv_v is None
+    else:
+        assert pc.kv_k == jc.kv_k[:1] + jc.kv_k[2:] and pc.kv_v == pc.kv_k
+    assert (pc.ssm is None) == (jc.ssm is None)
+    if pc.ssm is not None:
+        assert tuple(pc.ssm) == tuple(jc.ssm)
     assert pc.pos == jc.pos and pc.length == ()
 
 
@@ -230,15 +238,24 @@ def test_batch_and_cache_specs_match_jax(arch, mesh, seq_shard,
             continue
         c = factory.cache_pspecs(arch["cfg"], shape, m)
         jc = jfactory.cache_pspecs(arch["jcfg"], jshape, jm)
-        for got, want in ((c.kv_k, jc.kv_k), (c.kv_v, jc.kv_v)):
-            w = tuple(want)
-            assert tuple(got) == w[:1] + w[2:], (name, got, want)
-        assert tuple(c.pos) == tuple(jc.pos) and tuple(c.length) == ()
         cs = factory.cache_shapes(arch["cfg"], shape)
         jcs = jfactory.cache_shapes(arch["jcfg"], jshape)
-        assert cs.kv_k.device.type == "meta"
-        assert tuple(cs.kv_k.shape) == jcs.kv_k.shape[:1] + \
-            jcs.kv_k.shape[2:] and jcs.kv_k.shape[1] == 1
+        if jc.kv_k is None:
+            assert c.kv_k is None and cs.kv_k is None
+        else:
+            for got, want in ((c.kv_k, jc.kv_k), (c.kv_v, jc.kv_v)):
+                w = tuple(want)
+                assert tuple(got) == w[:1] + w[2:], (name, got, want)
+            assert cs.kv_k.device.type == "meta"
+            assert tuple(cs.kv_k.shape) == jcs.kv_k.shape[:1] + \
+                jcs.kv_k.shape[2:] and jcs.kv_k.shape[1] == 1
+        assert (c.ssm is None) == (jc.ssm is None)
+        if c.ssm is not None:
+            # the SSM state keeps the reference's (units, SSD mixers) axes
+            assert tuples(c.ssm) == tuples(jc.ssm), name
+            assert [tuple(t.shape) for t in cs.ssm] == \
+                [t.shape for t in jcs.ssm]
+        assert tuple(c.pos) == tuple(jc.pos) and tuple(c.length) == ()
 
 
 def test_make_batch_abstract_and_drawn():
@@ -280,8 +297,12 @@ def test_shapes_and_applicability_match_jax():
             assert shape_applicable(jget(a), SHAPES[name]) == \
                 jshape_applicable(jget(a), JSHAPES[name])
     for a in ARCHS:
+        # long_500k: the sub-quadratic SSM and hybrid archs only
         ok, reason = shape_applicable(get_config(a), SHAPES["long_500k"])
-        assert not ok and "full-attention" in reason
+        sub_quadratic = a in ("mamba2-780m", "jamba-1.5-large-398b")
+        assert get_config(a).sub_quadratic == sub_quadratic
+        assert ok == sub_quadratic and \
+            ("full-attention" in reason) == (not sub_quadratic)
 
 
 # ------------------------------------------------------------------ elastic
@@ -359,10 +380,12 @@ def test_dry_run_records_match_jax_specs(arch, mesh):
     for name in ALL_SHAPE_NAMES:
         rec = dryrun.run_cell(arch["arch"], name, multi)
         assert rec["mesh"] == mesh and rec["shape"] == name
-        if name == "long_500k":
+        ok, reason = jshape_applicable(jcfg, JSHAPES[name])
+        # long_500k runs for the sub-quadratic archs (mamba2, jamba) only
+        assert ok == (name != "long_500k" or jcfg.sub_quadratic)
+        if not ok:
             assert rec["status"] == "skipped"
-            assert rec["reason"] == jshape_applicable(jcfg,
-                                                      JSHAPES[name])[1]
+            assert rec["reason"] == reason
             continue
         shape = JSHAPES[name]
         assert rec["status"] == "ok" and rec["kind"] == shape.kind
@@ -432,8 +455,9 @@ def test_dry_run_cli_writes_one_record_a_cell(tmp_path):
     recs = [json.loads(f.read_text()) for f in files]
     assert {(r["mesh"], r["arch"], r["shape"]) for r in recs} == set(
         itertools.product(FULL, ARCHS, SHAPES))
-    assert all((r["status"] == "skipped") == (r["shape"] == "long_500k")
-               for r in recs)
+    assert all((r["status"] == "skipped") ==
+               (r["shape"] == "long_500k" and
+                not get_config(r["arch"]).sub_quadratic) for r in recs)
     assert "done, failures=0" in res.stdout
     assert dryrun.OUT_DIR == ROOT / "experiments" / "dryrun_torch"
     assert "/experiments/dryrun_torch/" in (ROOT / ".gitignore").read_text()
